@@ -4,12 +4,21 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``mirror_maze_tpu_torch/csrc`` (nvcc,
-sm_90a), holds each against its plain PyTorch version on the card, drives
-the port's main path — ``config_interactive`` (10x10 maze, 1920x1080,
-64 spp, 8 mirror bounces) through ``make_scan_step`` — and checks the
-engine's scripted run against the committed golden frame. Every phase
-prints one line; any failure exits non-zero. The last two lines are the
-``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
+sm_90a), holds each against its plain PyTorch version on the card at the
+shapes of every path it drives, checks the engine's scripted run against
+the committed golden frame, and drives three configurations at full width
+through ``make_scan_step``:
+
+- ``[main]``  ``config_interactive`` (10x10 maze, 1920x1080, 64 spp, 8
+  mirror bounces; every plane group in one tile), 168 frames;
+- ``[scale]`` ``config_scale`` (64x64 maze, 3840x2160, 64 spp, 16 mirror
+  bounces; 2,692 planes in 5 + 17 + 1 tiles), 40 frames;
+- ``[fuzzy]`` ``config_fuzzy`` (16x16 maze, 1280x720, 64 spp, the noise
+  texture seeding every ray; 1 + 2 + 1 tiles), 40 frames.
+
+Every phase prints one line; any failure exits non-zero. The last two lines
+are the ``{"kernels": [...]}`` summary (one row per kernel and path) and
+``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card: without one it exits 2 and prints no result. It uses
 the first visible card only. Imports torch and numpy, the port and the
@@ -41,6 +50,12 @@ SOURCES = {
     "present": "mirror_maze_tpu_torch/csrc/present.cu",
 }
 
+# The driven paths' scripts: idle, walking, turning, idle frames.
+SCRIPTS = {"main": (64, 30, 10, 64), "scale": (16, 12, 4, 8), "fuzzy": (16, 12, 4, 8)}
+# Programs (blocks of B rays) of config_scale's wavefront that the plain
+# version traces for the comparison, spread evenly over the wavefront.
+SCALE_PLAIN_PROGRAMS = 86
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -60,10 +75,6 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-# The main path's script: idle, walking, turning, idle frames.
-IDLE, WALK, TURN = 64, 30, 10
 
 
 def main() -> int:
@@ -127,79 +138,124 @@ def main() -> int:
     kernels.build(verbose=True)
     log(f"[build] tracer, present built and loaded in {time.perf_counter() - t0:.1f} s")
 
-    cfg = P.NAMED_CONFIGS["interactive"]()
-    sc = cfg.screen
+    configs = {"main": P.NAMED_CONFIGS["interactive"](), "scale": P.NAMED_CONFIGS["scale"](),
+               "fuzzy": P.NAMED_CONFIGS["fuzzy"]()}
+    scenes = {k: upload_scene(build_scene(c.maze), device=dev) for k, c in configs.items()}
     entries = {}
 
-    # 3. Present kernel vs its plain version: bitwise, 1080p chunk-major.
-    gen = torch.Generator(device=dev).manual_seed(0)
-    screen = torch.rand((sc.total_chunks, sc.pixels_per_chunk * 3), generator=gen,
-                        device=dev) * 1.2 - 0.1
-    present_err = 0.0
-    for quantize in (True, False):
-        got = present(screen, sc, quantize)
-        want = present_plain(screen, sc, quantize)
-        torch.cuda.synchronize()
-        present_err = max(present_err, float((got - want).abs().max()))
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            bad = int((got != want).sum())
-            raise SystemExit(f"[present] FAIL quantize={quantize}: {bad} floats differ")
-        log(f"[present] kernel == plain bitwise, quantize={quantize}, "
-            f"shape {tuple(screen.shape)}")
-    n_bytes = 2 * screen.numel() * 4
-    entries["present"] = dict(
-        max_abs_err=present_err,
-        ms=time_ms(lambda: present(screen, sc, True), 50),
-        plain_ms=time_ms(lambda: present_plain(screen, sc, True), 5),
-        bound_ms=max(n_bytes / HBM_BYTES_PER_S, 10 * screen.numel() / FP32_OPS_PER_S) * 1e3,
-        bound_by="bytes",
-    )
+    # 3. Present kernel vs its plain version: bitwise, on a random
+    # chunk-major screen of the path's size.
+    def check_present(tag, row, sc):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        screen = torch.rand((sc.total_chunks, sc.pixels_per_chunk * 3), generator=gen,
+                            device=dev) * 1.2 - 0.1
+        err = 0.0
+        for quantize in (True, False):
+            got = present(screen, sc, quantize)
+            want = present_plain(screen, sc, quantize)
+            torch.cuda.synchronize()
+            err = max(err, float((got - want).abs().max()))
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                bad = int((got != want).sum())
+                raise SystemExit(f"[{tag}] FAIL quantize={quantize}: {bad} floats differ")
+            log(f"[{tag}] kernel == plain bitwise, quantize={quantize}, "
+                f"{sc.width}x{sc.height}, shape {tuple(screen.shape)}")
+        n_bytes = 2 * screen.numel() * 4
+        entries[row] = dict(
+            kernel="present", max_abs_err=err,
+            ms=time_ms(lambda: present(screen, sc, True), 50),
+            plain_ms=time_ms(lambda: present_plain(screen, sc, True), 5),
+            bound_ms=max(n_bytes / HBM_BYTES_PER_S, 10 * screen.numel() / FP32_OPS_PER_S) * 1e3,
+            bound_by="bytes",
+        )
 
-    # 4. Tracer kernel vs its plain version on frame 1's rays of the main path.
-    scene = upload_scene(build_scene(cfg.maze), device=dev)
-    st = init_state(cfg, seed=0, device=dev)
-    ids, _ = take_chunks(st.perm, st.cursor, sc.effective_chunks_per_frame)
-    ids = sort_window_morton(ids, sc)
-    _, key = prng.split(st.key)
-    fkey = prng.fold_in(key, 1)
-    pixels = chunk_pixels(chunk_origin_xy(ids, sc), sc.chunk_width)
-    ori, dirs, seed = frame_rays(st.camera(cfg), pixels, fkey, cfg)
-    tc = cfg.tracer
-    block = tc.block_rows
-    got = trace_paths_fused(scene.planes, scene.mode_counts, ori, dirs, seed, tc, block)
-    stats = {}
-    want = trace_paths_plain(scene.planes, scene.mode_counts, ori, dirs, seed, tc, block,
-                             stats=stats)
-    torch.cuda.synchronize()
-    close = torch.isclose(got, want, rtol=1e-5, atol=1e-6).all(dim=1)
-    frac = float(close.float().mean())
-    exact = float((got == want).all(dim=1).float().mean())
-    mean_rel = abs(float(got.mean()) - float(want.mean())) / max(abs(float(want.mean())), 1e-12)
-    err = float((got - want).abs().max())
-    ok = torch.isfinite(got).all() and frac >= 0.99 and mean_rel <= 1e-3
-    log(f"[tracer] {ori.shape[0]} rays, {scene.num_planes} planes "
-        f"(modes {scene.mode_counts}), B={block * 128}: {frac:.6f} of rays within "
-        f"rtol 1e-5 (need >= 0.99), {exact:.6f} bitwise, mean light rel diff "
-        f"{mean_rel:.2e} (need <= 1e-3), max abs diff {err:.3e}, "
-        f"{stats['ray_segments']} live ray-segments")
-    if not ok:
-        raise SystemExit("[tracer] FAIL: kernel disagrees with its plain version")
-    n0, n1, n2 = scene.mode_counts
-    # Operations per live (ray, segment): 16 per plane for the plane test
-    # (two 3-term dots, the IEEE reciprocal and multiply, compare, select)
-    # plus 16 per tested edge (two 3-term dots, the affine s, two compares).
-    ops = stats["ray_segments"] * 16 * (scene.num_planes + (n0 + n1) + n0)
-    n_bytes = (ori.numel() + dirs.numel() + got.numel()) * 4
-    entries["tracer"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: trace_paths_fused(scene.planes, scene.mode_counts, ori, dirs,
-                                             seed, tc, block), 5),
-        plain_ms=time_ms(lambda: trace_paths_plain(scene.planes, scene.mode_counts, ori,
-                                                   dirs, seed, tc, block), 1),
-        bound_ms=max(ops / FP32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3,
-        bound_by="operations" if ops / FP32_OPS_PER_S > n_bytes / HBM_BYTES_PER_S
-        else "bytes",
-    )
+    check_present("present", "present", configs["main"].screen)
+    check_present("present-4k", "present@4k", configs["scale"].screen)
+
+    # 4. Tracer kernel vs its plain version on frame 1's rays of each path.
+    # The kernel traces the whole wavefront. The plain version traces the
+    # whole wavefront too, or ``programs`` whole blocks of B rays spread
+    # evenly over it, each ray keeping its place in the wavefront (its
+    # seed); its counts are then scaled to the wavefront for the bound.
+    def check_tracer(tag, row, path, programs=None):
+        cfg, scene = configs[path], scenes[path]
+        sc, tc = cfg.screen, cfg.tracer
+        st = init_state(cfg, seed=0, device=dev)
+        ids, _ = take_chunks(st.perm, st.cursor, sc.effective_chunks_per_frame)
+        if sc.sort_chunk_window:
+            ids = sort_window_morton(ids, sc)
+        _, key = prng.split(st.key)
+        fkey = prng.fold_in(key, 1)
+        pixels = chunk_pixels(chunk_origin_xy(ids, sc), sc.chunk_width)
+        cam = st.camera(cfg)
+        ori, dirs, seed, seed_row = frame_rays(cam, pixels, fkey, cfg, scene.noise)
+        block = tc.block_rows
+        n_rays, b = ori.shape[0], block * 128
+        kernel = lambda row=seed_row: trace_paths_fused(
+            scene, ori, dirs, seed, tc, block, anchor=cam.center, seed_row=row)
+        got = kernel()
+        if programs is None:
+            pick = torch.arange(n_rays, device=dev)
+        else:
+            n_prog = n_rays // b
+            first = torch.arange(programs, device=dev) * (n_prog // programs)
+            pick = (first[:, None] * b + torch.arange(b, device=dev)).reshape(-1)
+        sub_row = None if seed_row is None else seed_row[pick]
+        plain = lambda stats=None, skip=True: trace_paths_plain(
+            scene, ori[pick], dirs[pick], seed, tc, block, anchor=cam.center,
+            seed_row=sub_row, ray_ids=pick, stats=stats, skip=skip)
+        stats = {}
+        want = plain(stats)
+        torch.cuda.synchronize()
+        sub = got[pick]
+        tiles = [g[2] for g in scene.group_meta]
+        n_walk = sum(n for n in tiles if n > 1)
+        # The per-ray tile skip against no skip at all: they differ only on
+        # rays that leave the closed world (render/fused_tracer.py).
+        unskipped = 1.0
+        if n_walk:
+            unskipped = float((sub == plain(skip=False)).all(dim=1).float().mean())
+        close = torch.isclose(sub, want, rtol=1e-5, atol=1e-6).all(dim=1)
+        frac = float(close.float().mean())
+        exact = float((sub == want).all(dim=1).float().mean())
+        mean_rel = (abs(float(sub.mean()) - float(want.mean()))
+                    / max(abs(float(want.mean())), 1e-12))
+        err = float((sub - want).abs().max())
+        ok = torch.isfinite(got).all() and frac >= 0.99 and mean_rel <= 1e-3
+        segs = stats["ray_segments"]
+        log(f"[{tag}] {n_rays} rays, {scene.num_planes} planes (modes {scene.mode_counts}) "
+            f"in tiles {tiles}, B={b}, plain version on {pick.numel()} rays"
+            f"{'' if programs is None else f' ({programs} programs of B)'}: {frac:.6f} of rays "
+            f"within rtol 1e-5 (need >= 0.99), {exact:.6f} bitwise, mean light rel diff "
+            f"{mean_rel:.2e} (need <= 1e-3), max abs diff {err:.3e}, {unskipped:.6f} equal to the "
+            f"plain version with no tile skipped; on those rays "
+            f"{segs} live ray-segments, {stats['tile_visits']} tile visits "
+            f"({stats['tile_visits'] / segs:.3f} of {n_walk} walked tiles per ray-segment), "
+            f"{stats['plane_tests']} plane tests, {stats['edge_tests']} edge tests")
+        if not ok:
+            raise SystemExit(f"[{tag}] FAIL: kernel disagrees with its plain version")
+        if seed_row is not None and torch.equal(got, kernel(None)):
+            raise SystemExit(f"[{tag}] FAIL: the noise seed row does not change the light")
+        # Operations: 16 per plane test (two 3-term dots, the IEEE
+        # reciprocal and multiply, compare, select), 16 per tested edge (two
+        # 3-term dots, the affine s, two compares), ~30 per slab test of a
+        # walked tile; counted on the plain version's rays and scaled.
+        scale = n_rays / pick.numel()
+        ops = scale * (16 * (stats["plane_tests"] + stats["edge_tests"]) + 30 * segs * n_walk)
+        n_bytes = (ori.numel() + dirs.numel() + got.numel()
+                   + (0 if seed_row is None else seed_row.numel())) * 4
+        entries[row] = dict(
+            kernel="tracer", max_abs_err=err,
+            ms=time_ms(kernel, 5),
+            plain_ms=time_ms(plain, 1), plain_rays=pick.numel(),
+            bound_ms=max(ops / FP32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3,
+            bound_by="operations" if ops / FP32_OPS_PER_S > n_bytes / HBM_BYTES_PER_S
+            else "bytes",
+        )
+
+    check_tracer("tracer", "tracer", "main")
+    check_tracer("tracer-scale", "tracer@scale", "scale", programs=SCALE_PLAIN_PROGRAMS)
+    check_tracer("tracer-fuzzy", "tracer@fuzzy", "fuzzy")
 
     # 5. The golden scripted run on the card against the committed frame.
     gcfg = golden_config()
@@ -217,49 +273,63 @@ def main() -> int:
     if not (within > 0.999 and diff.max() <= 4):
         raise SystemExit("[golden] FAIL")
 
-    # 6. The main path: config_interactive at full width, scripted.
-    inputs = ([FrameInputs.idle()] * IDLE + [FrameInputs.make(w=True)] * WALK
-              + [FrameInputs.make(mouse_dx=-27.0)] * TURN + [FrameInputs.idle()] * IDLE)
-    run = make_scan_step(scene, cfg)
-    warm = init_state(cfg, seed=0, device=dev)
-    run(warm, inputs[:2])                       # first-launch costs out of the timing
-    torch.cuda.synchronize()
-    st = init_state(cfg, seed=0, device=dev)
-    start_center = st.cam_center.clone()
-    kernels.reset_launches()
-    t_start = torch.cuda.Event(enable_timing=True)
-    t_end = torch.cuda.Event(enable_timing=True)
-    wall = time.perf_counter()
-    t_start.record()
-    st, frame = run(st, inputs)
-    t_end.record()
-    checksum = int(frame.to(torch.int64).sum())  # host fetch ends the run
-    wall = time.perf_counter() - wall
-    counts = dict(kernels.launches)
-    n_frames = len(inputs)
-    ms_frame = t_start.elapsed_time(t_end) / n_frames
-    rays = sc.effective_chunks_per_frame * sc.pixels_per_chunk * sc.samples_per_pixel
-    moved = float((st.cam_center - start_center).abs().max())
-    log(f"[main] config_interactive {sc.width}x{sc.height} {sc.samples_per_pixel} spp, "
-        f"{n_frames} frames ({IDLE} idle, {WALK} walk, {TURN} turn, {IDLE} idle), "
-        f"{rays} rays/frame: {ms_frame:.3f} ms/frame, "
-        f"{rays / ms_frame / 1e3:.2f} Mrays/s (host wall {wall:.2f} s), checksum "
-        f"{checksum}, camera moved {moved:.3f}, launches {counts} | {smi}")
-    display = frame.to(torch.float32)
-    if not (tuple(frame.shape) == (sc.height, sc.width, 3) and frame.dtype == torch.uint8
-            and float(display.mean()) > 1.0 and moved > 0.0
-            and torch.isfinite(st.screen).all()):
-        raise SystemExit("[main] FAIL: frame blank or malformed, or the camera did not move")
-    if counts.get("tracer") != n_frames or counts.get("present") != n_frames:
-        raise SystemExit(f"[main] FAIL: launches {counts} != {n_frames} frames each")
+    # 6. The driven paths: each configuration at full width, scripted, with
+    # the launch counts set to 0 just before and read just after.
+    def drive(path):
+        cfg, scene = configs[path], scenes[path]
+        sc = cfg.screen
+        idle, walk, turn, idle2 = SCRIPTS[path]
+        inputs = ([FrameInputs.idle()] * idle + [FrameInputs.make(w=True)] * walk
+                  + [FrameInputs.make(mouse_dx=-27.0)] * turn + [FrameInputs.idle()] * idle2)
+        run = make_scan_step(scene, cfg)
+        run(init_state(cfg, seed=0, device=dev), inputs[:2])   # first-launch costs
+        torch.cuda.synchronize()
+        st = init_state(cfg, seed=0, device=dev)
+        start_center = st.cam_center.clone()
+        kernels.reset_launches()
+        t_start = torch.cuda.Event(enable_timing=True)
+        t_end = torch.cuda.Event(enable_timing=True)
+        wall = time.perf_counter()
+        t_start.record()
+        st, frame = run(st, inputs)
+        t_end.record()
+        checksum = int(frame.to(torch.int64).sum())  # host fetch ends the run
+        wall = time.perf_counter() - wall
+        counts = dict(kernels.launches)
+        n_frames = len(inputs)
+        ms_frame = t_start.elapsed_time(t_end) / n_frames
+        rays = sc.effective_chunks_per_frame * sc.pixels_per_chunk * sc.samples_per_pixel
+        moved = float((st.cam_center - start_center).abs().max())
+        cfg_name = {"main": "interactive"}.get(path, path)
+        log(f"[{path}] config_{cfg_name} {sc.width}x{sc.height} {sc.samples_per_pixel} spp, "
+            f"{n_frames} frames ({idle} idle, {walk} walk, {turn} turn, {idle2} idle), "
+            f"{rays} rays/frame: {ms_frame:.3f} ms/frame, "
+            f"{rays / ms_frame / 1e3:.2f} Mrays/s (host wall {wall:.2f} s), checksum "
+            f"{checksum}, camera moved {moved:.3f}, launches {counts} | {smi}")
+        display = frame.to(torch.float32)
+        if not (tuple(frame.shape) == (sc.height, sc.width, 3) and frame.dtype == torch.uint8
+                and float(display.mean()) > 1.0 and moved > 0.0
+                and torch.isfinite(st.screen).all()):
+            raise SystemExit(f"[{path}] FAIL: frame blank or malformed, or the camera "
+                             "did not move")
+        if counts.get("tracer") != n_frames or counts.get("present") != n_frames:
+            raise SystemExit(f"[{path}] FAIL: launches {counts} != {n_frames} frames each")
+        return counts
 
+    launches = {path: drive(path) for path in ("main", "scale", "fuzzy")}
+
+    # One row per kernel and path; a row's launches are its path's.
+    rows = (("tracer", "main"), ("tracer@scale", "scale"), ("tracer@fuzzy", "fuzzy"),
+            ("present", "main"), ("present@4k", "scale"))
     kern = []
-    for kname in ("tracer", "present"):
-        e = entries[kname]
-        kern.append(dict(name=kname, route="cuda", source=SOURCES[kname],
-                         replaces=REPLACES[kname], launches=counts[kname],
-                         max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],
-                         bound_ms=e["bound_ms"], bound_by=e["bound_by"], library_ms=None))
+    for row, path in rows:
+        e = entries[row]
+        k = e["kernel"]
+        kern.append(dict(name=row, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
+                         launches=launches[path][k], max_abs_err=e["max_abs_err"],
+                         ms=e["ms"], plain_ms=e["plain_ms"],
+                         plain_rays=e.get("plain_rays"), bound_ms=e["bound_ms"],
+                         bound_by=e["bound_by"], library_ms=None))
     log(json.dumps({"kernels": kern}))
     count = torch.cuda.device_count()
     if count != 1:

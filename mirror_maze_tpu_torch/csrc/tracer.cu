@@ -2,40 +2,84 @@
 //
 // Replaces the JAX package's Pallas kernel
 // mirror_maze_tpu/render/pallas_tracer.py::_tracer_kernel (launched by
-// _trace_padded), for the slice the maze runs: opaque, untextured quads in
-// three closed-world test modes (0: full quad test, 1: along-wall edge test
-// only, 2: no edge test), one plane tile, no sky term, no noise seed row.
-// It computes what that kernel computes under the CPU interpreter, ray for
-// ray (render/fused_tracer.py trace_paths_plain is the same arithmetic in
-// PyTorch):
+// _trace_padded), for opaque, untextured quads in three closed-world test
+// modes (0: full quad test, 1: along-wall edge test only, 2: no edge
+// test), in any number of plane tiles, with the noise seed row and the sky
+// term. It computes what that kernel computes under the CPU interpreter,
+// ray for ray (render/fused_tracer.py trace_paths_plain is the same
+// function in PyTorch):
 //
-// - per segment, the nearest hit over all planes: t = numer * (1/denom)
-//   (IEEE reciprocal, then a multiply — not numer/denom), edge tests
-//   min(s, 1-s) >= 0 per tested edge, t > t_min, misses at BIG = 1e30;
-// - planes that tie exactly on the nearest t SUM their properties, as the
-//   reference's one-hot select does;
+// - hit test: t = numer * (1/denom) (IEEE reciprocal, then a multiply — not
+//   numer/denom), edge tests min(s, 1-s) >= 0 per tested edge, t > t_min,
+//   misses at BIG = 1e30;
+// - per segment, first the single-tile groups jointly: one nearest t over
+//   all their planes, and planes that tie exactly on it SUM their
+//   properties, as the reference's one-hot select does;
+// - then the tiles of the multi-tile groups in the order the wrapper gives
+//   (group with most tiles first, within a group nearest the camera first).
+//   A tile's own nearest hit, ties inside the tile summed, replaces the
+//   running one only where it is strictly nearer. Here that is one running
+//   winner plus a flag `own` (the winner came from the tile being scanned):
+//   a plane strictly nearer replaces it and sets the flag, a plane that
+//   ties adds to it only while the flag is set;
+// - a tile is scanned only if the ray's slab test against the tile's box
+//   (inflated at upload, entry and exit widened by a relative 1e-3) passes
+//   nearer than the running hit. The reference makes the same test but
+//   skips per block of rays. For a ray inside the closed world the test is
+//   conservative, and both are the same function; render/fused_tracer.py
+//   says where they differ (rays that have left the world);
 // - emission pickup, albedo attenuation, mirror tint and reflection, the
 //   diffuse scatter from one PCG word split into two 16-bit uniforms and
-//   the reference's _sinpi polynomial, one 1/sqrt normalization;
+//   the reference's _sinpi polynomial, one 1/sqrt normalization; a live
+//   miss gathers the sky term when its strength is not 0;
 // - the PCG stream of ray i is seeded by (seed, pid = i / B, r = i % B)
-//   with B the reference's rays per Pallas program, so the launch geometry
-//   here never changes the image.
+//   with B the reference's rays per Pallas program, plus the ray's seed-row
+//   value as a 24-bit integer, so the launch geometry here never changes
+//   the image.
 //
 // A lane that dies changes nothing in the reference's block-wide loop, so
 // each thread simply stops at its own death.
 //
-// Bound on the card: operations. Each live (ray, plane) pair costs ~20
-// f32 operations plus one IEEE reciprocal; the plane table (a few KB) is
-// staged in shared memory once per block and every thread reads the same
-// plane at the same time (a broadcast), so memory traffic is only the
-// rays in and the light out. Build with -fmad=false: a contracted
-// multiply-add would round differently from the reference.
+// Bound on the card: operations. Each (ray, plane) test costs ~16 f32
+// operations plus 16 per tested edge and one IEEE reciprocal; memory
+// traffic is the rays in and the light out. A scene whose groups are all
+// single-tile has its records (a few KB) staged in shared memory once per
+// block, and every thread reads the same plane at the same time (a
+// broadcast). A multi-tile scene's records (215 KB for a 64x64 maze) stay
+// in global memory and are read through the read-only path: a warp's
+// threads walk the tiles in the same order and read the same record
+// together, and the table lives in L2. Only the tile table and the walk
+// order are staged. Build with -fmad=false: a contracted multiply-add
+// would round differently from the reference.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define BIG 1e30f
 #define RECORD 20  // floats per plane record (render/scenebuf.py RECORD_WIDTH)
+#define RECORD4 5  // the same in float4s
+#define TILE 8     // floats per tile row (render/scenebuf.py tile_table)
+
+struct Params {
+  const float* ori;
+  const float* dirs;
+  const float* planes;    // [n_planes, RECORD]
+  const float* tiles;     // [n_tiles, TILE]: box lo, box hi, first row, rows
+  const int* order;       // [n_tiles - n_single] walk order of the other tiles
+  const int* seed;
+  const float* seed_row;  // [n_rays] in [0, 1), or null
+  float* light;
+  int n_planes, n_tiles, n_single;
+  int n_rays, block_rays, max_segments, bounce_limit, mirror_limit;
+  float mirror_tint, t_min;
+  float sky_r, sky_g, sky_b, sky_strength, sky_lf, sky_log_lf;
+};
+
+// The running nearest hit: t and the winner's (tie-summed) normal, albedo,
+// emission and is_mirror.
+struct Hit {
+  float t, nx, ny, nz, cr, cg, cb, er, eg, eb, mir;
+};
 
 __device__ __forceinline__ uint32_t pcg_scramble(uint32_t& state) {
   state = state * 747796405u + 291336453u;
@@ -52,80 +96,160 @@ __device__ __forceinline__ float sinpi_poly(float t) {
               t2 * (-0x1.4ab7dep+2f + t2 * (0x1.45bd9cp+1f + t2 * -0x1.1fc468p-1f)));
 }
 
-__global__ void trace_kernel(const float* __restrict__ ori,
-                             const float* __restrict__ dirs,
-                             const float* __restrict__ planes, int n_planes,
-                             int n_mode0, int n_mode1,
-                             const int* __restrict__ seed_ptr,
-                             float* __restrict__ light, int n_rays,
-                             int block_rays, int max_segments, int bounce_limit,
-                             int mirror_limit, float mirror_tint, float t_min) {
-  extern __shared__ float sp[];
-  for (int k = threadIdx.x; k < n_planes * RECORD; k += blockDim.x) sp[k] = planes[k];
+template <bool STAGED>
+__device__ __forceinline__ float4 load4(const float4* p) {
+  if constexpr (STAGED) return *p;
+  else return __ldg(p);
+}
+
+// Test `count` records of one mode from row `first` on against the ray and
+// fold them into the running hit.
+template <bool STAGED, int MODE>
+__device__ __forceinline__ void scan_rows(const float4* rec, int first, int count,
+                                          float ox, float oy, float oz, float dx,
+                                          float dy, float dz, float t_min, Hit& h,
+                                          bool& own) {
+  const float4* R = rec + (size_t)first * RECORD4;
+  for (int k = 0; k < count; ++k, R += RECORD4) {
+    const float4 a = load4<STAGED>(R);  // normal, d
+    const float numer = a.w - ((a.x * ox + a.y * oy) + a.z * oz);
+    const float denom = (a.x * dx + a.y * dy) + a.z * dz;
+    const float t = numer * (1.0f / denom);
+    bool ok = t > t_min;
+    if (MODE <= 1) {
+      const float4 b = load4<STAGED>(R + 1);  // w1, b1
+      const float s1 = (((b.x * ox + b.y * oy) + b.z * oz) - b.w) +
+                       t * ((b.x * dx + b.y * dy) + b.z * dz);
+      ok = ok && (s1 >= 0.f) && (1.0f - s1 >= 0.f);
+    }
+    if (MODE == 0) {
+      const float4 c = load4<STAGED>(R + 2);  // w2, b2
+      const float s2 = (((c.x * ox + c.y * oy) + c.z * oz) - c.w) +
+                       t * ((c.x * dx + c.y * dy) + c.z * dz);
+      ok = ok && (s2 >= 0.f) && (1.0f - s2 >= 0.f);
+    }
+    const float tv = ok ? t : BIG;
+    if (tv < h.t) {
+      const float4 c = load4<STAGED>(R + 3);  // albedo, emission r
+      const float4 e = load4<STAGED>(R + 4);  // emission g b, is_mirror, mode
+      h.t = tv;
+      h.nx = a.x; h.ny = a.y; h.nz = a.z;
+      h.cr = c.x; h.cg = c.y; h.cb = c.z;
+      h.er = c.w; h.eg = e.x; h.eb = e.y;
+      h.mir = e.z;
+      own = true;
+    } else if (tv == h.t && own && tv < BIG) {
+      const float4 c = load4<STAGED>(R + 3);
+      const float4 e = load4<STAGED>(R + 4);
+      h.nx += a.x; h.ny += a.y; h.nz += a.z;
+      h.cr += c.x; h.cg += c.y; h.cb += c.z;
+      h.er += c.w; h.eg += e.x; h.eb += e.y;
+      h.mir += e.z;
+    }
+  }
+}
+
+// One tile: its mode is its first record's.
+template <bool STAGED>
+__device__ __forceinline__ void scan_tile(const float4* rec, const float* tile, float ox,
+                                          float oy, float oz, float dx, float dy,
+                                          float dz, float t_min, Hit& h, bool& own) {
+  const int first = (int)tile[6], count = (int)tile[7];
+  if (count == 0) return;
+  const float* m = (const float*)rec + (size_t)first * RECORD + (RECORD - 1);
+  const int mode = (int)(STAGED ? *m : __ldg(m));
+  if (mode == 0)
+    scan_rows<STAGED, 0>(rec, first, count, ox, oy, oz, dx, dy, dz, t_min, h, own);
+  else if (mode == 1)
+    scan_rows<STAGED, 1>(rec, first, count, ox, oy, oz, dx, dy, dz, t_min, h, own);
+  else
+    scan_rows<STAGED, 2>(rec, first, count, ox, oy, oz, dx, dy, dz, t_min, h, own);
+}
+
+// 1/x clamped to +-BIG: a zero direction component gives a huge, finite
+// slab distance.
+__device__ __forceinline__ float clamped_rcp(float x) {
+  return fminf(fmaxf(1.0f / x, -BIG), BIG);
+}
+
+// STAGED: every group is single-tile and the records are in shared memory.
+template <bool STAGED, bool SKY>
+__global__ void trace_kernel(const Params p) {
+  // Shared: [records, STAGED only] [tile table] [walk order].
+  extern __shared__ float4 shared[];
+  float* s_tiles = (float*)(shared + (STAGED ? p.n_planes * RECORD4 : 0));
+  int* s_order = (int*)(s_tiles + p.n_tiles * TILE);
+  const int n_walk = p.n_tiles - p.n_single;
+  if (STAGED) {
+    const float4* src = (const float4*)p.planes;
+    for (int k = threadIdx.x; k < p.n_planes * RECORD4; k += blockDim.x) shared[k] = src[k];
+  }
+  for (int k = threadIdx.x; k < p.n_tiles * TILE; k += blockDim.x) s_tiles[k] = p.tiles[k];
+  for (int k = threadIdx.x; k < n_walk; k += blockDim.x) s_order[k] = p.order[k];
   __syncthreads();
+  const float4* rec = STAGED ? shared : (const float4*)p.planes;
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
+  if (i >= p.n_rays) return;
 
   // PCG init (_pcg_init): seed + pid * 2654435761 + r * 15823, then two
-  // scramble rounds (the scramble's output becomes the state).
-  const uint32_t pid = (uint32_t)(i / block_rays);
-  const uint32_t r = (uint32_t)(i % block_rays);
-  uint32_t rng = (uint32_t)seed_ptr[0] + pid * 2654435761u + r * 15823u;
+  // scramble rounds (the scramble's output becomes the state), then the
+  // seed-row value in [0, 1) as a 24-bit integer, truncated toward zero.
+  const uint32_t pid = (uint32_t)(i / p.block_rays);
+  const uint32_t r = (uint32_t)(i % p.block_rays);
+  uint32_t rng = (uint32_t)p.seed[0] + pid * 2654435761u + r * 15823u;
   for (int k = 0; k < 2; ++k) rng = pcg_scramble(rng);
+  if (p.seed_row != nullptr) rng += (uint32_t)(int)(p.seed_row[i] * 16777216.0f);
 
-  float ox = ori[3 * i], oy = ori[3 * i + 1], oz = ori[3 * i + 2];
-  float dx = dirs[3 * i], dy = dirs[3 * i + 1], dz = dirs[3 * i + 2];
+  float ox = p.ori[3 * i], oy = p.ori[3 * i + 1], oz = p.ori[3 * i + 2];
+  float dx = p.dirs[3 * i], dy = p.dirs[3 * i + 1], dz = p.dirs[3 * i + 2];
+  const float t_min = p.t_min;
   float tr = 1.f, tg = 1.f, tb = 1.f;
   float lr = 0.f, lg = 0.f, lb = 0.f;
   int mh = 0, dc = 0;
-  const int edge2_end = n_mode0;            // planes [0, n_mode0): both edges
-  const int edge1_end = n_mode0 + n_mode1;  // planes [.., edge1_end): s1 edge
 
-  for (int seg = 0; seg < max_segments; ++seg) {
-    // Nearest hit and the (tie-summed) properties of the winner.
-    float tmin = BIG;
-    float nx = 0.f, ny = 0.f, nz = 0.f, cr = 0.f, cg = 0.f, cb = 0.f;
-    float er = 0.f, eg = 0.f, eb = 0.f, mir = 0.f;
-    for (int p = 0; p < n_planes; ++p) {
-      const float* P = sp + p * RECORD;
-      float numer = P[3] - ((P[0] * ox + P[1] * oy) + P[2] * oz);
-      float denom = (P[0] * dx + P[1] * dy) + P[2] * dz;
-      float t = numer * (1.0f / denom);
-      bool ok = t > t_min;
-      if (p < edge1_end) {
-        float s1 = (((P[4] * ox + P[5] * oy) + P[6] * oz) - P[7]) +
-                   t * ((P[4] * dx + P[5] * dy) + P[6] * dz);
-        ok = ok && (s1 >= 0.f) && (1.0f - s1 >= 0.f);
-        if (p < edge2_end) {
-          float s2 = (((P[8] * ox + P[9] * oy) + P[10] * oz) - P[11]) +
-                     t * ((P[8] * dx + P[9] * dy) + P[10] * dz);
-          ok = ok && (s2 >= 0.f) && (1.0f - s2 >= 0.f);
-        }
-      }
-      float tv = ok ? t : BIG;
-      if (tv < tmin) {
-        tmin = tv;
-        nx = P[0]; ny = P[1]; nz = P[2];
-        cr = P[12]; cg = P[13]; cb = P[14];
-        er = P[15]; eg = P[16]; eb = P[17];
-        mir = P[18];
-      } else if (tv == tmin && tv < BIG) {
-        nx += P[0]; ny += P[1]; nz += P[2];
-        cr += P[12]; cg += P[13]; cb += P[14];
-        er += P[15]; eg += P[16]; eb += P[17];
-        mir += P[18];
+  for (int seg = 0; seg < p.max_segments; ++seg) {
+    Hit h = {BIG, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    // The single-tile groups are one joint scan: ties sum across them.
+    bool own = true;
+    for (int ti = 0; ti < p.n_single; ++ti)
+      scan_tile<STAGED>(rec, s_tiles + ti * TILE, ox, oy, oz, dx, dy, dz, t_min, h, own);
+    if constexpr (!STAGED) {
+      const float idx = clamped_rcp(dx), idy = clamped_rcp(dy), idz = clamped_rcp(dz);
+      for (int k = 0; k < n_walk; ++k) {
+        const float* T = s_tiles + s_order[k] * TILE;
+        const float t1x = (T[0] - ox) * idx, t2x = (T[3] - ox) * idx;
+        const float t1y = (T[1] - oy) * idy, t2y = (T[4] - oy) * idy;
+        const float t1z = (T[2] - oz) * idz, t2z = (T[5] - oz) * idz;
+        float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+        float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+        tn = tn - fabsf(tn) * 1e-3f;
+        tf = tf + fabsf(tf) * 1e-3f;
+        if (!((tf >= tn) && (tf > 0.f) && (tn < h.t))) continue;
+        own = false;
+        scan_tile<false>(rec, T, ox, oy, oz, dx, dy, dz, t_min, h, own);
       }
     }
 
-    const float t = tmin;
+    const float t = h.t;
     const bool hit = t < BIG;
+    if (!hit) {
+      if constexpr (SKY) {
+        // lighting_factor^(segment - mirror hits) * strength, with 0^0 = 1.
+        const float expo = (float)(seg - mh);
+        const float fac = p.sky_lf > 0.f ? expf(expo * p.sky_log_lf) * p.sky_strength
+                                         : (expo == 0.f ? p.sky_strength : 0.f);
+        lr = lr + p.sky_r * fac; lg = lg + p.sky_g * fac; lb = lb + p.sky_b * fac;
+      }
+      break;
+    }
+    const float nx = h.nx, ny = h.ny, nz = h.nz;
     const float dn = (dx * nx + dy * ny) + dz * nz;
     const float side = dn > 0.f ? -1.f : (dn < 0.f ? 1.f : -dn);  // -sign(dn)
-    const bool mirror = hit && (mir > 0.f) && (side != -1.f);
-    const bool diffuse = hit && !mirror;
+    const bool mirror = (h.mir > 0.f) && (side != -1.f);
+    const bool diffuse = !mirror;
     const int mh_new = mh + (mirror ? 1 : 0);
-    const bool mirror_live = mirror && (mh_new < mirror_limit);
+    const bool mirror_live = mirror && (mh_new < p.mirror_limit);
 
     // One PCG word -> two 16-bit uniforms; (z, phi) unit vector.
     uint32_t word = pcg_scramble(rng);
@@ -140,11 +264,13 @@ __global__ void trace_kernel(const float* __restrict__ ori,
     const float ux = rr * cphi, uy = rr * sphi, uz = z;
 
     if (diffuse) {
-      lr = lr + er * tr; lg = lg + eg * tg; lb = lb + eb * tb;
-      tr = tr * cr; tg = tg * cg; tb = tb * cb;
+      lr = lr + h.er * tr; lg = lg + h.eg * tg; lb = lb + h.eb * tb;
+      tr = tr * h.cr; tg = tg * h.cg; tb = tb * h.cb;
     }
     if (mirror_live) {
-      lr = lr + cr * mirror_tint; lg = lg + cg * mirror_tint; lb = lb + cb * mirror_tint;
+      lr = lr + h.cr * p.mirror_tint;
+      lg = lg + h.cg * p.mirror_tint;
+      lb = lb + h.cb * p.mirror_tint;
     }
     float vx, vy, vz;
     if (diffuse) {
@@ -158,32 +284,46 @@ __global__ void trace_kernel(const float* __restrict__ ori,
 
     mh = mh_new;
     dc = dc + (diffuse ? 1 : 0);
-    const bool alive = hit && !(mirror && mh_new >= mirror_limit) && dc < bounce_limit;
+    const bool alive = !(mirror && mh_new >= p.mirror_limit) && dc < p.bounce_limit;
     if (!alive) break;
   }
-  light[3 * i] = lr;
-  light[3 * i + 1] = lg;
-  light[3 * i + 2] = lb;
+  p.light[3 * i] = lr;
+  p.light[3 * i + 1] = lg;
+  p.light[3 * i + 2] = lb;
 }
 
-extern "C" int mm_trace_paths(const float* ori, const float* dirs,
-                              const float* planes, int n_planes, int n_mode0,
-                              int n_mode1, const int* seed, float* light,
-                              int n_rays, int block_rays, int max_segments,
-                              int bounce_limit, int mirror_limit,
-                              float mirror_tint, float t_min, void* stream) {
+template <bool STAGED, bool SKY>
+static int launch(const Params& p, cudaStream_t stream) {
   const int threads = 128;
-  const int blocks = (n_rays + threads - 1) / threads;
-  const size_t smem = (size_t)n_planes * RECORD * sizeof(float);
+  const int blocks = (p.n_rays + threads - 1) / threads;
+  const size_t smem = (size_t)(STAGED ? p.n_planes * RECORD : 0) * sizeof(float) +
+                      (size_t)p.n_tiles * TILE * sizeof(float) +
+                      (size_t)(p.n_tiles - p.n_single) * sizeof(int);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        trace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        trace_kernel<STAGED, SKY>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  if (n_rays > 0) {
-    trace_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        ori, dirs, planes, n_planes, n_mode0, n_mode1, seed, light, n_rays,
-        block_rays, max_segments, bounce_limit, mirror_limit, mirror_tint, t_min);
-  }
+  if (p.n_rays > 0) trace_kernel<STAGED, SKY><<<blocks, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+extern "C" int mm_trace_paths(const float* ori, const float* dirs, const float* planes,
+                              int n_planes, const float* tiles, int n_tiles,
+                              int n_single, const int* order, const int* seed,
+                              const float* seed_row, float* light, int n_rays,
+                              int block_rays, int max_segments, int bounce_limit,
+                              int mirror_limit, float mirror_tint, float t_min,
+                              float sky_r, float sky_g, float sky_b, float sky_strength,
+                              float sky_lf, float sky_log_lf, void* stream) {
+  const Params p = {ori, dirs, planes, tiles, order, seed, seed_row, light,
+                    n_planes, n_tiles, n_single,
+                    n_rays, block_rays, max_segments, bounce_limit, mirror_limit,
+                    mirror_tint, t_min,
+                    sky_r, sky_g, sky_b, sky_strength, sky_lf, sky_log_lf};
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool staged = n_tiles == n_single;
+  const bool sky = sky_strength != 0.f;
+  if (staged) return sky ? launch<true, true>(p, s) : launch<true, false>(p, s);
+  return sky ? launch<false, true>(p, s) : launch<false, false>(p, s);
 }

@@ -43,9 +43,14 @@ NVCC_FLAGS = (
 _C = ctypes
 _SIGNATURES = {
     "tracer": ("mm_trace_paths", [
-        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int, _C.c_int,
-        _C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
-        _C.c_int, _C.c_float, _C.c_float, _C.c_void_p,
+        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int,     # ori, dirs, planes, P
+        _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p,        # tiles, T, single, order
+        _C.c_void_p, _C.c_void_p, _C.c_void_p,               # seed, seed_row, light
+        _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,    # R, B, segments, limits
+        _C.c_float, _C.c_float,                              # mirror_tint, t_min
+        _C.c_float, _C.c_float, _C.c_float, _C.c_float,      # sky rgb, strength
+        _C.c_float, _C.c_float,                              # lighting factor, its log
+        _C.c_void_p,                                         # stream
     ]),
     "present": ("mm_present", [
         _C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int, _C.c_int, _C.c_int,

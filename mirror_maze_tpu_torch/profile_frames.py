@@ -1,10 +1,12 @@
-"""Where a frame's time goes on the card: the port's main path under
-torch.profiler.
+"""Where a frame's time goes on the card: one of the port's driven paths
+under torch.profiler.
 
-    python -m mirror_maze_tpu_torch.profile_frames [--frames 16] [--trace out.json]
+    python -m mirror_maze_tpu_torch.profile_frames [--config interactive]
+        [--frames 16] [--trace out.json]
 
-Runs ``config_interactive`` (1920x1080, 64 spp) for a few warm-up frames,
-then ``--frames`` idle frames through ``make_scan_step`` under the profiler,
+Runs the named configuration (default ``config_interactive``, 1920x1080,
+64 spp; ``scale`` and ``fuzzy`` are the multi-tile ones) for a few warm-up
+frames, then ``--frames`` idle frames through ``make_scan_step`` under the profiler,
 and prints one JSON line: ms/frame on the host clock (ending in a
 synchronize), device busy ms/frame (the sum of CUDA kernel times), the
 device's idle share, and the kernels by total device time. ``--trace``
@@ -20,7 +22,10 @@ import time
 
 
 def main() -> None:
+    from .config import NAMED_CONFIGS
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default="interactive", choices=sorted(NAMED_CONFIGS))
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--trace", default=None, help="chrome trace output path")
@@ -29,7 +34,6 @@ def main() -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from .config import config_interactive
     from .render.scenebuf import upload_scene
     from .runtime.state import FrameInputs, init_state
     from .runtime.step import make_scan_step
@@ -40,7 +44,7 @@ def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    cfg = config_interactive()
+    cfg = NAMED_CONFIGS[args.config]()
     scene = upload_scene(build_scene(cfg.maze))
     run = make_scan_step(scene, cfg)
     st, _ = run(init_state(cfg), [FrameInputs.idle()] * 4)
@@ -66,6 +70,7 @@ def main() -> None:
     n = args.frames
     print(json.dumps({
         "card": card,
+        "config": args.config,
         "frames": n,
         "ms_per_frame_host": wall_ms / n,
         "device_busy_ms_per_frame": busy_us / 1e3 / n,

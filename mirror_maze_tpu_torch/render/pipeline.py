@@ -1,6 +1,6 @@
 """Frame rendering pipeline: pixels -> traced colors (counterpart of the JAX
-package's ``render/pipeline.py``: the pinhole camera and the fused-tracer
-branch).
+package's ``render/pipeline.py``: the pinhole camera, the fused-tracer
+branch and the offline full-frame render).
 
 Per sample, as the compute kernel (`shaders.metal:281-303`): one camera ray
 per pixel, an unnormalized direction jitter of scale ``cfg.tracer.jitter``
@@ -14,6 +14,7 @@ import torch
 from ..config import EngineConfig
 from ..ops import prng
 from ..ops.sampling import ray_jitter
+from ..utils.noise import sample_noise
 from .camera import Camera, ray_directions
 from .fused_tracer import trace_paths_fused
 from .scenebuf import DeviceScene
@@ -27,13 +28,14 @@ def frame_rays(
     pixels_xy: torch.Tensor,   # [K, 2] int (x, y)
     key: torch.Tensor,
     cfg: EngineConfig,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    noise: torch.Tensor | None = None,   # the scene's noise texture (noise_rng)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """The tracer's inputs for spp samples of each pixel: (ori [K*spp, 3],
-    dirs [K*spp, 3], kernel seed int32 [1])."""
-    if cfg.camera.aperture > 0.0 or cfg.tracer.noise_rng or cfg.tracer.sky_strength != 0.0:
-        raise NotImplementedError(
-            "depth of field, noise_rng and the sky term are not ported yet"
-        )
+    dirs [K*spp, 3], kernel seed int32 [1], seed row [K*spp] or None). With
+    ``cfg.tracer.noise_rng`` the seed row is the pixel's sample of ``noise``,
+    shared by the pixel's samples (`shaders.metal:288-300`)."""
+    if cfg.camera.aperture > 0.0:
+        raise NotImplementedError("depth of field is not ported yet")
     spp = cfg.screen.samples_per_pixel
     k = pixels_xy.shape[0]
     jkey, tkey = prng.split(key)
@@ -44,7 +46,12 @@ def frame_rays(
     dirs = (base_dir[:, None, :] + jit).reshape(k * spp, 3)
     ori = cam.center.expand(k * spp, 3).contiguous()
     seed = prng.randint(tkey, (), 0, INT32_MAX).reshape(1)
-    return ori, dirs, seed
+    seed_row = None
+    if cfg.tracer.noise_rng:
+        if noise is None:
+            raise ValueError("noise_rng needs the scene's noise texture")
+        seed_row = torch.repeat_interleave(sample_noise(noise, pixels_xy), spp)
+    return ori, dirs, seed, seed_row
 
 
 def render_pixels(
@@ -60,10 +67,35 @@ def render_pixels(
             f"intersector {cfg.intersector!r} is not ported yet; the port "
             "traces with the fused kernel (intersector='pallas')"
         )
-    ori, dirs, seed = frame_rays(cam, pixels_xy, key, cfg)
+    ori, dirs, seed, seed_row = frame_rays(cam, pixels_xy, key, cfg, scene.noise)
     light = trace_paths_fused(
-        scene.planes, scene.mode_counts, ori, dirs, seed, cfg.tracer,
-        rows_per_block=cfg.tracer.block_rows,
+        scene, ori, dirs, seed, cfg.tracer, rows_per_block=cfg.tracer.block_rows,
+        anchor=cam.center, seed_row=seed_row,
     )
     spp = cfg.screen.samples_per_pixel
     return tone_map(light).reshape(-1, spp, 3).mean(dim=1)
+
+
+def render_full_frame(
+    scene: DeviceScene,
+    cam: Camera,
+    key: torch.Tensor,
+    cfg: EngineConfig,
+    rows_per_batch: int = 64,
+) -> torch.Tensor:
+    """Offline full-frame render [H, W, 3] (float32, tone-mapped, not
+    blurred), one block of pixel rows at a time, each with its own key."""
+    h, w = cfg.screen.height, cfg.screen.width
+    while h % rows_per_batch != 0:  # largest divisor of h <= requested
+        rows_per_batch -= 1
+    dev = cam.center.device
+    xs = torch.arange(w, dtype=torch.int32, device=dev)
+    keys = prng.split(key, h // rows_per_batch)
+    blocks = []
+    for b in range(h // rows_per_batch):
+        ys = torch.arange(b * rows_per_batch, (b + 1) * rows_per_batch,
+                          dtype=torch.int32, device=dev)
+        pix = torch.stack([xs.expand(rows_per_batch, w),
+                           ys[:, None].expand(rows_per_batch, w)], dim=-1).reshape(-1, 2)
+        blocks.append(render_pixels(scene, cam, pix, keys[b], cfg).reshape(rows_per_batch, w, 3))
+    return torch.cat(blocks)

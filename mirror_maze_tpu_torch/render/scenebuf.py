@@ -5,9 +5,11 @@ query read).
 The reference uploads its scene once at init (`main.rs:723-730`). Here the
 upload builds the Morton/kind-ordered plane table of the JAX package's
 Pallas tracer (same rows, same order, bitwise), the compact per-plane
-record the CUDA tracer stages in shared memory, and the BVH leaf boxes.
-The TPU's matrix-unit operand packing (``_pack_group``) has no counterpart:
-the CUDA tracer tests planes per thread with plain f32 arithmetic.
+record the CUDA tracer reads, the tile table (the reference's partition of
+each test mode's rows into tiles with a conservative AABB), the noise
+texture and the BVH leaf boxes. The TPU's matrix-unit operand packing
+(``_pack_group``) has no counterpart: the CUDA tracer tests planes per
+thread with plain f32 arithmetic.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ from ..device import resolve_device
 from ..ops.morton import morton2
 from ..scene.builder import Scene
 from ..scene.bvh import build_bvh
+from ..utils.noise import generate_noise
 
 BIG = 1e30
+PLANE_TILE = 128    # rows per tile of a test mode's group (the reference's)
 
 # Column layout of the [P, 40] plane table (the JAX package's
 # pallas_tracer.PLANE_COLS).
@@ -41,6 +45,9 @@ class DeviceScene(NamedTuple):
     plane_table: torch.Tensor   # [P, 40] ordered plane table (reference layout)
     planes: torch.Tensor        # [P, 20] fused-tracer records, same order
     mode_counts: tuple          # (planes of mode 0, of mode 1, of mode 2)
+    tiles: torch.Tensor         # [T, 8] tile table in merge order (tile_table)
+    group_meta: tuple           # ((mode, first tile, tiles), ...) in merge order
+    noise: torch.Tensor         # [S, S] noise texture in [0, 1) (noise_rng)
     leaf_min: torch.Tensor      # [L, 3] BVH leaf boxes (collision)
     leaf_max: torch.Tensor      # [L, 3]
 
@@ -124,20 +131,72 @@ def plane_records(table: np.ndarray) -> tuple[np.ndarray, tuple]:
     return np.ascontiguousarray(rec, np.float32), counts + (len(table) - sum(counts),)
 
 
-def upload_scene(scene: Scene, device=None) -> DeviceScene:
+def tile_table(table: np.ndarray, tile_by_mode: dict | None = None):
+    """The reference's tile partition of an ordered plane table (valid rows
+    only, grouped by test mode 0, 1, 2): (tiles [T, 8] float32, group_meta).
+
+    Within a mode the rows are cut into tiles of pt = min(round_up(P, 8),
+    tile) rows, tile = ``tile_by_mode[mode]`` or PLANE_TILE. A tile's row is
+    AABB lo 0:3 and hi 3:6 (min/max of its rows' columns 20:26, inflated by
+    1e-2 so the tracer's skip stays conservative; an empty box for a tile of
+    padding only), its first table row 6 and its row count 7.
+
+    Tiles stand in the tracer's merge order, one ``(mode, first tile,
+    tiles)`` entry of ``group_meta`` per group: the single-tile groups
+    first (tested jointly), then the multi-tile groups, most tiles first
+    (ties keep the mode order)."""
+    kinds = table[:, KIND_COL]
+    if np.any(np.diff(kinds) < 0):
+        raise ValueError("the plane table must be ordered by test mode")
+    groups = []
+    row0 = 0
+    for mode in (0, 1, 2):
+        p = int((kinds == mode).sum())
+        if p == 0:
+            continue
+        p8 = -(-p // 8) * 8
+        pt = min(p8, (tile_by_mode or {}).get(mode, PLANE_TILE))
+        rows = []
+        for k in range(-(-p8 // pt)):
+            a, b = min(k * pt, p), min((k + 1) * pt, p)
+            box = table[row0 + a:row0 + b, 20:26]
+            lo = box[:, 0:3].min(axis=0, initial=np.float32(BIG)) - np.float32(1e-2)
+            hi = box[:, 3:6].max(axis=0, initial=np.float32(-BIG)) + np.float32(1e-2)
+            rows.append(np.concatenate([lo, hi, [row0 + a, b - a]]).astype(np.float32))
+        groups.append((mode, rows))
+        row0 += p
+    single = [g for g in groups if len(g[1]) == 1]
+    multi = sorted((g for g in groups if len(g[1]) > 1), key=lambda g: -len(g[1]))
+    tiles, meta = [], []
+    for mode, rows in single + multi:
+        meta.append((mode, len(tiles), len(rows)))
+        tiles += rows
+    return np.array(tiles, np.float32).reshape(-1, 8), tuple(meta)
+
+
+def upload_scene(scene: Scene, device=None, noise: np.ndarray | None = None,
+                 tile_by_mode: dict | None = None) -> DeviceScene:
     """Derive the tracer tables and the collision boxes and place them on
-    ``device`` (None = the CUDA card)."""
+    ``device`` (None = the CUDA card). ``noise`` replaces the generated
+    512x512 noise texture; ``tile_by_mode`` ({mode: rows}) overrides the
+    tile size per test mode, which lets a small scene have many tiles."""
     dev = resolve_device(device)
     if scene.num_spheres:
         raise NotImplementedError("spheres are not ported yet")
     table = ordered_plane_table(scene)
     records, counts = plane_records(table)
+    tiles, group_meta = tile_table(table, tile_by_mode)
+    if noise is None:
+        noise = generate_noise()
     leaf_min, leaf_max = build_bvh(scene.origin, scene.u, scene.v).leaf_boxes()
     as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
     return DeviceScene(
         plane_table=as_dev(table),
         planes=as_dev(records),
         mode_counts=counts,
+        tiles=as_dev(tiles),
+        group_meta=group_meta,
+        noise=as_dev(noise),
         leaf_min=as_dev(leaf_min),
         leaf_max=as_dev(leaf_max),
     )

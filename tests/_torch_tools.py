@@ -37,6 +37,43 @@ def golden_script(fi) -> list:
             + [fi.make(mouse_dx=16.0)] * 4 + [fi.idle()] * 8)
 
 
+def multi_tile_config(pkg, width=64, height=48):
+    """A small configuration on the multi-tile path: a 16x16 maze (its
+    walls fill two tiles of 128), ``noise_rng`` on and the chunk window
+    Morton-sorted, 2 spp. ``pkg`` holds the config classes: the port's
+    package or the JAX package's ``config`` module."""
+    return pkg.EngineConfig(
+        maze=pkg.MazeConfig(width=16, height=16),
+        tracer=pkg.TracerConfig(bounce_limit=3, mirror_limit=4, noise_rng=True, block_rows=1),
+        screen=pkg.ScreenConfig(width=width, height=height, samples_per_pixel=2,
+                                sort_chunk_window=True),
+        intersector="pallas",
+    )
+
+
+def multi_tile_script(fi) -> list:
+    """12 frames for ``multi_tile_config``: idle, walk, turn, idle."""
+    return ([fi.idle()] * 4 + [fi.make(w=True)] * 4
+            + [fi.make(mouse_dx=16.0)] * 2 + [fi.idle()] * 2)
+
+
+def soup_arrays() -> dict:
+    """The 150-quad random soup of tests/test_pallas_tracer.py
+    test_random_multitile_scene_matches_exactly, as the fields of either
+    package's ``Scene``: skewed diffuse quads, an open scene, two tiles."""
+    r = np.random.default_rng(11)
+    n = 150
+    origin = r.uniform(-20, 20, (n, 3))
+    v = r.normal(size=(n, 3)) * 2.0
+    u = r.normal(size=(n, 3)) * 2.0
+    em = np.concatenate(
+        [r.uniform(0, 1, (n, 3)), (r.random((n, 1)) < 0.3) * r.uniform(0, 2, (n, 1))], axis=1)
+    return dict(
+        origin=origin.astype(np.float32), v=v.astype(np.float32), u=u.astype(np.float32),
+        color=r.uniform(0, 1, (n, 3)).astype(np.float32), is_mirror=np.zeros(n, bool),
+        emission=em.astype(np.float32), grid=np.zeros((1, 1), np.uint8))
+
+
 def port_config(cfg) -> "P.EngineConfig":
     """The port's EngineConfig equal field for field to a JAX package one."""
     return P.EngineConfig(

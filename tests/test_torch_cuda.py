@@ -12,15 +12,24 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_tools import assert_frames_match, golden_config, golden_script
+import mirror_maze_tpu_torch as P
+from _torch_tools import (
+    assert_frames_match,
+    golden_config,
+    golden_script,
+    multi_tile_config,
+    multi_tile_script,
+    soup_arrays,
+)
 from mirror_maze_tpu_torch import kernels
-from mirror_maze_tpu_torch.config import ScreenConfig, TracerConfig, config_interactive
+from mirror_maze_tpu_torch.config import MazeConfig, ScreenConfig, TracerConfig, config_interactive
 from mirror_maze_tpu_torch.render.fused_tracer import trace_paths_fused, trace_paths_plain
 from mirror_maze_tpu_torch.render.present import present, present_plain
 from mirror_maze_tpu_torch.render.scenebuf import upload_scene
 from mirror_maze_tpu_torch.runtime.loop import run_scripted
 from mirror_maze_tpu_torch.runtime.state import FrameInputs
 from mirror_maze_tpu_torch.scene import build_scene
+from mirror_maze_tpu_torch.scene.builder import Scene
 
 pytestmark = pytest.mark.cuda
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "script_pallas.npz")
@@ -50,26 +59,67 @@ def test_present_kernel_matches_plain_bitwise(cuda_device, quantize):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
-@pytest.mark.parametrize("bounce,mirror", [(1, 2), (5, 8)])
-def test_tracer_kernel_matches_plain(cuda_device, bounce, mirror):
-    scene = upload_scene(build_scene(config_interactive().maze), device=cuda_device)
-    rng = np.random.default_rng(bounce)
-    n = 100_001
-    o = rng.uniform(-45, 45, (n, 3)).astype(np.float32)
+def _rays(n, seed, extent, device):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)
     o[:, 1] = rng.uniform(-7, 1, n)
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    args = (scene.planes, scene.mode_counts,
-            torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device),
-            torch.tensor([7], dtype=torch.int32, device=cuda_device),
-            TracerConfig(bounce_limit=bounce, mirror_limit=mirror), 96)
+    row = rng.random(n).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (o, d, row))
+
+
+def _kernel_vs_plain(scene, o, d, tracer, rows, **kw):
+    """Both on the card, same inputs: >= 99.9% of rays within rtol 1e-5 /
+    atol 1e-6 (same arithmetic; the sky's expf may differ by an ulp)."""
+    seed = torch.tensor([7], dtype=torch.int32, device=o.device)
     before = kernels.launches["tracer"]
-    got = trace_paths_fused(*args)
+    got = trace_paths_fused(scene, o, d, seed, tracer, rows, **kw)
     assert kernels.launches["tracer"] == before + 1
-    want = trace_paths_plain(*args)
+    want = trace_paths_plain(scene, o, d, seed, tracer, rows, **kw)
+    torch.cuda.synchronize()
     close = torch.isclose(got, want, rtol=1e-5, atol=1e-6).all(dim=1)
     assert float(close.float().mean()) >= 0.999
     assert float(want.mean()) > 0
+    return got
+
+
+@pytest.mark.parametrize("bounce,mirror", [(1, 2), (5, 8)])
+def test_tracer_kernel_matches_plain(cuda_device, bounce, mirror):
+    scene = upload_scene(build_scene(config_interactive().maze), device=cuda_device)
+    o, d, _ = _rays(100_001, bounce, 45, cuda_device)
+    _kernel_vs_plain(scene, o, d, TracerConfig(bounce_limit=bounce, mirror_limit=mirror), 96)
+
+
+@pytest.mark.parametrize("tiles", [None, {0: 16, 1: 32}, {0: 8, 1: 8, 2: 4}])
+@pytest.mark.parametrize("bounce,mirror", [(1, 2), (5, 8)])
+def test_multi_tile_tracer_kernel_matches_plain(cuda_device, tiles, bounce, mirror):
+    """The 16x16 maze in the reference's tiles of 128 (1 + 2 + 1) and cut
+    small (many tiles in every group), with a tile-order anchor off the
+    origin and the noise seed row."""
+    scene = upload_scene(build_scene(MazeConfig(width=16, height=16)), device=cuda_device,
+                         tile_by_mode=tiles)
+    assert max(g[2] for g in scene.group_meta) > 1
+    o, d, row = _rays(100_001, bounce, 79, cuda_device)
+    anchor = torch.tensor([3.0, -1.0, 7.0], device=cuda_device)
+    tracer = TracerConfig(bounce_limit=bounce, mirror_limit=mirror)
+    plain = _kernel_vs_plain(scene, o, d, tracer, 32, anchor=anchor)
+    seeded = _kernel_vs_plain(scene, o, d, tracer, 32, anchor=anchor, seed_row=row)
+    assert torch.equal(plain, seeded) == (bounce == 1)
+
+
+@pytest.mark.parametrize("lighting_factor", [0.25, 0.0])
+def test_sky_term_kernel_matches_plain(cuda_device, lighting_factor):
+    """The random soup is an open scene in two tiles: rays miss on every
+    segment and gather the sky."""
+    scene = upload_scene(Scene(**soup_arrays()), device=cuda_device)
+    o, d, _ = _rays(50_000, 3, 25, cuda_device)
+    tracer = TracerConfig(bounce_limit=3, mirror_limit=2, sky_strength=0.7,
+                          lighting_factor=lighting_factor)
+    lit = _kernel_vs_plain(scene, o, d, tracer, 8)
+    dark = trace_paths_fused(scene, o, d, torch.tensor([7], dtype=torch.int32, device=o.device),
+                             TracerConfig(bounce_limit=3, mirror_limit=2), 8)
+    assert float(lit.sum()) > float(dark.sum())
 
 
 def test_scripted_run_on_the_card_matches_golden(cuda_device):
@@ -81,3 +131,18 @@ def test_scripted_run_on_the_card_matches_golden(cuda_device):
     assert kernels.launches["tracer"] == kernels.launches["present"] == len(script)
     with np.load(GOLDEN) as z:
         assert_frames_match(frame, z["img"])
+
+
+def test_multi_tile_scripted_run_on_the_card(cuda_device):
+    """12 frames of the multi-tile, noise-seeded configuration: one launch
+    of each kernel per frame, and the frame the plain versions give on the
+    CPU (golden rule)."""
+    cfg = multi_tile_config(P)
+    script = multi_tile_script(FrameInputs)
+    scene = build_scene(cfg.maze)
+    kernels.reset_launches()
+    _, frame = run_scripted(upload_scene(scene, device=cuda_device), cfg, inputs=script)
+    assert kernels.launches["tracer"] == kernels.launches["present"] == len(script)
+    _, want = run_scripted(upload_scene(scene, device="cpu"), cfg, inputs=script)
+    assert_frames_match(frame, want)
+    assert frame.mean() > 1.0

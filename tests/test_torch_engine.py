@@ -6,28 +6,44 @@ golden_cfg("pallas")) through the same 28-frame script (idle, walk, turn,
 idle). Frames follow the golden rule of tests/test_golden.py; the queue,
 cursor, key and frame counter must be bitwise equal, the camera within
 atol=1e-6.
+
+A third run covers the multi-tile path end to end: a 16x16 maze (its walls
+fill two tiles), ``noise_rng`` on, the chunk window Morton-sorted, 12 frames.
+The offline ``render_full_frame`` is held against the JAX one at 32x24:
+float frames, >= 99.5% of values within atol 1e-5 and the mean within 1e-3
+(the camera glue differs from jitted XLA by an ulp, which can flip a hit on
+an edge).
 """
 
 import dataclasses
 import os
 
+import jax
 import numpy as np
 import pytest
 
 import _golden_tools
+import mirror_maze_tpu_torch as P
 from _golden_tools import golden_cfg
 from _torch_tools import (
     assert_frames_match,
     compare_states,
     golden_config,
     golden_script,
+    multi_tile_config,
+    multi_tile_script,
     port_config,
 )
+from mirror_maze_tpu import config as j_config
 from mirror_maze_tpu.render import upload_scene as j_upload
+from mirror_maze_tpu.render.pipeline import render_full_frame as j_full_frame
+from mirror_maze_tpu.runtime.state import init_state as j_init
 from mirror_maze_tpu.runtime.loop import run_scripted as j_run
 from mirror_maze_tpu.runtime.state import FrameInputs as JInputs
 from mirror_maze_tpu.scene import build_scene as j_build
-from mirror_maze_tpu_torch.render import upload_scene
+from mirror_maze_tpu_torch.ops import prng
+from mirror_maze_tpu_torch.render import render_full_frame, upload_scene
+from mirror_maze_tpu_torch.runtime.state import init_state
 from mirror_maze_tpu_torch.runtime.loop import run_scripted
 from mirror_maze_tpu_torch.runtime.state import FrameInputs
 from mirror_maze_tpu_torch.scene import build_scene
@@ -77,6 +93,35 @@ def test_scripted_run_matches_jax(variant):
     assert_frames_match(frame, np.asarray(jframe))
     compare_states(jst, st)
     assert st.screen.shape == tuple(np.asarray(jst.screen).shape)
+
+
+def test_multi_tile_noise_seeded_run_matches_jax():
+    jcfg = multi_tile_config(j_config)
+    cfg = port_config(jcfg)
+    assert cfg == multi_tile_config(P)
+    script = multi_tile_script
+    scene = upload_scene(build_scene(cfg.maze), device="cpu")
+    assert max(g[2] for g in scene.group_meta) > 1
+    st, frame = run_scripted(scene, cfg, inputs=script(FrameInputs))
+    jst, jframe = j_run(j_upload(j_build(jcfg.maze)), jcfg, inputs=script(JInputs))
+    assert_frames_match(frame, np.asarray(jframe))
+    compare_states(jst, st)
+    assert frame.mean() > 1.0
+
+
+def test_render_full_frame_matches_jax():
+    jcfg = multi_tile_config(j_config, width=32, height=24)
+    cfg = port_config(jcfg)
+    scene = upload_scene(build_scene(cfg.maze), device="cpu")
+    got = render_full_frame(scene, init_state(cfg, device="cpu").camera(cfg),
+                            prng.PRNGKey(5, device="cpu"), cfg, rows_per_batch=16).numpy()
+    jscene = j_upload(j_build(jcfg.maze))
+    want = np.asarray(j_full_frame(jscene, j_init(jcfg).camera(jcfg), jax.random.PRNGKey(5),
+                                   jcfg, rows_per_batch=16))
+    assert got.shape == want.shape == (24, 32, 3) and got.dtype == np.float32
+    assert np.isclose(got, want, rtol=0, atol=1e-5).mean() >= 0.995
+    assert abs(got.mean() - want.mean()) <= 1e-3 * want.mean()
+    assert want.mean() > 0
 
 
 def test_scripted_run_matches_committed_golden():

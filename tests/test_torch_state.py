@@ -1,13 +1,15 @@
 """Engine state carried across from the JAX package: its save_state .npz
 after 4 frames, loaded with from_reference_state, then 4 more frames on
-both sides."""
+both sides; on the golden configuration and on a multi-tile, noise-seeded
+one."""
 
 import numpy as np
 import pytest
 import torch
 
 from _golden_tools import golden_cfg
-from _torch_tools import assert_frames_match, compare_states, port_config
+from _torch_tools import assert_frames_match, compare_states, multi_tile_config, port_config
+from mirror_maze_tpu import config as j_config
 from mirror_maze_tpu.render import upload_scene as j_upload
 from mirror_maze_tpu.runtime.loop import run_scripted as j_run
 from mirror_maze_tpu.runtime.state import FrameInputs as JInputs
@@ -26,7 +28,14 @@ from mirror_maze_tpu_torch.scene import build_scene
 
 
 def test_state_carried_across(tmp_path):
-    jcfg = golden_cfg("pallas")
+    _carry_across(tmp_path, golden_cfg("pallas"))
+
+
+def test_state_carried_across_multi_tile(tmp_path):
+    _carry_across(tmp_path, multi_tile_config(j_config))
+
+
+def _carry_across(tmp_path, jcfg):
     cfg = port_config(jcfg)
     jdev = j_upload(j_build(jcfg.maze))
     first = [JInputs.make(w=True)] * 2 + [JInputs.make(mouse_dx=-9.0)] * 2

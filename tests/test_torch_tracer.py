@@ -50,7 +50,7 @@ def _both(scenes, o, d, bounce, mirror, rows):
         JTracer(bounce_limit=bounce, mirror_limit=mirror),
         rows_per_block=rows, interpret=True, tables=j.mxu_tables))
     pl = trace_paths_fused(
-        p.planes, p.mode_counts, torch.from_numpy(o), torch.from_numpy(d),
+        p, torch.from_numpy(o), torch.from_numpy(d),
         torch.tensor([SEED], dtype=torch.int32),
         TracerConfig(bounce_limit=bounce, mirror_limit=mirror), rows).numpy()
     return jl, pl
@@ -84,7 +84,7 @@ def test_block_size_changes_the_streams_not_the_launch(scenes):
 
     _, p = scenes
     o, d = _rays(N_RAYS, np.random.default_rng(5))
-    args = (p.planes, p.mode_counts, torch.from_numpy(o), torch.from_numpy(d),
+    args = (p, torch.from_numpy(o), torch.from_numpy(d),
             torch.tensor([SEED], dtype=torch.int32), TracerConfig(bounce_limit=5, mirror_limit=8))
     a = trace_paths_plain(*args, 1)
     b = trace_paths_plain(*args, 2)
@@ -103,12 +103,18 @@ def test_wrapper_checks_inputs(scenes):
     o, d = _rays(8, np.random.default_rng(0))
     seed = torch.tensor([SEED], dtype=torch.int32)
     cfg = TracerConfig()
+    to, td = torch.from_numpy(o), torch.from_numpy(d)
     with pytest.raises(ValueError):
-        trace_paths_fused(p.planes, p.mode_counts, torch.from_numpy(o).double(),
-                          torch.from_numpy(d), seed, cfg, 1)
+        trace_paths_fused(p, to.double(), td, seed, cfg, 1)
     with pytest.raises(ValueError):
-        trace_paths_fused(p.planes, p.mode_counts, torch.from_numpy(o),
-                          torch.from_numpy(d[:4]), seed, cfg, 1)
+        trace_paths_fused(p, to, td[:4], seed, cfg, 1)
     with pytest.raises(ValueError):
-        trace_paths_fused(p.planes, p.mode_counts, torch.from_numpy(o),
-                          torch.from_numpy(d), seed.long(), cfg, 1)
+        trace_paths_fused(p, to, td, seed.long(), cfg, 1)
+    with pytest.raises(ValueError):
+        trace_paths_fused(p, to, td, seed, cfg, 1, anchor=torch.zeros(2))
+    with pytest.raises(ValueError):
+        trace_paths_fused(p, to, td, seed, cfg, 1, seed_row=torch.zeros(4))
+    with pytest.raises(ValueError):
+        trace_paths_fused(p, to, td, seed, cfg, 1, seed_row=torch.zeros(8, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        trace_paths_fused(p._replace(tiles=p.tiles[:1]), to, td, seed, cfg, 1)
