@@ -6,7 +6,7 @@
 Builds the hand-written kernels from ``mirror_maze_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each against its plain PyTorch version on the card at the
 shapes of every path it drives, checks the engine's scripted run against
-the committed golden frame, and drives three configurations at full width
+the committed golden frame, and drives four configurations at full width
 through ``make_scan_step``:
 
 - ``[main]``  ``config_interactive`` (10x10 maze, 1920x1080, 64 spp, 8
@@ -14,7 +14,14 @@ through ``make_scan_step``:
 - ``[scale]`` ``config_scale`` (64x64 maze, 3840x2160, 64 spp, 16 mirror
   bounces; 2,692 planes in 5 + 17 + 1 tiles), 40 frames;
 - ``[fuzzy]`` ``config_fuzzy`` (16x16 maze, 1280x720, 64 spp, the noise
-  texture seeding every ray; 1 + 2 + 1 tiles), 40 frames.
+  texture seeding every ray; 1 + 2 + 1 tiles), 40 frames;
+- ``[glass]`` ``config_interactive`` with ``glass_prob`` 0.5 (five of the
+  maze's mirror walls are glass panes; Fresnel on), 40 frames;
+
+and three offline renders of 1024x1024 at 64 spp through
+``render_full_frame``: ``[cornell]`` the Cornell box with a glass sphere
+through the thin lens (and through the pinhole) and with two opaque
+spheres, ``[mesh]`` the mesh gallery (360 triangles in three tiles).
 
 Every phase prints one line; any failure exits non-zero. The last two lines
 are the ``{"kernels": [...]}`` summary (one row per kernel and path) and
@@ -51,7 +58,13 @@ SOURCES = {
 }
 
 # The driven paths' scripts: idle, walking, turning, idle frames.
-SCRIPTS = {"main": (64, 30, 10, 64), "scale": (16, 12, 4, 8), "fuzzy": (16, 12, 4, 8)}
+SCRIPTS = {"main": (64, 30, 10, 64), "scale": (16, 12, 4, 8), "fuzzy": (16, 12, 4, 8),
+           "glass": (16, 12, 4, 8)}
+# The offline renders: a square frame, and the block of pixel rows (through
+# the middle of the picture) whose rays the kernel is compared on.
+GALLERY_SIZE, GALLERY_SPP, GALLERY_ROWS, GALLERY_BATCH = 1024, 64, 64, 8
+# Programs of that block's 1,024 (B = 4,096 rays) the plain version traces.
+GALLERY_PLAIN_PROGRAMS = 256
 # Programs (blocks of B rays) of config_scale's wavefront that the plain
 # version traces for the comparison, spread evenly over the wavefront.
 SCALE_PLAIN_PROGRAMS = 86
@@ -94,7 +107,15 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     try:
         import mirror_maze_tpu_torch as P
-        from _torch_tools import golden_config, golden_script
+        from _torch_tools import (
+            CORNELL_GLASS_CENTRE,
+            GALLERY_SPAWN,
+            cornell_scene,
+            gallery_config,
+            golden_config,
+            golden_script,
+            mesh_gallery_scene,
+        )
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -103,7 +124,12 @@ def main() -> int:
         trace_paths_fused,
         trace_paths_plain,
     )
-    from mirror_maze_tpu_torch.render.pipeline import frame_rays
+    from mirror_maze_tpu_torch.render.camera import make_camera
+    from mirror_maze_tpu_torch.render.pipeline import (
+        frame_rays,
+        frame_row_batches,
+        render_full_frame,
+    )
     from mirror_maze_tpu_torch.render.present import present, present_plain
     from mirror_maze_tpu_torch.render.scenebuf import upload_scene
     from mirror_maze_tpu_torch.render.scheduler import (
@@ -138,9 +164,20 @@ def main() -> int:
     kernels.build(verbose=True)
     log(f"[build] tracer, present built and loaded in {time.perf_counter() - t0:.1f} s")
 
+    import dataclasses
+
+    def with_glass(cfg, fresnel=True):
+        return dataclasses.replace(
+            cfg, maze=dataclasses.replace(cfg.maze, glass_prob=0.5),
+            tracer=dataclasses.replace(cfg.tracer, fresnel=fresnel))
+
     configs = {"main": P.NAMED_CONFIGS["interactive"](), "scale": P.NAMED_CONFIGS["scale"](),
                "fuzzy": P.NAMED_CONFIGS["fuzzy"]()}
+    configs["glass"] = with_glass(configs["main"])
+    configs["glass-scale"] = with_glass(configs["scale"])
     scenes = {k: upload_scene(build_scene(c.maze), device=dev) for k, c in configs.items()}
+    configs["glass-no-fresnel"] = with_glass(configs["main"], fresnel=False)
+    scenes["glass-no-fresnel"] = scenes["glass"]
     entries = {}
 
     # 3. Present kernel vs its plain version: bitwise, on a random
@@ -177,22 +214,12 @@ def main() -> int:
     # whole wavefront too, or ``programs`` whole blocks of B rays spread
     # evenly over it, each ray keeping its place in the wavefront (its
     # seed); its counts are then scaled to the wavefront for the bound.
-    def check_tracer(tag, row, path, programs=None):
-        cfg, scene = configs[path], scenes[path]
-        sc, tc = cfg.screen, cfg.tracer
-        st = init_state(cfg, seed=0, device=dev)
-        ids, _ = take_chunks(st.perm, st.cursor, sc.effective_chunks_per_frame)
-        if sc.sort_chunk_window:
-            ids = sort_window_morton(ids, sc)
-        _, key = prng.split(st.key)
-        fkey = prng.fold_in(key, 1)
-        pixels = chunk_pixels(chunk_origin_xy(ids, sc), sc.chunk_width)
-        cam = st.camera(cfg)
-        ori, dirs, seed, seed_row = frame_rays(cam, pixels, fkey, cfg, scene.noise)
+    def compare_tracer(tag, row, scene, tc, rays, anchor, programs=None):
+        ori, dirs, seed, seed_row = rays
         block = tc.block_rows
         n_rays, b = ori.shape[0], block * 128
         kernel = lambda row=seed_row: trace_paths_fused(
-            scene, ori, dirs, seed, tc, block, anchor=cam.center, seed_row=row)
+            scene, ori, dirs, seed, tc, block, anchor=anchor, seed_row=row)
         got = kernel()
         if programs is None:
             pick = torch.arange(n_rays, device=dev)
@@ -202,7 +229,7 @@ def main() -> int:
             pick = (first[:, None] * b + torch.arange(b, device=dev)).reshape(-1)
         sub_row = None if seed_row is None else seed_row[pick]
         plain = lambda stats=None, skip=True: trace_paths_plain(
-            scene, ori[pick], dirs[pick], seed, tc, block, anchor=cam.center,
+            scene, ori[pick], dirs[pick], seed, tc, block, anchor=anchor,
             seed_row=sub_row, ray_ids=pick, stats=stats, skip=skip)
         stats = {}
         want = plain(stats)
@@ -223,25 +250,34 @@ def main() -> int:
         err = float((sub - want).abs().max())
         ok = torch.isfinite(got).all() and frac >= 0.99 and mean_rel <= 1e-3
         segs = stats["ray_segments"]
-        log(f"[{tag}] {n_rays} rays, {scene.num_planes} planes (modes {scene.mode_counts}) "
-            f"in tiles {tiles}, B={b}, plain version on {pick.numel()} rays"
+        log(f"[{tag}] {n_rays} rays, {scene.num_planes} planes and {scene.num_spheres} spheres "
+            f"(modes 0-7: {scene.mode_counts}) in tiles {tiles} of modes "
+            f"{[g[0] for g in scene.group_meta]}, fresnel {tc.fresnel}, B={b}, plain version on "
+            f"{pick.numel()} rays"
             f"{'' if programs is None else f' ({programs} programs of B)'}: {frac:.6f} of rays "
             f"within rtol 1e-5 (need >= 0.99), {exact:.6f} bitwise, mean light rel diff "
             f"{mean_rel:.2e} (need <= 1e-3), max abs diff {err:.3e}, {unskipped:.6f} equal to the "
             f"plain version with no tile skipped; on those rays "
             f"{segs} live ray-segments, {stats['tile_visits']} tile visits "
             f"({stats['tile_visits'] / segs:.3f} of {n_walk} walked tiles per ray-segment), "
-            f"{stats['plane_tests']} plane tests, {stats['edge_tests']} edge tests")
+            f"{stats['plane_tests']} plane tests, {stats['edge_tests']} edge tests, "
+            f"{stats['sphere_tests']} sphere tests, {stats['glass_hits']} glass hits")
         if not ok:
             raise SystemExit(f"[{tag}] FAIL: kernel disagrees with its plain version")
         if seed_row is not None and torch.equal(got, kernel(None)):
             raise SystemExit(f"[{tag}] FAIL: the noise seed row does not change the light")
+        if scene.has_glass and stats["glass_hits"] == 0:
+            raise SystemExit(f"[{tag}] FAIL: no ray hit glass")
         # Operations: 16 per plane test (two 3-term dots, the IEEE
         # reciprocal and multiply, compare, select), 16 per tested edge (two
-        # 3-term dots, the affine s, two compares), ~30 per slab test of a
-        # walked tile; counted on the plain version's rays and scaled.
+        # 3-term dots, the affine s, two compares), 20 per sphere test (two
+        # 3-term dots, the quadratic, the root, compares), ~30 per slab test
+        # of a walked tile, ~60 per glass hit (the dielectric stage);
+        # counted on the plain version's rays and scaled.
         scale = n_rays / pick.numel()
-        ops = scale * (16 * (stats["plane_tests"] + stats["edge_tests"]) + 30 * segs * n_walk)
+        ops = scale * (16 * (stats["plane_tests"] + stats["edge_tests"])
+                       + 20 * stats["sphere_tests"] + 30 * segs * n_walk
+                       + 60 * stats["glass_hits"])
         n_bytes = (ori.numel() + dirs.numel() + got.numel()
                    + (0 if seed_row is None else seed_row.numel())) * 4
         entries[row] = dict(
@@ -252,10 +288,42 @@ def main() -> int:
             bound_by="operations" if ops / FP32_OPS_PER_S > n_bytes / HBM_BYTES_PER_S
             else "bytes",
         )
+        log(f"[{tag}] kernel {entries[row]['ms']:.4f} ms/launch, bound "
+            f"{entries[row]['bound_ms']:.4f} ms by {entries[row]['bound_by']}, plain version "
+            f"{entries[row]['plain_ms']:.1f} ms on {pick.numel()} rays | {smi}")
+        return got
+
+    def frame1_rays(path):
+        """Frame 1's wavefront of an engine path: (rays, camera centre)."""
+        cfg = configs[path]
+        sc = cfg.screen
+        st = init_state(cfg, seed=0, device=dev)
+        ids, _ = take_chunks(st.perm, st.cursor, sc.effective_chunks_per_frame)
+        if sc.sort_chunk_window:
+            ids = sort_window_morton(ids, sc)
+        _, key = prng.split(st.key)
+        fkey = prng.fold_in(key, 1)
+        pixels = chunk_pixels(chunk_origin_xy(ids, sc), sc.chunk_width)
+        cam = st.camera(cfg)
+        return frame_rays(cam, pixels, fkey, cfg, scenes[path].noise), cam.center
+
+    def check_tracer(tag, row, path, programs=None):
+        rays, anchor = frame1_rays(path)
+        return compare_tracer(tag, row, scenes[path], configs[path].tracer, rays, anchor,
+                              programs)
 
     check_tracer("tracer", "tracer", "main")
     check_tracer("tracer-scale", "tracer@scale", "scale", programs=SCALE_PLAIN_PROGRAMS)
     check_tracer("tracer-fuzzy", "tracer@fuzzy", "fuzzy")
+    lit = check_tracer("tracer-glass", "tracer@glass", "glass")
+    unlit = check_tracer("tracer-glass", "tracer@glass-no-fresnel", "glass-no-fresnel")
+    (g_ori, g_dirs, g_seed, _), g_anchor = frame1_rays("glass")
+    bare = trace_paths_fused(scenes["main"], g_ori, g_dirs, g_seed, configs["glass"].tracer,
+                             configs["glass"].tracer.block_rows, anchor=g_anchor)
+    if torch.equal(lit, unlit) or torch.equal(lit, bare):
+        raise SystemExit("[tracer-glass] FAIL: fresnel or the panes change nothing")
+    check_tracer("tracer-glass-tiles", "tracer@glass-scale", "glass-scale",
+                 programs=SCALE_PLAIN_PROGRAMS)
 
     # 5. The golden scripted run on the card against the committed frame.
     gcfg = golden_config()
@@ -275,10 +343,12 @@ def main() -> int:
 
     # 6. The driven paths: each configuration at full width, scripted, with
     # the launch counts set to 0 just before and read just after.
-    def drive(path):
+    def drive(path, script=None):
+        """Run ``path``'s configuration through its script (or another
+        path's): (launch counts, last frame)."""
         cfg, scene = configs[path], scenes[path]
         sc = cfg.screen
-        idle, walk, turn, idle2 = SCRIPTS[path]
+        idle, walk, turn, idle2 = SCRIPTS[script or path]
         inputs = ([FrameInputs.idle()] * idle + [FrameInputs.make(w=True)] * walk
                   + [FrameInputs.make(mouse_dx=-27.0)] * turn + [FrameInputs.idle()] * idle2)
         run = make_scan_step(scene, cfg)
@@ -300,8 +370,9 @@ def main() -> int:
         ms_frame = t_start.elapsed_time(t_end) / n_frames
         rays = sc.effective_chunks_per_frame * sc.pixels_per_chunk * sc.samples_per_pixel
         moved = float((st.cam_center - start_center).abs().max())
-        cfg_name = {"main": "interactive"}.get(path, path)
-        log(f"[{path}] config_{cfg_name} {sc.width}x{sc.height} {sc.samples_per_pixel} spp, "
+        cfg_name = {"main": "interactive", "glass": "interactive + glass_prob 0.5"}.get(path, path)
+        tag = path if script is None else f"{path} on {script}'s script"
+        log(f"[{tag}] config_{cfg_name} {sc.width}x{sc.height} {sc.samples_per_pixel} spp, "
             f"{n_frames} frames ({idle} idle, {walk} walk, {turn} turn, {idle2} idle), "
             f"{rays} rays/frame: {ms_frame:.3f} ms/frame, "
             f"{rays / ms_frame / 1e3:.2f} Mrays/s (host wall {wall:.2f} s), checksum "
@@ -314,12 +385,67 @@ def main() -> int:
                              "did not move")
         if counts.get("tracer") != n_frames or counts.get("present") != n_frames:
             raise SystemExit(f"[{path}] FAIL: launches {counts} != {n_frames} frames each")
-        return counts
+        return counts, frame
 
-    launches = {path: drive(path) for path in ("main", "scale", "fuzzy")}
+    launches = {path: drive(path)[0] for path in ("main", "scale", "fuzzy")}
+    launches["glass"], glass_frame = drive("glass")
+    if torch.equal(glass_frame, drive("main", script="glass")[1]):
+        raise SystemExit("[glass] FAIL: the frame is the glass-free maze's")
+
+    # 7. The offline renders through render_full_frame: the kernel against
+    # its plain version on one block of pixel rows, then the whole frame.
+    def gallery(tag, row, scene, cfg):
+        cam = make_camera(cfg.camera, 1.0, dev)
+        key = prng.PRNGKey(0, device=dev)
+        pix, bkey = list(frame_row_batches(cfg, key, GALLERY_ROWS, dev))[GALLERY_BATCH]
+        rays = frame_rays(cam, pix, bkey, cfg, scene.noise)
+        compare_tracer(f"tracer-{tag}", row, scene, cfg.tracer, rays, cam.center,
+                       programs=GALLERY_PLAIN_PROGRAMS)
+        del rays
+        render_full_frame(scene, cam, key, cfg, GALLERY_ROWS)    # first-launch costs
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        wall = time.perf_counter()
+        frame = render_full_frame(scene, cam, key, cfg, GALLERY_ROWS)
+        mean = float(frame.mean())                               # host fetch ends the run
+        wall = time.perf_counter() - wall
+        counts = dict(kernels.launches)
+        sc = cfg.screen
+        rays_frame = sc.width * sc.height * sc.samples_per_pixel
+        log(f"[{tag}] {sc.width}x{sc.height} {sc.samples_per_pixel} spp, aperture "
+            f"{cfg.camera.aperture}, focus {cfg.camera.focus_dist:.3f}, {rays_frame} rays: "
+            f"{wall * 1e3:.1f} ms/frame, {rays_frame / wall / 1e6:.2f} Mrays/s, mean {mean:.5f}, "
+            f"launches {counts} | {smi}")
+        if not (tuple(frame.shape) == (sc.height, sc.width, 3) and torch.isfinite(frame).all()
+                and mean > 0.02 and float(frame.std()) > 0.01):
+            raise SystemExit(f"[{tag}] FAIL: frame blank or malformed")
+        if counts != {"tracer": sc.height // GALLERY_ROWS}:
+            raise SystemExit(f"[{tag}] FAIL: launches {counts}")
+        launches[tag] = counts
+        return frame
+
+    focus = float(np.linalg.norm(np.subtract(CORNELL_GLASS_CENTRE, GALLERY_SPAWN)))
+    glass_box = upload_scene(cornell_scene("glass"), device=dev)
+    lens = gallery("cornell-glass", "tracer@cornell-glass", glass_box,
+                   gallery_config(GALLERY_SIZE, GALLERY_SPP, aperture=0.15, focus_dist=focus))
+    pin_cfg = gallery_config(GALLERY_SIZE, GALLERY_SPP)
+    pinhole = render_full_frame(glass_box, make_camera(pin_cfg.camera, 1.0, dev),
+                                prng.PRNGKey(0, device=dev), pin_cfg, GALLERY_ROWS)
+    blur = float((lens - pinhole).abs().mean())
+    log(f"[cornell] glass variant, thin lens against pinhole: mean abs difference {blur:.5f}")
+    if not blur > 1e-3:
+        raise SystemExit("[cornell] FAIL: the thin lens changes nothing")
+    del lens, pinhole
+    gallery("cornell-spheres", "tracer@cornell-spheres",
+            upload_scene(cornell_scene("spheres"), device=dev),
+            gallery_config(GALLERY_SIZE, GALLERY_SPP))
+    gallery("mesh", "tracer@mesh", upload_scene(mesh_gallery_scene(), device=dev),
+            gallery_config(GALLERY_SIZE, GALLERY_SPP))
 
     # One row per kernel and path; a row's launches are its path's.
     rows = (("tracer", "main"), ("tracer@scale", "scale"), ("tracer@fuzzy", "fuzzy"),
+            ("tracer@glass", "glass"), ("tracer@cornell-glass", "cornell-glass"),
+            ("tracer@cornell-spheres", "cornell-spheres"), ("tracer@mesh", "mesh"),
             ("present", "main"), ("present@4k", "scale"))
     kern = []
     for row, path in rows:

@@ -2,36 +2,55 @@
 //
 // Replaces the JAX package's Pallas kernel
 // mirror_maze_tpu/render/pallas_tracer.py::_tracer_kernel (launched by
-// _trace_padded), for opaque, untextured quads in three closed-world test
-// modes (0: full quad test, 1: along-wall edge test only, 2: no edge
-// test), in any number of plane tiles, with the noise seed row and the sky
-// term. It computes what that kernel computes under the CPU interpreter,
-// ray for ray (render/fused_tracer.py trace_paths_plain is the same
-// function in PyTorch):
+// _trace_padded), for untextured quads, triangles and spheres, opaque or
+// glass, in the reference's eight test modes (0: full quad test, 1:
+// along-wall edge test only, 2: no edge test, 3: spheres, 4: triangles, 5:
+// glass spheres, 6: glass quads, 7: glass triangles), in any number of
+// tiles, with the noise seed row and the sky term. It computes what that
+// kernel computes under the CPU interpreter, ray for ray
+// (render/fused_tracer.py trace_paths_plain is the same function in
+// PyTorch):
 //
-// - hit test: t = numer * (1/denom) (IEEE reciprocal, then a multiply — not
-//   numer/denom), edge tests min(s, 1-s) >= 0 per tested edge, t > t_min,
-//   misses at BIG = 1e30;
+// - plane hit test: t = numer * (1/denom) (IEEE reciprocal, then a multiply
+//   — not numer/denom), edge tests min(s, 1-s) >= 0 per tested edge of a
+//   quad, min(s1, s2, 1 - (s1 + s2)) >= 0 for a triangle, t > t_min, misses
+//   at BIG = 1e30;
+// - sphere hit test: bq = D.O - D.c, q = |O|^2 + (|c|^2 - r^2 - 2 O.c),
+//   disc = bq*bq - q, t = -bq - sqrt(max(disc, 0)), accepted when disc > 0
+//   and t > t_min; a glass sphere takes the far root -bq + sqrt(...) when
+//   the near one is not past t_min (the ray is inside). A sphere that wins
+//   carries its centre in the normal's place, and the normal is rebuilt
+//   after the nearest hit is known as ((o + d t) - c) * (1/r);
 // - per segment, first the single-tile groups jointly: one nearest t over
-//   all their planes, and planes that tie exactly on it SUM their
+//   all their primitives, and those that tie exactly on it SUM their
 //   properties, as the reference's one-hot select does;
 // - then the tiles of the multi-tile groups in the order the wrapper gives
 //   (group with most tiles first, within a group nearest the camera first).
 //   A tile's own nearest hit, ties inside the tile summed, replaces the
 //   running one only where it is strictly nearer. Here that is one running
 //   winner plus a flag `own` (the winner came from the tile being scanned):
-//   a plane strictly nearer replaces it and sets the flag, a plane that
+//   a primitive strictly nearer replaces it and sets the flag, one that
 //   ties adds to it only while the flag is set;
 // - a tile is scanned only if the ray's slab test against the tile's box
 //   (inflated at upload, entry and exit widened by a relative 1e-3) passes
-//   nearer than the running hit. The reference makes the same test but
-//   skips per block of rays. For a ray inside the closed world the test is
-//   conservative, and both are the same function; render/fused_tracer.py
-//   says where they differ (rays that have left the world);
+//   nearer than the running hit; a ray that starts inside the box (inside a
+//   glass sphere) has a negative entry and passes. The reference makes the
+//   same test but skips per block of rays. For a ray inside the closed
+//   world the test is conservative, and both are the same function;
+//   render/fused_tracer.py says where they differ (rays that have left the
+//   world);
 // - emission pickup, albedo attenuation, mirror tint and reflection, the
 //   diffuse scatter from one PCG word split into two 16-bit uniforms and
 //   the reference's _sinpi polynomial, one 1/sqrt normalization; a live
 //   miss gathers the sky term when its strength is not 0;
+// - the dielectric stage, compiled only for a scene with a glass group: a
+//   glass hit (ior > 0) is neither mirror nor diffuse and counts against
+//   the mirror budget; on the unit direction, Snell refraction, total
+//   internal reflection, and with `fresnel` the Schlick split r0 + (1 - r0)
+//   (1 - cos)^5 decided by a third uniform (the top 24 bits of one more PCG
+//   word), drawn after the scatter pair by every live ray on every segment
+//   of such a scene, whatever it hit; throughput times albedo while under
+//   budget, no emission, no mirror tint;
 // - the PCG stream of ray i is seeded by (seed, pid = i / B, r = i % B)
 //   with B the reference's rays per Pallas program, plus the ray's seed-row
 //   value as a 24-bit integer, so the launch geometry here never changes
@@ -41,16 +60,18 @@
 // each thread simply stops at its own death.
 //
 // Bound on the card: operations. Each (ray, plane) test costs ~16 f32
-// operations plus 16 per tested edge and one IEEE reciprocal; memory
-// traffic is the rays in and the light out. A scene whose groups are all
-// single-tile has its records (a few KB) staged in shared memory once per
-// block, and every thread reads the same plane at the same time (a
-// broadcast). A multi-tile scene's records (215 KB for a 64x64 maze) stay
-// in global memory and are read through the read-only path: a warp's
-// threads walk the tiles in the same order and read the same record
-// together, and the table lives in L2. Only the tile table and the walk
-// order are staged. Build with -fmad=false: a contracted multiply-add
-// would round differently from the reference.
+// operations plus 16 per tested edge and one IEEE reciprocal, a sphere test
+// ~20 and a square root; memory traffic is the rays in and the light out. A
+// scene whose groups are all single-tile has its records (a few KB) staged
+// in shared memory once per block, and every thread reads the same record
+// at the same time (a broadcast). A multi-tile scene's records (215 KB for
+// a 64x64 maze) stay in global memory and are read through the read-only
+// path: a warp's threads walk the tiles in the same order and read the same
+// record together, and the table lives in L2. Only the tile table and the
+// walk order are staged. The stages a scene does not need are template
+// parameters (PRIMS: triangles or spheres; GLASS), so a maze of opaque
+// quads compiles the kernel it always had. Build with -fmad=false: a
+// contracted multiply-add would round differently from the reference.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,27 +79,31 @@
 #define BIG 1e30f
 #define RECORD 20  // floats per plane record (render/scenebuf.py RECORD_WIDTH)
 #define RECORD4 5  // the same in float4s
-#define TILE 8     // floats per tile row (render/scenebuf.py tile_table)
+#define SPHERE 16  // floats per sphere record (SPHERE_RECORD_WIDTH)
+#define SPHERE4 4
+#define TILE 9     // floats per tile row (render/scenebuf.py tile_table)
 
 struct Params {
   const float* ori;
   const float* dirs;
   const float* planes;    // [n_planes, RECORD]
-  const float* tiles;     // [n_tiles, TILE]: box lo, box hi, first row, rows
+  const float* spheres;   // [n_spheres, SPHERE]
+  const float* tiles;     // [n_tiles, TILE]: box lo, box hi, first record, records, mode
   const int* order;       // [n_tiles - n_single] walk order of the other tiles
   const int* seed;
   const float* seed_row;  // [n_rays] in [0, 1), or null
   float* light;
-  int n_planes, n_tiles, n_single;
-  int n_rays, block_rays, max_segments, bounce_limit, mirror_limit;
+  int n_planes, n_spheres, n_tiles, n_single;
+  int n_rays, block_rays, max_segments, bounce_limit, mirror_limit, fresnel;
   float mirror_tint, t_min;
   float sky_r, sky_g, sky_b, sky_strength, sky_lf, sky_log_lf;
 };
 
-// The running nearest hit: t and the winner's (tie-summed) normal, albedo,
-// emission and is_mirror.
+// The running nearest hit: t and the winner's (tie-summed) normal (a
+// sphere's centre), albedo, emission and is_mirror; 1/r and the is-sphere
+// flag (PRIMS kernels) and the ior (GLASS kernels).
 struct Hit {
-  float t, nx, ny, nz, cr, cg, cb, er, eg, eb, mir;
+  float t, nx, ny, nz, cr, cg, cb, er, eg, eb, mir, inv_r, sph, ior;
 };
 
 __device__ __forceinline__ uint32_t pcg_scramble(uint32_t& state) {
@@ -102,13 +127,16 @@ __device__ __forceinline__ float4 load4(const float4* p) {
   else return __ldg(p);
 }
 
-// Test `count` records of one mode from row `first` on against the ray and
-// fold them into the running hit.
-template <bool STAGED, int MODE>
+// Test `count` plane records of one mode from row `first` on against the
+// ray and fold them into the running hit.
+template <bool STAGED, int MODE, bool PRIMS, bool GLASS>
 __device__ __forceinline__ void scan_rows(const float4* rec, int first, int count,
                                           float ox, float oy, float oz, float dx,
                                           float dy, float dz, float t_min, Hit& h,
                                           bool& own) {
+  constexpr bool TRIANGLE = MODE == 4 || MODE == 7;
+  constexpr bool EDGE1 = MODE == 0 || MODE == 1 || MODE == 6;
+  constexpr bool EDGE2 = MODE == 0 || MODE == 6;
   const float4* R = rec + (size_t)first * RECORD4;
   for (int k = 0; k < count; ++k, R += RECORD4) {
     const float4 a = load4<STAGED>(R);  // normal, d
@@ -116,27 +144,30 @@ __device__ __forceinline__ void scan_rows(const float4* rec, int first, int coun
     const float denom = (a.x * dx + a.y * dy) + a.z * dz;
     const float t = numer * (1.0f / denom);
     bool ok = t > t_min;
-    if (MODE <= 1) {
+    if (EDGE1 || TRIANGLE) {
       const float4 b = load4<STAGED>(R + 1);  // w1, b1
       const float s1 = (((b.x * ox + b.y * oy) + b.z * oz) - b.w) +
                        t * ((b.x * dx + b.y * dy) + b.z * dz);
-      ok = ok && (s1 >= 0.f) && (1.0f - s1 >= 0.f);
-    }
-    if (MODE == 0) {
-      const float4 c = load4<STAGED>(R + 2);  // w2, b2
-      const float s2 = (((c.x * ox + c.y * oy) + c.z * oz) - c.w) +
-                       t * ((c.x * dx + c.y * dy) + c.z * dz);
-      ok = ok && (s2 >= 0.f) && (1.0f - s2 >= 0.f);
+      if (EDGE1) ok = ok && (s1 >= 0.f) && (1.0f - s1 >= 0.f);
+      if (EDGE2 || TRIANGLE) {
+        const float4 c = load4<STAGED>(R + 2);  // w2, b2
+        const float s2 = (((c.x * ox + c.y * oy) + c.z * oz) - c.w) +
+                         t * ((c.x * dx + c.y * dy) + c.z * dz);
+        if (EDGE2) ok = ok && (s2 >= 0.f) && (1.0f - s2 >= 0.f);
+        if (TRIANGLE) ok = ok && (s1 >= 0.f) && (s2 >= 0.f) && (1.0f - (s1 + s2) >= 0.f);
+      }
     }
     const float tv = ok ? t : BIG;
     if (tv < h.t) {
       const float4 c = load4<STAGED>(R + 3);  // albedo, emission r
-      const float4 e = load4<STAGED>(R + 4);  // emission g b, is_mirror, mode
+      const float4 e = load4<STAGED>(R + 4);  // emission g b, is_mirror, ior
       h.t = tv;
       h.nx = a.x; h.ny = a.y; h.nz = a.z;
       h.cr = c.x; h.cg = c.y; h.cb = c.z;
       h.er = c.w; h.eg = e.x; h.eb = e.y;
       h.mir = e.z;
+      if constexpr (PRIMS) { h.inv_r = 0.f; h.sph = 0.f; }
+      if constexpr (GLASS) h.ior = e.w;
       own = true;
     } else if (tv == h.t && own && tv < BIG) {
       const float4 c = load4<STAGED>(R + 3);
@@ -145,25 +176,86 @@ __device__ __forceinline__ void scan_rows(const float4* rec, int first, int coun
       h.cr += c.x; h.cg += c.y; h.cb += c.z;
       h.er += c.w; h.eg += e.x; h.eb += e.y;
       h.mir += e.z;
+      if constexpr (GLASS) h.ior += e.w;
     }
   }
 }
 
-// One tile: its mode is its first record's.
-template <bool STAGED>
-__device__ __forceinline__ void scan_tile(const float4* rec, const float* tile, float ox,
-                                          float oy, float oz, float dx, float dy,
-                                          float dz, float t_min, Hit& h, bool& own) {
-  const int first = (int)tile[6], count = (int)tile[7];
+// The same for `count` sphere records. `sdo` = D.O and `soo` = |O|^2 are
+// the ray's share of the quadratic; FAR (glass spheres) takes the far root
+// when the near one is not past t_min.
+template <bool STAGED, bool FAR, bool GLASS>
+__device__ __forceinline__ void scan_spheres(const float4* sph, int first, int count,
+                                             float ox, float oy, float oz, float dx,
+                                             float dy, float dz, float sdo, float soo,
+                                             float t_min, Hit& h, bool& own) {
+  const float4* S = sph + (size_t)first * SPHERE4;
+  for (int k = 0; k < count; ++k, S += SPHERE4) {
+    const float4 a = load4<STAGED>(S);  // centre, |c|^2 - r^2
+    const float bq = sdo + -((a.x * dx + a.y * dy) + a.z * dz);
+    const float q = soo + (a.w - 2.0f * ((a.x * ox + a.y * oy) + a.z * oz));
+    const float disc = bq * bq - q;
+    const float root = sqrtf(fmaxf(disc, 0.0f));
+    float t = -bq - root;
+    if (FAR) t = t > t_min ? t : -bq + root;
+    const float tv = (disc > 0.0f && t > t_min) ? t : BIG;
+    if (tv < h.t) {
+      const float4 c = load4<STAGED>(S + 1);  // albedo, emission r
+      const float4 e = load4<STAGED>(S + 2);  // emission g b, is_mirror, ior
+      h.t = tv;
+      h.nx = a.x; h.ny = a.y; h.nz = a.z;
+      h.cr = c.x; h.cg = c.y; h.cb = c.z;
+      h.er = c.w; h.eg = e.x; h.eb = e.y;
+      h.mir = e.z;
+      h.inv_r = load4<STAGED>(S + 3).x;
+      h.sph = 1.0f;
+      if constexpr (GLASS) h.ior = e.w;
+      own = true;
+    } else if (tv == h.t && own && tv < BIG) {
+      const float4 c = load4<STAGED>(S + 1);
+      const float4 e = load4<STAGED>(S + 2);
+      h.nx += a.x; h.ny += a.y; h.nz += a.z;
+      h.cr += c.x; h.cg += c.y; h.cb += c.z;
+      h.er += c.w; h.eg += e.x; h.eb += e.y;
+      h.mir += e.z;
+      h.inv_r += load4<STAGED>(S + 3).x;
+      h.sph += 1.0f;
+      if constexpr (GLASS) h.ior += e.w;
+    }
+  }
+}
+
+// One tile, by its test mode.
+template <bool STAGED, bool PRIMS, bool GLASS>
+__device__ __forceinline__ void scan_tile(const float4* rec, const float4* sph,
+                                          const float* tile, float ox, float oy, float oz,
+                                          float dx, float dy, float dz, float sdo,
+                                          float soo, float t_min, Hit& h, bool& own) {
+  const int first = (int)tile[6], count = (int)tile[7], mode = (int)tile[8];
   if (count == 0) return;
-  const float* m = (const float*)rec + (size_t)first * RECORD + (RECORD - 1);
-  const int mode = (int)(STAGED ? *m : __ldg(m));
-  if (mode == 0)
-    scan_rows<STAGED, 0>(rec, first, count, ox, oy, oz, dx, dy, dz, t_min, h, own);
-  else if (mode == 1)
-    scan_rows<STAGED, 1>(rec, first, count, ox, oy, oz, dx, dy, dz, t_min, h, own);
-  else
-    scan_rows<STAGED, 2>(rec, first, count, ox, oy, oz, dx, dy, dz, t_min, h, own);
+#define ROWS(MODE) \
+  scan_rows<STAGED, MODE, PRIMS, GLASS>(rec, first, count, ox, oy, oz, dx, dy, dz, t_min, h, own)
+#define SPHERES(FAR) \
+  scan_spheres<STAGED, FAR, GLASS>(sph, first, count, ox, oy, oz, dx, dy, dz, sdo, soo, \
+                                   t_min, h, own)
+  if (mode == 0) ROWS(0);
+  else if (mode == 1) ROWS(1);
+  else if (mode == 2 || !(PRIMS || GLASS)) ROWS(2);
+  else {
+    if constexpr (PRIMS) {
+      if (mode == 3) SPHERES(false);
+      else if (mode == 4) ROWS(4);
+    }
+    if constexpr (GLASS) {
+      if (mode == 6) ROWS(6);
+    }
+    if constexpr (PRIMS && GLASS) {
+      if (mode == 5) SPHERES(true);
+      else if (mode == 7) ROWS(7);
+    }
+  }
+#undef ROWS
+#undef SPHERES
 }
 
 // 1/x clamped to +-BIG: a zero direction component gives a huge, finite
@@ -173,21 +265,30 @@ __device__ __forceinline__ float clamped_rcp(float x) {
 }
 
 // STAGED: every group is single-tile and the records are in shared memory.
-template <bool STAGED, bool SKY>
+// PRIMS: the scene has triangles or spheres (modes 3, 4, 5, 7). GLASS: it
+// has a glass group (modes 5, 6, 7) and the dielectric stage runs.
+template <bool STAGED, bool SKY, bool PRIMS, bool GLASS>
 __global__ void trace_kernel(const Params p) {
-  // Shared: [records, STAGED only] [tile table] [walk order].
+  // Shared: [plane records, sphere records: STAGED only] [tile table] [walk order].
   extern __shared__ float4 shared[];
-  float* s_tiles = (float*)(shared + (STAGED ? p.n_planes * RECORD4 : 0));
+  const int n_staged = STAGED ? p.n_planes * RECORD4 + p.n_spheres * SPHERE4 : 0;
+  float* s_tiles = (float*)(shared + n_staged);
   int* s_order = (int*)(s_tiles + p.n_tiles * TILE);
   const int n_walk = p.n_tiles - p.n_single;
   if (STAGED) {
     const float4* src = (const float4*)p.planes;
     for (int k = threadIdx.x; k < p.n_planes * RECORD4; k += blockDim.x) shared[k] = src[k];
+    if constexpr (PRIMS) {
+      const float4* ssrc = (const float4*)p.spheres;
+      float4* dst = shared + p.n_planes * RECORD4;
+      for (int k = threadIdx.x; k < p.n_spheres * SPHERE4; k += blockDim.x) dst[k] = ssrc[k];
+    }
   }
   for (int k = threadIdx.x; k < p.n_tiles * TILE; k += blockDim.x) s_tiles[k] = p.tiles[k];
   for (int k = threadIdx.x; k < n_walk; k += blockDim.x) s_order[k] = p.order[k];
   __syncthreads();
   const float4* rec = STAGED ? shared : (const float4*)p.planes;
+  const float4* sph = STAGED ? shared + p.n_planes * RECORD4 : (const float4*)p.spheres;
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n_rays) return;
@@ -209,11 +310,17 @@ __global__ void trace_kernel(const Params p) {
   int mh = 0, dc = 0;
 
   for (int seg = 0; seg < p.max_segments; ++seg) {
-    Hit h = {BIG, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    Hit h = {BIG, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float sdo = 0.f, soo = 0.f;
+    if constexpr (PRIMS) {
+      sdo = (ox * dx + oy * dy) + oz * dz;
+      soo = (ox * ox + oy * oy) + oz * oz;
+    }
     // The single-tile groups are one joint scan: ties sum across them.
     bool own = true;
     for (int ti = 0; ti < p.n_single; ++ti)
-      scan_tile<STAGED>(rec, s_tiles + ti * TILE, ox, oy, oz, dx, dy, dz, t_min, h, own);
+      scan_tile<STAGED, PRIMS, GLASS>(rec, sph, s_tiles + ti * TILE, ox, oy, oz, dx, dy, dz,
+                                      sdo, soo, t_min, h, own);
     if constexpr (!STAGED) {
       const float idx = clamped_rcp(dx), idy = clamped_rcp(dy), idz = clamped_rcp(dz);
       for (int k = 0; k < n_walk; ++k) {
@@ -227,7 +334,8 @@ __global__ void trace_kernel(const Params p) {
         tf = tf + fabsf(tf) * 1e-3f;
         if (!((tf >= tn) && (tf > 0.f) && (tn < h.t))) continue;
         own = false;
-        scan_tile<false>(rec, T, ox, oy, oz, dx, dy, dz, t_min, h, own);
+        scan_tile<false, PRIMS, GLASS>(rec, sph, T, ox, oy, oz, dx, dy, dz, sdo, soo, t_min,
+                                       h, own);
       }
     }
 
@@ -243,12 +351,23 @@ __global__ void trace_kernel(const Params p) {
       }
       break;
     }
-    const float nx = h.nx, ny = h.ny, nz = h.nz;
+    float nx = h.nx, ny = h.ny, nz = h.nz;
+    if constexpr (PRIMS) {
+      // A sphere's normal, from the same o + d t as the position update.
+      if (h.sph > 0.f) {
+        nx = ((ox + dx * t) - nx) * h.inv_r;
+        ny = ((oy + dy * t) - ny) * h.inv_r;
+        nz = ((oz + dz * t) - nz) * h.inv_r;
+      }
+    }
     const float dn = (dx * nx + dy * ny) + dz * nz;
     const float side = dn > 0.f ? -1.f : (dn < 0.f ? 1.f : -dn);  // -sign(dn)
-    const bool mirror = (h.mir > 0.f) && (side != -1.f);
-    const bool diffuse = !mirror;
-    const int mh_new = mh + (mirror ? 1 : 0);
+    bool glass = false;
+    if constexpr (GLASS) glass = h.ior > 0.f;
+    const bool mirror = (h.mir > 0.f) && (side != -1.f) && !glass;
+    const bool diffuse = !mirror && !glass;
+    const bool spec = mirror || glass;
+    const int mh_new = mh + (spec ? 1 : 0);
     const bool mirror_live = mirror && (mh_new < p.mirror_limit);
 
     // One PCG word -> two 16-bit uniforms; (z, phi) unit vector.
@@ -278,13 +397,47 @@ __global__ void trace_kernel(const Params p) {
     } else {
       vx = dx - 2.0f * dn * nx; vy = dy - 2.0f * dn * ny; vz = dz - 2.0f * dn * nz;
     }
+    if constexpr (GLASS) {
+      // The third uniform, drawn by every ray that hit anything.
+      float u3 = 0.f;
+      if (p.fresnel) u3 = (float)(pcg_scramble(rng) >> 8) * (1.0f / 16777216.0f);
+      if (glass) {
+        // Snell refraction on the unit direction, Schlick's reflectance.
+        const float dinv = 1.0f / sqrtf((dx * dx + dy * dy) + dz * dz);
+        const float dhx = dx * dinv, dhy = dy * dinv, dhz = dz * dinv;
+        const float nex = nx * side, ney = ny * side, nez = nz * side;
+        const float cos_i = fminf(fmaxf(-((dhx * nex + dhy * ney) + dhz * nez), 0.0f), 1.0f);
+        const float eta = side > 0.f ? 1.0f / fmaxf(h.ior, 1e-6f) : h.ior;
+        const float sin2t = eta * eta * (1.0f - cos_i * cos_i);
+        const bool tir = sin2t > 1.0f;
+        bool do_refl = tir;
+        if (p.fresnel) {
+          float r0 = (1.0f - eta) / (1.0f + eta);
+          r0 = r0 * r0;
+          const float pw = 1.0f - cos_i;
+          const float p2 = pw * pw;
+          const float reflect_p = tir ? 1.0f : r0 + (1.0f - r0) * (p2 * p2 * pw);
+          do_refl = u3 < reflect_p;
+        }
+        const float coef = eta * cos_i - sqrtf(fmaxf(1.0f - sin2t, 0.0f));
+        const float dnh = dn * dinv;
+        if (do_refl) {
+          vx = dhx - 2.0f * dnh * nx; vy = dhy - 2.0f * dnh * ny; vz = dhz - 2.0f * dnh * nz;
+        } else {
+          vx = eta * dhx + coef * nex; vy = eta * dhy + coef * ney; vz = eta * dhz + coef * nez;
+        }
+        if (mh_new < p.mirror_limit) {
+          tr = tr * h.cr; tg = tg * h.cg; tb = tb * h.cb;
+        }
+      }
+    }
     const float v_inv = 1.0f / sqrtf((vx * vx + vy * vy) + vz * vz);
     ox = ox + dx * t; oy = oy + dy * t; oz = oz + dz * t;
     dx = vx * v_inv; dy = vy * v_inv; dz = vz * v_inv;
 
     mh = mh_new;
     dc = dc + (diffuse ? 1 : 0);
-    const bool alive = !(mirror && mh_new >= p.mirror_limit) && dc < p.bounce_limit;
+    const bool alive = !(spec && mh_new >= p.mirror_limit) && dc < p.bounce_limit;
     if (!alive) break;
   }
   p.light[3 * i] = lr;
@@ -292,38 +445,52 @@ __global__ void trace_kernel(const Params p) {
   p.light[3 * i + 2] = lb;
 }
 
-template <bool STAGED, bool SKY>
+template <bool STAGED, bool SKY, bool PRIMS, bool GLASS>
 static int launch(const Params& p, cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (p.n_rays + threads - 1) / threads;
-  const size_t smem = (size_t)(STAGED ? p.n_planes * RECORD : 0) * sizeof(float) +
-                      (size_t)p.n_tiles * TILE * sizeof(float) +
-                      (size_t)(p.n_tiles - p.n_single) * sizeof(int);
+  const size_t smem =
+      (size_t)(STAGED ? p.n_planes * RECORD + p.n_spheres * SPHERE : 0) * sizeof(float) +
+      (size_t)p.n_tiles * TILE * sizeof(float) +
+      (size_t)(p.n_tiles - p.n_single) * sizeof(int);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        trace_kernel<STAGED, SKY>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(trace_kernel<STAGED, SKY, PRIMS, GLASS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  if (p.n_rays > 0) trace_kernel<STAGED, SKY><<<blocks, threads, smem, stream>>>(p);
+  if (p.n_rays > 0)
+    trace_kernel<STAGED, SKY, PRIMS, GLASS><<<blocks, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+template <bool STAGED, bool SKY>
+static int launch_stages(const Params& p, bool prims, bool glass, cudaStream_t s) {
+  if (prims) return glass ? launch<STAGED, SKY, true, true>(p, s)
+                          : launch<STAGED, SKY, true, false>(p, s);
+  return glass ? launch<STAGED, SKY, false, true>(p, s)
+               : launch<STAGED, SKY, false, false>(p, s);
+}
+
 extern "C" int mm_trace_paths(const float* ori, const float* dirs, const float* planes,
-                              int n_planes, const float* tiles, int n_tiles,
-                              int n_single, const int* order, const int* seed,
-                              const float* seed_row, float* light, int n_rays,
-                              int block_rays, int max_segments, int bounce_limit,
-                              int mirror_limit, float mirror_tint, float t_min,
-                              float sky_r, float sky_g, float sky_b, float sky_strength,
-                              float sky_lf, float sky_log_lf, void* stream) {
-  const Params p = {ori, dirs, planes, tiles, order, seed, seed_row, light,
-                    n_planes, n_tiles, n_single,
-                    n_rays, block_rays, max_segments, bounce_limit, mirror_limit,
+                              int n_planes, const float* spheres, int n_spheres,
+                              const float* tiles, int n_tiles, int n_single,
+                              const int* order, const int* seed, const float* seed_row,
+                              float* light, int n_rays, int block_rays, int max_segments,
+                              int bounce_limit, int mirror_limit, int prims, int glass,
+                              int fresnel, float mirror_tint, float t_min, float sky_r,
+                              float sky_g, float sky_b, float sky_strength, float sky_lf,
+                              float sky_log_lf, void* stream) {
+  const Params p = {ori, dirs, planes, spheres, tiles, order, seed, seed_row, light,
+                    n_planes, n_spheres, n_tiles, n_single,
+                    n_rays, block_rays, max_segments, bounce_limit, mirror_limit, fresnel,
                     mirror_tint, t_min,
                     sky_r, sky_g, sky_b, sky_strength, sky_lf, sky_log_lf};
   const cudaStream_t s = (cudaStream_t)stream;
   const bool staged = n_tiles == n_single;
   const bool sky = sky_strength != 0.f;
-  if (staged) return sky ? launch<true, true>(p, s) : launch<true, false>(p, s);
-  return sky ? launch<false, true>(p, s) : launch<false, false>(p, s);
+  if (staged) return sky ? launch_stages<true, true>(p, prims, glass, s)
+                         : launch_stages<true, false>(p, prims, glass, s);
+  return sky ? launch_stages<false, true>(p, prims, glass, s)
+             : launch_stages<false, false>(p, prims, glass, s);
 }

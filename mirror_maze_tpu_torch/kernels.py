@@ -21,6 +21,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,9 +45,11 @@ _C = ctypes
 _SIGNATURES = {
     "tracer": ("mm_trace_paths", [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int,     # ori, dirs, planes, P
+        _C.c_void_p, _C.c_int,                               # spheres, S
         _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p,        # tiles, T, single, order
         _C.c_void_p, _C.c_void_p, _C.c_void_p,               # seed, seed_row, light
         _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,    # R, B, segments, limits
+        _C.c_int, _C.c_int, _C.c_int,                        # prims, glass, fresnel
         _C.c_float, _C.c_float,                              # mirror_tint, t_min
         _C.c_float, _C.c_float, _C.c_float, _C.c_float,      # sky rgb, strength
         _C.c_float, _C.c_float,                              # lighting factor, its log
@@ -83,6 +86,21 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def ptxas_summary(out: str) -> str:
+    """``nvcc -Xptxas -v`` output cut to one line per kernel entry: its
+    template arguments (``Lb1E`` = true), registers, spills, stack."""
+    entry = re.compile(
+        r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, (\d+) bytes spill "
+        r"stores, (\d+) bytes spill loads.*?Used (\d+) registers", re.S)
+    lines = []
+    for name, stack, st, ld, regs in entry.findall(out):
+        args = ",".join(re.findall(r"L[bi](\d+)E", name))
+        short = re.sub(r"^_Z\d+", "", name).split("I")[0]
+        lines.append(f"{short}<{args}>: {regs} registers, {st}+{ld} bytes spilled, "
+                     f"{stack} bytes stack")
+    return "\n".join(lines) or out.strip()
+
+
 def build(names=tuple(_SIGNATURES), verbose: bool = False) -> dict:
     """Compile (where not built yet) and load the named kernels; returns
     {name: ctypes function}. Raises with nvcc's output on a failed build."""
@@ -107,7 +125,7 @@ def build(names=tuple(_SIGNATURES), verbose: bool = False) -> dict:
                 failed.append(f"{name}:\n{out}")
                 continue
             if verbose:
-                print(f"[nvcc {name}]\n{out.strip()}", flush=True)
+                print(f"[nvcc {name}]\n{ptxas_summary(out)}", flush=True)
             os.replace(tmp, path)
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

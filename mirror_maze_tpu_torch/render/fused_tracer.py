@@ -8,12 +8,27 @@ runs ``trace_paths_plain``, the same function in PyTorch, vectorized over
 rays with [R, rows] intermediates and Python loops over segments and tiles.
 
 Both reproduce the Pallas kernel as the CPU interpreter runs it, for
-opaque, untextured quads of test modes 0-2 in any number of tiles, with
-the noise seed row and the sky term:
+untextured quads, triangles and spheres, opaque or glass (the reference's
+eight test modes, scenebuf.py), in any number of tiles, with the noise seed
+row and the sky term:
 
-- hit test: t = numer * (1/denom) with the plane constants dotted against
-  (o, 1, d) left to right; the edge tests of the plane's mode,
-  min(s, 1-s) >= 0; t > t_min; misses at BIG;
+- plane hit test: t = numer * (1/denom) with the plane constants dotted
+  against (o, 1, d) left to right; the edge tests of the mode: min(s, 1-s)
+  >= 0 per tested edge of a quad, min(s1, s2, 1 - (s1 + s2)) >= 0 for a
+  triangle; t > t_min; misses at BIG;
+- sphere hit test: bq = D.O - D.c, q = |O|^2 + (|c|^2 - r^2 - 2 O.c),
+  disc = bq*bq - q, t = -bq - sqrt(max(disc, 0)), accepted when disc > 0
+  and t > t_min; a glass sphere takes -bq + sqrt(...) when the near root is
+  not past t_min (the ray is inside). A sphere that wins carries its centre
+  where a plane carries its normal, and the normal is rebuilt after the
+  select as ((o + d t) - c) / r;
+- the dielectric stage, only in a scene that has a glass group: a glass
+  hit is neither mirror nor diffuse and counts against the mirror budget;
+  Snell refraction on the unit direction, total internal reflection, and
+  with ``cfg.fresnel`` the Schlick split decided by a third uniform, drawn
+  after the scatter pair by every live ray on every segment of such a
+  scene (with it off, nothing is drawn and only TIR reflects); throughput
+  times albedo while under budget;
 - the single-tile groups (scenebuf.tile_table) are tested jointly: one
   nearest t over all their planes, and planes tied exactly on it sum their
   properties (the reference's one-hot select);
@@ -48,13 +63,17 @@ import torch
 
 from .. import kernels
 from ..config import TracerConfig
-from .scenebuf import DeviceScene
+from .scenebuf import SPHERE_MODES, SPHERE_RECORD_WIDTH, TILE_WIDTH, DeviceScene
 
 BIG = 1e30
 LANES = 128
 MASK = 0xFFFFFFFF
 PLAIN_CHUNK = 1 << 16    # most rays per pass of the plain version
 PLAIN_BUDGET = 1 << 23   # most [rays, rows] elements of one intermediate
+EDGE_TESTS = {0: 2, 1: 1, 2: 0, 4: 2, 6: 2, 7: 2}   # per plane test, by mode
+# The winner's selected properties (tie-summed): normal (a sphere's centre)
+# 0:3, albedo 3:6, emission 6:9, is_mirror 9, 1/r 10, is-sphere 11, ior 12.
+SEL_WIDTH = 13
 
 
 def _f32(x: float) -> float:
@@ -116,38 +135,70 @@ def tile_order(tiles: torch.Tensor, group_meta: tuple, anchor: torch.Tensor) -> 
     return torch.cat(parts).to(torch.int32)
 
 
-def _dense_nearest(rows, o, d, t_min):
-    """(t [R], sel [R, 10]) over the plane records ``rows``; sel = normal,
-    albedo, emission, is_mirror of the winner (tie-summed), zeros on a
-    miss."""
+def _dot3(v, w):
+    """[R, 3] x [P, 3] -> [R, P], summed x + y + z left to right."""
+    return (v[:, 0:1] * w[:, 0] + v[:, 1:2] * w[:, 1]) + v[:, 2:3] * w[:, 2]
+
+
+def _hit_ts(mode, rows, o, d, t_min, sdo, soo):
+    """[R, P] hit distances of the records ``rows`` of one test mode, BIG
+    where a ray misses. ``sdo`` = D.O and ``soo`` = |O|^2 per ray."""
+    if mode in SPHERE_MODES:
+        c = rows[:, 0:3]
+        bq = sdo[:, None] + -_dot3(d, c)
+        q = soo[:, None] + (rows[:, 3] - 2.0 * _dot3(o, c))
+        disc = bq * bq - q
+        root = torch.sqrt(torch.clamp_min(disc, 0.0))
+        t = -bq - root
+        if mode == 5:
+            t = torch.where(t > t_min, t, -bq + root)
+        ok = (disc > 0.0) & (t > t_min)
+        return torch.where(ok, t, torch.full_like(t, BIG))
     pn, pd = rows[:, 0:3], rows[:, 3]
-    w1, b1 = rows[:, 4:7], rows[:, 7]
-    w2, b2 = rows[:, 8:11], rows[:, 11]
-    mode = rows[:, 19]
-
-    def dot3(v, w):  # [R, 3] x [P, 3] -> [R, P], x + y + z left to right
-        return (v[:, 0:1] * w[:, 0] + v[:, 1:2] * w[:, 1]) + v[:, 2:3] * w[:, 2]
-
-    numer = pd - dot3(o, pn)
-    denom = dot3(d, pn)
+    numer = pd - _dot3(o, pn)
+    denom = _dot3(d, pn)
     t = numer * (1.0 / denom)
-    s1 = (dot3(o, w1) - b1) + t * dot3(d, w1)
-    s2 = (dot3(o, w2) - b2) + t * dot3(d, w2)
-    edge1 = ((s1 >= 0) & (1.0 - s1 >= 0)) | (mode > 1.5)
-    edge2 = ((s2 >= 0) & (1.0 - s2 >= 0)) | (mode > 0.5)
-    ok = (t > t_min) & edge1 & edge2
-    tv = torch.where(ok, t, torch.full_like(t, BIG))
+    ok = t > t_min
+    if mode != 2:
+        w1, b1 = rows[:, 4:7], rows[:, 7]
+        s1 = (_dot3(o, w1) - b1) + t * _dot3(d, w1)
+    if mode in (0, 4, 6, 7):
+        w2, b2 = rows[:, 8:11], rows[:, 11]
+        s2 = (_dot3(o, w2) - b2) + t * _dot3(d, w2)
+    if mode in (4, 7):
+        ok = ok & (s1 >= 0) & (s2 >= 0) & (1.0 - (s1 + s2) >= 0)
+    elif mode != 2:
+        ok = ok & (s1 >= 0) & (1.0 - s1 >= 0)
+        if mode != 1:
+            ok = ok & (s2 >= 0) & (1.0 - s2 >= 0)
+    return torch.where(ok, t, torch.full_like(t, BIG))
+
+
+def _props(mode, rows):
+    """[P, SEL_WIDTH] properties of the records of one test mode."""
+    pad = rows.new_zeros((rows.shape[0], 1))
+    if mode in SPHERE_MODES:
+        return torch.cat([rows[:, 0:3], rows[:, 4:11], rows[:, 12:13], pad + 1.0,
+                          rows[:, 11:12]], dim=1)
+    return torch.cat([rows[:, 0:3], rows[:, 12:19], pad, pad, rows[:, 19:20]], dim=1)
+
+
+def _dense_nearest(groups, o, d, t_min, sdo, soo):
+    """(t [R], sel [R, SEL_WIDTH]) over the records of ``groups``, a list of
+    (mode, rows) tested jointly: one nearest t, the properties of the
+    primitives tied exactly on it summed, zeros on a miss."""
+    tv = torch.cat([_hit_ts(m, rows, o, d, t_min, sdo, soo) for m, rows in groups], dim=1)
     tmin = tv.min(dim=1).values
     thresh = torch.where(tmin < BIG, tmin, torch.full_like(tmin, -1.0))
     onehot = (tv <= thresh[:, None]).to(torch.float32)
-    props = torch.cat([rows[:, 0:3], rows[:, 12:19]], dim=1)   # [P, 10]
-    return tmin, onehot @ props
+    return tmin, onehot @ torch.cat([_props(m, rows) for m, rows in groups])
 
 
 def _slab_pass(box, o, inv_d, tmin, alive):
     """The reference's per-ray tile test: the ray enters the tile's box
-    (entry and exit widened by a relative 1e-3) in front of it and nearer
-    than its running hit."""
+    (entry and exit widened by a relative 1e-3) in front of it (a ray that
+    starts inside has a negative entry and passes) and nearer than its
+    running hit."""
     t1 = (box[0:3] - o) * inv_d
     t2 = (box[3:6] - o) * inv_d
     tn = torch.minimum(t1, t2).max(dim=1).values
@@ -157,21 +208,28 @@ def _slab_pass(box, o, inv_d, tmin, alive):
     return (tf >= tn) & (tf > 0.0) & (tn < tmin) & alive
 
 
-def _edge_tests(rows: torch.Tensor) -> int:
-    """Edge tests a hit test of each of these records makes: 2 - mode."""
-    return int((2.0 - rows[:, 19]).sum())
+def _test_counts(mode: int, n: int) -> list:
+    """[plane tests, edge tests, sphere tests] of one hit test of each of
+    ``n`` records of a mode."""
+    if mode in SPHERE_MODES:
+        return [0, 0, n]
+    return [n, n * EDGE_TESTS[mode], 0]
 
 
 def _plain_tables(scene: DeviceScene, anchor: torch.Tensor):
-    """What a pass of the plain version reads of the scene: (the records of
-    the single-tile groups joined, [(records, tile row) of each walked
-    tile, in walk order])."""
-    spans = [(int(t[6]), int(t[7])) for t in scene.tiles.cpu().tolist()]
+    """What a pass of the plain version reads of the scene: ([(mode,
+    records) of each single-tile group], [(mode, records, tile row) of each
+    walked tile, in walk order]). A tile of padding only holds no record and
+    is left out of the walk."""
+    rows = []
+    for tile in scene.tiles.cpu().tolist():
+        first, count, mode = int(tile[6]), int(tile[7]), int(tile[8])
+        records = scene.spheres if mode in SPHERE_MODES else scene.planes
+        rows.append((mode, records[first:first + count]))
     n_single = sum(1 for g in scene.group_meta if g[2] == 1)
-    single = torch.cat([scene.planes[:0]] + [scene.planes[a:a + n] for a, n in spans[:n_single]])
     order = tile_order(scene.tiles, scene.group_meta, anchor).tolist()
-    walk = [(scene.planes[spans[ti][0]:sum(spans[ti])], scene.tiles[ti]) for ti in order]
-    return single, walk
+    return rows[:n_single], [rows[ti] + (scene.tiles[ti],) for ti in order
+                             if rows[ti][1].shape[0]]
 
 
 def trace_paths_plain(
@@ -201,41 +259,47 @@ def trace_paths_plain(
     ``ray_segments``, the (ray, segment) pairs traced alive;
     ``tile_visits``, the (ray, segment, tile) triples of the multi-tile
     groups whose slab test passes against the nearest hit of the tiles
-    before; ``plane_tests`` and ``edge_tests``, the hit tests and edge
-    tests of those tiles' planes and of the single-tile groups' planes."""
+    before; ``plane_tests``, ``edge_tests`` and ``sphere_tests``, the hit
+    tests and edge tests of those tiles' primitives and of the single-tile
+    groups'; ``glass_hits``, the live hits on glass (each runs the
+    dielectric stage)."""
     dev = ori.device
     if anchor is None:
         anchor = torch.zeros(3, dtype=torch.float32, device=dev)
     if ray_ids is None:
         ray_ids = torch.arange(ori.shape[0], dtype=torch.int64, device=dev)
     rng = pcg_init(seed, ray_ids, rows_per_block * LANES, seed_row)
-    tables = _plain_tables(scene, anchor)
-    widest = max([tables[0].shape[0]] + [rows.shape[0] for rows, _ in tables[1]])
+    single, walk = _plain_tables(scene, anchor)
+    widest = max([sum(rows.shape[0] for _, rows in single)] + [t[1].shape[0] for t in walk])
     step = max(1, min(PLAIN_CHUNK, PLAIN_BUDGET // max(1, widest)))
     parts = []
     for c0 in range(0, ori.shape[0], step):
         sl = slice(c0, c0 + step)
-        parts.append(_trace_plain_chunk(tables, ori[sl], dirs[sl], rng[sl], cfg, stats, skip))
+        parts.append(_trace_plain_chunk(single, walk, scene.has_glass, ori[sl], dirs[sl],
+                                        rng[sl], cfg, stats, skip))
     return torch.cat(parts) if parts else torch.zeros_like(ori)
 
 
 def _nearest(single, walk, o, d, t_min, alive, counts, skip):
     """Nearest hit over all groups in the reference's merge order:
-    (t [R], sel [R, 10]). ``counts`` (or None) is a tensor of three sums:
-    tile visits, plane tests and edge tests of the walked tiles."""
-    if single.shape[0]:
-        tmin, sel = _dense_nearest(single, o, d, t_min)
+    (t [R], sel [R, SEL_WIDTH]). ``counts`` (or None) is a tensor of four
+    sums over the walked tiles: tile visits, plane tests, edge tests and
+    sphere tests."""
+    sdo = (o[:, 0] * d[:, 0] + o[:, 1] * d[:, 1]) + o[:, 2] * d[:, 2]
+    soo = (o[:, 0] * o[:, 0] + o[:, 1] * o[:, 1]) + o[:, 2] * o[:, 2]
+    if single:
+        tmin, sel = _dense_nearest(single, o, d, t_min, sdo, soo)
     else:
         tmin = torch.full_like(o[:, 0], BIG)
-        sel = o.new_zeros((o.shape[0], 10))
+        sel = o.new_zeros((o.shape[0], SEL_WIDTH))
     if walk:
         inv_d = torch.clamp(1.0 / d, -BIG, BIG)
-    for rows, box in walk:
-        reach = _slab_pass(box, o, inv_d, tmin, alive)
+    for mode, rows, tile in walk:
+        reach = _slab_pass(tile, o, inv_d, tmin, alive)
         if counts is not None:
-            counts += reach.sum() * torch.tensor([1, rows.shape[0], _edge_tests(rows)],
+            counts += reach.sum() * torch.tensor([1] + _test_counts(mode, rows.shape[0]),
                                                  device=counts.device)
-        tile_t, tile_sel = _dense_nearest(rows, o, d, t_min)
+        tile_t, tile_sel = _dense_nearest([(mode, rows)], o, d, t_min, sdo, soo)
         better = tile_t < tmin
         if skip:
             better = better & reach
@@ -244,8 +308,7 @@ def _nearest(single, walk, o, d, t_min, alive, counts, skip):
     return tmin, sel
 
 
-def _trace_plain_chunk(tables, o, d, rng, cfg, stats, skip):
-    single, walk = tables
+def _trace_plain_chunk(single, walk, has_glass, o, d, rng, cfg, stats, skip):
     t_min = _f32(cfg.t_min)
     tint = _f32(cfg.mirror_tint)
     sky = cfg.sky_strength != 0.0
@@ -258,19 +321,23 @@ def _trace_plain_chunk(tables, o, d, rng, cfg, stats, skip):
     alive = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
     counts = None
     if stats is not None:
-        counts = torch.zeros(3, dtype=torch.int64, device=o.device)
-        n_single = single.shape[0]
-        e_single = _edge_tests(single)
+        counts = torch.zeros(4, dtype=torch.int64, device=o.device)
+        glass_hits = torch.zeros((), dtype=torch.int64, device=o.device)
+        per_segment = [1] + [sum(c) for c in zip(*(
+            [_test_counts(m, rows.shape[0]) for m, rows in single] or [[0, 0, 0]]))]
     for seg in range(cfg.max_segments):
         n_alive = int(alive.sum())
         if n_alive == 0:
             break
         if stats is not None:
-            for name, n in (("ray_segments", 1), ("plane_tests", n_single),
-                            ("edge_tests", e_single)):
+            for name, n in zip(("ray_segments", "plane_tests", "edge_tests", "sphere_tests"),
+                               per_segment):
                 stats[name] = stats.get(name, 0) + n_alive * n
         t, sel = _nearest(single, walk, o, d, t_min, alive, counts, skip)
         n, c, e, mir = sel[:, 0:3], sel[:, 3:6], sel[:, 6:9], sel[:, 9]
+        # A sphere's normal, from the same o + d t as the position update.
+        is_sph = sel[:, 11] > 0.0
+        n = torch.where(is_sph[:, None], ((o + d * t[:, None]) - n) * sel[:, 10:11], n)
         hit = alive & (t < BIG)
         if sky:
             # lighting_factor^(segment - mirror hits), with 0^0 = 1.
@@ -283,8 +350,18 @@ def _trace_plain_chunk(tables, o, d, rng, cfg, stats, skip):
         dn = (d[:, 0] * n[:, 0] + d[:, 1] * n[:, 1]) + d[:, 2] * n[:, 2]
         side = -torch.sign(dn)
         mirror = hit & (mir > 0.0) & (side != -1.0)
-        diffuse = hit & ~mirror
-        mh_new = mh + mirror.to(torch.int32)
+        if has_glass:
+            ior = sel[:, 12]
+            glass = hit & (ior > 0.0)
+            mirror = mirror & ~glass
+            diffuse = hit & ~mirror & ~glass
+            spec = mirror | glass
+            if stats is not None:
+                glass_hits += glass.sum()
+        else:
+            diffuse = hit & ~mirror
+            spec = mirror
+        mh_new = mh + spec.to(torch.int32)
         mirror_live = mirror & (mh_new < cfg.mirror_limit)
 
         rng, word = _pcg_scramble(rng)
@@ -303,14 +380,43 @@ def _trace_plain_chunk(tables, o, d, rng, cfg, stats, skip):
         tp = torch.where(dif, tp * c, tp)
         lt = torch.where(mirror_live[:, None], lt + c * tint, lt)
         v = torch.where(dif, u + n * side[:, None], d - 2.0 * dn[:, None] * n)
+        if has_glass:
+            # Snell refraction on the unit direction, Schlick's reflectance.
+            dinv = 1.0 / torch.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2])
+            dh = d * dinv[:, None]
+            ne = n * side[:, None]
+            cos_i = torch.clamp(
+                -((dh[:, 0] * ne[:, 0] + dh[:, 1] * ne[:, 1]) + dh[:, 2] * ne[:, 2]), 0.0, 1.0)
+            eta = torch.where(side > 0.0, 1.0 / torch.clamp_min(ior, _f32(1e-6)), ior)
+            sin2t = eta * eta * (1.0 - cos_i * cos_i)
+            tir = sin2t > 1.0
+            if cfg.fresnel:
+                r0 = (1.0 - eta) / (1.0 + eta)
+                r0 = r0 * r0
+                p = 1.0 - cos_i
+                p2 = p * p
+                reflect_p = torch.where(tir, 1.0, r0 + (1.0 - r0) * (p2 * p2 * p))
+                rng, word = _pcg_scramble(rng)
+                u3 = (word >> 8).to(torch.float32) * (1.0 / (1 << 24))
+                do_refl = u3 < reflect_p
+            else:
+                do_refl = tir
+            coef = eta * cos_i - torch.sqrt(torch.clamp_min(1.0 - sin2t, 0.0))
+            dnh = dn * dinv
+            g = torch.where(do_refl[:, None], dh - 2.0 * dnh[:, None] * n,
+                            eta[:, None] * dh + coef[:, None] * ne)
+            v = torch.where(glass[:, None], g, v)
+            glass_live = glass & (mh_new < cfg.mirror_limit)
+            tp = torch.where(glass_live[:, None], tp * c, tp)
         v_inv = 1.0 / torch.sqrt((v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]) + v[:, 2] * v[:, 2])
         o = o + d * t[:, None]
         d = v * v_inv[:, None]
         mh = mh_new
         dc = dc + diffuse.to(torch.int32)
-        alive = hit & ~(mirror & (mh_new >= cfg.mirror_limit)) & (dc < cfg.bounce_limit)
+        alive = hit & ~(spec & (mh_new >= cfg.mirror_limit)) & (dc < cfg.bounce_limit)
     if stats is not None:
-        for name, n in zip(("tile_visits", "plane_tests", "edge_tests"), counts.tolist()):
+        names = ("tile_visits", "plane_tests", "edge_tests", "sphere_tests", "glass_hits")
+        for name, n in zip(names, counts.tolist() + [int(glass_hits)]):
             stats[name] = stats.get(name, 0) + n
     return lt
 
@@ -328,10 +434,11 @@ def trace_paths_fused(
     """Trace a ray wavefront; returns light [R, 3]. The CUDA kernel for
     CUDA tensors, the plain version for CPU tensors."""
     dev = ori.device
-    planes, tiles = scene.planes, scene.tiles
+    planes, spheres, tiles = scene.planes, scene.spheres, scene.tiles
     if anchor is None:
         anchor = torch.zeros(3, dtype=torch.float32, device=dev)
-    checked = [("planes", planes, torch.float32), ("tiles", tiles, torch.float32),
+    checked = [("planes", planes, torch.float32), ("spheres", spheres, torch.float32),
+               ("tiles", tiles, torch.float32),
                ("ori", ori, torch.float32), ("dirs", dirs, torch.float32),
                ("seed", seed, torch.int32), ("anchor", anchor, torch.float32)]
     if seed_row is not None:
@@ -341,8 +448,11 @@ def trace_paths_fused(
             raise ValueError(f"{name} must be {dtype} on {dev}, got {x.dtype} on {x.device}")
     if ori.ndim != 2 or ori.shape[1] != 3 or dirs.shape != ori.shape:
         raise ValueError(f"ori/dirs must both be [R, 3], got {tuple(ori.shape)}, {tuple(dirs.shape)}")
-    if planes.ndim != 2 or planes.shape[1] != 20 or tiles.ndim != 2 or tiles.shape[1] != 8:
-        raise ValueError("the scene must hold [P, 20] plane records and an [T, 8] tile table")
+    if (planes.ndim != 2 or planes.shape[1] != 20 or spheres.ndim != 2
+            or spheres.shape[1] != SPHERE_RECORD_WIDTH or tiles.ndim != 2
+            or tiles.shape[1] != TILE_WIDTH):
+        raise ValueError("the scene must hold [P, 20] plane records, [S, 16] sphere records "
+                         "and a [T, 9] tile table")
     if sum(g[2] for g in scene.group_meta) != tiles.shape[0]:
         raise ValueError("group_meta must account for every tile")
     if seed.numel() != 1:
@@ -357,17 +467,23 @@ def trace_paths_fused(
     if dev.type != "cuda":
         raise ValueError(f"trace_paths_fused runs on cuda or cpu tensors, got {dev}")
     order = tile_order(tiles, scene.group_meta, anchor)
-    ori, dirs, planes, tiles, seed = (x.contiguous() for x in (ori, dirs, planes, tiles, seed))
+    ori, dirs, planes, spheres, tiles, seed = (
+        x.contiguous() for x in (ori, dirs, planes, spheres, tiles, seed))
     if seed_row is not None:
         seed_row = seed_row.contiguous()
     light = torch.empty_like(ori)
     lf = cfg.lighting_factor
+    # Which stages the scene needs: triangles or spheres, and glass.
+    modes = {g[0] for g in scene.group_meta}
+    prims = bool(modes & {3, 4, 5, 7})
     kernels.launch(
         "tracer", ori.data_ptr(), dirs.data_ptr(), planes.data_ptr(), planes.shape[0],
+        spheres.data_ptr(), spheres.shape[0],
         tiles.data_ptr(), tiles.shape[0], tiles.shape[0] - order.shape[0], order.data_ptr(),
         seed.data_ptr(), seed_row.data_ptr() if seed_row is not None else None,
         light.data_ptr(), ori.shape[0], rows_per_block * LANES,
         cfg.max_segments, cfg.bounce_limit, cfg.mirror_limit,
+        int(prims), int(scene.has_glass), int(cfg.fresnel),
         _f32(cfg.mirror_tint), _f32(cfg.t_min),
         *(_f32(c) for c in cfg.sky_color), _f32(cfg.sky_strength), _f32(lf),
         _f32(np.log(lf)) if lf > 0.0 else 0.0,

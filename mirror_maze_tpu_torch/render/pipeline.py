@@ -1,19 +1,26 @@
 """Frame rendering pipeline: pixels -> traced colors (counterpart of the JAX
-package's ``render/pipeline.py``: the pinhole camera, the fused-tracer
-branch and the offline full-frame render).
+package's ``render/pipeline.py``: the pinhole and thin-lens cameras, the
+fused-tracer branch and the offline full-frame render).
 
 Per sample, as the compute kernel (`shaders.metal:281-303`): one camera ray
 per pixel, an unnormalized direction jitter of scale ``cfg.tracer.jitter``
-per sample, then the per-sample tone map and a mean over the samples.
+per sample, then the per-sample tone map and a mean over the samples. With
+``cfg.camera.aperture`` > 0 each sample's origin moves on a lens disk in the
+camera plane and its direction is aimed again at the ray's point at
+``focus_dist``, so what lies there stays sharp.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..config import EngineConfig
 from ..ops import prng
+from ..ops import quat as quat_ops
 from ..ops.sampling import ray_jitter
+from ..ops.vecmath import normalize
 from ..utils.noise import sample_noise
 from .camera import Camera, ray_directions
 from .fused_tracer import trace_paths_fused
@@ -34,8 +41,6 @@ def frame_rays(
     dirs [K*spp, 3], kernel seed int32 [1], seed row [K*spp] or None). With
     ``cfg.tracer.noise_rng`` the seed row is the pixel's sample of ``noise``,
     shared by the pixel's samples (`shaders.metal:288-300`)."""
-    if cfg.camera.aperture > 0.0:
-        raise NotImplementedError("depth of field is not ported yet")
     spp = cfg.screen.samples_per_pixel
     k = pixels_xy.shape[0]
     jkey, tkey = prng.split(key)
@@ -45,6 +50,20 @@ def frame_rays(
     jit = ray_jitter(jkey, (k, spp), cfg.tracer.jitter)      # [K, spp, 3]
     dirs = (base_dir[:, None, :] + jit).reshape(k * spp, 3)
     ori = cam.center.expand(k * spp, 3).contiguous()
+    if cfg.camera.aperture > 0.0:
+        # Thin lens: a uniform point of the lens disk (radius sqrt(u1) *
+        # aperture, angle 2 pi u2) in the camera plane. sin and cos are
+        # evaluated in float64 and rounded once, the same on every device.
+        u = prng.uniform(prng.fold_in(jkey, 1), (2, k * spp))
+        r = torch.sqrt(u[0]) * cfg.camera.aperture
+        phi = (u[1] * (2.0 * math.pi)).double()
+        off_cam = torch.stack([r * torch.cos(phi).float(), r * torch.sin(phi).float(),
+                               torch.zeros_like(r)], dim=-1)
+        off = quat_ops.rotate(off_cam, cam.rotation.expand(off_cam.shape[:-1] + (4,)))
+        focus_p = ori + dirs * cfg.camera.focus_dist
+        ori = ori + off
+        # Normalized: t, and with it t_min, is measured in units of |d|.
+        dirs = normalize(focus_p - ori)
     seed = prng.randint(tkey, (), 0, INT32_MAX).reshape(1)
     seed_row = None
     if cfg.tracer.noise_rng:
@@ -76,6 +95,23 @@ def render_pixels(
     return tone_map(light).reshape(-1, spp, 3).mean(dim=1)
 
 
+def frame_row_batches(cfg: EngineConfig, key: torch.Tensor, rows_per_batch: int, device):
+    """The offline render's work list: (pixels [rows * W, 2] int32, key) of
+    each block of ``rows_per_batch`` pixel rows (cut to the largest divisor
+    of the height not above it), top to bottom, each with its own key."""
+    h, w = cfg.screen.height, cfg.screen.width
+    while h % rows_per_batch != 0:
+        rows_per_batch -= 1
+    xs = torch.arange(w, dtype=torch.int32, device=device)
+    keys = prng.split(key, h // rows_per_batch)
+    for b in range(h // rows_per_batch):
+        ys = torch.arange(b * rows_per_batch, (b + 1) * rows_per_batch,
+                          dtype=torch.int32, device=device)
+        pix = torch.stack([xs.expand(rows_per_batch, w),
+                           ys[:, None].expand(rows_per_batch, w)], dim=-1).reshape(-1, 2)
+        yield pix, keys[b]
+
+
 def render_full_frame(
     scene: DeviceScene,
     cam: Camera,
@@ -85,17 +121,7 @@ def render_full_frame(
 ) -> torch.Tensor:
     """Offline full-frame render [H, W, 3] (float32, tone-mapped, not
     blurred), one block of pixel rows at a time, each with its own key."""
-    h, w = cfg.screen.height, cfg.screen.width
-    while h % rows_per_batch != 0:  # largest divisor of h <= requested
-        rows_per_batch -= 1
-    dev = cam.center.device
-    xs = torch.arange(w, dtype=torch.int32, device=dev)
-    keys = prng.split(key, h // rows_per_batch)
-    blocks = []
-    for b in range(h // rows_per_batch):
-        ys = torch.arange(b * rows_per_batch, (b + 1) * rows_per_batch,
-                          dtype=torch.int32, device=dev)
-        pix = torch.stack([xs.expand(rows_per_batch, w),
-                           ys[:, None].expand(rows_per_batch, w)], dim=-1).reshape(-1, 2)
-        blocks.append(render_pixels(scene, cam, pix, keys[b], cfg).reshape(rows_per_batch, w, 3))
-    return torch.cat(blocks)
+    w = cfg.screen.width
+    return torch.cat([render_pixels(scene, cam, pix, bkey, cfg).reshape(-1, w, 3)
+                      for pix, bkey in frame_row_batches(cfg, key, rows_per_batch,
+                                                         cam.center.device)])

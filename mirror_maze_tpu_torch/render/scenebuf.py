@@ -5,9 +5,10 @@ query read).
 The reference uploads its scene once at init (`main.rs:723-730`). Here the
 upload builds the Morton/kind-ordered plane table of the JAX package's
 Pallas tracer (same rows, same order, bitwise), the compact per-plane
-record the CUDA tracer reads, the tile table (the reference's partition of
-each test mode's rows into tiles with a conservative AABB), the noise
-texture and the BVH leaf boxes. The TPU's matrix-unit operand packing
+records the CUDA tracer reads (planes and spheres, grouped by test mode),
+the tile table (the reference's partition of each test mode's primitives
+into tiles with a conservative AABB), the noise texture and the collision
+boxes (BVH leaves and spheres). The TPU's matrix-unit operand packing
 (``_pack_group``) has no counterpart: the CUDA tracer tests planes per
 thread with plain f32 arithmetic.
 """
@@ -37,23 +38,55 @@ VALID_COL = 19
 # The fused tracer's per-plane record, [P, 20] float32 (render/fused_tracer.py
 # and csrc/tracer.cu read these offsets): normal 0:3, d 3, w1 4:7, b1 7,
 # w2 8:11, b2 11, albedo 12:15, premultiplied emission 15:18, is_mirror 18,
-# test mode 19 (0 full quad, 1 along-wall edge only, 2 no edge test).
+# ior 19 (0 = opaque). The records stand grouped by test mode.
 RECORD_WIDTH = 20
+
+# The per-sphere record, [S, 16] float32: centre 0:3, |c|^2 - r^2 3, albedo
+# 4:7, premultiplied emission 7:10, is_mirror 10, ior 11, 1/r 12, padding.
+SPHERE_RECORD_WIDTH = 16
+
+# Column layout of the [S, 18] sphere table (the JAX package's
+# pallas_tracer.build_sphere_table).
+SPHERE_WIDTH = 18
+
+# A row of the tile table, [T, 9] float32: box lo 0:3, box hi 3:6, first
+# record 6, records 7, test mode 8.
+TILE_WIDTH = 9
+
+# Test modes (the reference's groups): 0 opaque quads tested on both edges,
+# 1 on the along-wall edge only, 2 on no edge; 3 opaque spheres; 4 opaque
+# triangles; 5 glass spheres; 6 glass quads (both edges whatever the kind);
+# 7 glass triangles. Tiles of modes 3 and 5 index the sphere records, the
+# others the plane records.
+SPHERE_MODES = (3, 5)
+GLASS_MODES = (5, 6, 7)
+N_MODES = 8
 
 
 class DeviceScene(NamedTuple):
     plane_table: torch.Tensor   # [P, 40] ordered plane table (reference layout)
-    planes: torch.Tensor        # [P, 20] fused-tracer records, same order
-    mode_counts: tuple          # (planes of mode 0, of mode 1, of mode 2)
-    tiles: torch.Tensor         # [T, 8] tile table in merge order (tile_table)
+    planes: torch.Tensor        # [P, 20] fused-tracer records, grouped by mode
+    sphere_table: torch.Tensor  # [S, 18] sphere table (reference layout)
+    spheres: torch.Tensor       # [S, 16] sphere records, opaque first, then glass
+    mode_counts: tuple          # primitives of each test mode 0..7
+    tiles: torch.Tensor         # [T, 9] tile table in merge order (tile_table)
     group_meta: tuple           # ((mode, first tile, tiles), ...) in merge order
     noise: torch.Tensor         # [S, S] noise texture in [0, 1) (noise_rng)
-    leaf_min: torch.Tensor      # [L, 3] BVH leaf boxes (collision)
+    leaf_min: torch.Tensor      # [L, 3] BVH leaf boxes and sphere boxes (collision)
     leaf_max: torch.Tensor      # [L, 3]
 
     @property
     def num_planes(self) -> int:
         return self.planes.shape[0]
+
+    @property
+    def num_spheres(self) -> int:
+        return self.spheres.shape[0]
+
+    @property
+    def has_glass(self) -> bool:
+        """The scene has a glass group: the tracer's dielectric stage runs."""
+        return any(g[0] in GLASS_MODES for g in self.group_meta)
 
 
 def build_plane_table(der, scene=None) -> np.ndarray:
@@ -115,43 +148,104 @@ def ordered_plane_table(scene: Scene) -> np.ndarray:
     return table[order]
 
 
+def build_sphere_table(scene: Scene) -> np.ndarray:
+    """The scene's spheres as the [S, 18] table of the JAX package's
+    pallas_tracer.build_sphere_table, column for column: centre 0:3, 1/r 3,
+    |c|^2 - r^2 4 (summed in float64, rounded once), albedo 5:8,
+    premultiplied emission 8:11, is_mirror 11, ior 12, texture 13:18."""
+    c = np.asarray(scene.sph_center, np.float32)
+    r = np.asarray(scene.sph_radius, np.float32)
+    em = np.asarray(scene.sph_emission, np.float32)
+    t = np.zeros((c.shape[0], SPHERE_WIDTH), np.float32)
+    t[:, 0:3] = c
+    t[:, 3] = 1.0 / r
+    t[:, 4] = (np.sum(c.astype(np.float64) ** 2, axis=-1)
+               - r.astype(np.float64) ** 2).astype(np.float32)
+    t[:, 5:8] = np.asarray(scene.sph_color, np.float32)
+    t[:, 8:11] = em[:, :3] * em[:, 3:4]
+    t[:, 11] = np.asarray(scene.sph_is_mirror).astype(np.float32)
+    t[:, 12] = np.asarray(scene.sph_ior, np.float32)
+    t[:, 13] = np.asarray(scene.sph_tex_kind, np.float32)
+    t[:, 14] = np.asarray(scene.sph_tex_scale, np.float32)
+    t[:, 15:18] = np.asarray(scene.sph_tex_color2, np.float32)
+    return t
+
+
+def plane_modes(table: np.ndarray) -> np.ndarray:
+    """The test mode of each row of a plane table: the kind for an opaque
+    quad, 4 for an opaque triangle (kind 3), 6 for a glass quad of any kind
+    and 7 for a glass triangle."""
+    kinds = table[:, KIND_COL].astype(np.int32)
+    tri = kinds == 3
+    glass = table[:, 27] > 0.0
+    return np.where(glass, np.where(tri, 7, 6), np.where(tri, 4, kinds))
+
+
 def plane_records(table: np.ndarray) -> tuple[np.ndarray, tuple]:
-    """The fused tracer's [P, 20] records and its per-mode plane counts.
-
-    Raises for what this tracer does not trace yet: triangles (kind 3),
-    glass (ior > 0) and textures."""
-    kinds = table[:, KIND_COL]
-    if (kinds > 2).any() or (table[:, 27] > 0).any() or (table[:, 28] > 0).any():
-        raise NotImplementedError(
-            "the fused tracer traces opaque, untextured quads of kinds 0-2 "
-            "only (triangles, glass and textures are not ported yet)"
-        )
-    rec = np.concatenate([table[:, 0:19], table[:, KIND_COL:KIND_COL + 1]], axis=1)
-    counts = tuple(int((kinds == m).sum()) for m in (0, 1))
-    return np.ascontiguousarray(rec, np.float32), counts + (len(table) - sum(counts),)
+    """The fused tracer's [P, 20] records, grouped by test mode (within a
+    mode in table order, as the reference's groups are), and the plane
+    counts of the modes 0..7. Raises for textured planes."""
+    if (table[:, 28] > 0).any():
+        raise NotImplementedError("the fused tracer does not trace textured planes yet")
+    modes = plane_modes(table)
+    rows = table[np.argsort(modes, kind="stable")]
+    rec = np.concatenate([rows[:, 0:19], rows[:, 27:28]], axis=1)
+    counts = tuple(int((modes == m).sum()) for m in range(N_MODES))
+    return np.ascontiguousarray(rec, np.float32), counts
 
 
-def tile_table(table: np.ndarray, tile_by_mode: dict | None = None):
+def sphere_records(sphere_table: np.ndarray) -> np.ndarray:
+    """The [S, 16] sphere records, the opaque spheres (mode 3) first, then
+    the glass ones (mode 5), each in table order. Raises for textured
+    spheres."""
+    if (sphere_table[:, 13] > 0).any():
+        raise NotImplementedError("the fused tracer does not trace textured spheres yet")
+    glass = sphere_table[:, 12] > 0.0
+    t = sphere_table[np.argsort(glass, kind="stable")]
+    rec = np.zeros((t.shape[0], SPHERE_RECORD_WIDTH), np.float32)
+    rec[:, 0:3] = t[:, 0:3]
+    rec[:, 3] = t[:, 4]
+    rec[:, 4:12] = t[:, 5:13]
+    rec[:, 12] = t[:, 3]
+    return rec
+
+
+def tile_table(table: np.ndarray, tile_by_mode: dict | None = None,
+               sphere_table: np.ndarray | None = None):
     """The reference's tile partition of an ordered plane table (valid rows
-    only, grouped by test mode 0, 1, 2): (tiles [T, 8] float32, group_meta).
+    only, ordered by kind) and a sphere table: (tiles [T, 9] float32,
+    group_meta).
 
-    Within a mode the rows are cut into tiles of pt = min(round_up(P, 8),
-    tile) rows, tile = ``tile_by_mode[mode]`` or PLANE_TILE. A tile's row is
-    AABB lo 0:3 and hi 3:6 (min/max of its rows' columns 20:26, inflated by
-    1e-2 so the tracer's skip stays conservative; an empty box for a tile of
-    padding only), its first table row 6 and its row count 7.
+    The primitives of one test mode, in table order, are cut into tiles of
+    pt = min(round_up(P, 8), tile) of them, tile = ``tile_by_mode[mode]`` or
+    PLANE_TILE. A tile's row is AABB lo 0:3 and hi 3:6, its first record 6
+    and its record count 7 (indices into ``plane_records`` or, for the
+    sphere modes, ``sphere_records``), and its mode 8. The box is the
+    min/max of the planes' columns 20:26, or of the spheres' centre -+ 1/inv_r,
+    inflated by 1e-2 so the tracer's skip stays conservative; an empty box
+    for a tile of padding only.
 
     Tiles stand in the tracer's merge order, one ``(mode, first tile,
     tiles)`` entry of ``group_meta`` per group: the single-tile groups
-    first (tested jointly), then the multi-tile groups, most tiles first
-    (ties keep the mode order)."""
-    kinds = table[:, KIND_COL]
-    if np.any(np.diff(kinds) < 0):
-        raise ValueError("the plane table must be ordered by test mode")
+    first, in mode order (tested jointly), then the multi-tile groups, most
+    tiles first (ties keep the mode order)."""
+    if np.any(np.diff(table[:, KIND_COL]) < 0):
+        raise ValueError("the plane table must be ordered by kind")
+    if sphere_table is None:
+        sphere_table = np.zeros((0, SPHERE_WIDTH), np.float32)
+    centre = sphere_table[:, 0:3]
+    radius = np.float32(1.0) / sphere_table[:, 3:4]
+    # (mode of each primitive, its box lo, its box hi), planes and spheres.
+    planes = (plane_modes(table), table[:, 20:23], table[:, 23:26])
+    spheres = (np.where(sphere_table[:, 12] > 0.0, 5, 3), centre - radius, centre + radius)
+    eps = np.float32(1e-2)
     groups = []
-    row0 = 0
-    for mode in (0, 1, 2):
-        p = int((kinds == mode).sum())
+    first = {False: 0, True: 0}     # next record: of the planes, of the spheres
+    for mode in range(N_MODES):
+        is_sph = mode in SPHERE_MODES
+        of_mode, lo_all, hi_all = spheres if is_sph else planes
+        lo_all, hi_all = lo_all[of_mode == mode], hi_all[of_mode == mode]
+        p = len(lo_all)
         if p == 0:
             continue
         p8 = -(-p // 8) * 8
@@ -159,40 +253,50 @@ def tile_table(table: np.ndarray, tile_by_mode: dict | None = None):
         rows = []
         for k in range(-(-p8 // pt)):
             a, b = min(k * pt, p), min((k + 1) * pt, p)
-            box = table[row0 + a:row0 + b, 20:26]
-            lo = box[:, 0:3].min(axis=0, initial=np.float32(BIG)) - np.float32(1e-2)
-            hi = box[:, 3:6].max(axis=0, initial=np.float32(-BIG)) + np.float32(1e-2)
-            rows.append(np.concatenate([lo, hi, [row0 + a, b - a]]).astype(np.float32))
+            lo = lo_all[a:b].min(axis=0, initial=np.float32(BIG)) - eps
+            hi = hi_all[a:b].max(axis=0, initial=np.float32(-BIG)) + eps
+            rows.append(np.concatenate([lo, hi, [first[is_sph] + a, b - a, mode]])
+                        .astype(np.float32))
         groups.append((mode, rows))
-        row0 += p
+        first[is_sph] += p
     single = [g for g in groups if len(g[1]) == 1]
     multi = sorted((g for g in groups if len(g[1]) > 1), key=lambda g: -len(g[1]))
     tiles, meta = [], []
     for mode, rows in single + multi:
         meta.append((mode, len(tiles), len(rows)))
         tiles += rows
-    return np.array(tiles, np.float32).reshape(-1, 8), tuple(meta)
+    return np.array(tiles, np.float32).reshape(-1, TILE_WIDTH), tuple(meta)
 
 
 def upload_scene(scene: Scene, device=None, noise: np.ndarray | None = None,
                  tile_by_mode: dict | None = None) -> DeviceScene:
     """Derive the tracer tables and the collision boxes and place them on
     ``device`` (None = the CUDA card). ``noise`` replaces the generated
-    512x512 noise texture; ``tile_by_mode`` ({mode: rows}) overrides the
-    tile size per test mode, which lets a small scene have many tiles."""
+    512x512 noise texture; ``tile_by_mode`` ({mode: primitives}) overrides
+    the tile size per test mode, which lets a small scene have many tiles.
+    Collision sees a sphere as its bounding box, appended to the BVH's leaf
+    boxes."""
     dev = resolve_device(device)
-    if scene.num_spheres:
-        raise NotImplementedError("spheres are not ported yet")
     table = ordered_plane_table(scene)
+    sphere_table = build_sphere_table(scene)
     records, counts = plane_records(table)
-    tiles, group_meta = tile_table(table, tile_by_mode)
+    n_glass = int((sphere_table[:, 12] > 0.0).sum())
+    counts = counts[:3] + (len(sphere_table) - n_glass, counts[4], n_glass) + counts[6:]
+    tiles, group_meta = tile_table(table, tile_by_mode, sphere_table)
     if noise is None:
         noise = generate_noise()
     leaf_min, leaf_max = build_bvh(scene.origin, scene.u, scene.v).leaf_boxes()
+    if scene.num_spheres:
+        centre = np.asarray(scene.sph_center, np.float32)
+        radius = np.asarray(scene.sph_radius, np.float32)[:, None]
+        leaf_min = np.concatenate([leaf_min, centre - radius], axis=0)
+        leaf_max = np.concatenate([leaf_max, centre + radius], axis=0)
     as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
     return DeviceScene(
         plane_table=as_dev(table),
         planes=as_dev(records),
+        sphere_table=as_dev(sphere_table),
+        spheres=as_dev(sphere_records(sphere_table)),
         mode_counts=counts,
         tiles=as_dev(tiles),
         group_meta=group_meta,

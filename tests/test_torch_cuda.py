@@ -14,11 +14,15 @@ import torch
 
 import mirror_maze_tpu_torch as P
 from _torch_tools import (
+    aimed_rays,
     assert_frames_match,
+    cornell_scene,
     golden_config,
     golden_script,
     multi_tile_config,
     multi_tile_script,
+    primitive_zoo,
+    scene_subset,
     soup_arrays,
 )
 from mirror_maze_tpu_torch import kernels
@@ -120,6 +124,46 @@ def test_sky_term_kernel_matches_plain(cuda_device, lighting_factor):
     dark = trace_paths_fused(scene, o, d, torch.tensor([7], dtype=torch.int32, device=o.device),
                              TracerConfig(bounce_limit=3, mirror_limit=2), 8)
     assert float(lit.sum()) > float(dark.sum())
+
+
+ZOO_TILES = {1: 16, 3: 4, 4: 16, 5: 2, 6: 8, 7: 8}
+
+
+@pytest.mark.parametrize("fresnel", [False, True])
+@pytest.mark.parametrize("tiles", [None, ZOO_TILES])
+@pytest.mark.parametrize("modes", [(3,), (4,), (5,), (6,), (7,), (3, 4, 5, 6, 7)])
+def test_spheres_triangles_glass_kernel_matches_plain(cuda_device, modes, tiles, fresnel):
+    """Each of the test modes 3-7 alone in an 8x8 maze, and all eight modes
+    together, every group in one tile and cut into several (some of padding
+    only); half the rays aim at the primitives. Glass triangles (mode 7)
+    are on no driven path: this is where the kernel's branch for them is
+    held against the plain version."""
+    scene = scene_subset(primitive_zoo(8), set(modes))
+    dev = upload_scene(scene, device=cuda_device, tile_by_mode=tiles)
+    assert {g[0] for g in dev.group_meta} == {0, 1, 2} | set(modes)
+    assert (max(g[2] for g in dev.group_meta) > 1) == (tiles is not None)
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in aimed_rays(scene, 100_001, 9, 39.0))
+    tracer = TracerConfig(bounce_limit=4, mirror_limit=6, fresnel=fresnel)
+    anchor = torch.tensor([2.0, -1.0, -4.0], device=cuda_device)
+    got = _kernel_vs_plain(dev, o, d, tracer, 32, anchor=anchor)
+    if dev.has_glass:
+        other = trace_paths_fused(dev, o, d, torch.tensor([7], dtype=torch.int32, device=o.device),
+                                  TracerConfig(bounce_limit=4, mirror_limit=6,
+                                               fresnel=not fresnel), 32, anchor=anchor)
+        assert not torch.equal(got, other)
+
+
+@pytest.mark.parametrize("variant", ["spheres", "glass"])
+def test_cornell_box_kernel_matches_plain(cuda_device, variant):
+    """Rays from inside the room, and for the glass variant also from inside
+    the glass sphere (the far root)."""
+    scene = cornell_scene(variant)
+    dev = upload_scene(scene, device=cuda_device)
+    o, d = aimed_rays(scene, 100_000, 5, 4.5)
+    if variant == "glass":
+        o[:1000] = np.asarray(scene.sph_center)[0] + 0.5 * d[:1000]
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in (o, d))
+    _kernel_vs_plain(dev, o, d, TracerConfig(), 32)
 
 
 def test_scripted_run_on_the_card_matches_golden(cuda_device):

@@ -9,10 +9,12 @@ atol=1e-6.
 
 A third run covers the multi-tile path end to end: a 16x16 maze (its walls
 fill two tiles), ``noise_rng`` on, the chunk window Morton-sorted, 12 frames.
-The offline ``render_full_frame`` is held against the JAX one at 32x24:
-float frames, >= 99.5% of values within atol 1e-5 and the mean within 1e-3
-(the camera glue differs from jitted XLA by an ulp, which can flip a hit on
-an edge).
+A fourth runs a 6x6 maze with glass panes (``glass_prob`` 0.5, ``fresnel``
+on) for the same 12 frames. The offline ``render_full_frame`` is held
+against the JAX one at 32x24, and on the Cornell box with the glass sphere
+through the thin lens at 32x32: float frames, >= 99.5% of values within
+atol 1e-5 and the mean within 1e-3 (the camera glue differs from jitted XLA
+by an ulp, which can flip a hit on an edge or a reflect/refract decision).
 """
 
 import dataclasses
@@ -26,8 +28,13 @@ import _golden_tools
 import mirror_maze_tpu_torch as P
 from _golden_tools import golden_cfg
 from _torch_tools import (
+    CORNELL_GLASS_CENTRE,
+    GALLERY_SPAWN,
     assert_frames_match,
     compare_states,
+    cornell_scene,
+    gallery_config,
+    glass_maze_config,
     golden_config,
     golden_script,
     multi_tile_config,
@@ -40,9 +47,11 @@ from mirror_maze_tpu.render.pipeline import render_full_frame as j_full_frame
 from mirror_maze_tpu.runtime.state import init_state as j_init
 from mirror_maze_tpu.runtime.loop import run_scripted as j_run
 from mirror_maze_tpu.runtime.state import FrameInputs as JInputs
+from mirror_maze_tpu.render.camera import make_camera as j_make_camera
 from mirror_maze_tpu.scene import build_scene as j_build
+from mirror_maze_tpu.scene.builder import Scene as JScene
 from mirror_maze_tpu_torch.ops import prng
-from mirror_maze_tpu_torch.render import render_full_frame, upload_scene
+from mirror_maze_tpu_torch.render import make_camera, render_full_frame, upload_scene
 from mirror_maze_tpu_torch.runtime.state import init_state
 from mirror_maze_tpu_torch.runtime.loop import run_scripted
 from mirror_maze_tpu_torch.runtime.state import FrameInputs
@@ -122,6 +131,47 @@ def test_render_full_frame_matches_jax():
     assert np.isclose(got, want, rtol=0, atol=1e-5).mean() >= 0.995
     assert abs(got.mean() - want.mean()) <= 1e-3 * want.mean()
     assert want.mean() > 0
+
+
+def test_glass_maze_run_matches_jax():
+    jcfg = glass_maze_config(j_config)
+    cfg = port_config(jcfg)
+    assert cfg == glass_maze_config(P)
+    scene = upload_scene(build_scene(cfg.maze), device="cpu")
+    assert scene.has_glass and scene.mode_counts[6] == 2
+    st, frame = run_scripted(scene, cfg, inputs=multi_tile_script(FrameInputs))
+    jst, jframe = j_run(j_upload(j_build(jcfg.maze)), jcfg, inputs=multi_tile_script(JInputs))
+    assert_frames_match(frame, np.asarray(jframe))
+    compare_states(jst, st)
+    assert frame.mean() > 1.0
+    # The panes are in the picture: the same run without them differs.
+    bare = dataclasses.replace(cfg, maze=dataclasses.replace(cfg.maze, glass_prob=0.0))
+    _, other = run_scripted(upload_scene(build_scene(bare.maze), device="cpu"), bare,
+                            inputs=multi_tile_script(FrameInputs))
+    assert (frame != other).any()
+
+
+def test_cornell_glass_full_frame_matches_jax():
+    focus = float(np.linalg.norm(np.subtract(CORNELL_GLASS_CENTRE, GALLERY_SPAWN)))
+    cfg = gallery_config(32, 4, aperture=0.15, focus_dist=focus)
+    jcfg = j_config.EngineConfig(
+        camera=j_config.CameraConfig(**dataclasses.asdict(cfg.camera)),
+        screen=j_config.ScreenConfig(**dataclasses.asdict(cfg.screen)),
+        intersector="pallas")
+    assert port_config(jcfg) == cfg
+    scene = cornell_scene("glass")
+    got = render_full_frame(upload_scene(scene, device="cpu"),
+                            make_camera(cfg.camera, 1.0, "cpu"), prng.PRNGKey(0, device="cpu"),
+                            cfg, rows_per_batch=16).numpy()
+    jscene = JScene(**{f.name: getattr(scene, f.name) for f in dataclasses.fields(scene)})
+    want = np.asarray(j_full_frame(j_upload(jscene), j_make_camera(jcfg.camera, 1.0),
+                                   jax.random.PRNGKey(0), jcfg, rows_per_batch=16))
+    assert got.shape == want.shape == (32, 32, 3) and got.dtype == np.float32
+    close = np.isclose(got, want, rtol=0, atol=1e-5).mean()
+    print(f"cornell glass, thin lens: {close:.4f} of values within 1e-5")
+    assert close >= 0.995
+    assert abs(got.mean() - want.mean()) <= 1e-3 * want.mean()
+    assert want.mean() > 0.05
 
 
 def test_scripted_run_matches_committed_golden():

@@ -23,6 +23,7 @@ def _modules():
 def test_importing_every_module_pulls_in_no_jax():
     mods = _modules()
     assert "mirror_maze_tpu_torch.render.fused_tracer" in mods
+    assert "mirror_maze_tpu_torch.scene.mesh" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -1,23 +1,35 @@
-"""Host scene build, plane table, tile table, noise texture and collision
-boxes: the port against the JAX package, bitwise."""
+"""Host scene build, plane table, sphere table, tile table, noise texture,
+collision boxes and the mesh toolkit: the port against the JAX package,
+bitwise."""
 
 import dataclasses
+import importlib.util
+import os
 
 import numpy as np
 import pytest
 
-from _torch_tools import soup_arrays
+from _torch_tools import cornell_scene, mesh_gallery_scene, primitive_zoo, soup_arrays
 from mirror_maze_tpu.config import MazeConfig as JMaze
+from mirror_maze_tpu.render.pallas_tracer import build_sphere_table as j_sphere_table
 from mirror_maze_tpu.render.pallas_tracer import pack_intersection_tables
 from mirror_maze_tpu.render.scenebuf import upload_scene as j_upload
 from mirror_maze_tpu.scene import build_scene as j_build
 from mirror_maze_tpu.scene.bvh import build_bvh as j_bvh
 from mirror_maze_tpu.scene.builder import Scene as JScene
 from mirror_maze_tpu.scene.bvh import traversal_bounds as j_bounds
+from mirror_maze_tpu.scene import mesh as j_mesh
 from mirror_maze_tpu.utils import noise as j_noise
 from mirror_maze_tpu_torch.config import MazeConfig
-from mirror_maze_tpu_torch.render.scenebuf import plane_records, tile_table, upload_scene
-from mirror_maze_tpu_torch.scene import build_scene
+from mirror_maze_tpu_torch.render.scenebuf import (
+    build_sphere_table,
+    plane_modes,
+    plane_records,
+    sphere_records,
+    tile_table,
+    upload_scene,
+)
+from mirror_maze_tpu_torch.scene import build_scene, mesh
 from mirror_maze_tpu_torch.scene.bvh import build_bvh, traversal_bounds
 from mirror_maze_tpu_torch.utils import noise
 
@@ -51,15 +63,19 @@ def test_plane_table_and_leaf_boxes_bitwise(w, seed, rng):
     _bitwise(pdev.plane_table.numpy(), np.asarray(jdev.plane_table))
     _bitwise(pdev.leaf_min.numpy(), np.asarray(jdev.leaf_min))
     _bitwise(pdev.leaf_max.numpy(), np.asarray(jdev.leaf_max))
-    # The tracer records are the table's first 19 columns plus the test mode,
-    # in table order, grouped mode 0, 1, 2 as the kernel's groups are.
+    # The tracer records are the table's first 19 columns plus the ior, in
+    # table order (a maze of opaque quads is already grouped mode 0, 1, 2, as
+    # the kernel's groups are), and the tile table names each tile's mode.
     table = pdev.plane_table.numpy()
     rec = pdev.planes.numpy()
     _bitwise(rec[:, :19], table[:, :19])
-    _bitwise(rec[:, 19], table[:, 26])
-    n0, n1, n2 = pdev.mode_counts
+    _bitwise(rec[:, 19], table[:, 27])
+    n0, n1, n2 = pdev.mode_counts[:3]
     assert (n0, n1, n2) == tuple(int((table[:, 26] == m).sum()) for m in (0, 1, 2))
-    assert np.all(np.diff(rec[:, 19]) >= 0)
+    assert sum(pdev.mode_counts[3:]) == 0 and not pdev.has_glass
+    tiles = pdev.tiles.numpy()
+    for t in tiles:
+        assert np.all(table[int(t[6]):int(t[6] + t[7]), 26] == t[8])
 
 
 def test_bvh_matches_numpy_builder():
@@ -79,16 +95,25 @@ def test_interactive_scene_is_the_kernel_slice():
 
     dev = upload_scene(build_scene(config_interactive().maze), device="cpu")
     assert dev.num_planes == 72
-    assert all(n > 0 for n in dev.mode_counts)
+    assert all(n > 0 for n in dev.mode_counts[:3]) and not any(dev.mode_counts[3:])
     assert dev.leaf_min.shape == (78, 3)
 
 
 def test_unported_primitives_raise():
+    """Textures are what the fused tracer does not trace yet; triangles and
+    glass it takes."""
     table = np.zeros((2, 40), np.float32)
     table[:, 19] = 1.0
     table[1, 26] = 3.0                     # a triangle
+    table[0, 27] = 1.5                     # a glass quad
+    rec, counts = plane_records(table)
+    assert counts == (0, 0, 0, 0, 1, 0, 1, 0) and rec[:, 19].tolist() == [0.0, 1.5]
+    table[1, 28] = 1.0                     # a checker texture
     with pytest.raises(NotImplementedError):
         plane_records(table)
+    textured = dataclasses.replace(cornell_scene("spheres"), sph_tex_kind=np.uint8([2, 0]))
+    with pytest.raises(NotImplementedError):
+        upload_scene(textured, device="cpu")
 
 
 def _soup_table():
@@ -160,3 +185,129 @@ def test_sample_noise_bitwise():
     pix = np.random.default_rng(0).integers(0, 4000, (500, 2)).astype(np.int32)
     got = noise.sample_noise(torch.from_numpy(tex), torch.from_numpy(pix))
     _bitwise(got.numpy(), np.asarray(j_noise.sample_noise(tex, pix)))
+
+
+def _as_jax_scene(scene):
+    return JScene(**{f.name: getattr(scene, f.name) for f in dataclasses.fields(scene)})
+
+
+ZOO_TILES = {1: 16, 3: 4, 4: 16, 5: 2, 6: 8, 7: 8}
+EIGHT_MODE_CASES = {
+    "zoo": (lambda: primitive_zoo(8), None),
+    "zoo_small_tiles": (lambda: primitive_zoo(8), ZOO_TILES),
+    "zoo4_tiles_of_3": (lambda: primitive_zoo(4), {m: 3 for m in range(8)}),
+    "cornell_glass": (lambda: cornell_scene("glass"), None),
+    "cornell_spheres": (lambda: cornell_scene("spheres"), {3: 1}),
+    "mesh_gallery": (mesh_gallery_scene, None),
+    "glass_maze10": (lambda: build_scene(MazeConfig(width=10, height=10, glass_prob=0.5)), None),
+    "glass_maze16_tiles": (lambda: build_scene(MazeConfig(width=16, height=16, glass_prob=0.5)),
+                           {1: 32, 6: 4}),
+}
+
+
+@pytest.mark.parametrize("case", list(EIGHT_MODE_CASES))
+def test_eight_mode_upload_bitwise(case):
+    """A scene with spheres, triangles and glass uploaded by both packages:
+    the same ordered plane table, sphere table and collision boxes; the
+    same partition into the eight test modes' tiles with the same boxes;
+    the groups in the kernel's merge order; and the port's records are the
+    tables' rows, group by group in table order."""
+    make, tbm = EIGHT_MODE_CASES[case]
+    scene = make()
+    jscene = _as_jax_scene(scene)
+    jdev = j_upload(jscene)
+    pdev = upload_scene(scene, device="cpu", tile_by_mode=tbm)
+    table = np.asarray(jdev.plane_table)
+    _bitwise(pdev.plane_table.numpy(), table)
+    sph = j_sphere_table(jscene)
+    _bitwise(pdev.sphere_table.numpy(), sph)
+    _bitwise(build_sphere_table(scene), sph)
+    _bitwise(pdev.leaf_min.numpy(), np.asarray(jdev.leaf_min))
+    _bitwise(pdev.leaf_max.numpy(), np.asarray(jdev.leaf_max))
+
+    packed = pack_intersection_tables(table, tile_by_mode=tbm,
+                                      sphere_table=sph if len(sph) else None)
+    tiles, meta = pdev.tiles.numpy(), pdev.group_meta
+    present = [m for m in range(8) if packed[m] is not None]
+    assert sorted(g[0] for g in meta) == present
+    n_tiles = {m: packed[m][2].shape[0] for m in present}
+    assert [g[0] for g in meta] == sorted(present, key=lambda m: (n_tiles[m] > 1, -n_tiles[m]))
+    assert sum(g[2] for g in meta) == len(tiles)
+    assert pdev.has_glass == any(m in (5, 6, 7) for m in present)
+    modes = plane_modes(table)
+    sph_modes = np.where(sph[:, 12] > 0, 5, 3)
+    rec, srec = pdev.planes.numpy(), pdev.spheres.numpy()
+    for mode, first, n in meta:
+        assert n == n_tiles[mode]
+        _bitwise(tiles[first:first + n, 0:6], np.asarray(packed[mode][2])[:, 0:6])
+        assert np.all(tiles[first:first + n, 8] == mode)
+        starts = tiles[first:first + n, 6].astype(int)
+        counts = tiles[first:first + n, 7].astype(int)
+        assert np.all(starts[1:] == starts[:-1] + counts[:-1])
+        got_rows = slice(starts[0], starts[0] + counts.sum())
+        if mode in (3, 5):
+            want = sph[sph_modes == mode]
+            assert pdev.mode_counts[mode] == len(want) == counts.sum()
+            _bitwise(srec[got_rows][:, [0, 1, 2, 12, 3]], want[:, 0:5])
+            _bitwise(srec[got_rows][:, 4:12], want[:, 5:13])
+        else:
+            want = table[modes == mode]
+            assert pdev.mode_counts[mode] == len(want) == counts.sum()
+            _bitwise(rec[got_rows][:, :19], want[:, :19])
+            _bitwise(rec[got_rows][:, 19], want[:, 27])
+    _bitwise(rec, plane_records(table)[0])
+    _bitwise(srec, sphere_records(sph))
+
+
+def _load_example(name):
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "examples", name + ".py")
+    spec = importlib.util.spec_from_file_location("_example_" + name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["cornell_spheres", "cornell_glass", "mesh_gallery"])
+def test_gallery_scenes_are_the_examples(name):
+    """The JAX-free gallery scenes of tests/_torch_tools.py, array for array
+    the scenes the JAX package's examples build."""
+    if name == "mesh_gallery":
+        got, want = mesh_gallery_scene(), _load_example("mesh_gallery").build_mesh_gallery()
+        assert int((np.asarray(got.kind) == 3).sum()) == 360 and got.num_planes == 367
+    else:
+        variant = name.split("_")[1]
+        got, want = cornell_scene(variant), _load_example("cornell_box").build_cornell_box(variant)
+        assert got.num_spheres == {"spheres": 2, "glass": 1}[variant]
+    for f in dataclasses.fields(got):
+        _bitwise(getattr(got, f.name), getattr(want, f.name))
+
+
+def test_mesh_toolkit_bitwise(tmp_path):
+    """scene/mesh.py against the JAX package's: icosphere, transform, OBJ
+    round trip, mesh_scene and merge_scenes."""
+    for sub in (0, 1, 2):
+        pv, pf = mesh.icosphere(sub, radius=1.7, center=(0.5, -1.0, 2.0))
+        jv, jf = j_mesh.icosphere(sub, radius=1.7, center=(0.5, -1.0, 2.0))
+        _bitwise(pv, jv)
+        _bitwise(pf, jf)
+        assert len(pf) == 20 * 4 ** sub
+    kw = dict(scale=0.7, rotate_y_deg=-35.0, translate=(-2.2, 0.0, -3.4))
+    _bitwise(mesh.transform_vertices(pv, **kw), j_mesh.transform_vertices(jv, **kw))
+    mesh.save_obj(str(tmp_path / "p.obj"), pv, pf)
+    j_mesh.save_obj(str(tmp_path / "j.obj"), jv, jf)
+    assert (tmp_path / "p.obj").read_bytes() == (tmp_path / "j.obj").read_bytes()
+    for y_down in (True, False):
+        lv, lf = mesh.load_obj(str(tmp_path / "j.obj"), y_down=y_down)
+        wv, wf = j_mesh.load_obj(str(tmp_path / "j.obj"), y_down=y_down)
+        _bitwise(lv, wv)
+        _bitwise(lf, wf)
+    _bitwise(lv * np.float32([1, -1, 1]), pv * np.float32([1, -1, 1]) * np.float32([1, -1, 1]))
+    a = mesh.mesh_scene(pv, pf, color=(0.2, 0.3, 0.4), is_mirror=True, ior=1.4)
+    b = j_mesh.mesh_scene(jv, jf, color=(0.2, 0.3, 0.4), is_mirror=True, ior=1.4)
+    merged = mesh.merge_scenes(cornell_scene("glass"), a)
+    jmerged = j_mesh.merge_scenes(_as_jax_scene(cornell_scene("glass")), b)
+    for f in dataclasses.fields(merged):
+        _bitwise(getattr(merged, f.name), getattr(jmerged, f.name))
+    with pytest.raises(ValueError):
+        mesh.mesh_scene(pv, pf + len(pv))
