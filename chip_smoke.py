@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``mirror_maze_tpu_torch/csrc`` (nvcc,
-sm_90a), holds each against its plain PyTorch version on the card at the
-shapes of every path it drives, checks the engine's scripted run against
-the committed golden frame, and drives four configurations at full width
-through ``make_scan_step``:
+sm_90a: the tracer's four libraries, with and without the texture stage and
+the diagnostics, and the present), holds each against its plain PyTorch
+version on the card at the shapes of every path it drives, checks the
+engine's scripted run against the committed golden frame, and drives four
+configurations at full width through ``make_scan_step``:
 
 - ``[main]``  ``config_interactive`` (10x10 maze, 1920x1080, 64 spp, 8
   mirror bounces; every plane group in one tile), 168 frames;
@@ -18,10 +19,26 @@ through ``make_scan_step``:
 - ``[glass]`` ``config_interactive`` with ``glass_prob`` 0.5 (five of the
   maze's mirror walls are glass panes; Fresnel on), 40 frames;
 
-and three offline renders of 1024x1024 at 64 spp through
-``render_full_frame``: ``[cornell]`` the Cornell box with a glass sphere
-through the thin lens (and through the pinhole) and with two opaque
-spheres, ``[mesh]`` the mesh gallery (360 triangles in three tiles).
+offline renders of 1024x1024 at 64 spp through ``render_full_frame``:
+``[cornell-*]`` the Cornell box with a glass sphere through the thin lens
+(and through the pinhole), with two opaque spheres, and with two blocks, a
+checker floor and a world-checker wall (the texture stage); ``[mesh]`` the
+mesh gallery (360 triangles in three tiles) and ``[mesh-glass]`` the same
+with its triangles made glass; and further paths of the engine:
+
+- ``[sky]`` ``config_interactive`` with the sky term on, 20 frames;
+- ``[adaptive]`` ``config_interactive`` with ``adaptive_refresh``, idle
+  until the chunk queue has wrapped once and been reordered by detail;
+- ``[sphere-refresh]`` a sphere of the Cornell box moved on the device and
+  re-derived by ``make_sphere_refresh``;
+- ``[bands]`` / ``[bands-4k]`` the row-band engine of ``parallel/shard.py``:
+  ``config_interactive`` as 2 bands and ``config_scale`` as 4, ALL BANDS ON
+  THE ONE CARD (no multi-GPU number), each band presented by the present
+  kernel's halo variant with its neighbours' rows;
+
+with the kernel checks ``[present-halo]`` (bands put together are bitwise
+the whole screen's present), ``[tracer-tex-*]``, ``[tracer-diag-*]`` (the
+per-block diagnostics, exact against the plain version) and ``[tracer-sky*]``.
 
 Every phase prints one line; any failure exits non-zero. The last two lines
 are the ``{"kernels": [...]}`` summary (one row per kernel and path) and
@@ -59,7 +76,7 @@ SOURCES = {
 
 # The driven paths' scripts: idle, walking, turning, idle frames.
 SCRIPTS = {"main": (64, 30, 10, 64), "scale": (16, 12, 4, 8), "fuzzy": (16, 12, 4, 8),
-           "glass": (16, 12, 4, 8)}
+           "glass": (16, 12, 4, 8), "sky": (8, 6, 2, 4), "bands-4k": (4, 4, 2, 2)}
 # The offline renders: a square frame, and the block of pixel rows (through
 # the middle of the picture) whose rays the kernel is compared on.
 GALLERY_SIZE, GALLERY_SPP, GALLERY_ROWS, GALLERY_BATCH = 1024, 64, 64, 8
@@ -68,23 +85,39 @@ GALLERY_PLAIN_PROGRAMS = 256
 # Programs (blocks of B rays) of config_scale's wavefront that the plain
 # version traces for the comparison, spread evenly over the wavefront.
 SCALE_PLAIN_PROGRAMS = 86
+# Operations of the texture stage per hit on a textured primitive: the hit
+# point (6), the two edge coordinates (12), the UV count (5), the world count
+# with its three divisions (8), the parity (5) and the selects (4).
+TEXTURE_OPS = 40
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, graph: bool = False) -> float:
     """Mean ms per call on the card: CUDA events around ``reps`` calls
-    after one warm-up call."""
+    after one warm-up call. With ``graph`` the calls are captured into one
+    CUDA graph and the replay is timed: the card's time for a kernel so
+    short that the host cannot launch it as fast as it runs."""
     import torch
 
+    def run():
+        for _ in range(reps):     # each result is dropped, so its memory is reused
+            fn()
+
     fn()
+    if graph:
+        torch.cuda.synchronize()
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            run()
+        run = captured.replay
+        run()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -110,11 +143,14 @@ def main() -> int:
         from _torch_tools import (
             CORNELL_GLASS_CENTRE,
             GALLERY_SPAWN,
+            checker_floor,
             cornell_scene,
             gallery_config,
             golden_config,
             golden_script,
             mesh_gallery_scene,
+            soup_arrays,
+            textured_cornell,
         )
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
@@ -131,7 +167,8 @@ def main() -> int:
         render_full_frame,
     )
     from mirror_maze_tpu_torch.render.present import present, present_plain
-    from mirror_maze_tpu_torch.render.scenebuf import upload_scene
+    from mirror_maze_tpu_torch.parallel import shard
+    from mirror_maze_tpu_torch.render.scenebuf import make_sphere_refresh, upload_scene
     from mirror_maze_tpu_torch.render.scheduler import (
         chunk_origin_xy,
         chunk_pixels,
@@ -143,6 +180,8 @@ def main() -> int:
     from mirror_maze_tpu_torch.runtime.state import FrameInputs, init_state
     from mirror_maze_tpu_torch.runtime.step import make_scan_step
     from mirror_maze_tpu_torch.scene import build_scene
+    from mirror_maze_tpu_torch.scene.builder import Scene
+    from mirror_maze_tpu_torch.utils.profiling import tracer_segment_histogram
 
     # The plain versions' comparison paths run in full float32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -162,7 +201,8 @@ def main() -> int:
     # 2. Build.
     t0 = time.perf_counter()
     kernels.build(verbose=True)
-    log(f"[build] tracer, present built and loaded in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {', '.join(kernels.LIBRARIES)} built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
 
     import dataclasses
 
@@ -178,6 +218,9 @@ def main() -> int:
     scenes = {k: upload_scene(build_scene(c.maze), device=dev) for k, c in configs.items()}
     configs["glass-no-fresnel"] = with_glass(configs["main"], fresnel=False)
     scenes["glass-no-fresnel"] = scenes["glass"]
+    configs["sky"] = dataclasses.replace(configs["main"], tracer=dataclasses.replace(
+        configs["main"].tracer, sky_strength=0.7))
+    scenes["sky"] = scenes["main"]
     entries = {}
 
     # 3. Present kernel vs its plain version: bitwise, on a random
@@ -199,7 +242,7 @@ def main() -> int:
                 f"{sc.width}x{sc.height}, shape {tuple(screen.shape)}")
         n_bytes = 2 * screen.numel() * 4
         entries[row] = dict(
-            kernel="present", max_abs_err=err,
+            kernel="present", lib="present", max_abs_err=err,
             ms=time_ms(lambda: present(screen, sc, True), 50),
             plain_ms=time_ms(lambda: present_plain(screen, sc, True), 5),
             bound_ms=max(n_bytes / HBM_BYTES_PER_S, 10 * screen.numel() / FP32_OPS_PER_S) * 1e3,
@@ -208,6 +251,54 @@ def main() -> int:
 
     check_present("present", "present", configs["main"].screen)
     check_present("present-4k", "present@4k", configs["scale"].screen)
+
+    # The halo variant: a screen cut into row bands, each presented with its
+    # neighbours' rows; put together, bitwise the no-halo kernel on the whole
+    # screen, and band by band the plain version with halos.
+    def check_present_halo(tag, row, sc, n_bands):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        screen = torch.rand((sc.total_chunks, sc.pixels_per_chunk * 3), generator=gen,
+                            device=dev) * 1.2 - 0.1
+        band = dataclasses.replace(sc, height=sc.height // n_bands)
+        bands = list(screen.chunk(n_bands))
+        tops, bots = shard._exchange_halo_rows(bands, band)
+        err = 0.0
+        for quantize in (True, False):
+            got = [present(b, band, quantize, t, u) for b, t, u in zip(bands, tops, bots)]
+            whole = present(screen, sc, quantize)
+            torch.cuda.synchronize()
+            if not torch.equal(torch.cat(got).view(torch.int32), whole.view(torch.int32)):
+                raise SystemExit(f"[{tag}] FAIL quantize={quantize}: the bands put together "
+                                 "are not the whole screen's present")
+            for g, b, t, u in zip(got, bands, tops, bots):
+                want = present_plain(b, band, quantize, t, u)
+                err = max(err, float((g - want).abs().max()))
+                if not torch.equal(g.view(torch.int32), want.view(torch.int32)):
+                    raise SystemExit(f"[{tag}] FAIL quantize={quantize}: a band differs from "
+                                     "its plain version")
+            if torch.equal(got[-1], present(bands[-1], band, quantize)):
+                raise SystemExit(f"[{tag}] FAIL: the halo rows change nothing")
+            log(f"[{tag}] {n_bands} bands of {sc.width}x{band.height}: halo kernel per band == "
+                f"plain bitwise, bands concatenated == no-halo kernel on the whole screen "
+                f"bitwise, quantize={quantize}")
+        b0, t0_, u0 = bands[1], tops[1], bots[1]
+        n_bytes = (2 * b0.numel() + t0_.numel() + u0.numel()) * 4
+        entries[row] = dict(
+            kernel="present", lib="present_halo", max_abs_err=err,
+            ms=time_ms(lambda: present(b0, band, True, t0_, u0), 50, graph=True),
+            plain_ms=time_ms(lambda: present_plain(b0, band, True, t0_, u0), 5),
+            bound_ms=max(n_bytes / HBM_BYTES_PER_S, 10 * b0.numel() / FP32_OPS_PER_S) * 1e3,
+            bound_by="bytes",
+        )
+        none = time_ms(lambda: present(b0, band, True), 50, graph=True)
+        one_by_one = time_ms(lambda: present(b0, band, True, t0_, u0), 50)
+        log(f"[{tag}] per band {entries[row]['ms']:.4f} ms/launch with halos, {none:.4f} without "
+            f"(50 launches replayed from a CUDA graph; launched one by one from the host "
+            f"{one_by_one:.4f}), bound {entries[row]['bound_ms']:.4f} ms by bytes, plain version "
+            f"{entries[row]['plain_ms']:.3f} ms | {smi}")
+
+    check_present_halo("present-halo", "present-halo", configs["main"].screen, 2)
+    check_present_halo("present-halo-4k", "present-halo@4k", configs["scale"].screen, 4)
 
     # 4. Tracer kernel vs its plain version on frame 1's rays of each path.
     # The kernel traces the whole wavefront. The plain version traces the
@@ -261,27 +352,31 @@ def main() -> int:
             f"{segs} live ray-segments, {stats['tile_visits']} tile visits "
             f"({stats['tile_visits'] / segs:.3f} of {n_walk} walked tiles per ray-segment), "
             f"{stats['plane_tests']} plane tests, {stats['edge_tests']} edge tests, "
-            f"{stats['sphere_tests']} sphere tests, {stats['glass_hits']} glass hits")
+            f"{stats['sphere_tests']} sphere tests, {stats['glass_hits']} glass hits, "
+            f"{stats['textured_hits']} textured hits")
         if not ok:
             raise SystemExit(f"[{tag}] FAIL: kernel disagrees with its plain version")
         if seed_row is not None and torch.equal(got, kernel(None)):
             raise SystemExit(f"[{tag}] FAIL: the noise seed row does not change the light")
         if scene.has_glass and stats["glass_hits"] == 0:
             raise SystemExit(f"[{tag}] FAIL: no ray hit glass")
+        if scene.textured and stats["textured_hits"] == 0:
+            raise SystemExit(f"[{tag}] FAIL: no ray hit a textured primitive")
         # Operations: 16 per plane test (two 3-term dots, the IEEE
         # reciprocal and multiply, compare, select), 16 per tested edge (two
         # 3-term dots, the affine s, two compares), 20 per sphere test (two
         # 3-term dots, the quadratic, the root, compares), ~30 per slab test
-        # of a walked tile, ~60 per glass hit (the dielectric stage);
-        # counted on the plain version's rays and scaled.
+        # of a walked tile, ~60 per glass hit (the dielectric stage), 40 per
+        # textured hit (TEXTURE_OPS); counted on the plain version's rays
+        # and scaled.
         scale = n_rays / pick.numel()
         ops = scale * (16 * (stats["plane_tests"] + stats["edge_tests"])
                        + 20 * stats["sphere_tests"] + 30 * segs * n_walk
-                       + 60 * stats["glass_hits"])
+                       + 60 * stats["glass_hits"] + TEXTURE_OPS * stats["textured_hits"])
         n_bytes = (ori.numel() + dirs.numel() + got.numel()
                    + (0 if seed_row is None else seed_row.numel())) * 4
         entries[row] = dict(
-            kernel="tracer", max_abs_err=err,
+            kernel="tracer", lib="tracer_tex" if scene.textured else "tracer", max_abs_err=err,
             ms=time_ms(kernel, 5),
             plain_ms=time_ms(plain, 1), plain_rays=pick.numel(),
             bound_ms=max(ops / FP32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3,
@@ -324,6 +419,95 @@ def main() -> int:
         raise SystemExit("[tracer-glass] FAIL: fresnel or the panes change nothing")
     check_tracer("tracer-glass-tiles", "tracer@glass-scale", "glass-scale",
                  programs=SCALE_PLAIN_PROGRAMS)
+
+    # The sky term: on the closed maze only rays that leak out of the world
+    # gather it; on an open scene (a soup of 150 quads in two tiles) most do.
+    sky_lit = check_tracer("tracer-sky", "tracer@sky", "sky")
+    (s_ori, s_dirs, s_seed, _), s_anchor = frame1_rays("sky")
+    sky_dark = trace_paths_fused(scenes["main"], s_ori, s_dirs, s_seed, configs["main"].tracer,
+                                 configs["main"].tracer.block_rows, anchor=s_anchor)
+    log(f"[tracer-sky] {int((sky_lit != sky_dark).any(dim=1).sum())} of {s_ori.shape[0]} rays "
+        f"of the closed maze gather sky light")
+    del sky_lit, sky_dark, s_ori, s_dirs
+    rng = np.random.default_rng(3)
+    soup_o = rng.uniform(-25, 25, (1 << 20, 3)).astype(np.float32)
+    soup_d = rng.normal(size=(1 << 20, 3)).astype(np.float32)
+    soup_d /= np.linalg.norm(soup_d, axis=-1, keepdims=True)
+    soup_rays = (torch.from_numpy(soup_o).to(dev), torch.from_numpy(soup_d).to(dev),
+                 torch.tensor([7], dtype=torch.int32, device=dev), None)
+    soup = upload_scene(Scene(**soup_arrays()), device=dev)
+    soup_tc = P.TracerConfig(bounce_limit=3, mirror_limit=2, sky_strength=0.7,
+                             lighting_factor=0.25, block_rows=8)
+    origin = torch.zeros(3, device=dev)
+    open_lit = compare_tracer("tracer-sky-open", "tracer@sky-open", soup, soup_tc, soup_rays,
+                              origin)
+    open_dark = trace_paths_fused(soup, *soup_rays[:3], dataclasses.replace(
+        soup_tc, sky_strength=0.0), 8, anchor=origin)
+    if not float(open_lit.sum()) > float(open_dark.sum()):
+        raise SystemExit("[tracer-sky-open] FAIL: the sky adds no light to an open scene")
+    del open_lit, open_dark, soup_rays
+
+    # The per-block diagnostics (the reference kernel's output rows 3-7)
+    # against the plain version's: exact on every compared block, and the
+    # light bitwise that of the launch without them.
+    def compare_diag(tag, scene, tc, rays, anchor, programs=None):
+        ori, dirs, seed, seed_row = rays
+        block = tc.block_rows
+        n_rays, b = ori.shape[0], block * 128
+        kernel = lambda diag: trace_paths_fused(
+            scene, ori, dirs, seed, tc, block, anchor=anchor, seed_row=seed_row,
+            return_block_segments=diag)
+        light, got = kernel(True)
+        if not torch.equal(light, kernel(False)):
+            raise SystemExit(f"[{tag}] FAIL: asking for the diagnostics changes the light")
+        n_blocks = -(-n_rays // b)
+        if programs is None:
+            blocks = torch.arange(n_blocks, device=dev)
+            _, want = trace_paths_plain(scene, ori, dirs, seed, tc, block, anchor=anchor,
+                                        seed_row=seed_row, return_block_segments=True)
+        else:
+            blocks = torch.arange(programs, device=dev) * ((n_rays // b) // programs)
+            pick = (blocks[:, None] * b + torch.arange(b, device=dev)).reshape(-1)
+            _, want = trace_paths_plain(
+                scene, ori[pick], dirs[pick], seed, tc, block, anchor=anchor,
+                seed_row=None if seed_row is None else seed_row[pick], ray_ids=pick,
+                return_block_segments=True)
+        torch.cuda.synchronize()
+        same = (got[:, blocks] == want[:, blocks])
+        segs, tiles, tiles0, _, live = (got[r].double() for r in range(5))
+        with_ms = time_ms(lambda: kernel(True), 5)
+        without_ms = time_ms(lambda: kernel(False), 5)
+        log(f"[{tag}] {n_rays} rays in {n_blocks} blocks of B={b}, diagnostics [5, {got.shape[1]}] "
+            f"against the plain version's on {blocks.numel()} blocks: rows 3-7 equal on "
+            f"{', '.join(f'{float(x):.6f}' for x in same.double().mean(dim=1))} of blocks "
+            f"(need 1 each) | segments per block {float(segs.mean()):.3f} (most "
+            f"{int(segs.max())} of {tc.max_segments}), tiles per block-segment "
+            f"{float(tiles.sum() / segs.sum()):.3f} ({float(tiles0.mean()):.3f} on the primary "
+            f"segment), live rays per block-segment {float(live.sum() / (segs.sum() * b)):.4f} "
+            f"of B | kernel {with_ms:.4f} ms/launch with diagnostics, {without_ms:.4f} without "
+            f"| {smi}")
+        if got.dtype != torch.int32 or tuple(got.shape) != (5, n_blocks) or not bool(same.all()):
+            raise SystemExit(f"[{tag}] FAIL: the diagnostics differ from the plain version's")
+        return with_ms
+
+    diag_ms = compare_diag("tracer-diag", scenes["main"], configs["main"].tracer,
+                           *frame1_rays("main"))
+    compare_diag("tracer-diag-scale", scenes["scale"], configs["scale"].tracer,
+                 *frame1_rays("scale"), programs=SCALE_PLAIN_PROGRAMS)
+    # ... and through the entry point a user calls, with the launch counted.
+    (d_ori, d_dirs, _, _), d_anchor = frame1_rays("main")
+    kernels.reset_launches()
+    hist = tracer_segment_histogram(scenes["main"], configs["main"], d_ori, d_dirs,
+                                    rows_per_block=configs["main"].tracer.block_rows,
+                                    anchor=d_anchor)
+    launches_diag = dict(kernels.launches)
+    log(f"[tracer-diag] tracer_segment_histogram on [main]'s frame 1: {json.dumps(hist)}, "
+        f"launches {launches_diag}")
+    if launches_diag != {"tracer_diag": 1} or sum(hist["histogram"]) != -(-d_ori.shape[0] // (
+            configs["main"].tracer.block_rows * 128)):
+        raise SystemExit("[tracer-diag] FAIL: the histogram did not come from the kernel")
+    entries["tracer@diag"] = dict(entries["tracer"], lib="tracer_diag", ms=diag_ms)
+    del d_ori, d_dirs
 
     # 5. The golden scripted run on the card against the committed frame.
     gcfg = golden_config()
@@ -370,7 +554,8 @@ def main() -> int:
         ms_frame = t_start.elapsed_time(t_end) / n_frames
         rays = sc.effective_chunks_per_frame * sc.pixels_per_chunk * sc.samples_per_pixel
         moved = float((st.cam_center - start_center).abs().max())
-        cfg_name = {"main": "interactive", "glass": "interactive + glass_prob 0.5"}.get(path, path)
+        cfg_name = {"main": "interactive", "glass": "interactive + glass_prob 0.5",
+                    "sky": "interactive + sky_strength 0.7"}.get(path, path)
         tag = path if script is None else f"{path} on {script}'s script"
         log(f"[{tag}] config_{cfg_name} {sc.width}x{sc.height} {sc.samples_per_pixel} spp, "
             f"{n_frames} frames ({idle} idle, {walk} walk, {turn} turn, {idle2} idle), "
@@ -391,17 +576,108 @@ def main() -> int:
     launches["glass"], glass_frame = drive("glass")
     if torch.equal(glass_frame, drive("main", script="glass")[1]):
         raise SystemExit("[glass] FAIL: the frame is the glass-free maze's")
+    launches["sky"] = drive("sky")[0]
+
+    # adaptive_refresh: idle until the chunk queue has wrapped once; at the
+    # wrap the queue is reordered by the screen's detail, on the device.
+    acfg = dataclasses.replace(configs["main"], screen=dataclasses.replace(
+        configs["main"].screen, adaptive_refresh=True))
+    asc = acfg.screen
+    epoch = -(-asc.total_chunks // asc.effective_chunks_per_frame)
+    arun = make_scan_step(scenes["main"], acfg)
+    ast = init_state(acfg, seed=0, device=dev)
+    kernels.reset_launches()
+    ast, _ = arun(ast, [FrameInputs.idle()] * (epoch - 1))
+    before = ast.perm.clone()
+    a_start = torch.cuda.Event(enable_timing=True)
+    a_end = torch.cuda.Event(enable_timing=True)
+    a_start.record()
+    ast, aframe = arun(ast, [FrameInputs.idle()] * 9)
+    a_end.record()
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    is_perm = torch.equal(ast.perm.sort().values.to(torch.int64),
+                          torch.arange(asc.total_chunks, device=dev))
+    moved_share = float((ast.perm != before).float().mean())
+    log(f"[adaptive] config_interactive + adaptive_refresh, {epoch - 1} + 9 idle frames (the "
+        f"queue of {asc.total_chunks} chunks wraps on frame {epoch}): queue still a permutation "
+        f"{is_perm}, {moved_share:.4f} of its places changed at the wrap, "
+        f"{a_start.elapsed_time(a_end) / 9:.3f} ms/frame over the last 9, launches {counts} | {smi}")
+    if not (is_perm and moved_share > 0.5 and float(aframe.float().mean()) > 1.0):
+        raise SystemExit("[adaptive] FAIL: the queue was not reordered at the wrap")
+    if counts != {"tracer": epoch + 8, "present": epoch + 8}:
+        raise SystemExit(f"[adaptive] FAIL: launches {counts}")
+    del ast, aframe, before
+
+    # The row-band engine: the screen cut into bands, every band on this
+    # one card. Camera against the single engine's, the kernel present
+    # against the plain halo blur, launches counted.
+    def drive_bands(tag, path, n_bands):
+        cfg, scene = configs[path], scenes[path]
+        sc = cfg.screen
+        idle, walk, turn, idle2 = SCRIPTS.get(tag, SCRIPTS["glass"])
+        inputs = ([FrameInputs.idle()] * idle + [FrameInputs.make(w=True)] * walk
+                  + [FrameInputs.make(mouse_dx=-27.0)] * turn + [FrameInputs.idle()] * idle2)
+        devices = [dev] * n_bands
+        init_fn, scan_fn = shard.make_sharded_scan_engine(cfg, devices)
+        scan_fn(scene, init_fn(0), inputs[:2])                  # first-launch costs
+        torch.cuda.synchronize()
+        st = init_fn(0)
+        kernels.reset_launches()
+        t_start = torch.cuda.Event(enable_timing=True)
+        t_end = torch.cuda.Event(enable_timing=True)
+        t_start.record()
+        st, frame = scan_fn(scene, st, inputs)
+        t_end.record()
+        checksum = int(frame.to(torch.int64).sum())             # host fetch ends the run
+        counts = dict(kernels.launches)
+        n_frames = len(inputs)
+        ms_frame = t_start.elapsed_time(t_end) / n_frames
+        band = shard._band_screen_cfg(cfg, n_bands)
+        rays = (n_bands * band.effective_chunks_per_frame * sc.pixels_per_chunk
+                * sc.samples_per_pixel)
+        plain_cfg = dataclasses.replace(cfg, screen=dataclasses.replace(
+            sc, pallas_present=False))
+        p_init, p_scan = shard.make_sharded_scan_engine(plain_cfg, devices)
+        pst, pframe = p_scan(scene, p_init(0), inputs)
+        sst, _ = make_scan_step(scene, cfg)(init_state(cfg, seed=0, device=dev), inputs)
+        torch.cuda.synchronize()
+        screens = all(torch.equal(a, b) for a, b in zip(st.screen, pst.screen))
+        camera = all(torch.equal(getattr(st, f)[t], getattr(sst, f))
+                     for f in ("cam_center", "quat", "half_theta") for t in range(n_bands))
+        log(f"[{tag}] config_{path if path != 'main' else 'interactive'} {sc.width}x{sc.height} "
+            f"as {n_bands} bands of {band.height} rows, ALL ON THIS ONE CARD (not a multi-GPU "
+            f"number), {n_frames} frames ({idle} idle, {walk} walk, {turn} turn, {idle2} idle), "
+            f"{rays} rays/frame: {ms_frame:.3f} ms/frame, {rays / ms_frame / 1e3:.2f} Mrays/s, "
+            f"checksum {checksum}, camera == the single engine's {camera}, band screens == the "
+            f"plain halo blur's bitwise {screens}, launches {counts} | {smi}")
+        if not (tuple(frame.shape) == (sc.height, sc.width, 3) and frame.dtype == torch.uint8
+                and float(frame.float().mean()) > 1.0 and camera and screens
+                and torch.equal(frame, pframe)):
+            raise SystemExit(f"[{tag}] FAIL: frame malformed, or the camera or the present "
+                             "disagrees")
+        if counts != {"tracer": n_bands * n_frames, "present_halo": n_bands * n_frames}:
+            raise SystemExit(f"[{tag}] FAIL: launches {counts}")
+        launches[tag] = counts
+
+    drive_bands("bands", "main", 2)
+    drive_bands("bands-4k", "scale", 4)
 
     # 7. The offline renders through render_full_frame: the kernel against
     # its plain version on one block of pixel rows, then the whole frame.
-    def gallery(tag, row, scene, cfg):
+    def gallery_rays(scene, cfg):
+        """(rays of the compared block of pixel rows, camera, frame key)."""
         cam = make_camera(cfg.camera, 1.0, dev)
         key = prng.PRNGKey(0, device=dev)
         pix, bkey = list(frame_row_batches(cfg, key, GALLERY_ROWS, dev))[GALLERY_BATCH]
-        rays = frame_rays(cam, pix, bkey, cfg, scene.noise)
+        return frame_rays(cam, pix, bkey, cfg, scene.noise), cam, key
+
+    def gallery(tag, row, scene, cfg):
+        rays, cam, key = gallery_rays(scene, cfg)
         compare_tracer(f"tracer-{tag}", row, scene, cfg.tracer, rays, cam.center,
                        programs=GALLERY_PLAIN_PROGRAMS)
         del rays
+        lib = "tracer_tex" if scene.textured else "tracer"
         render_full_frame(scene, cam, key, cfg, GALLERY_ROWS)    # first-launch costs
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -419,7 +695,7 @@ def main() -> int:
         if not (tuple(frame.shape) == (sc.height, sc.width, 3) and torch.isfinite(frame).all()
                 and mean > 0.02 and float(frame.std()) > 0.01):
             raise SystemExit(f"[{tag}] FAIL: frame blank or malformed")
-        if counts != {"tracer": sc.height // GALLERY_ROWS}:
+        if counts != {lib: sc.height // GALLERY_ROWS}:
             raise SystemExit(f"[{tag}] FAIL: launches {counts}")
         launches[tag] = counts
         return frame
@@ -436,23 +712,73 @@ def main() -> int:
     if not blur > 1e-3:
         raise SystemExit("[cornell] FAIL: the thin lens changes nothing")
     del lens, pinhole
-    gallery("cornell-spheres", "tracer@cornell-spheres",
-            upload_scene(cornell_scene("spheres"), device=dev),
-            gallery_config(GALLERY_SIZE, GALLERY_SPP))
-    gallery("mesh", "tracer@mesh", upload_scene(mesh_gallery_scene(), device=dev),
-            gallery_config(GALLERY_SIZE, GALLERY_SPP))
+    sphere_box = upload_scene(cornell_scene("spheres"), device=dev)
+    unmoved = gallery("cornell-spheres", "tracer@cornell-spheres", sphere_box, pin_cfg)
+    mesh_scene = mesh_gallery_scene()
+    gallery("mesh", "tracer@mesh", upload_scene(mesh_scene, device=dev), pin_cfg)
+
+    # Glass triangles (test mode 7): the gallery's three meshes made glass.
+    glass_mesh = dataclasses.replace(mesh_scene, ior=np.where(
+        np.asarray(mesh_scene.kind) == 3, 1.5, np.asarray(mesh_scene.ior)).astype(np.float32))
+    glass_mesh = upload_scene(glass_mesh, device=dev)
+    if glass_mesh.mode_counts[7] == 0:
+        raise SystemExit("[mesh-glass] FAIL: the scene has no glass triangle")
+    gallery("mesh-glass", "tracer@glass-tri", glass_mesh, pin_cfg)
+    del glass_mesh
+
+    # The in-step sphere refresh: the diffuse sphere moved on the device.
+    refresh = make_sphere_refresh(sphere_box)
+    centre = sphere_box.sph_center.clone()
+    centre[1] += torch.tensor([0.7, -0.5, 0.3], device=dev)
+    moved_box = refresh(sphere_box._replace(sph_center=centre))
+    rays, cam, key = gallery_rays(moved_box, pin_cfg)
+    compare_tracer("sphere-refresh", "tracer@sphere-refresh", moved_box, pin_cfg.tracer, rays,
+                   cam.center, programs=GALLERY_PLAIN_PROGRAMS // 4)
+    del rays
+    moved_frame = render_full_frame(moved_box, cam, key, pin_cfg, GALLERY_ROWS)
+    shift = float((moved_frame - unmoved).abs().mean())
+    log(f"[sphere-refresh] cornell-spheres, sphere 1 moved by (0.7, -0.5, 0.3) on the device "
+        f"and refreshed: frame against the unmoved one, mean abs difference {shift:.5f}")
+    if not shift > 1e-4 or make_sphere_refresh(scenes["main"]) is not None:
+        raise SystemExit("[sphere-refresh] FAIL: the moved sphere changes nothing")
+    del moved_frame, unmoved
+
+    # The texture stage: the Cornell box with two blocks, a checker floor
+    # (UV checker) and a world-checker wall; with a world-checker sphere; and
+    # in many tiles, the mesh gallery with a checker floor.
+    tex_box = gallery("cornell-checker", "tracer@tex",
+                      upload_scene(textured_cornell("blocks"), device=dev), pin_cfg)
+    bare_box = upload_scene(cornell_scene("blocks"), device=dev)
+    cam = make_camera(pin_cfg.camera, 1.0, dev)
+    bare = render_full_frame(bare_box, cam, prng.PRNGKey(0, device=dev), pin_cfg, GALLERY_ROWS)
+    tex_shift = float((tex_box - bare).abs().mean())
+    log(f"[cornell-checker] against the untextured box: mean abs difference {tex_shift:.5f}")
+    if not tex_shift > 1e-3:
+        raise SystemExit("[cornell-checker] FAIL: the frame is the untextured box's")
+    del tex_box, bare
+    for tag, scene in (("tracer-tex-spheres", textured_cornell("spheres")),
+                       ("tracer-tex-tiles", checker_floor(mesh_scene))):
+        scene = upload_scene(scene, device=dev)
+        rays, cam, _ = gallery_rays(scene, pin_cfg)
+        compare_tracer(tag, tag.replace("tracer-", "tracer@"), scene, pin_cfg.tracer, rays,
+                       cam.center, programs=GALLERY_PLAIN_PROGRAMS // 4)
+        del rays
 
     # One row per kernel and path; a row's launches are its path's.
     rows = (("tracer", "main"), ("tracer@scale", "scale"), ("tracer@fuzzy", "fuzzy"),
             ("tracer@glass", "glass"), ("tracer@cornell-glass", "cornell-glass"),
             ("tracer@cornell-spheres", "cornell-spheres"), ("tracer@mesh", "mesh"),
-            ("present", "main"), ("present@4k", "scale"))
+            ("tracer@sky", "sky"), ("tracer@glass-tri", "mesh-glass"),
+            ("tracer@tex", "cornell-checker"), ("tracer@diag", "diag"),
+            ("present", "main"), ("present@4k", "scale"),
+            ("present-halo", "bands"), ("present-halo@4k", "bands-4k"))
+    launches["diag"] = launches_diag
     kern = []
     for row, path in rows:
         e = entries[row]
         k = e["kernel"]
         kern.append(dict(name=row, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
-                         launches=launches[path][k], max_abs_err=e["max_abs_err"],
+                         launches=launches[path][e["lib"]], max_abs_err=e["max_abs_err"],
                          ms=e["ms"], plain_ms=e["plain_ms"],
                          plain_rays=e.get("plain_rays"), bound_ms=e["bound_ms"],
                          bound_by=e["bound_by"], library_ms=None))

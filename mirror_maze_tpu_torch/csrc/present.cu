@@ -3,7 +3,9 @@
 //
 // Replaces the JAX package's Pallas kernel
 // mirror_maze_tpu/render/present.py::_present_kernel (launched by
-// present_pallas), without the sharded halo variant. It is bitwise the
+// present_pallas), both variants: the single screen, and with two halo rows
+// the row band of a screen cut across several devices (`halo=True` there,
+// launched by parallel/shard.py _present_with_halo). It is bitwise the
 // reference engine's blur + quantize (render/accumulate.py feedback_blur_cm
 // + quantize_8bit as the engine runs them, under jit):
 //   out = (c + (l + r) * 0.5 + (u + d) * 0.5) * float32(1/3)
@@ -19,9 +21,18 @@
 // chunk's edge column or row; at the screen edge the value clamps to the
 // pixel itself.
 //
-// Bound on the card: bytes. One read and one write of the screen; the
-// neighbour reads of a warp hit the same or adjacent 48-float rows, which
-// the L1/L2 caches serve.
+// Halo variant: the screen is a band of pixel rows of a taller one. Its top
+// pixel row reads `u` from `halo_top` and its bottom row `d` from
+// `halo_bot`, the neighbouring bands' adjacent pixel rows, each a plain
+// pixel row [width * 3] = [Cx, cw, 3] indexed by (cx, xo, ch). (The
+// reference embeds each row at the lane offsets of a chunk row, for the
+// TPU's lane shifts; that layout is not carried over.) The outermost bands
+// are given their own edge row, which is the clamp. Null pointers mean the
+// single screen, so one kernel serves both.
+//
+// Bound on the card: bytes. One read and one write of the screen (plus two
+// pixel rows); the neighbour reads of a warp hit the same or adjacent
+// 48-float rows, which the L1/L2 caches serve.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,7 +41,9 @@
 #define RCP255 0x1.010102p-8f  // float32(1/255)
 
 __global__ void present_kernel(const float* __restrict__ src,
-                               float* __restrict__ dst, int chunks_x,
+                               float* __restrict__ dst,
+                               const float* __restrict__ halo_top,
+                               const float* __restrict__ halo_bot, int chunks_x,
                                int chunks_y, int cw, int quantize,
                                long long n) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -55,10 +68,10 @@ __global__ void present_kernel(const float* __restrict__ src,
   else r = t;
   if (yo > 0) u = row[j - 3];
   else if (cy > 0) u = row[-(long long)chunks_x * row_len + xo * 3 * cw + (cw - 1) * 3 + ch];
-  else u = t;
+  else u = halo_top ? halo_top[(cx * cw + xo) * 3 + ch] : t;
   if (yo < cw - 1) d = row[j + 3];
   else if (cy < chunks_y - 1) d = row[(long long)chunks_x * row_len + xo * 3 * cw + ch];
-  else d = t;
+  else d = halo_bot ? halo_bot[(cx * cw + xo) * 3 + ch] : t;
 
   float s = __fadd_rn(__fadd_rn(t, __fmul_rn(__fadd_rn(l, r), 0.5f)),
                       __fmul_rn(__fadd_rn(u, d), 0.5f));
@@ -70,14 +83,16 @@ __global__ void present_kernel(const float* __restrict__ src,
   dst[e] = out;
 }
 
-extern "C" int mm_present(const float* src, float* dst, int chunks_x,
-                          int chunks_y, int cw, int quantize, void* stream) {
+extern "C" int mm_present(const float* src, float* dst, const float* halo_top,
+                          const float* halo_bot, int chunks_x, int chunks_y, int cw,
+                          int quantize, void* stream) {
+  if ((halo_top == nullptr) != (halo_bot == nullptr)) return (int)cudaErrorInvalidValue;
   const long long n = (long long)chunks_x * chunks_y * cw * cw * 3;
   const int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
   if (n > 0) {
     present_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        src, dst, chunks_x, chunks_y, cw, quantize, n);
+        src, dst, halo_top, halo_bot, chunks_x, chunks_y, cw, quantize, n);
   }
   return (int)cudaGetLastError();
 }

@@ -2,11 +2,12 @@
 //
 // Replaces the JAX package's Pallas kernel
 // mirror_maze_tpu/render/pallas_tracer.py::_tracer_kernel (launched by
-// _trace_padded), for untextured quads, triangles and spheres, opaque or
-// glass, in the reference's eight test modes (0: full quad test, 1:
-// along-wall edge test only, 2: no edge test, 3: spheres, 4: triangles, 5:
-// glass spheres, 6: glass quads, 7: glass triangles), in any number of
-// tiles, with the noise seed row and the sky term. It computes what that
+// _trace_padded), for quads, triangles and spheres, opaque or glass, plain
+// or checker-textured, in the reference's eight test modes (0: full quad
+// test, 1: along-wall edge test only, 2: no edge test, 3: spheres, 4:
+// triangles, 5: glass spheres, 6: glass quads, 7: glass triangles), in any
+// number of tiles, with the noise seed row, the sky term and the per-block
+// diagnostics (the reference's output rows 3-7). It computes what that
 // kernel computes under the CPU interpreter, ray for ray
 // (render/fused_tracer.py trace_paths_plain is the same function in
 // PyTorch):
@@ -54,7 +55,28 @@
 // - the PCG stream of ray i is seeded by (seed, pid = i / B, r = i % B)
 //   with B the reference's rays per Pallas program, plus the ray's seed-row
 //   value as a 24-bit integer, so the launch geometry here never changes
-//   the image.
+//   the image;
+// - the texture stage, compiled only for a textured scene (MM_TEX): the
+//   winner carries its texture row (kind, scale, second colour; read from
+//   the texture tables, and only by a primitive that wins or ties) and its
+//   w1, b1, w2, b2, tie-summed like every other property. After the nearest
+//   hit and the sphere normal, with h = o + d t: kind 1 counts floor(s1
+//   scale) + floor(s2 scale) with s = (h.w) - b, kind 2 floor(hx / scale) +
+//   floor(hy / scale) + floor(hz / scale) (IEEE division); on an odd count
+//   the albedo becomes the second colour, before any use of it;
+// - the diagnostics, compiled only when asked for (MM_DIAG): per reference
+//   block of B rays (ray i belongs to block i / B, threads of many CUDA
+//   blocks share one), the most segments any of its rays lived (atomicMax)
+//   and their sum (atomicAdd), and per block and segment one bit for every
+//   walked tile that a live ray's slab test reached (atomicOr, tried only
+//   while the bit reads as clear). The reference evaluates a tile for the
+//   whole block when any live lane reaches it; the wrapper counts the bits.
+//
+// One source, four libraries: the macros MM_TEX and MM_DIAG (0 or 1, set on
+// nvcc's command line) choose which of the two extra stages a translation
+// unit instantiates, so a scene without textures traced without diagnostics
+// runs the 16 instantiations it always ran and the others are built when
+// first used.
 //
 // A lane that dies changes nothing in the reference's block-wide loop, so
 // each thread simply stops at its own death.
@@ -76,12 +98,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef MM_TEX
+#define MM_TEX 0
+#endif
+#ifndef MM_DIAG
+#define MM_DIAG 0
+#endif
+
 #define BIG 1e30f
 #define RECORD 20  // floats per plane record (render/scenebuf.py RECORD_WIDTH)
 #define RECORD4 5  // the same in float4s
 #define SPHERE 16  // floats per sphere record (SPHERE_RECORD_WIDTH)
 #define SPHERE4 4
 #define TILE 9     // floats per tile row (render/scenebuf.py tile_table)
+#define TEX4 2     // float4s per texture row (TEX_WIDTH)
 
 struct Params {
   const float* ori;
@@ -97,14 +127,40 @@ struct Params {
   int n_rays, block_rays, max_segments, bounce_limit, mirror_limit, fresnel;
   float mirror_tint, t_min;
   float sky_r, sky_g, sky_b, sky_strength, sky_lf, sky_log_lf;
+  // What only the TEX and DIAG kernels read stands last: the others' fields
+  // keep their places, and their instantiations their registers.
+  const float* plane_tex;   // [n_planes, 8] texture rows, or null (TEX kernels read them)
+  const float* sphere_tex;  // [n_spheres, 8]
+  int* diag_segments;       // [2, n_blocks]: max and sum of segments lived (DIAG kernels)
+  unsigned int* diag_mask;  // [n_blocks, max_segments, mask_words] walked tiles reached
+  int mask_words;
 };
 
 // The running nearest hit: t and the winner's (tie-summed) normal (a
 // sphere's centre), albedo, emission and is_mirror; 1/r and the is-sphere
-// flag (PRIMS kernels) and the ior (GLASS kernels).
+// flag (PRIMS kernels), the ior (GLASS kernels), and the texture row with
+// the plane's w1, b1, w2, b2 (TEX kernels; zeros for a sphere).
 struct Hit {
   float t, nx, ny, nz, cr, cg, cb, er, eg, eb, mir, inv_r, sph, ior;
+  float tk, tsc, c2r, c2g, c2b, w1x, w1y, w1z, b1, w2x, w2y, w2z, b2;
 };
+
+// The winner's texture row and edge constants: set when a primitive wins,
+// added when it ties. `tex` is the primitive's row of the texture table,
+// `w1`/`w2` its (w, b) float4s, zeros for a sphere.
+template <bool ADD>
+__device__ __forceinline__ void carry_tex(Hit& h, const float4* tex, float4 w1, float4 w2) {
+  const float4 a = __ldg(tex), b = __ldg(tex + 1);  // kind, scale, colour2 rg | b
+  if (ADD) {
+    h.tk += a.x; h.tsc += a.y; h.c2r += a.z; h.c2g += a.w; h.c2b += b.x;
+    h.w1x += w1.x; h.w1y += w1.y; h.w1z += w1.z; h.b1 += w1.w;
+    h.w2x += w2.x; h.w2y += w2.y; h.w2z += w2.z; h.b2 += w2.w;
+  } else {
+    h.tk = a.x; h.tsc = a.y; h.c2r = a.z; h.c2g = a.w; h.c2b = b.x;
+    h.w1x = w1.x; h.w1y = w1.y; h.w1z = w1.z; h.b1 = w1.w;
+    h.w2x = w2.x; h.w2y = w2.y; h.w2z = w2.z; h.b2 = w2.w;
+  }
+}
 
 __device__ __forceinline__ uint32_t pcg_scramble(uint32_t& state) {
   state = state * 747796405u + 291336453u;
@@ -129,8 +185,9 @@ __device__ __forceinline__ float4 load4(const float4* p) {
 
 // Test `count` plane records of one mode from row `first` on against the
 // ray and fold them into the running hit.
-template <bool STAGED, int MODE, bool PRIMS, bool GLASS>
-__device__ __forceinline__ void scan_rows(const float4* rec, int first, int count,
+template <bool STAGED, int MODE, bool PRIMS, bool GLASS, bool TEX>
+__device__ __forceinline__ void scan_rows(const float4* rec, const float4* tex, int first,
+                                          int count,
                                           float ox, float oy, float oz, float dx,
                                           float dy, float dz, float t_min, Hit& h,
                                           bool& own) {
@@ -168,6 +225,9 @@ __device__ __forceinline__ void scan_rows(const float4* rec, int first, int coun
       h.mir = e.z;
       if constexpr (PRIMS) { h.inv_r = 0.f; h.sph = 0.f; }
       if constexpr (GLASS) h.ior = e.w;
+      if constexpr (TEX)
+        carry_tex<false>(h, tex + (size_t)(first + k) * TEX4, load4<STAGED>(R + 1),
+                         load4<STAGED>(R + 2));
       own = true;
     } else if (tv == h.t && own && tv < BIG) {
       const float4 c = load4<STAGED>(R + 3);
@@ -177,6 +237,9 @@ __device__ __forceinline__ void scan_rows(const float4* rec, int first, int coun
       h.er += c.w; h.eg += e.x; h.eb += e.y;
       h.mir += e.z;
       if constexpr (GLASS) h.ior += e.w;
+      if constexpr (TEX)
+        carry_tex<true>(h, tex + (size_t)(first + k) * TEX4, load4<STAGED>(R + 1),
+                        load4<STAGED>(R + 2));
     }
   }
 }
@@ -184,12 +247,14 @@ __device__ __forceinline__ void scan_rows(const float4* rec, int first, int coun
 // The same for `count` sphere records. `sdo` = D.O and `soo` = |O|^2 are
 // the ray's share of the quadratic; FAR (glass spheres) takes the far root
 // when the near one is not past t_min.
-template <bool STAGED, bool FAR, bool GLASS>
-__device__ __forceinline__ void scan_spheres(const float4* sph, int first, int count,
+template <bool STAGED, bool FAR, bool GLASS, bool TEX>
+__device__ __forceinline__ void scan_spheres(const float4* sph, const float4* tex, int first,
+                                             int count,
                                              float ox, float oy, float oz, float dx,
                                              float dy, float dz, float sdo, float soo,
                                              float t_min, Hit& h, bool& own) {
   const float4* S = sph + (size_t)first * SPHERE4;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int k = 0; k < count; ++k, S += SPHERE4) {
     const float4 a = load4<STAGED>(S);  // centre, |c|^2 - r^2
     const float bq = sdo + -((a.x * dx + a.y * dy) + a.z * dz);
@@ -210,6 +275,7 @@ __device__ __forceinline__ void scan_spheres(const float4* sph, int first, int c
       h.inv_r = load4<STAGED>(S + 3).x;
       h.sph = 1.0f;
       if constexpr (GLASS) h.ior = e.w;
+      if constexpr (TEX) carry_tex<false>(h, tex + (size_t)(first + k) * TEX4, zero, zero);
       own = true;
     } else if (tv == h.t && own && tv < BIG) {
       const float4 c = load4<STAGED>(S + 1);
@@ -221,23 +287,26 @@ __device__ __forceinline__ void scan_spheres(const float4* sph, int first, int c
       h.inv_r += load4<STAGED>(S + 3).x;
       h.sph += 1.0f;
       if constexpr (GLASS) h.ior += e.w;
+      if constexpr (TEX) carry_tex<true>(h, tex + (size_t)(first + k) * TEX4, zero, zero);
     }
   }
 }
 
 // One tile, by its test mode.
-template <bool STAGED, bool PRIMS, bool GLASS>
+template <bool STAGED, bool PRIMS, bool GLASS, bool TEX>
 __device__ __forceinline__ void scan_tile(const float4* rec, const float4* sph,
+                                          const float4* ptex, const float4* stex,
                                           const float* tile, float ox, float oy, float oz,
                                           float dx, float dy, float dz, float sdo,
                                           float soo, float t_min, Hit& h, bool& own) {
   const int first = (int)tile[6], count = (int)tile[7], mode = (int)tile[8];
   if (count == 0) return;
 #define ROWS(MODE) \
-  scan_rows<STAGED, MODE, PRIMS, GLASS>(rec, first, count, ox, oy, oz, dx, dy, dz, t_min, h, own)
+  scan_rows<STAGED, MODE, PRIMS, GLASS, TEX>(rec, ptex, first, count, ox, oy, oz, dx, dy, dz, \
+                                             t_min, h, own)
 #define SPHERES(FAR) \
-  scan_spheres<STAGED, FAR, GLASS>(sph, first, count, ox, oy, oz, dx, dy, dz, sdo, soo, \
-                                   t_min, h, own)
+  scan_spheres<STAGED, FAR, GLASS, TEX>(sph, stex, first, count, ox, oy, oz, dx, dy, dz, sdo, \
+                                        soo, t_min, h, own)
   if (mode == 0) ROWS(0);
   else if (mode == 1) ROWS(1);
   else if (mode == 2 || !(PRIMS || GLASS)) ROWS(2);
@@ -266,8 +335,10 @@ __device__ __forceinline__ float clamped_rcp(float x) {
 
 // STAGED: every group is single-tile and the records are in shared memory.
 // PRIMS: the scene has triangles or spheres (modes 3, 4, 5, 7). GLASS: it
-// has a glass group (modes 5, 6, 7) and the dielectric stage runs.
-template <bool STAGED, bool SKY, bool PRIMS, bool GLASS>
+// has a glass group (modes 5, 6, 7) and the dielectric stage runs. TEX: it
+// has a textured primitive and the texture stage runs. DIAG: the per-block
+// diagnostics are gathered.
+template <bool STAGED, bool SKY, bool PRIMS, bool GLASS, bool TEX, bool DIAG>
 __global__ void trace_kernel(const Params p) {
   // Shared: [plane records, sphere records: STAGED only] [tile table] [walk order].
   extern __shared__ float4 shared[];
@@ -289,6 +360,8 @@ __global__ void trace_kernel(const Params p) {
   __syncthreads();
   const float4* rec = STAGED ? shared : (const float4*)p.planes;
   const float4* sph = STAGED ? shared + p.n_planes * RECORD4 : (const float4*)p.spheres;
+  const float4* ptex = (const float4*)p.plane_tex;
+  const float4* stex = (const float4*)p.sphere_tex;
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n_rays) return;
@@ -308,9 +381,11 @@ __global__ void trace_kernel(const Params p) {
   float tr = 1.f, tg = 1.f, tb = 1.f;
   float lr = 0.f, lg = 0.f, lb = 0.f;
   int mh = 0, dc = 0;
+  int lived = 0;  // segments entered alive (DIAG)
 
   for (int seg = 0; seg < p.max_segments; ++seg) {
     Hit h = {BIG, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if constexpr (DIAG) ++lived;
     float sdo = 0.f, soo = 0.f;
     if constexpr (PRIMS) {
       sdo = (ox * dx + oy * dy) + oz * dz;
@@ -319,8 +394,8 @@ __global__ void trace_kernel(const Params p) {
     // The single-tile groups are one joint scan: ties sum across them.
     bool own = true;
     for (int ti = 0; ti < p.n_single; ++ti)
-      scan_tile<STAGED, PRIMS, GLASS>(rec, sph, s_tiles + ti * TILE, ox, oy, oz, dx, dy, dz,
-                                      sdo, soo, t_min, h, own);
+      scan_tile<STAGED, PRIMS, GLASS, TEX>(rec, sph, ptex, stex, s_tiles + ti * TILE, ox, oy,
+                                           oz, dx, dy, dz, sdo, soo, t_min, h, own);
     if constexpr (!STAGED) {
       const float idx = clamped_rcp(dx), idy = clamped_rcp(dy), idz = clamped_rcp(dz);
       for (int k = 0; k < n_walk; ++k) {
@@ -333,9 +408,15 @@ __global__ void trace_kernel(const Params p) {
         tn = tn - fabsf(tn) * 1e-3f;
         tf = tf + fabsf(tf) * 1e-3f;
         if (!((tf >= tn) && (tf > 0.f) && (tn < h.t))) continue;
+        if constexpr (DIAG) {
+          unsigned int* word = p.diag_mask +
+              ((size_t)pid * p.max_segments + seg) * p.mask_words + (k >> 5);
+          const unsigned int bit = 1u << (k & 31);
+          if (!(*(volatile unsigned int*)word & bit)) atomicOr(word, bit);
+        }
         own = false;
-        scan_tile<false, PRIMS, GLASS>(rec, sph, T, ox, oy, oz, dx, dy, dz, sdo, soo, t_min,
-                                       h, own);
+        scan_tile<false, PRIMS, GLASS, TEX>(rec, sph, ptex, stex, T, ox, oy, oz, dx, dy, dz, sdo,
+                                            soo, t_min, h, own);
       }
     }
 
@@ -359,6 +440,18 @@ __global__ void trace_kernel(const Params p) {
         ny = ((oy + dy * t) - ny) * h.inv_r;
         nz = ((oz + dz * t) - nz) * h.inv_r;
       }
+    }
+    if constexpr (TEX) {
+      // The checker: odd cells take the winner's second colour.
+      const float hx = ox + dx * t, hy = oy + dy * t, hz = oz + dz * t;
+      const float s1 = ((hx * h.w1x + hy * h.w1y) + hz * h.w1z) - h.b1;
+      const float s2 = ((hx * h.w2x + hy * h.w2y) + hz * h.w2z) - h.b2;
+      const float f1 = floorf(s1 * h.tsc) + floorf(s2 * h.tsc);
+      const float f2 = (floorf(__fdiv_rn(hx, h.tsc)) + floorf(__fdiv_rn(hy, h.tsc))) +
+                       floorf(__fdiv_rn(hz, h.tsc));
+      const float f = h.tk > 1.5f ? f2 : f1;
+      const bool odd = (f - 2.0f * floorf(f * 0.5f)) > 0.5f;
+      if (h.tk > 0.f && odd) { h.cr = h.c2r; h.cg = h.c2g; h.cb = h.c2b; }
     }
     const float dn = (dx * nx + dy * ny) + dz * nz;
     const float side = dn > 0.f ? -1.f : (dn < 0.f ? 1.f : -dn);  // -sign(dn)
@@ -443,10 +536,21 @@ __global__ void trace_kernel(const Params p) {
   p.light[3 * i] = lr;
   p.light[3 * i + 1] = lg;
   p.light[3 * i + 2] = lb;
+  if constexpr (DIAG) {
+    const int n_blocks = (p.n_rays + p.block_rays - 1) / p.block_rays;
+    atomicMax(p.diag_segments + pid, lived);
+    atomicAdd(p.diag_segments + n_blocks + pid, lived);
+  }
 }
 
 template <bool STAGED, bool SKY, bool PRIMS, bool GLASS>
 static int launch(const Params& p, cudaStream_t stream) {
+  constexpr bool TEX = MM_TEX, DIAG = MM_DIAG;
+  if (TEX && ((p.n_planes > 0 && p.plane_tex == nullptr) ||
+              (p.n_spheres > 0 && p.sphere_tex == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (DIAG && (p.diag_segments == nullptr || p.diag_mask == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int threads = 128;
   const int blocks = (p.n_rays + threads - 1) / threads;
   const size_t smem =
@@ -454,13 +558,13 @@ static int launch(const Params& p, cudaStream_t stream) {
       (size_t)p.n_tiles * TILE * sizeof(float) +
       (size_t)(p.n_tiles - p.n_single) * sizeof(int);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(trace_kernel<STAGED, SKY, PRIMS, GLASS>,
+    cudaError_t e = cudaFuncSetAttribute(trace_kernel<STAGED, SKY, PRIMS, GLASS, TEX, DIAG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   if (p.n_rays > 0)
-    trace_kernel<STAGED, SKY, PRIMS, GLASS><<<blocks, threads, smem, stream>>>(p);
+    trace_kernel<STAGED, SKY, PRIMS, GLASS, TEX, DIAG><<<blocks, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -474,9 +578,11 @@ static int launch_stages(const Params& p, bool prims, bool glass, cudaStream_t s
 
 extern "C" int mm_trace_paths(const float* ori, const float* dirs, const float* planes,
                               int n_planes, const float* spheres, int n_spheres,
+                              const float* plane_tex, const float* sphere_tex,
                               const float* tiles, int n_tiles, int n_single,
                               const int* order, const int* seed, const float* seed_row,
-                              float* light, int n_rays, int block_rays, int max_segments,
+                              float* light, int* diag_segments, unsigned int* diag_mask,
+                              int mask_words, int n_rays, int block_rays, int max_segments,
                               int bounce_limit, int mirror_limit, int prims, int glass,
                               int fresnel, float mirror_tint, float t_min, float sky_r,
                               float sky_g, float sky_b, float sky_strength, float sky_lf,
@@ -485,7 +591,8 @@ extern "C" int mm_trace_paths(const float* ori, const float* dirs, const float* 
                     n_planes, n_spheres, n_tiles, n_single,
                     n_rays, block_rays, max_segments, bounce_limit, mirror_limit, fresnel,
                     mirror_tint, t_min,
-                    sky_r, sky_g, sky_b, sky_strength, sky_lf, sky_log_lf};
+                    sky_r, sky_g, sky_b, sky_strength, sky_lf, sky_log_lf,
+                    plane_tex, sphere_tex, diag_segments, diag_mask, mask_words};
   const cudaStream_t s = (cudaStream_t)stream;
   const bool staged = n_tiles == n_single;
   const bool sky = sky_strength != 0.f;

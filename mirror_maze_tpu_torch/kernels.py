@@ -1,11 +1,17 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
-Each source is compiled at first use by ``nvcc`` for ``sm_90a`` into a
+Each library is compiled at first use by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, under ``_build/`` beside this
 file (listed in ``.gitignore``), and loaded with ``ctypes``. A library is
 named by a hash of its source and flags, so an edited source rebuilds and
-an unchanged one is reused. ``build()`` compiles every source at once, one
+an unchanged one is reused. ``build()`` compiles every library at once, one
 ``nvcc`` process each, in parallel.
+
+The tracer's source gives four libraries (``LIBRARIES``): ``tracer``, the
+16 instantiations an untextured scene runs, ``tracer_tex`` with the texture
+stage, and ``tracer_diag`` / ``tracer_tex_diag``, which also gather the
+per-block diagnostics. Each is a translation unit of its own, so a launch
+without textures or diagnostics runs the kernel it always ran.
 
 Nothing here runs at import: the CPU tests import every module and this
 machine may have no ``nvcc`` at all.
@@ -42,23 +48,32 @@ NVCC_FLAGS = (
 )
 
 _C = ctypes
-_SIGNATURES = {
-    "tracer": ("mm_trace_paths", [
-        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int,     # ori, dirs, planes, P
-        _C.c_void_p, _C.c_int,                               # spheres, S
-        _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p,        # tiles, T, single, order
-        _C.c_void_p, _C.c_void_p, _C.c_void_p,               # seed, seed_row, light
-        _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,    # R, B, segments, limits
-        _C.c_int, _C.c_int, _C.c_int,                        # prims, glass, fresnel
-        _C.c_float, _C.c_float,                              # mirror_tint, t_min
-        _C.c_float, _C.c_float, _C.c_float, _C.c_float,      # sky rgb, strength
-        _C.c_float, _C.c_float,                              # lighting factor, its log
-        _C.c_void_p,                                         # stream
-    ]),
-    "present": ("mm_present", [
-        _C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
-        _C.c_void_p,
-    ]),
+_TRACER = ("mm_trace_paths", [
+    _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int,     # ori, dirs, planes, P
+    _C.c_void_p, _C.c_int,                               # spheres, S
+    _C.c_void_p, _C.c_void_p,                            # plane and sphere texture rows
+    _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p,        # tiles, T, single, order
+    _C.c_void_p, _C.c_void_p, _C.c_void_p,               # seed, seed_row, light
+    _C.c_void_p, _C.c_void_p, _C.c_int,                  # diagnostics: segments, mask, words
+    _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,    # R, B, segments, limits
+    _C.c_int, _C.c_int, _C.c_int,                        # prims, glass, fresnel
+    _C.c_float, _C.c_float,                              # mirror_tint, t_min
+    _C.c_float, _C.c_float, _C.c_float, _C.c_float,      # sky rgb, strength
+    _C.c_float, _C.c_float,                              # lighting factor, its log
+    _C.c_void_p,                                         # stream
+])
+_PRESENT = ("mm_present", [
+    _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,  # src, dst, halo top, halo bottom
+    _C.c_int, _C.c_int, _C.c_int, _C.c_int,              # chunks x, y, chunk width, quantize
+    _C.c_void_p,                                         # stream
+])
+# name -> (source in csrc/, macros for nvcc, (C symbol, argument types))
+LIBRARIES = {
+    "tracer": ("tracer.cu", (), _TRACER),
+    "tracer_tex": ("tracer.cu", ("-DMM_TEX=1",), _TRACER),
+    "tracer_diag": ("tracer.cu", ("-DMM_DIAG=1",), _TRACER),
+    "tracer_tex_diag": ("tracer.cu", ("-DMM_TEX=1", "-DMM_DIAG=1"), _TRACER),
+    "present": ("present.cu", (), _PRESENT),
 }
 
 launches: collections.Counter = collections.Counter()
@@ -81,8 +96,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    source, macros, _ = LIBRARIES[name]
+    src = (CSRC / source).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS + macros).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -101,8 +117,8 @@ def ptxas_summary(out: str) -> str:
     return "\n".join(lines) or out.strip()
 
 
-def build(names=tuple(_SIGNATURES), verbose: bool = False) -> dict:
-    """Compile (where not built yet) and load the named kernels; returns
+def build(names=tuple(LIBRARIES), verbose: bool = False) -> dict:
+    """Compile (where not built yet) and load the named libraries; returns
     {name: ctypes function}. Raises with nvcc's output on a failed build."""
     with _lock:
         todo = [n for n in names if n not in _libs]
@@ -113,8 +129,9 @@ def build(names=tuple(_SIGNATURES), verbose: bool = False) -> dict:
             if path.exists():
                 continue
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
+            source, macros, _ = LIBRARIES[name]
+            cmd = [_nvcc(), *NVCC_FLAGS, *macros, "-Xptxas", "-v", "-o", str(tmp),
+                   str(CSRC / source)]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True),
                            tmp, path)
@@ -130,7 +147,7 @@ def build(names=tuple(_SIGNATURES), verbose: bool = False) -> dict:
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
         for name in todo:
-            symbol, argtypes = _SIGNATURES[name]
+            symbol, argtypes = LIBRARIES[name][2]
             fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -138,11 +155,12 @@ def build(names=tuple(_SIGNATURES), verbose: bool = False) -> dict:
         return {n: _libs[n] for n in names}
 
 
-def launch(name: str, *args) -> None:
-    """Call kernel ``name``'s C entry on the current stream, count the
-    launch and raise if CUDA refused it."""
+def launch(name: str, *args, count_as: str | None = None) -> None:
+    """Call library ``name``'s C entry on the current stream, count the
+    launch (under ``count_as`` where one library serves two variants) and
+    raise if CUDA refused it."""
     fn = _libs.get(name) or build((name,))[name]
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch: error {err}")
-    launches[name] += 1
+    launches[count_as or name] += 1

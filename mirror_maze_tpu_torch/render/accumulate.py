@@ -41,18 +41,28 @@ RCP3 = float(np.float32(1.0 / 3.0))
 RCP255 = float(np.float32(1.0 / 255.0))
 
 
-def feedback_blur_cm(cm: torch.Tensor, screen_cfg) -> torch.Tensor:
+def feedback_blur_cm(cm: torch.Tensor, screen_cfg, halo_top: torch.Tensor | None = None,
+                     halo_bot: torch.Tensor | None = None) -> torch.Tensor:
     """The cross blur (c + (l+r)/2 + (u+d)/2) / 3 on the chunk-major layout
     (the divisions as the reference engine computes them, see RCP3):
     inside a chunk the neighbours are yo/xo shifts, across a chunk edge the
-    adjacent chunk's edge row or column, clamped at the screen edge."""
+    adjacent chunk's edge row or column, clamped at the screen edge.
+
+    With ``halo_top`` and ``halo_bot`` (pixel rows [width * 3], both or
+    neither) the screen is a row band of a taller one (the JAX package's
+    parallel/shard.py _blur_with_halo_cm): its top pixel row reads the row
+    above from ``halo_top`` and its bottom row the row below from
+    ``halo_bot``, where the single screen clamps."""
     cw = screen_cfg.chunk_width
     cy, cx = screen_cfg.chunks_y, screen_cfg.chunks_x
     t = cm.reshape(cy, cx, cw, cw, 3)   # (cy, cx, x_off, y_off, c)
     last = cw - 1
-    prev_y = torch.cat([t[0:1, :, :, 0:1], t[:-1, :, :, last:]], dim=0)
+    top, bot = t[0:1, :, :, 0:1], t[-1:, :, :, last:]
+    if halo_top is not None:
+        top, bot = halo_top.reshape(1, cx, cw, 1, 3), halo_bot.reshape(1, cx, cw, 1, 3)
+    prev_y = torch.cat([top, t[:-1, :, :, last:]], dim=0)
     u = torch.cat([prev_y, t[:, :, :, :last]], dim=3)
-    next_y = torch.cat([t[1:, :, :, 0:1], t[-1:, :, :, last:]], dim=0)
+    next_y = torch.cat([t[1:, :, :, 0:1], bot], dim=0)
     d = torch.cat([t[:, :, :, 1:], next_y], dim=3)
     prev_x = torch.cat([t[:, 0:1, 0:1], t[:, :-1, last:]], dim=1)
     left = torch.cat([prev_x, t[:, :, :last]], dim=2)

@@ -8,9 +8,9 @@ runs ``trace_paths_plain``, the same function in PyTorch, vectorized over
 rays with [R, rows] intermediates and Python loops over segments and tiles.
 
 Both reproduce the Pallas kernel as the CPU interpreter runs it, for
-untextured quads, triangles and spheres, opaque or glass (the reference's
-eight test modes, scenebuf.py), in any number of tiles, with the noise seed
-row and the sky term:
+quads, triangles and spheres, opaque or glass (the reference's eight test
+modes, scenebuf.py), plain or with a checker texture, in any number of tiles,
+with the noise seed row, the sky term and the per-block diagnostics:
 
 - plane hit test: t = numer * (1/denom) with the plane constants dotted
   against (o, 1, d) left to right; the edge tests of the mode: min(s, 1-s)
@@ -53,7 +53,28 @@ row and the sky term:
   ray's ``seed_row`` value scaled to 24 bits; the image depends on B and
   never on the CUDA launch geometry;
 - a live ray that misses gathers sky_color * lighting_factor^(segment -
-  mirror hits) * sky_strength when ``sky_strength`` is not 0.
+  mirror hits) * sky_strength when ``sky_strength`` is not 0;
+- the texture stage, only in a scene that has a textured primitive
+  (``scene.textured``): after the nearest hit and the sphere normal, the
+  winner's albedo is swapped for its ``tex_color2`` on the odd cells of a
+  checker, before any use of the albedo. With h = o + d t, kind 1 (UV
+  checker) counts floor(s1 scale) + floor(s2 scale) from the winner's edge
+  coordinates s = (h.w) - b, kind 2 (world checker) floor(hx / scale) +
+  floor(hy / scale) + floor(hz / scale), a true division. The texture
+  parameters and w1, b1, w2, b2 ride the winner like its other properties,
+  so primitives tied exactly on t sum them too, and ``kind > 1.5`` / ``kind
+  > 0`` select on the summed value;
+- ``return_block_segments=True`` also returns the reference kernel's output
+  rows 3-7, [5, ceil(R / B)] int32, per block of B rays (ray i belongs to
+  block i // B, whatever the CUDA launch geometry): the segments the block
+  ran (the most any of its rays lived), the tiles evaluated over them, on
+  the primary segment and on segments 0-2, and the sum over segments of the
+  live rays entering each. The reference evaluates a tile for a whole block
+  when any live ray of it passes the tile's slab test, and the single-tile
+  groups once per segment; with the per-ray skip here the vote comes to the
+  same count except through rays that have left the world (their running
+  nearest hit may differ). The wavefront is padded to whole blocks with
+  zero rays as the reference pads it: they live one segment and vote too.
 """
 
 from __future__ import annotations
@@ -63,7 +84,13 @@ import torch
 
 from .. import kernels
 from ..config import TracerConfig
-from .scenebuf import SPHERE_MODES, SPHERE_RECORD_WIDTH, TILE_WIDTH, DeviceScene
+from .scenebuf import (
+    SPHERE_MODES,
+    SPHERE_RECORD_WIDTH,
+    TEX_WIDTH,
+    TILE_WIDTH,
+    DeviceScene,
+)
 
 BIG = 1e30
 LANES = 128
@@ -72,8 +99,12 @@ PLAIN_CHUNK = 1 << 16    # most rays per pass of the plain version
 PLAIN_BUDGET = 1 << 23   # most [rays, rows] elements of one intermediate
 EDGE_TESTS = {0: 2, 1: 1, 2: 0, 4: 2, 6: 2, 7: 2}   # per plane test, by mode
 # The winner's selected properties (tie-summed): normal (a sphere's centre)
-# 0:3, albedo 3:6, emission 6:9, is_mirror 9, 1/r 10, is-sphere 11, ior 12.
+# 0:3, albedo 3:6, emission 6:9, is_mirror 9, 1/r 10, is-sphere 11, ior 12;
+# in a textured scene also tex_kind 13, tex_scale 14, tex_color2 15:18,
+# w1 18:21, b1 21, w2 22:25, b2 25 (zeros for a sphere).
 SEL_WIDTH = 13
+TEX_SEL_WIDTH = 26
+DIAG_ROWS = 5
 
 
 def _f32(x: float) -> float:
@@ -174,24 +205,30 @@ def _hit_ts(mode, rows, o, d, t_min, sdo, soo):
     return torch.where(ok, t, torch.full_like(t, BIG))
 
 
-def _props(mode, rows):
-    """[P, SEL_WIDTH] properties of the records of one test mode."""
+def _props(mode, rows, tex=None):
+    """[P, SEL_WIDTH] properties of the records of one test mode; with the
+    records' texture rows ``tex`` [P, 8], [P, TEX_SEL_WIDTH]."""
     pad = rows.new_zeros((rows.shape[0], 1))
     if mode in SPHERE_MODES:
-        return torch.cat([rows[:, 0:3], rows[:, 4:11], rows[:, 12:13], pad + 1.0,
-                          rows[:, 11:12]], dim=1)
-    return torch.cat([rows[:, 0:3], rows[:, 12:19], pad, pad, rows[:, 19:20]], dim=1)
+        cols = [rows[:, 0:3], rows[:, 4:11], rows[:, 12:13], pad + 1.0, rows[:, 11:12]]
+        if tex is not None:
+            cols += [tex[:, 0:5], pad.expand(-1, 8)]
+    else:
+        cols = [rows[:, 0:3], rows[:, 12:19], pad, pad, rows[:, 19:20]]
+        if tex is not None:
+            cols += [tex[:, 0:5], rows[:, 4:12]]
+    return torch.cat(cols, dim=1)
 
 
 def _dense_nearest(groups, o, d, t_min, sdo, soo):
-    """(t [R], sel [R, SEL_WIDTH]) over the records of ``groups``, a list of
-    (mode, rows) tested jointly: one nearest t, the properties of the
+    """(t [R], sel [R, width]) over the records of ``groups``, a list of
+    (mode, rows, props) tested jointly: one nearest t, the properties of the
     primitives tied exactly on it summed, zeros on a miss."""
-    tv = torch.cat([_hit_ts(m, rows, o, d, t_min, sdo, soo) for m, rows in groups], dim=1)
+    tv = torch.cat([_hit_ts(g[0], g[1], o, d, t_min, sdo, soo) for g in groups], dim=1)
     tmin = tv.min(dim=1).values
     thresh = torch.where(tmin < BIG, tmin, torch.full_like(tmin, -1.0))
     onehot = (tv <= thresh[:, None]).to(torch.float32)
-    return tmin, onehot @ torch.cat([_props(m, rows) for m, rows in groups])
+    return tmin, onehot @ torch.cat([g[2] for g in groups])
 
 
 def _slab_pass(box, o, inv_d, tmin, alive):
@@ -218,18 +255,22 @@ def _test_counts(mode: int, n: int) -> list:
 
 def _plain_tables(scene: DeviceScene, anchor: torch.Tensor):
     """What a pass of the plain version reads of the scene: ([(mode,
-    records) of each single-tile group], [(mode, records, tile row) of each
-    walked tile, in walk order]). A tile of padding only holds no record and
-    is left out of the walk."""
+    records, properties) of each single-tile group], [(mode, records,
+    properties, tile row) of each walked tile, in walk order]). A tile of
+    padding only holds no record; it stays in the walk (its inverted box
+    passes the slab test, which the diagnostics count) and is never tested."""
     rows = []
     for tile in scene.tiles.cpu().tolist():
         first, count, mode = int(tile[6]), int(tile[7]), int(tile[8])
-        records = scene.spheres if mode in SPHERE_MODES else scene.planes
-        rows.append((mode, records[first:first + count]))
+        sph = mode in SPHERE_MODES
+        records = (scene.spheres if sph else scene.planes)[first:first + count]
+        tex = None
+        if scene.textured:
+            tex = (scene.sphere_tex if sph else scene.plane_tex)[first:first + count]
+        rows.append((mode, records, _props(mode, records, tex)))
     n_single = sum(1 for g in scene.group_meta if g[2] == 1)
     order = tile_order(scene.tiles, scene.group_meta, anchor).tolist()
-    return rows[:n_single], [rows[ti] + (scene.tiles[ti],) for ti in order
-                             if rows[ti][1].shape[0]]
+    return rows[:n_single], [rows[ti] + (scene.tiles[ti],) for ti in order]
 
 
 def trace_paths_plain(
@@ -244,8 +285,10 @@ def trace_paths_plain(
     ray_ids: torch.Tensor | None = None,    # [R] int64 (None = 0 .. R-1)
     stats: dict | None = None,
     skip: bool = True,
-) -> torch.Tensor:
-    """The plain PyTorch version of the fused tracer: light [R, 3].
+    return_block_segments: bool = False,
+):
+    """The plain PyTorch version of the fused tracer: light [R, 3], and with
+    ``return_block_segments`` (light, diagnostics [5, blocks] int32).
 
     ``ray_ids`` gives each ray's position in its wavefront, which seeds its
     PCG stream: a subset of a wavefront (whole blocks of B rays, say) traced
@@ -262,44 +305,100 @@ def trace_paths_plain(
     before; ``plane_tests``, ``edge_tests`` and ``sphere_tests``, the hit
     tests and edge tests of those tiles' primitives and of the single-tile
     groups'; ``glass_hits``, the live hits on glass (each runs the
-    dielectric stage)."""
+    dielectric stage); ``textured_hits``, the live hits on a textured
+    primitive (each evaluates a checker).
+
+    The diagnostics' blocks are ``ray_ids // B``. Without ``ray_ids`` the
+    wavefront is padded to whole blocks as the reference pads it; with them
+    it is taken as it is (whole blocks of a larger wavefront, say) and the
+    columns run up to the last block named."""
     dev = ori.device
+    n_rays, block = ori.shape[0], rows_per_block * LANES
     if anchor is None:
         anchor = torch.zeros(3, dtype=torch.float32, device=dev)
+    if return_block_segments and ray_ids is None:
+        ori, dirs, seed_row = _pad_to_blocks(ori, dirs, seed_row, block)
     if ray_ids is None:
         ray_ids = torch.arange(ori.shape[0], dtype=torch.int64, device=dev)
-    rng = pcg_init(seed, ray_ids, rows_per_block * LANES, seed_row)
+    rng = pcg_init(seed, ray_ids, block, seed_row)
     single, walk = _plain_tables(scene, anchor)
-    widest = max([sum(rows.shape[0] for _, rows in single)] + [t[1].shape[0] for t in walk])
+    diag = None
+    if return_block_segments:
+        n_blocks = int(ray_ids.max()) // block + 1 if ray_ids.numel() else 0
+        diag = dict(votes=torch.zeros((cfg.max_segments, len(walk), n_blocks),
+                                      dtype=torch.int32, device=dev),
+                    segments=torch.zeros(n_blocks, dtype=torch.int32, device=dev),
+                    live=torch.zeros(n_blocks, dtype=torch.int32, device=dev))
+    widest = max([sum(g[1].shape[0] for g in single)] + [t[1].shape[0] for t in walk])
     step = max(1, min(PLAIN_CHUNK, PLAIN_BUDGET // max(1, widest)))
     parts = []
     for c0 in range(0, ori.shape[0], step):
         sl = slice(c0, c0 + step)
-        parts.append(_trace_plain_chunk(single, walk, scene.has_glass, ori[sl], dirs[sl],
-                                        rng[sl], cfg, stats, skip))
-    return torch.cat(parts) if parts else torch.zeros_like(ori)
+        if diag is not None:
+            diag["block"] = ray_ids[sl] // block
+        parts.append(_trace_plain_chunk(single, walk, scene.has_glass, scene.textured,
+                                        ori[sl], dirs[sl], rng[sl], cfg, stats, skip, diag))
+    light = torch.cat(parts)[:n_rays] if parts else torch.zeros_like(ori)
+    if diag is None:
+        return light
+    tiles = (diag["votes"] > 0).sum(dim=1, dtype=torch.int32)
+    return light, _diag_rows(diag["segments"], diag["live"], tiles, len(single))
 
 
-def _nearest(single, walk, o, d, t_min, alive, counts, skip):
+def _pad_to_blocks(ori, dirs, seed_row, block):
+    """The wavefront padded with zero rays to whole blocks of ``block``
+    rays, as the reference pads it: a padded ray misses everything and dies
+    on its first segment."""
+    pad = -ori.shape[0] % block
+    if pad:
+        ori = torch.cat([ori, ori.new_zeros((pad, 3))])
+        dirs = torch.cat([dirs, dirs.new_zeros((pad, 3))])
+        if seed_row is not None:
+            seed_row = torch.cat([seed_row, seed_row.new_zeros(pad)])
+    return ori, dirs, seed_row
+
+
+def _diag_rows(segments, live, tiles, n_single):
+    """The reference kernel's output rows 3-7, [5, blocks] int32, from the
+    segments each block ran [blocks], the live rays entering its segments
+    summed [blocks], and the walked tiles that some live ray of the block
+    reached on each segment, ``tiles`` [max_segments, blocks]. The
+    single-tile groups count once on every segment the block ran."""
+    return torch.stack([
+        segments,
+        n_single * segments + tiles.sum(dim=0, dtype=torch.int32),
+        n_single * segments.clamp(max=1) + tiles[:1].sum(dim=0, dtype=torch.int32),
+        n_single * segments.clamp(max=3) + tiles[:3].sum(dim=0, dtype=torch.int32),
+        live,
+    ]).to(torch.int32)
+
+
+def _nearest(single, walk, o, d, t_min, alive, counts, skip, width, vote=None):
     """Nearest hit over all groups in the reference's merge order:
-    (t [R], sel [R, SEL_WIDTH]). ``counts`` (or None) is a tensor of four
+    (t [R], sel [R, width]). ``counts`` (or None) is a tensor of four
     sums over the walked tiles: tile visits, plane tests, edge tests and
-    sphere tests."""
+    sphere tests. ``vote`` (or None) is (votes [walked tiles, blocks], the
+    rays' blocks [R]): each walked tile's count of rays that reach it is
+    added to its row."""
     sdo = (o[:, 0] * d[:, 0] + o[:, 1] * d[:, 1]) + o[:, 2] * d[:, 2]
     soo = (o[:, 0] * o[:, 0] + o[:, 1] * o[:, 1]) + o[:, 2] * o[:, 2]
     if single:
         tmin, sel = _dense_nearest(single, o, d, t_min, sdo, soo)
     else:
         tmin = torch.full_like(o[:, 0], BIG)
-        sel = o.new_zeros((o.shape[0], SEL_WIDTH))
+        sel = o.new_zeros((o.shape[0], width))
     if walk:
         inv_d = torch.clamp(1.0 / d, -BIG, BIG)
-    for mode, rows, tile in walk:
+    for k, (mode, rows, props, tile) in enumerate(walk):
         reach = _slab_pass(tile, o, inv_d, tmin, alive)
+        if vote is not None:
+            vote[0][k].index_add_(0, vote[1], reach.to(torch.int32))
+        if rows.shape[0] == 0:
+            continue
         if counts is not None:
             counts += reach.sum() * torch.tensor([1] + _test_counts(mode, rows.shape[0]),
                                                  device=counts.device)
-        tile_t, tile_sel = _dense_nearest([(mode, rows)], o, d, t_min, sdo, soo)
+        tile_t, tile_sel = _dense_nearest([(mode, rows, props)], o, d, t_min, sdo, soo)
         better = tile_t < tmin
         if skip:
             better = better & reach
@@ -308,8 +407,9 @@ def _nearest(single, walk, o, d, t_min, alive, counts, skip):
     return tmin, sel
 
 
-def _trace_plain_chunk(single, walk, has_glass, o, d, rng, cfg, stats, skip):
+def _trace_plain_chunk(single, walk, has_glass, textured, o, d, rng, cfg, stats, skip, diag):
     t_min = _f32(cfg.t_min)
+    width = TEX_SEL_WIDTH if textured else SEL_WIDTH
     tint = _f32(cfg.mirror_tint)
     sky = cfg.sky_strength != 0.0
     if sky:
@@ -323,22 +423,40 @@ def _trace_plain_chunk(single, walk, has_glass, o, d, rng, cfg, stats, skip):
     if stats is not None:
         counts = torch.zeros(4, dtype=torch.int64, device=o.device)
         glass_hits = torch.zeros((), dtype=torch.int64, device=o.device)
+        textured_hits = torch.zeros((), dtype=torch.int64, device=o.device)
         per_segment = [1] + [sum(c) for c in zip(*(
-            [_test_counts(m, rows.shape[0]) for m, rows in single] or [[0, 0, 0]]))]
+            [_test_counts(g[0], g[1].shape[0]) for g in single] or [[0, 0, 0]]))]
+    lived = torch.zeros_like(mh)                    # segments each ray entered alive
     for seg in range(cfg.max_segments):
         n_alive = int(alive.sum())
         if n_alive == 0:
             break
+        lived = lived + alive.to(torch.int32)
         if stats is not None:
             for name, n in zip(("ray_segments", "plane_tests", "edge_tests", "sphere_tests"),
                                per_segment):
                 stats[name] = stats.get(name, 0) + n_alive * n
-        t, sel = _nearest(single, walk, o, d, t_min, alive, counts, skip)
+        vote = None if diag is None else (diag["votes"][seg], diag["block"])
+        t, sel = _nearest(single, walk, o, d, t_min, alive, counts, skip, width, vote)
         n, c, e, mir = sel[:, 0:3], sel[:, 3:6], sel[:, 6:9], sel[:, 9]
         # A sphere's normal, from the same o + d t as the position update.
         is_sph = sel[:, 11] > 0.0
         n = torch.where(is_sph[:, None], ((o + d * t[:, None]) - n) * sel[:, 10:11], n)
         hit = alive & (t < BIG)
+        if textured:
+            # The checker: odd cells take the winner's second colour.
+            tk, tsc = sel[:, 13], sel[:, 14]
+            h = o + d * t[:, None]
+            hx, hy, hz = h[:, 0], h[:, 1], h[:, 2]
+            s1 = ((hx * sel[:, 18] + hy * sel[:, 19]) + hz * sel[:, 20]) - sel[:, 21]
+            s2 = ((hx * sel[:, 22] + hy * sel[:, 23]) + hz * sel[:, 24]) - sel[:, 25]
+            f1 = torch.floor(s1 * tsc) + torch.floor(s2 * tsc)
+            f2 = (torch.floor(hx / tsc) + torch.floor(hy / tsc)) + torch.floor(hz / tsc)
+            f = torch.where(tk > 1.5, f2, f1)
+            odd = (f - 2.0 * torch.floor(f * 0.5)) > 0.5
+            c = torch.where(((tk > 0.0) & odd)[:, None], sel[:, 15:18], c)
+            if stats is not None:
+                textured_hits += (hit & (tk > 0.0)).sum()
         if sky:
             # lighting_factor^(segment - mirror hits), with 0^0 = 1.
             expo = (seg - mh).to(torch.float32)
@@ -415,9 +533,13 @@ def _trace_plain_chunk(single, walk, has_glass, o, d, rng, cfg, stats, skip):
         dc = dc + diffuse.to(torch.int32)
         alive = hit & ~(spec & (mh_new >= cfg.mirror_limit)) & (dc < cfg.bounce_limit)
     if stats is not None:
-        names = ("tile_visits", "plane_tests", "edge_tests", "sphere_tests", "glass_hits")
-        for name, n in zip(names, counts.tolist() + [int(glass_hits)]):
+        names = ("tile_visits", "plane_tests", "edge_tests", "sphere_tests", "glass_hits",
+                 "textured_hits")
+        for name, n in zip(names, counts.tolist() + [int(glass_hits), int(textured_hits)]):
             stats[name] = stats.get(name, 0) + n
+    if diag is not None:
+        diag["segments"].scatter_reduce_(0, diag["block"], lived, "amax")
+        diag["live"].index_add_(0, diag["block"], lived)
     return lt
 
 
@@ -430,9 +552,15 @@ def trace_paths_fused(
     rows_per_block: int,
     anchor: torch.Tensor | None = None,     # [3] float32 tile-order anchor (None = origin)
     seed_row: torch.Tensor | None = None,   # [R] float32 in [0, 1), mixed into the seeds
-) -> torch.Tensor:
-    """Trace a ray wavefront; returns light [R, 3]. The CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    return_block_segments: bool = False,
+):
+    """Trace a ray wavefront; returns light [R, 3], and with
+    ``return_block_segments`` (light, the per-block diagnostics [5, ceil(R /
+    B)] int32: the reference kernel's output rows 3-7). The CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors. A textured scene and
+    the diagnostics each run instantiations of their own (libraries
+    ``tracer_tex``, ``tracer_diag``, ``tracer_tex_diag``, built at first
+    use), so that a launch without them runs the kernel it always ran."""
     dev = ori.device
     planes, spheres, tiles = scene.planes, scene.spheres, scene.tiles
     if anchor is None:
@@ -441,6 +569,9 @@ def trace_paths_fused(
                ("tiles", tiles, torch.float32),
                ("ori", ori, torch.float32), ("dirs", dirs, torch.float32),
                ("seed", seed, torch.int32), ("anchor", anchor, torch.float32)]
+    if scene.textured:
+        checked += [("plane_tex", scene.plane_tex, torch.float32),
+                    ("sphere_tex", scene.sphere_tex, torch.float32)]
     if seed_row is not None:
         checked.append(("seed_row", seed_row, torch.float32))
     for name, x, dtype in checked:
@@ -453,6 +584,9 @@ def trace_paths_fused(
             or tiles.shape[1] != TILE_WIDTH):
         raise ValueError("the scene must hold [P, 20] plane records, [S, 16] sphere records "
                          "and a [T, 9] tile table")
+    if scene.textured and (tuple(scene.plane_tex.shape) != (planes.shape[0], TEX_WIDTH) or
+                           tuple(scene.sphere_tex.shape) != (spheres.shape[0], TEX_WIDTH)):
+        raise ValueError("a textured scene must hold [P, 8] and [S, 8] texture rows")
     if sum(g[2] for g in scene.group_meta) != tiles.shape[0]:
         raise ValueError("group_meta must account for every tile")
     if seed.numel() != 1:
@@ -463,10 +597,25 @@ def trace_paths_fused(
         raise ValueError(f"seed_row must be [R], got {tuple(seed_row.shape)}")
     if dev.type == "cpu":
         return trace_paths_plain(scene, ori, dirs, seed, cfg, rows_per_block,
-                                 anchor=anchor, seed_row=seed_row)
+                                 anchor=anchor, seed_row=seed_row,
+                                 return_block_segments=return_block_segments)
     if dev.type != "cuda":
         raise ValueError(f"trace_paths_fused runs on cuda or cpu tensors, got {dev}")
     order = tile_order(tiles, scene.group_meta, anchor)
+    n_rays, block = ori.shape[0], rows_per_block * LANES
+    name, plane_tex, sphere_tex, segments, mask = "tracer", None, None, None, None
+    if scene.textured:
+        name += "_tex"
+        plane_tex, sphere_tex = scene.plane_tex.contiguous(), scene.sphere_tex.contiguous()
+    if return_block_segments:
+        name += "_diag"
+        ori, dirs, seed_row = _pad_to_blocks(ori, dirs, seed_row, block)
+        n_blocks = ori.shape[0] // block
+        # Per block: [the most segments a ray lived, the segments lived summed],
+        # and per block and segment a bit for each walked tile a live ray reached.
+        segments = torch.zeros((2, n_blocks), dtype=torch.int32, device=dev)
+        mask = torch.zeros((n_blocks, cfg.max_segments, max(1, -(-order.shape[0] // 32))),
+                           dtype=torch.int32, device=dev)
     ori, dirs, planes, spheres, tiles, seed = (
         x.contiguous() for x in (ori, dirs, planes, spheres, tiles, seed))
     if seed_row is not None:
@@ -476,16 +625,23 @@ def trace_paths_fused(
     # Which stages the scene needs: triangles or spheres, and glass.
     modes = {g[0] for g in scene.group_meta}
     prims = bool(modes & {3, 4, 5, 7})
-    kernels.launch(
-        "tracer", ori.data_ptr(), dirs.data_ptr(), planes.data_ptr(), planes.shape[0],
-        spheres.data_ptr(), spheres.shape[0],
-        tiles.data_ptr(), tiles.shape[0], tiles.shape[0] - order.shape[0], order.data_ptr(),
-        seed.data_ptr(), seed_row.data_ptr() if seed_row is not None else None,
-        light.data_ptr(), ori.shape[0], rows_per_block * LANES,
-        cfg.max_segments, cfg.bounce_limit, cfg.mirror_limit,
-        int(prims), int(scene.has_glass), int(cfg.fresnel),
-        _f32(cfg.mirror_tint), _f32(cfg.t_min),
-        *(_f32(c) for c in cfg.sky_color), _f32(cfg.sky_strength), _f32(lf),
-        _f32(np.log(lf)) if lf > 0.0 else 0.0,
-    )
-    return light
+    ptr = lambda x: None if x is None else x.data_ptr()
+    with torch.cuda.device(dev):            # the launch goes to this device's stream
+        kernels.launch(
+            name, ori.data_ptr(), dirs.data_ptr(), planes.data_ptr(), planes.shape[0],
+            spheres.data_ptr(), spheres.shape[0], ptr(plane_tex), ptr(sphere_tex),
+            tiles.data_ptr(), tiles.shape[0], tiles.shape[0] - order.shape[0], order.data_ptr(),
+            seed.data_ptr(), ptr(seed_row), light.data_ptr(), ptr(segments), ptr(mask),
+            0 if mask is None else mask.shape[2], ori.shape[0], block,
+            cfg.max_segments, cfg.bounce_limit, cfg.mirror_limit,
+            int(prims), int(scene.has_glass), int(cfg.fresnel),
+            _f32(cfg.mirror_tint), _f32(cfg.t_min),
+            *(_f32(c) for c in cfg.sky_color), _f32(cfg.sky_strength), _f32(lf),
+            _f32(np.log(lf)) if lf > 0.0 else 0.0,
+        )
+    if not return_block_segments:
+        return light
+    bits = (mask[..., None] >> torch.arange(32, dtype=torch.int32, device=dev)) & 1
+    tiles_reached = bits.sum(dim=(2, 3), dtype=torch.int32).T     # [max_segments, blocks]
+    return light[:n_rays], _diag_rows(segments[0], segments[1], tiles_reached,
+                                      tiles.shape[0] - order.shape[0])

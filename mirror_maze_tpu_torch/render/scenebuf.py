@@ -1,6 +1,6 @@
 """Device-resident scene buffers (counterpart of the JAX package's
 ``render/scenebuf.py``, reduced to what the fused tracer and the collision
-query read).
+query read, with the in-step sphere refresh).
 
 The reference uploads its scene once at init (`main.rs:723-730`). Here the
 upload builds the Morton/kind-ordered plane table of the JAX package's
@@ -49,6 +49,11 @@ SPHERE_RECORD_WIDTH = 16
 # pallas_tracer.build_sphere_table).
 SPHERE_WIDTH = 18
 
+# The texture rows, [P, 8] and [S, 8] float32, in record order and only for a
+# textured scene (empty otherwise): tex_kind 0 (0 none, 1 UV checker, 2 world
+# checker), tex_scale 1, tex_color2 2:5, padding. Only a winner reads them.
+TEX_WIDTH = 8
+
 # A row of the tile table, [T, 9] float32: box lo 0:3, box hi 3:6, first
 # record 6, records 7, test mode 8.
 TILE_WIDTH = 9
@@ -74,6 +79,10 @@ class DeviceScene(NamedTuple):
     noise: torch.Tensor         # [S, S] noise texture in [0, 1) (noise_rng)
     leaf_min: torch.Tensor      # [L, 3] BVH leaf boxes and sphere boxes (collision)
     leaf_max: torch.Tensor      # [L, 3]
+    plane_tex: torch.Tensor     # [P, 8] texture rows (TEX_WIDTH), [0, 8] untextured
+    sphere_tex: torch.Tensor    # [S, 8] the same of the spheres
+    sph_center: torch.Tensor    # [S, 3] sphere centres in scene order (make_sphere_refresh)
+    sph_radius: torch.Tensor    # [S] their radii
 
     @property
     def num_planes(self) -> int:
@@ -82,6 +91,12 @@ class DeviceScene(NamedTuple):
     @property
     def num_spheres(self) -> int:
         return self.spheres.shape[0]
+
+    @property
+    def textured(self) -> bool:
+        """Some primitive is textured: the tracer's texture stage runs. A
+        property of the whole scene, as in the reference, fixed at upload."""
+        return self.plane_tex.shape[0] + self.sphere_tex.shape[0] > 0
 
     @property
     def has_glass(self) -> bool:
@@ -184,9 +199,7 @@ def plane_modes(table: np.ndarray) -> np.ndarray:
 def plane_records(table: np.ndarray) -> tuple[np.ndarray, tuple]:
     """The fused tracer's [P, 20] records, grouped by test mode (within a
     mode in table order, as the reference's groups are), and the plane
-    counts of the modes 0..7. Raises for textured planes."""
-    if (table[:, 28] > 0).any():
-        raise NotImplementedError("the fused tracer does not trace textured planes yet")
+    counts of the modes 0..7."""
     modes = plane_modes(table)
     rows = table[np.argsort(modes, kind="stable")]
     rec = np.concatenate([rows[:, 0:19], rows[:, 27:28]], axis=1)
@@ -194,14 +207,34 @@ def plane_records(table: np.ndarray) -> tuple[np.ndarray, tuple]:
     return np.ascontiguousarray(rec, np.float32), counts
 
 
+def sphere_record_order(sphere_table: np.ndarray) -> np.ndarray:
+    """Which sphere of the table stands at each place of the records: the
+    opaque spheres (mode 3) first, then the glass ones (mode 5), each in
+    table order."""
+    return np.argsort(sphere_table[:, 12] > 0.0, kind="stable")
+
+
+def texture_rows(table: np.ndarray, sphere_table: np.ndarray):
+    """(plane_tex [P, 8], sphere_tex [S, 8]): the texture parameters in
+    record order, for a scene in which any primitive is textured; two empty
+    [0, 8] arrays otherwise (the reference's per-scene ``textured`` flag: an
+    untextured scene carries and traces nothing more than it did)."""
+    empty = np.zeros((0, TEX_WIDTH), np.float32)
+    if not ((table[:, 28] > 0).any() or (sphere_table[:, 13] > 0).any()):
+        return empty, empty
+    rows = table[np.argsort(plane_modes(table), kind="stable")]
+    plane_tex = np.zeros((rows.shape[0], TEX_WIDTH), np.float32)
+    plane_tex[:, 0:5] = rows[:, 28:33]
+    t = sphere_table[sphere_record_order(sphere_table)]
+    sphere_tex = np.zeros((t.shape[0], TEX_WIDTH), np.float32)
+    sphere_tex[:, 0:5] = t[:, 13:18]
+    return plane_tex, sphere_tex
+
+
 def sphere_records(sphere_table: np.ndarray) -> np.ndarray:
     """The [S, 16] sphere records, the opaque spheres (mode 3) first, then
-    the glass ones (mode 5), each in table order. Raises for textured
-    spheres."""
-    if (sphere_table[:, 13] > 0).any():
-        raise NotImplementedError("the fused tracer does not trace textured spheres yet")
-    glass = sphere_table[:, 12] > 0.0
-    t = sphere_table[np.argsort(glass, kind="stable")]
+    the glass ones (mode 5), each in table order."""
+    t = sphere_table[sphere_record_order(sphere_table)]
     rec = np.zeros((t.shape[0], SPHERE_RECORD_WIDTH), np.float32)
     rec[:, 0:3] = t[:, 0:3]
     rec[:, 3] = t[:, 4]
@@ -291,6 +324,7 @@ def upload_scene(scene: Scene, device=None, noise: np.ndarray | None = None,
         radius = np.asarray(scene.sph_radius, np.float32)[:, None]
         leaf_min = np.concatenate([leaf_min, centre - radius], axis=0)
         leaf_max = np.concatenate([leaf_max, centre + radius], axis=0)
+    plane_tex, sphere_tex = texture_rows(table, sphere_table)
     as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
     return DeviceScene(
         plane_table=as_dev(table),
@@ -303,4 +337,55 @@ def upload_scene(scene: Scene, device=None, noise: np.ndarray | None = None,
         noise=as_dev(noise),
         leaf_min=as_dev(leaf_min),
         leaf_max=as_dev(leaf_max),
+        plane_tex=as_dev(plane_tex),
+        sphere_tex=as_dev(sphere_tex),
+        sph_center=as_dev(np.asarray(scene.sph_center, np.float32).reshape(-1, 3)),
+        sph_radius=as_dev(np.asarray(scene.sph_radius, np.float32).reshape(-1)),
     )
+
+
+def make_sphere_refresh(scene: DeviceScene):
+    """``refresh(scene) -> scene`` that derives everything the tracer reads
+    of the spheres again from the scene's ``sph_center`` and ``sph_radius``
+    tensors, on their device and without a host fetch (the JAX package's
+    scenebuf.make_sphere_refresh): put in front of a step, it lets spheres
+    whose centres were moved on the device (``scene._replace(sph_center=
+    ...)``) be traced where they are. Rebuilt: the sphere table's centre, 1/r
+    and |c|^2 - r^2 (summed in float64 and rounded once, as at upload), the
+    sphere records, and the boxes of the sphere tiles. The opaque/glass
+    partition, the tiles' extents and the textured flag are fixed at upload
+    and captured here. The collision boxes stay as uploaded, as in the
+    reference, whose moved spheres (avatars) do not collide. Returns None for
+    a sphere-free scene."""
+    if scene.num_spheres == 0:
+        return None
+    dev = scene.spheres.device
+    order = torch.from_numpy(
+        sphere_record_order(scene.sphere_table.cpu().numpy())).to(dev)
+    tile_rows = [(i, int(t[6]), int(t[7])) for i, t in enumerate(scene.tiles.cpu().tolist())
+                 if int(t[8]) in SPHERE_MODES and int(t[7]) > 0]
+    eps = float(np.float32(1e-2))
+
+    def refresh(d: DeviceScene) -> DeviceScene:
+        c, r = d.sph_center, d.sph_radius
+        c64, r64 = c.double(), r.double()
+        c2r2 = (((c64[:, 0] * c64[:, 0] + c64[:, 1] * c64[:, 1]) + c64[:, 2] * c64[:, 2])
+                - r64 * r64).float()
+        inv_r = 1.0 / r
+        table = d.sphere_table.clone()
+        table[:, 0:3] = c
+        table[:, 3] = inv_r
+        table[:, 4] = c2r2
+        rec = d.spheres.clone()
+        rec[:, 0:3] = c[order]
+        rec[:, 3] = c2r2[order]
+        rec[:, 12] = inv_r[order]
+        radius = (1.0 / rec[:, 12])[:, None]
+        lo, hi = rec[:, 0:3] - radius, rec[:, 0:3] + radius
+        tiles = d.tiles.clone()
+        for ti, first, count in tile_rows:
+            tiles[ti, 0:3] = lo[first:first + count].min(dim=0).values - eps
+            tiles[ti, 3:6] = hi[first:first + count].max(dim=0).values + eps
+        return d._replace(sphere_table=table, spheres=rec, tiles=tiles)
+
+    return refresh

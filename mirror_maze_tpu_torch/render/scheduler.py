@@ -31,6 +31,31 @@ def take_chunks(
     return perm[pos], (cursor + n) % total
 
 
+def adaptive_reorder(
+    perm: torch.Tensor,          # [C] int32 chunk queue
+    cursor: torch.Tensor,        # [] the cursor before this frame's pop
+    cursor_next: torch.Tensor,   # [] and after it
+    screen_rows: torch.Tensor,   # [C, cw*cw*3] chunk-major screen
+) -> torch.Tensor:
+    """Detail-first epoch reorder (ScreenConfig.adaptive_refresh; the JAX
+    package's scheduler.adaptive_reorder): when this frame's pop wrapped the
+    queue into a new epoch, the queue becomes the chunks by descending
+    variance of their luminance (the population variance; a stable sort, so
+    chunks of equal variance keep their id order), rolled to start at
+    ``cursor_next``; otherwise it stays. Both are computed and selected with
+    ``torch.where``, so the frame never waits on the host."""
+    c = screen_rows.shape[0]
+    px = screen_rows.reshape(c, -1, 3)
+    luma = (0.2126 * px[..., 0] + 0.7152 * px[..., 1]) + 0.0722 * px[..., 2]
+    centred = luma - luma.mean(dim=1, keepdim=True)
+    var = (centred * centred).mean(dim=1)
+    order = torch.argsort(-var, stable=True)
+    # jnp.roll(order, cursor_next): element i comes from place i - cursor_next.
+    pos = (torch.arange(c, dtype=torch.int64, device=perm.device) - cursor_next) % c
+    wrapped = cursor_next <= cursor     # take_chunks went past the end
+    return torch.where(wrapped, order[pos].to(perm.dtype), perm)
+
+
 def sort_window_morton(ids: torch.Tensor, cfg: ScreenConfig) -> torch.Tensor:
     """Reorder one popped window along a Morton curve of its chunk
     coordinates (ScreenConfig.sort_chunk_window): the same chunk set, laid

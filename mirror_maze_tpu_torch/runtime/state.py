@@ -108,3 +108,34 @@ def from_reference_state(arrays, device=None) -> EngineState:
             a = a.astype(np.uint32).astype(np.int64)
         fields[name] = torch.from_numpy(np.array(a)).to(dtype=dtype, device=dev)
     return EngineState(**fields)
+
+
+def from_reference_sharded_state(arrays, devices=None):
+    """A ``parallel.shard.ShardedEngineState`` from the JAX package's band
+    engine state: a dict of NumPy arrays with its fields in the gathered
+    layout (replicated camera fields and frame counter, ``screen`` [C,
+    cw*cw*3] and ``perm`` [C] with the bands stacked, ``cursor`` [n],
+    ``key`` [n, 2]). Band i goes to ``devices[i]`` (None = one band on the
+    CUDA card); the list must name as many devices as the state has bands."""
+    from ..parallel.shard import ShardedEngineState, check_devices
+
+    devs = check_devices(devices)
+    missing = [k for k in EngineState._fields if k not in arrays]
+    if missing:
+        raise ValueError(f"state arrays lack field(s) {missing}")
+    n = int(np.asarray(arrays["cursor"]).reshape(-1).shape[0])
+    if len(devs) != n:
+        raise ValueError(f"the state has {n} bands, the device list {len(devs)} entries")
+    screen, perm = np.asarray(arrays["screen"]), np.asarray(arrays["perm"])
+    if screen.shape[0] % n or perm.shape[0] != screen.shape[0]:
+        raise ValueError(f"a screen of {screen.shape[0]} chunks and a queue of {perm.shape[0]} "
+                         f"do not split into {n} bands")
+    c_band = screen.shape[0] // n
+    bands = []
+    for t, dev in enumerate(devs):
+        rows = slice(t * c_band, (t + 1) * c_band)
+        bands.append(from_reference_state(dict(
+            arrays, screen=screen[rows], perm=perm[rows],
+            cursor=np.asarray(arrays["cursor"]).reshape(-1)[t],
+            key=np.asarray(arrays["key"]).reshape(n, 2)[t]), device=dev))
+    return ShardedEngineState.from_bands(bands)

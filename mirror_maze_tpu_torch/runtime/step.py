@@ -8,7 +8,8 @@ One frame, in the reference's order (`main.rs:767-894`):
 3. apply the mouse yaw with the finite guard, regenerating the chunk queue
    on a successful rotation (it takes effect NEXT frame, as the reference);
 4. trace the popped chunks (the fused tracer kernel) and write them into
-   the screen;
+   the screen; with ``adaptive_refresh`` the queue is first reordered by the
+   screen's detail whenever the pop wrapped it;
 5. feedback blur + 8-bit quantization (the present kernel).
 
 Every value the frame depends on stays a device tensor, and the inputs are
@@ -37,6 +38,7 @@ from ..render.pipeline import render_pixels
 from ..render.present import present
 from ..render.scenebuf import DeviceScene
 from ..render.scheduler import (
+    adaptive_reorder,
     chunk_origin_xy,
     chunk_pixels,
     sort_window_morton,
@@ -117,8 +119,6 @@ def make_step(
 ) -> Callable[[EngineState, FrameInputs], tuple[EngineState, torch.Tensor]]:
     """The frame step bound to a scene: (state, inputs) -> (state, uint8
     display frame [H, W, 3] on the state's device)."""
-    if cfg.screen.adaptive_refresh:
-        raise NotImplementedError("adaptive_refresh is not ported yet")
     n_chunks = cfg.screen.effective_chunks_per_frame
 
     def step(state: EngineState, inputs: FrameInputs):
@@ -128,13 +128,27 @@ def make_step(
     return step
 
 
-def _advance(scene, cfg, n_chunks, state: EngineState, inputs: FrameInputs) -> EngineState:
+def advance_to_scatter(scene, cfg, n_chunks, state: EngineState, inputs: FrameInputs,
+                       grid=None, row0: int = 0) -> EngineState:
+    """Steps 1-4 of a frame: the new state with the refreshed chunks written
+    into the screen and the present still to come.
+
+    ``grid`` is the ScreenConfig of the chunk grid the queue addresses
+    (None = ``cfg.screen``) and ``row0`` the pixel row of the whole screen at
+    which that grid starts: the row-band engine (parallel/shard.py) steps
+    each band with its own grid and offset, while the rays are made against
+    the whole screen, ``cfg.screen``."""
+    grid = cfg.screen if grid is None else grid
     frame = state.frame + 1
 
     # 1. This frame's chunk window (the pre-rotation queue).
     ids, cursor_next = take_chunks(state.perm, state.cursor, n_chunks)
     if cfg.screen.sort_chunk_window:
-        ids = sort_window_morton(ids, cfg.screen)
+        ids = sort_window_morton(ids, grid)
+    perm_in = state.perm
+    if cfg.screen.adaptive_refresh:
+        # Detail-first epoch order: reorders only when this pop wrapped.
+        perm_in = adaptive_reorder(state.perm, state.cursor, cursor_next, state.screen)
 
     # 2. Movement + collision.
     moved = integrate_movement(cfg, state.cam_center, state.quat, inputs.keys)
@@ -142,27 +156,35 @@ def _advance(scene, cfg, n_chunks, state: EngineState, inputs: FrameInputs) -> E
 
     # 3. Rotation (+ queue regeneration for the NEXT frame).
     quat, half_theta, perm, cursor, key = rotation_update(
-        state.quat, state.half_theta, state.perm, cursor_next, state.key,
+        state.quat, state.half_theta, perm_in, cursor_next, state.key,
         inputs, cfg,
     )
 
     # 4. Trace the popped chunks and write them as chunk-major rows.
     fkey = prng.fold_in(key, frame)
-    pixels = chunk_pixels(chunk_origin_xy(ids, cfg.screen), cfg.screen.chunk_width)
+    origins = chunk_origin_xy(ids, grid)
+    if row0:
+        origins = origins + torch.tensor([0, row0], dtype=torch.int32, device=origins.device)
+    pixels = chunk_pixels(origins, grid.chunk_width)
     cam = state._replace(cam_center=center, quat=quat).camera(cfg)
     colors = render_pixels(scene, cam, pixels, fkey, cfg)
     screen = scatter_chunk_rows(state.screen, ids, colors)
-
-    # 5. Present: feedback blur + quantization.
-    screen = present_stage(
-        screen, cfg.screen,
-        lambda scr, quantize: present(scr, cfg.screen, quantize=quantize),
-        lambda scr: feedback_blur_cm(scr, cfg.screen),
-    )
     return EngineState(
         cam_center=center, quat=quat, half_theta=half_theta, screen=screen,
         perm=perm, cursor=cursor, key=key, frame=frame,
     )
+
+
+def _advance(scene, cfg, n_chunks, state: EngineState, inputs: FrameInputs) -> EngineState:
+    state = advance_to_scatter(scene, cfg, n_chunks, state, inputs)
+
+    # 5. Present: feedback blur + quantization.
+    screen = present_stage(
+        state.screen, cfg.screen,
+        lambda scr, quantize: present(scr, cfg.screen, quantize=quantize),
+        lambda scr: feedback_blur_cm(scr, cfg.screen),
+    )
+    return state._replace(screen=screen)
 
 
 def make_scan_step(
@@ -171,8 +193,6 @@ def make_scan_step(
     """Many frames per call: (state, [inputs...]) -> (final state, last
     display frame). A plain loop of steps with no host sync inside; only
     the final frame's display is built."""
-    if cfg.screen.adaptive_refresh:
-        raise NotImplementedError("adaptive_refresh is not ported yet")
     n_chunks = cfg.screen.effective_chunks_per_frame
 
     def run(state: EngineState, inputs: Sequence[FrameInputs]):

@@ -121,8 +121,26 @@ GALLERY_SPAWN = (0.0, -3.0, -10.0)          # the examples' camera
 CORNELL_GLASS_CENTRE = (1.6, 2.0 - 1.8, -2.2)
 
 
+def _block(rows, cx, cz, half, height, theta_deg, color, mirror, floor_y=2.0) -> None:
+    """An axis box rotated ``theta_deg`` about y, appended to ``rows``: four
+    outward sides and a top (examples/cornell_box.py _Soup.block)."""
+    th = np.deg2rad(theta_deg)
+    rot = np.array([[np.cos(th), np.sin(th)], [-np.sin(th), np.cos(th)]])
+    base = np.array([[-half, -half], [-half, half], [half, half], [half, -half]]) @ rot.T
+    base += (cx, cz)
+    dark = (0, 0, 0, 0)
+    for i in range(4):
+        c0, c1 = base[i], base[(i + 1) % 4]
+        rows.append(((c0[0], floor_y, c0[1]), (0.0, -height, 0.0),
+                     (c1[0] - c0[0], 0.0, c1[1] - c0[1]), color, mirror, dark))
+    c0, c1, c3 = base[0], base[1], base[3]
+    rows.append(((c0[0], floor_y - height, c0[1]), (c3[0] - c0[0], 0.0, c3[1] - c0[1]),
+                 (c1[0] - c0[0], 0.0, c1[1] - c0[1]), color, mirror, dark))
+
+
 def cornell_scene(variant: str) -> Scene:
     """The Cornell box of examples/cornell_box.py build_cornell_box, variant
+    ``blocks`` (a short diffuse and a tall mirror block, 17 quads),
     ``spheres`` (a mirror and a diffuse sphere: test mode 3) or ``glass`` (a
     glass sphere beside a tall mirror block: mode 5), built with the port's
     Scene (test_torch_scene.py holds it equal to the example's, array for
@@ -143,23 +161,13 @@ def cornell_scene(variant: str) -> Scene:
             sph_emission=np.zeros((2, 4), np.float32),
             sph_ior=np.zeros(2, np.float32),
         )
+    if variant == "blocks":
+        _block(rows, 2.0, -1.7, 1.5, 3.0, -17.0, white, False)
+        _block(rows, -2.0, 1.8, 1.5, 6.0, 17.0, white, True)
+        return _quad_scene(rows)
     if variant != "glass":
-        raise ValueError(f"variant must be 'spheres' or 'glass', got {variant!r}")
-    # The tall mirror block: an axis box rotated 17 degrees about y, four
-    # outward sides and a top.
-    cx, cz, half, height = -2.0, 1.8, 1.5, 6.0
-    th = np.deg2rad(17.0)
-    rot = np.array([[np.cos(th), np.sin(th)], [-np.sin(th), np.cos(th)]])
-    base = np.array([[-half, -half], [-half, half], [half, half], [half, -half]]) @ rot.T
-    base += (cx, cz)
-    dark = (0, 0, 0, 0)
-    for i in range(4):
-        c0, c1 = base[i], base[(i + 1) % 4]
-        rows.append(((c0[0], floor_y, c0[1]), (0.0, -height, 0.0),
-                     (c1[0] - c0[0], 0.0, c1[1] - c0[1]), white, True, dark))
-    c0, c1, c3 = base[0], base[1], base[3]
-    rows.append(((c0[0], floor_y - height, c0[1]), (c3[0] - c0[0], 0.0, c3[1] - c0[1]),
-                 (c1[0] - c0[0], 0.0, c1[1] - c0[1]), white, True, dark))
+        raise ValueError(f"variant must be 'blocks', 'spheres' or 'glass', got {variant!r}")
+    _block(rows, -2.0, 1.8, 1.5, 6.0, 17.0, white, True)
     return dataclasses.replace(
         _quad_scene(rows),
         sph_center=np.float32([CORNELL_GLASS_CENTRE]),
@@ -169,6 +177,62 @@ def cornell_scene(variant: str) -> Scene:
         sph_emission=np.zeros((1, 4), np.float32),
         sph_ior=np.float32([1.5]),
     )
+
+
+def checker_floor(scene: Scene, cells: float = 8.0, color2=(0.25, 0.25, 0.3)) -> Scene:
+    """The scene with its floor (plane 0) a UV checker, ``tex_kind`` 1
+    (examples/cornell_box.py checker_floor)."""
+    kind = np.zeros(scene.num_planes, np.uint8)
+    scale = np.ones(scene.num_planes, np.float32)
+    color = np.zeros((scene.num_planes, 3), np.float32)
+    kind[0], scale[0], color[0] = 1, cells, color2
+    return dataclasses.replace(scene, tex_kind=kind, tex_scale=scale, tex_color2=color)
+
+
+def textured_cornell(variant: str) -> Scene:
+    """The Cornell box with every texture case: the checker floor (kind 1),
+    the left wall a world checker (kind 2) and, in the ``spheres`` variant,
+    the diffuse sphere a world checker too. The wall stands at x = -5 and its
+    cells are 1.3 wide, so the wall lies inside a cell (-5 / 1.3 = -3.85) and
+    not on a cell edge, where an ulp of the hit point would pick the cell."""
+    scene = checker_floor(cornell_scene(variant))
+    kind, scale = scene.tex_kind.copy(), scene.tex_scale.copy()
+    color = scene.tex_color2.copy()
+    kind[4], scale[4], color[4] = 2, 1.3, (0.9, 0.8, 0.2)
+    scene = dataclasses.replace(scene, tex_kind=kind, tex_scale=scale, tex_color2=color)
+    if variant == "spheres":
+        scene = dataclasses.replace(
+            scene, sph_tex_kind=np.uint8([0, 2]), sph_tex_scale=np.float32([1.0, 0.6]),
+            sph_tex_color2=np.float32([(0, 0, 0), (0.1, 0.2, 0.7)]))
+    return scene
+
+
+def tied_floor_scene():
+    """The checker-floor box plus an untextured copy of the floor quad: the
+    two tie exactly wherever the floor is hit."""
+    box = checker_floor(cornell_scene("blocks"))
+    floor = dataclasses.replace(
+        box, **{f: np.asarray(getattr(box, f))[:1] for f in
+                ("origin", "v", "u", "color", "is_mirror", "emission", "kind", "ior")},
+        tex_kind=np.zeros(1, np.uint8), tex_scale=np.ones(1, np.float32),
+        tex_color2=np.zeros((1, 3), np.float32))
+    return mesh.merge_scenes(box, floor)
+
+
+def textured_maze_scene():
+    """An 8x8 maze with spheres; half of the planes and spheres textured at
+    random (planes kind 1 or 2, spheres kind 2)."""
+    scene = scene_subset(primitive_zoo(8), {3})
+    r = np.random.default_rng(2)
+    n, s = scene.num_planes, scene.num_spheres
+    return dataclasses.replace(
+        scene,
+        tex_kind=(r.integers(1, 3, n) * (r.random(n) < 0.5)).astype(np.uint8),
+        tex_scale=r.uniform(0.3, 4.0, n).astype(np.float32),
+        tex_color2=r.uniform(0, 1, (n, 3)).astype(np.float32),
+        sph_tex_kind=(2 * (r.random(s) < 0.5)).astype(np.uint8),
+        sph_tex_scale=r.uniform(0.3, 2.0, s).astype(np.float32),
+        sph_tex_color2=r.uniform(0, 1, (s, 3)).astype(np.float32))
 
 
 def mesh_gallery_scene() -> Scene:

@@ -24,12 +24,17 @@ from _torch_tools import (
     primitive_zoo,
     scene_subset,
     soup_arrays,
+    textured_cornell,
+    textured_maze_scene,
+    tied_floor_scene,
 )
 from mirror_maze_tpu_torch import kernels
 from mirror_maze_tpu_torch.config import MazeConfig, ScreenConfig, TracerConfig, config_interactive
 from mirror_maze_tpu_torch.render.fused_tracer import trace_paths_fused, trace_paths_plain
 from mirror_maze_tpu_torch.render.present import present, present_plain
-from mirror_maze_tpu_torch.render.scenebuf import upload_scene
+from mirror_maze_tpu_torch.parallel import shard
+from mirror_maze_tpu_torch.render.accumulate import cm_to_spatial
+from mirror_maze_tpu_torch.render.scenebuf import make_sphere_refresh, upload_scene
 from mirror_maze_tpu_torch.runtime.loop import run_scripted
 from mirror_maze_tpu_torch.runtime.state import FrameInputs
 from mirror_maze_tpu_torch.scene import build_scene
@@ -73,13 +78,14 @@ def _rays(n, seed, extent, device):
     return tuple(torch.from_numpy(a).to(device) for a in (o, d, row))
 
 
-def _kernel_vs_plain(scene, o, d, tracer, rows, **kw):
+def _kernel_vs_plain(scene, o, d, tracer, rows, lib="tracer", **kw):
     """Both on the card, same inputs: >= 99.9% of rays within rtol 1e-5 /
-    atol 1e-6 (same arithmetic; the sky's expf may differ by an ulp)."""
+    atol 1e-6 (same arithmetic; the sky's expf may differ by an ulp). The
+    launch is counted under ``lib``, the library the scene runs."""
     seed = torch.tensor([7], dtype=torch.int32, device=o.device)
-    before = kernels.launches["tracer"]
+    before = kernels.launches[lib]
     got = trace_paths_fused(scene, o, d, seed, tracer, rows, **kw)
-    assert kernels.launches["tracer"] == before + 1
+    assert kernels.launches[lib] == before + 1
     want = trace_paths_plain(scene, o, d, seed, tracer, rows, **kw)
     torch.cuda.synchronize()
     close = torch.isclose(got, want, rtol=1e-5, atol=1e-6).all(dim=1)
@@ -164,6 +170,146 @@ def test_cornell_box_kernel_matches_plain(cuda_device, variant):
         o[:1000] = np.asarray(scene.sph_center)[0] + 0.5 * d[:1000]
     o, d = (torch.from_numpy(a).to(cuda_device) for a in (o, d))
     _kernel_vs_plain(dev, o, d, TracerConfig(), 32)
+
+
+TEXTURED = {
+    "cornell_blocks": (lambda: textured_cornell("blocks"), 4.5, None),
+    "cornell_spheres": (lambda: textured_cornell("spheres"), 4.5, None),
+    "tie_with_untextured": (tied_floor_scene, 4.5, None),
+    "maze_many_tiles": (textured_maze_scene, 39.0, {0: 8, 1: 16, 2: 4, 3: 4}),
+}
+
+
+@pytest.mark.parametrize("name", list(TEXTURED))
+def test_textured_kernel_matches_plain(cuda_device, name):
+    """The texture stage (library ``tracer_tex``): UV and world checkers on
+    planes, a world checker on a sphere, a textured plane tied exactly with an
+    untextured one, and random textures over many tiles. The light must differ
+    from the same scene's with its textures taken off."""
+    build, extent, tiles = TEXTURED[name]
+    scene = build()
+    dev = upload_scene(scene, device=cuda_device, tile_by_mode=tiles)
+    assert dev.textured
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in aimed_rays(scene, 100_001, 4, extent))
+    tracer = TracerConfig(bounce_limit=4, mirror_limit=6)
+    got = _kernel_vs_plain(dev, o, d, tracer, 32, lib="tracer_tex")
+    bare = dev._replace(plane_tex=dev.plane_tex[:0], sphere_tex=dev.sphere_tex[:0])
+    assert not bare.textured
+    assert not torch.equal(got, _kernel_vs_plain(bare, o, d, tracer, 32))
+
+
+DIAG_SCENES = {
+    "maze10_one_tile": (lambda: build_scene(config_interactive().maze), 45.0, None),
+    "maze16_tiles": (lambda: build_scene(MazeConfig(width=16, height=16)), 79.0, {0: 16, 1: 32}),
+    "zoo_tiled": (lambda: primitive_zoo(8), 39.0, ZOO_TILES),
+    "textured_maze": (textured_maze_scene, 39.0, {0: 8, 1: 16, 2: 4, 3: 4}),
+}
+
+
+@pytest.mark.parametrize("name", list(DIAG_SCENES))
+def test_diagnostics_kernel_matches_plain(cuda_device, name):
+    """The per-block diagnostics (libraries ``tracer_diag`` and
+    ``tracer_tex_diag``) equal the plain version's on every block, the last
+    one padded; the light is the launch's without them, bitwise."""
+    build, extent, tiles = DIAG_SCENES[name]
+    scene = build()
+    dev = upload_scene(scene, device=cuda_device, tile_by_mode=tiles)
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in aimed_rays(scene, 50_001, 6, extent))
+    seed = torch.tensor([7], dtype=torch.int32, device=cuda_device)
+    tracer = TracerConfig(bounce_limit=4, mirror_limit=6)
+    lib = "tracer_tex_diag" if dev.textured else "tracer_diag"
+    before = kernels.launches[lib]
+    light, diag = trace_paths_fused(dev, o, d, seed, tracer, 8, return_block_segments=True)
+    assert kernels.launches[lib] == before + 1
+    want_light, want = trace_paths_plain(dev, o, d, seed, tracer, 8, return_block_segments=True)
+    torch.cuda.synchronize()
+    assert diag.dtype == torch.int32 and tuple(diag.shape) == (5, -(-50_001 // 1024))
+    assert torch.equal(light, trace_paths_fused(dev, o, d, seed, tracer, 8))
+    # Blocks whose rays all carry the plain version's light bit for bit took
+    # the same path; the counts of all blocks are expected equal too.
+    assert torch.equal(diag, want)
+    assert float(torch.isclose(light, want_light, rtol=1e-5, atol=1e-6).all(dim=1)
+                 .float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+@pytest.mark.parametrize("w,h,n_bands", [(1920, 1080, 2), (3840, 2160, 4), (64, 48, 3)])
+def test_halo_present_kernel_bands_are_the_whole_screen(cuda_device, w, h, n_bands, quantize):
+    """The halo variant band by band, with the rows ``_exchange_halo_rows``
+    takes from the neighbours, put together is bitwise the no-halo kernel on
+    the whole screen, and each band is bitwise its plain version."""
+    cfg = ScreenConfig(width=w, height=h)
+    band = ScreenConfig(width=w, height=h // n_bands)
+    x = np.random.default_rng(1).random(
+        (cfg.total_chunks, cfg.pixels_per_chunk * 3)).astype(np.float32) * 1.2 - 0.1
+    s = torch.from_numpy(x).to(cuda_device)
+    bands = list(s.chunk(n_bands))
+    tops, bots = shard._exchange_halo_rows(bands, band)
+    before = kernels.launches["present_halo"]
+    got = [present(b, band, quantize, t, u) for b, t, u in zip(bands, tops, bots)]
+    assert kernels.launches["present_halo"] == before + n_bands
+    whole = present(s, cfg, quantize)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(got).view(torch.int32), whole.view(torch.int32))
+    for g, b, t, u in zip(got, bands, tops, bots):
+        assert torch.equal(g.view(torch.int32),
+                           present_plain(b, band, quantize, t, u).view(torch.int32))
+    # A halo that is not the neighbour's row shows in the band's edge rows only.
+    other = present(bands[0], band, quantize, tops[0] + 0.5, bots[0])
+    rows = cm_to_spatial(other != got[0], band).any(dim=2).any(dim=1)
+    assert bool(rows[0]) and not bool(rows[1:].any())
+
+
+def test_sphere_refresh_on_the_card(cuda_device):
+    """A sphere moved on the device and refreshed is traced where it is:
+    kernel against plain version on the refreshed scene, equal to a fresh
+    upload of the moved scene, and the light differs from the unmoved one."""
+    import dataclasses
+
+    scene = cornell_scene("spheres")
+    dev = upload_scene(scene, device=cuda_device)
+    refresh = make_sphere_refresh(dev)
+    centre = dev.sph_center.clone()
+    centre[1] += torch.tensor([0.75, -0.5, 0.25], device=cuda_device)
+    moved = refresh(dev._replace(sph_center=centre))
+    fresh = upload_scene(dataclasses.replace(scene, sph_center=centre.cpu().numpy()),
+                         device=cuda_device)
+    assert torch.equal(moved.spheres, fresh.spheres) and torch.equal(moved.tiles, fresh.tiles)
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in aimed_rays(scene, 100_000, 5, 4.5))
+    got = _kernel_vs_plain(moved, o, d, TracerConfig(), 32)
+    assert not torch.equal(got, _kernel_vs_plain(dev, o, d, TracerConfig(), 32))
+    assert make_sphere_refresh(upload_scene(cornell_scene("blocks"), device=cuda_device)) is None
+
+
+@pytest.mark.parametrize("n_bands", [2, 4])
+def test_band_engine_on_the_card(cuda_device, n_bands):
+    """The row-band engine with all bands on the one card: one tracer launch
+    and one halo present per band and frame, the camera the single engine's,
+    the bands' screens bitwise those of the plain halo blur
+    (``pallas_present=False``), and the frame the CPU run's (golden rule)."""
+    import dataclasses
+
+    cfg = multi_tile_config(P, width=64, height=16 * n_bands)
+    script = multi_tile_script(FrameInputs)
+    scene = build_scene(cfg.maze)
+    devices = [cuda_device] * n_bands
+    init_fn, scan_fn = shard.make_sharded_scan_engine(cfg, devices)
+    kernels.reset_launches()
+    st, frame = scan_fn(upload_scene(scene, device=cuda_device), init_fn(0), script)
+    assert kernels.launches["tracer"] == kernels.launches["present_halo"] \
+        == n_bands * len(script)
+    assert kernels.launches["present"] == 0
+    plain_cfg = dataclasses.replace(
+        cfg, screen=dataclasses.replace(cfg.screen, pallas_present=False))
+    p_init, p_scan = shard.make_sharded_scan_engine(plain_cfg, devices)
+    pst, _ = p_scan(upload_scene(scene, device=cuda_device), p_init(0), script)
+    for t in range(n_bands):
+        assert torch.equal(st.screen[t], pst.screen[t])
+        assert torch.equal(st.cam_center[t], st.cam_center[0])
+    c_init, c_scan = shard.make_sharded_scan_engine(cfg, ["cpu"] * n_bands)
+    _, want = c_scan(upload_scene(scene, device="cpu"), c_init(0), script)
+    assert_frames_match(frame.cpu().numpy(), want.numpy())
+    assert frame.float().mean() > 1.0
 
 
 def test_scripted_run_on_the_card_matches_golden(cuda_device):

@@ -24,6 +24,8 @@ def test_importing_every_module_pulls_in_no_jax():
     mods = _modules()
     assert "mirror_maze_tpu_torch.render.fused_tracer" in mods
     assert "mirror_maze_tpu_torch.scene.mesh" in mods
+    assert "mirror_maze_tpu_torch.parallel.shard" in mods
+    assert "mirror_maze_tpu_torch.utils.profiling" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -59,4 +61,40 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         upload_scene(build_scene(cfg.maze))
     with pytest.raises(RuntimeError, match="CUDA"):
         from_reference_state({})
+    # The band engine and the sharded renderer: no device list is the card.
+    from mirror_maze_tpu_torch.parallel.shard import (
+        check_devices,
+        make_sharded_engine,
+        make_sharded_renderer,
+        make_sharded_scan_engine,
+    )
+    from mirror_maze_tpu_torch.runtime.state import from_reference_sharded_state
+
+    for entry in (make_sharded_engine, make_sharded_scan_engine, make_sharded_renderer):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        check_devices(["cpu", "cuda:0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from_reference_sharded_state({})
+    assert check_devices(["cpu"] * 2) == [torch.device("cpu")] * 2
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_wrappers_never_take_the_plain_version_on_a_cuda_tensor():
+    """On a tensor that is not on the CPU a wrapper goes to its kernel (or
+    raises): the plain version is reached only through the CPU branch. Held
+    on the source, since this machine has no card: each wrapper has exactly
+    one call of its plain version, under ``device.type == "cpu"``."""
+    import inspect
+
+    from mirror_maze_tpu_torch.render.fused_tracer import trace_paths_fused
+    from mirror_maze_tpu_torch.render.present import present
+
+    for fn, plain in ((present, "present_plain("),
+                      (trace_paths_fused, "trace_paths_plain(")):
+        src = inspect.getsource(fn)
+        assert src.count(plain) == 1
+        head = src[:src.index(plain)]
+        assert head.rstrip().endswith("return") and 'type == "cpu":' in head.splitlines()[-2]
+        assert "kernels.launch(" in src[src.index(plain):]

@@ -6,8 +6,11 @@ import dataclasses
 import importlib.util
 import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_tools import cornell_scene, mesh_gallery_scene, primitive_zoo, soup_arrays
 from mirror_maze_tpu.config import MazeConfig as JMaze
@@ -100,8 +103,9 @@ def test_interactive_scene_is_the_kernel_slice():
 
 
 def test_unported_primitives_raise():
-    """Textures are what the fused tracer does not trace yet; triangles and
-    glass it takes."""
+    """Nothing is left that the fused tracer refuses at upload: triangles,
+    glass and textures are all taken. A texture adds the texture rows (in
+    record order) and changes no other table."""
     table = np.zeros((2, 40), np.float32)
     table[:, 19] = 1.0
     table[1, 26] = 3.0                     # a triangle
@@ -109,11 +113,20 @@ def test_unported_primitives_raise():
     rec, counts = plane_records(table)
     assert counts == (0, 0, 0, 0, 1, 0, 1, 0) and rec[:, 19].tolist() == [0.0, 1.5]
     table[1, 28] = 1.0                     # a checker texture
-    with pytest.raises(NotImplementedError):
-        plane_records(table)
-    textured = dataclasses.replace(cornell_scene("spheres"), sph_tex_kind=np.uint8([2, 0]))
-    with pytest.raises(NotImplementedError):
-        upload_scene(textured, device="cpu")
+    rec2, counts2 = plane_records(table)
+    assert counts2 == counts and np.array_equal(rec2, rec)
+    plain = cornell_scene("spheres")
+    textured = dataclasses.replace(plain, sph_tex_kind=np.uint8([2, 0]),
+                                   sph_tex_scale=np.float32([0.5, 1.0]),
+                                   sph_tex_color2=np.float32([[0.1, 0.2, 0.3], [0, 0, 0]]))
+    a, b = upload_scene(plain, device="cpu"), upload_scene(textured, device="cpu")
+    assert not a.textured and a.plane_tex.shape == a.sphere_tex.shape == (0, 8)
+    assert b.textured and b.plane_tex.shape == (7, 8) and b.sphere_tex.shape == (2, 8)
+    assert b.sphere_tex[:, 0:5].tolist() == [[2.0, 0.5] + [float(np.float32(c)) for c in
+                                                           (0.1, 0.2, 0.3)], [0.0, 1.0, 0, 0, 0]]
+    assert not b.plane_tex[:, 0].any() and (b.plane_tex[:, 1] == 1.0).all()
+    for f in ("planes", "spheres", "tiles", "leaf_min", "leaf_max"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
 def _soup_table():
@@ -311,3 +324,96 @@ def test_mesh_toolkit_bitwise(tmp_path):
         _bitwise(getattr(merged, f.name), getattr(jmerged, f.name))
     with pytest.raises(ValueError):
         mesh.mesh_scene(pv, pf + len(pv))
+
+
+def _textured_zoo():
+    """The zoo of all eight modes with random textures on half its planes
+    (kind 1 or 2) and spheres (kind 2)."""
+    scene = primitive_zoo()
+    r = np.random.default_rng(4)
+    n, s = scene.num_planes, scene.num_spheres
+    return dataclasses.replace(
+        scene,
+        tex_kind=(r.integers(1, 3, n) * (r.random(n) < 0.5)).astype(np.uint8),
+        tex_scale=r.uniform(0.3, 4.0, n).astype(np.float32),
+        tex_color2=r.uniform(0, 1, (n, 3)).astype(np.float32),
+        sph_tex_kind=(2 * (r.random(s) < 0.5)).astype(np.uint8),
+        sph_tex_scale=r.uniform(0.3, 2.0, s).astype(np.float32),
+        sph_tex_color2=r.uniform(0, 1, (s, 3)).astype(np.float32))
+
+
+def test_texture_rows_are_the_reference_second_property_block():
+    """A textured scene's texture rows and records hold, primitive for
+    primitive, what the reference packs into its second property block
+    (tex_kind, tex_scale, tex_color2, and for planes w1, b1, w2, b2), in the
+    reference's group order; the untextured zoo uploads nothing more."""
+    scene = _textured_zoo()
+    dev = upload_scene(scene, device="cpu")
+    assert dev.textured and not upload_scene(primitive_zoo(), device="cpu").textured
+    jscene = JScene(**{f.name: getattr(scene, f.name) for f in dataclasses.fields(scene)})
+    table = np.asarray(j_upload(jscene).plane_table)
+    groups = pack_intersection_tables(table, sphere_table=j_sphere_table(jscene))
+    first = {False: 0, True: 0}
+    for mode, group in enumerate(groups):
+        assert group is not None
+        _, props_t, _ = group
+        assert props_t.shape[1] == 64                       # doubled, split hi + lo
+        n = dev.mode_counts[mode]
+        props = (props_t[:, :32] + props_t[:, 32:]).transpose(0, 2, 1).reshape(-1, 32)[:n]
+        sph = mode in (3, 5)
+        a = first[sph]
+        tex = (dev.sphere_tex if sph else dev.plane_tex)[a:a + n].numpy()
+        np.testing.assert_array_equal(tex[:, 0:5], props[:, 16:21], err_msg=f"mode {mode}")
+        if not sph:
+            np.testing.assert_array_equal(dev.planes[a:a + n, 4:12].numpy(), props[:, 21:29])
+        first[sph] += n
+
+
+def test_sphere_refresh_matches_jax():
+    """``make_sphere_refresh`` against the JAX package's: untouched, it gives
+    back the uploaded tables; after two centres move on the device (and
+    ``sph_c2r2`` with them on the reference's side, summed in float64 as at
+    upload), the records hold what the reference repacks into its sphere
+    groups, bitwise, and the sphere tiles' boxes are the reference's."""
+    from mirror_maze_tpu.render.scenebuf import make_sphere_refresh as j_make_refresh
+    from mirror_maze_tpu_torch.render.scenebuf import make_sphere_refresh
+
+    scene = primitive_zoo()
+    dev = upload_scene(scene, device="cpu")
+    refresh = make_sphere_refresh(dev)
+    same = refresh(dev)
+    for f in ("sphere_table", "spheres", "tiles"):
+        assert torch.equal(getattr(same, f), getattr(dev, f)), f
+    assert make_sphere_refresh(upload_scene(build_scene(MazeConfig(width=4, height=4)),
+                                            device="cpu")) is None
+
+    centre = np.asarray(scene.sph_center, np.float32).copy()
+    centre[0] += np.float32([3.25, -0.5, 1.125])
+    centre[3] = np.float32([-7.3, -2.2, 9.1])                    # 3 is a glass sphere
+    moved = refresh(dev._replace(sph_center=torch.from_numpy(centre)))
+    assert not torch.equal(moved.spheres, dev.spheres)
+    assert torch.equal(moved.leaf_min, dev.leaf_min)             # collision stays put
+
+    jscene = JScene(**{f.name: getattr(scene, f.name) for f in dataclasses.fields(scene)})
+    jdev = j_upload(jscene)
+    radius = np.asarray(scene.sph_radius, np.float32)
+    c2r2 = (np.sum(centre.astype(np.float64) ** 2, axis=-1)
+            - radius.astype(np.float64) ** 2).astype(np.float32)
+    jmoved = jax.jit(j_make_refresh(jdev))(
+        jdev._replace(sph_center=jnp.asarray(centre), sph_c2r2=jnp.asarray(c2r2)))
+    first = 0
+    tiles = {int(t[8]): t for t in moved.tiles.numpy()}
+    for mode in (3, 5):
+        w, props_t, aabbs = (np.asarray(a) for a in jmoved.mxu_tables[mode])
+        n = dev.mode_counts[mode]
+        props = (props_t[:, :16] + props_t[:, 16:]).transpose(0, 2, 1).reshape(-1, 16)[:n]
+        rec = moved.spheres[first:first + n].numpy()
+        np.testing.assert_array_equal(rec[:, 0:3], props[:, 0:3])        # centre
+        np.testing.assert_array_equal(rec[:, 12], props[:, 10])          # 1 / r
+        np.testing.assert_array_equal(rec[:, 3], w[0, w.shape[1] // 2:, 3][:n])   # c2r2
+        np.testing.assert_array_equal(tiles[mode][0:6], aabbs[0, 0:6])
+        first += n
+    # What the upload gives for the moved scene is what the refresh gave.
+    again = upload_scene(dataclasses.replace(scene, sph_center=centre), device="cpu")
+    for f in ("sphere_table", "spheres", "tiles"):
+        assert torch.equal(getattr(moved, f), getattr(again, f)), f
