@@ -38,15 +38,29 @@ with its triangles made glass; and further paths of the engine:
 
 with the kernel checks ``[present-halo]`` (bands put together are bitwise
 the whole screen's present), ``[tracer-tex-*]``, ``[tracer-diag-*]`` (the
-per-block diagnostics, exact against the plain version) and ``[tracer-sky*]``.
+per-block diagnostics, exact against the plain version) and ``[tracer-sky*]``;
+``[glass-scale]`` (``config_scale`` with glass panes, 12 frames) and
+``[tracer-grid]`` (the light of a 3-block persistent grid against the full
+grid's, bitwise). What the tracer's design rests on is printed beside each
+kernel check: its launch geometry (grid, threads, blocks a SM, registers,
+shared bytes, whether the whole scene is resident in shared memory), and
+from the plain version the share of lanes alive in warps of 32 consecutive
+rays and the walked tiles such a warp scans; ``[sass]`` counts the
+instructions a record of the resident kernel's scan loops compiles to. A
+present row's time is a launch with the L2 emptied before it, queued behind
+a spin so that the host's launch time is not in it; the back-to-back time
+from a CUDA graph is printed beside it (``time_present.py``, which also
+times another commit's kernel by the same method).
 
 Every phase prints one line; any failure exits non-zero. The last two lines
-are the ``{"kernels": [...]}`` summary (one row per kernel and path) and
-``{"ok": true, "device": {...}}``.
+are the ``{"kernels": [...]}`` summary (one row per kernel and path, every
+number measured or, for ``bound_ms``, computed in this run) and ``{"ok":
+true, "device": {...}}``.
 
 Needs a CUDA card: without one it exits 2 and prints no result. It uses
 the first visible card only. Imports torch and numpy, the port and the
-port's JAX-free test helpers (``tests/_torch_tools.py``), nothing of JAX.
+port's JAX-free test helpers (``tests/_torch_tools.py``) and
+``time_present.py``, nothing of JAX.
 """
 
 from __future__ import annotations
@@ -59,8 +73,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit):
-HBM_BYTES_PER_S = 3.35e12
+# Published H100 SXM peak (NVIDIA data sheet; dense, at the 700 W limit);
+# the memory rate is time_present.py's HBM_BYTES_PER_S.
 FP32_OPS_PER_S = 67e12
 
 # The TPU kernels these replace (file:line of the function that reaches
@@ -85,6 +99,23 @@ GALLERY_PLAIN_PROGRAMS = 256
 # Programs (blocks of B rays) of config_scale's wavefront that the plain
 # version traces for the comparison, spread evenly over the wavefront.
 SCALE_PLAIN_PROGRAMS = 86
+# The kernel whose scan loops the build's SASS is read for: the resident,
+# quads-only one-tile instantiation (RESIDENT, no WALK, SKY, PRIMS, GLASS,
+# TEX or DIAG).
+SASS_KERNEL = "_Z12trace_kernelILb1ELb0ELb0ELb0ELb0ELb0ELb0EEv6Params"
+# The tracer rows' ms/launch on an NVIDIA H100 80GB HBM3 at 700 W before the
+# kernel was redesigned for Hopper (one thread a ray, a block per 128 rays):
+# printed beside this run's as a reference, never in the kernels line.
+PREV_MS = {
+    "tracer": 1.457926368713379, "tracer@scale": 80.60468139648438,
+    "tracer@fuzzy": 2.326969528198242, "tracer@glass": 1.8829120635986327,
+    "tracer@glass-scale": 89.6407, "tracer@cornell-glass": 1.7636480331420898,
+    "tracer@cornell-spheres": 0.9073151588439942, "tracer@mesh": 19.911231994628906,
+    "tracer@sky": 1.4658880233764648, "tracer@glass-tri": 40.39117431640625,
+    "tracer@tex": 1.7170623779296874, "tracer@diag": 2.0404224395751953,
+}
+# The small grid the light is compared under (against the full one).
+GRID_FEW = 3
 # Operations of the texture stage per hit on a textured primitive: the hit
 # point (6), the two edge coordinates (12), the UV count (5), the world count
 # with its three divisions (8), the parity (5) and the selects (4).
@@ -93,34 +124,6 @@ TEXTURE_OPS = 40
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def time_ms(fn, reps: int, graph: bool = False) -> float:
-    """Mean ms per call on the card: CUDA events around ``reps`` calls
-    after one warm-up call. With ``graph`` the calls are captured into one
-    CUDA graph and the replay is timed: the card's time for a kernel so
-    short that the host cannot launch it as fast as it runs."""
-    import torch
-
-    def run():
-        for _ in range(reps):     # each result is dropped, so its memory is reused
-            fn()
-
-    fn()
-    if graph:
-        torch.cuda.synchronize()
-        captured = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(captured):
-            run()
-        run = captured.replay
-        run()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    run()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main() -> int:
@@ -152,14 +155,12 @@ def main() -> int:
             soup_arrays,
             textured_cornell,
         )
+        from time_present import HBM_BYTES_PER_S, time_ms, time_present
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 2
     from mirror_maze_tpu_torch import kernels
-    from mirror_maze_tpu_torch.render.fused_tracer import (
-        trace_paths_fused,
-        trace_paths_plain,
-    )
+    from mirror_maze_tpu_torch.render.fused_tracer import trace_paths_fused, trace_paths_plain
     from mirror_maze_tpu_torch.render.camera import make_camera
     from mirror_maze_tpu_torch.render.pipeline import (
         frame_rays,
@@ -181,7 +182,11 @@ def main() -> int:
     from mirror_maze_tpu_torch.runtime.step import make_scan_step
     from mirror_maze_tpu_torch.scene import build_scene
     from mirror_maze_tpu_torch.scene.builder import Scene
-    from mirror_maze_tpu_torch.utils.profiling import tracer_segment_histogram
+    from mirror_maze_tpu_torch.utils.profiling import (
+        sass_loops,
+        tracer_segment_histogram,
+        warp_lane_share,
+    )
 
     # The plain versions' comparison paths run in full float32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -203,6 +208,18 @@ def main() -> int:
     kernels.build(verbose=True)
     log(f"[build] {', '.join(kernels.LIBRARIES)} built and loaded in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    # What the resident quads-only kernel's scan loops compile to: per loop,
+    # its instructions beside its plane records (one MUFU.RCP each).
+    text = kernels.sass("tracer")
+    if text is None:
+        log("[sass] no cuobjdump in this toolkit")
+    else:
+        for lp in sass_loops(text, SASS_KERNEL):
+            log(f"[sass] {SASS_KERNEL} loop {lp['start']:#06x}-{lp['end']:#06x}: "
+                f"{lp['insts']} instructions for {lp['rcp']} records "
+                f"({lp['insts'] / lp['rcp']:.1f} a record; {lp['lds'] / lp['rcp']:.1f} shared "
+                f"loads, {lp['f32'] / lp['rcp']:.1f} f32 instructions; 16 f32 operations and "
+                f"16 per tested edge counted in the bound)")
 
     import dataclasses
 
@@ -240,14 +257,18 @@ def main() -> int:
                 raise SystemExit(f"[{tag}] FAIL quantize={quantize}: {bad} floats differ")
             log(f"[{tag}] kernel == plain bitwise, quantize={quantize}, "
                 f"{sc.width}x{sc.height}, shape {tuple(screen.shape)}")
-        n_bytes = 2 * screen.numel() * 4
+        t = time_present(lambda: present(screen, sc, True), 2 * screen.numel() * 4)
         entries[row] = dict(
-            kernel="present", lib="present", max_abs_err=err,
-            ms=time_ms(lambda: present(screen, sc, True), 50),
+            kernel="present", lib="present", max_abs_err=err, ms=t["ms"],
             plain_ms=time_ms(lambda: present_plain(screen, sc, True), 5),
-            bound_ms=max(n_bytes / HBM_BYTES_PER_S, 10 * screen.numel() / FP32_OPS_PER_S) * 1e3,
+            bound_ms=max(t["bound_ms"], 10 * screen.numel() / FP32_OPS_PER_S * 1e3),
             bound_by="bytes",
         )
+        log(f"[{tag}] kernel {t['ms']:.4f} ms/launch with the L2 emptied before each launch "
+            f"(the row), {t['warm']:.4f} back to back (a CUDA graph's replay; "
+            f"{screen.numel() * 4 / 1e6:.1f} MB screen, 50 MB L2), "
+            f"{entries[row]['bound_ms'] / t['ms']:.1%} of the bytes bound "
+            f"{entries[row]['bound_ms']:.4f} ms | {smi}")
 
     check_present("present", "present", configs["main"].screen)
     check_present("present-4k", "present@4k", configs["scale"].screen)
@@ -282,19 +303,20 @@ def main() -> int:
                 f"plain bitwise, bands concatenated == no-halo kernel on the whole screen "
                 f"bitwise, quantize={quantize}")
         b0, t0_, u0 = bands[1], tops[1], bots[1]
-        n_bytes = (2 * b0.numel() + t0_.numel() + u0.numel()) * 4
+        t = time_present(lambda: present(b0, band, True, t0_, u0),
+                         (2 * b0.numel() + t0_.numel() + u0.numel()) * 4)
+        bound = max(t["bound_ms"], 10 * b0.numel() / FP32_OPS_PER_S * 1e3)
         entries[row] = dict(
-            kernel="present", lib="present_halo", max_abs_err=err,
-            ms=time_ms(lambda: present(b0, band, True, t0_, u0), 50, graph=True),
+            kernel="present", lib="present_halo", max_abs_err=err, ms=t["ms"],
             plain_ms=time_ms(lambda: present_plain(b0, band, True, t0_, u0), 5),
-            bound_ms=max(n_bytes / HBM_BYTES_PER_S, 10 * b0.numel() / FP32_OPS_PER_S) * 1e3,
-            bound_by="bytes",
+            bound_ms=bound, bound_by="bytes",
         )
         none = time_ms(lambda: present(b0, band, True), 50, graph=True)
         one_by_one = time_ms(lambda: present(b0, band, True, t0_, u0), 50)
-        log(f"[{tag}] per band {entries[row]['ms']:.4f} ms/launch with halos, {none:.4f} without "
-            f"(50 launches replayed from a CUDA graph; launched one by one from the host "
-            f"{one_by_one:.4f}), bound {entries[row]['bound_ms']:.4f} ms by bytes, plain version "
+        log(f"[{tag}] per band {t['ms']:.4f} ms/launch with halos and the L2 emptied before "
+            f"each launch (the row); back to back from a CUDA graph {t['warm']:.4f} with halos, "
+            f"{none:.4f} without; launched one by one from the host {one_by_one:.4f}; "
+            f"{bound / t['ms']:.1%} of the bytes bound {bound:.4f} ms, plain version "
             f"{entries[row]['plain_ms']:.3f} ms | {smi}")
 
     check_present_halo("present-halo", "present-halo", configs["main"].screen, 2)
@@ -309,9 +331,11 @@ def main() -> int:
         ori, dirs, seed, seed_row = rays
         block = tc.block_rows
         n_rays, b = ori.shape[0], block * 128
-        kernel = lambda row=seed_row: trace_paths_fused(
-            scene, ori, dirs, seed, tc, block, anchor=anchor, seed_row=row)
-        got = kernel()
+        kernel = lambda row=seed_row, geometry=None: trace_paths_fused(
+            scene, ori, dirs, seed, tc, block, anchor=anchor, seed_row=row, geometry=geometry)
+        geo = {}
+        got = kernel(geometry=geo)
+        lib = "tracer_tex" if scene.textured else "tracer"
         if programs is None:
             pick = torch.arange(n_rays, device=dev)
         else:
@@ -354,6 +378,19 @@ def main() -> int:
             f"{stats['plane_tests']} plane tests, {stats['edge_tests']} edge tests, "
             f"{stats['sphere_tests']} sphere tests, {stats['glass_hits']} glass hits, "
             f"{stats['textured_hits']} textured hits")
+        walked = ""
+        if n_walk:
+            walked = (f"; {stats['warp_tile_visits'] / stats['warp_segments']:.3f} of {n_walk} "
+                      f"walked tiles scanned per warp-segment (per ray-segment "
+                      f"{stats['tile_visits'] / segs:.3f})")
+        log(f"[{tag}] warps of 32 consecutive rays, one thread a ray: "
+            f"{warp_lane_share(stats['segments_per_ray']):.4f} of lanes alive per warp-segment "
+            f"({stats['warp_segments']} warp-segments){walked}")
+        where = ("the whole scene resident" if geo["resident"] else
+                 "tile table and walk order only, records in global memory")
+        log(f"[{tag}] geometry: persistent grid of {geo['blocks']} blocks x {geo['threads']} "
+            f"threads ({geo['per_sm']} a SM), {geo['registers']} registers, {geo['smem']} B "
+            f"of shared memory: {where}, {n_walk} walked tiles")
         if not ok:
             raise SystemExit(f"[{tag}] FAIL: kernel disagrees with its plain version")
         if seed_row is not None and torch.equal(got, kernel(None)):
@@ -376,14 +413,15 @@ def main() -> int:
         n_bytes = (ori.numel() + dirs.numel() + got.numel()
                    + (0 if seed_row is None else seed_row.numel())) * 4
         entries[row] = dict(
-            kernel="tracer", lib="tracer_tex" if scene.textured else "tracer", max_abs_err=err,
+            kernel="tracer", lib=lib, max_abs_err=err,
             ms=time_ms(kernel, 5),
             plain_ms=time_ms(plain, 1), plain_rays=pick.numel(),
             bound_ms=max(ops / FP32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3,
             bound_by="operations" if ops / FP32_OPS_PER_S > n_bytes / HBM_BYTES_PER_S
             else "bytes",
         )
-        log(f"[{tag}] kernel {entries[row]['ms']:.4f} ms/launch, bound "
+        prev = f" (before the redesign {PREV_MS[row]:.4f})" if row in PREV_MS else ""
+        log(f"[{tag}] kernel {entries[row]['ms']:.4f} ms/launch{prev}, bound "
             f"{entries[row]['bound_ms']:.4f} ms by {entries[row]['bound_by']}, plain version "
             f"{entries[row]['plain_ms']:.1f} ms on {pick.numel()} rays | {smi}")
         return got
@@ -419,6 +457,23 @@ def main() -> int:
         raise SystemExit("[tracer-glass] FAIL: fresnel or the panes change nothing")
     check_tracer("tracer-glass-tiles", "tracer@glass-scale", "glass-scale",
                  programs=SCALE_PLAIN_PROGRAMS)
+    # The light does not depend on the persistent grid's size: one block
+    # against the full grid, on [main]'s and [scale]'s frame 1.
+    for path in ("main", "scale"):
+        (g_ori, g_dirs, g_seed, g_row), g_anchor = frame1_rays(path)
+        tc = configs[path].tracer
+        geo_full, geo_few = {}, {}
+        full = trace_paths_fused(scenes[path], g_ori, g_dirs, g_seed, tc, tc.block_rows,
+                                 anchor=g_anchor, seed_row=g_row, geometry=geo_full)
+        few = trace_paths_fused(scenes[path], g_ori, g_dirs, g_seed, tc, tc.block_rows,
+                                anchor=g_anchor, seed_row=g_row, grid_blocks=GRID_FEW,
+                                geometry=geo_few)
+        same = torch.equal(full, few)
+        log(f"[tracer-grid] {path}: the light of a grid of {geo_few['blocks']} blocks == that "
+            f"of the full grid of {geo_full['blocks']}, bitwise: {same}")
+        if not same or geo_few["blocks"] != GRID_FEW:
+            raise SystemExit(f"[tracer-grid] FAIL: the light of {path} depends on the grid")
+        del full, few, g_ori, g_dirs
 
     # The sky term: on the closed maze only rays that leak out of the world
     # gather it; on an open scene (a soup of 150 quads in two tiles) most do.
@@ -477,6 +532,8 @@ def main() -> int:
         segs, tiles, tiles0, _, live = (got[r].double() for r in range(5))
         with_ms = time_ms(lambda: kernel(True), 5)
         without_ms = time_ms(lambda: kernel(False), 5)
+        prev = (" (before the redesign: 2.0404 with, 1.4688 without, +38.9%)"
+                if tag == "tracer-diag" else "")
         log(f"[{tag}] {n_rays} rays in {n_blocks} blocks of B={b}, diagnostics [5, {got.shape[1]}] "
             f"against the plain version's on {blocks.numel()} blocks: rows 3-7 equal on "
             f"{', '.join(f'{float(x):.6f}' for x in same.double().mean(dim=1))} of blocks "
@@ -484,8 +541,8 @@ def main() -> int:
             f"{int(segs.max())} of {tc.max_segments}), tiles per block-segment "
             f"{float(tiles.sum() / segs.sum()):.3f} ({float(tiles0.mean()):.3f} on the primary "
             f"segment), live rays per block-segment {float(live.sum() / (segs.sum() * b)):.4f} "
-            f"of B | kernel {with_ms:.4f} ms/launch with diagnostics, {without_ms:.4f} without "
-            f"| {smi}")
+            f"of B | kernel {with_ms:.4f} ms/launch with diagnostics, {without_ms:.4f} without, "
+            f"{with_ms / without_ms - 1:+.1%}{prev} | {smi}")
         if got.dtype != torch.int32 or tuple(got.shape) != (5, n_blocks) or not bool(same.all()):
             raise SystemExit(f"[{tag}] FAIL: the diagnostics differ from the plain version's")
         return with_ms
@@ -555,6 +612,7 @@ def main() -> int:
         rays = sc.effective_chunks_per_frame * sc.pixels_per_chunk * sc.samples_per_pixel
         moved = float((st.cam_center - start_center).abs().max())
         cfg_name = {"main": "interactive", "glass": "interactive + glass_prob 0.5",
+                    "glass-scale": "scale + glass_prob 0.5",
                     "sky": "interactive + sky_strength 0.7"}.get(path, path)
         tag = path if script is None else f"{path} on {script}'s script"
         log(f"[{tag}] config_{cfg_name} {sc.width}x{sc.height} {sc.samples_per_pixel} spp, "
@@ -573,6 +631,7 @@ def main() -> int:
         return counts, frame
 
     launches = {path: drive(path)[0] for path in ("main", "scale", "fuzzy")}
+    launches["glass-scale"] = drive("glass-scale", script="bands-4k")[0]
     launches["glass"], glass_frame = drive("glass")
     if torch.equal(glass_frame, drive("main", script="glass")[1]):
         raise SystemExit("[glass] FAIL: the frame is the glass-free maze's")
@@ -766,7 +825,8 @@ def main() -> int:
 
     # One row per kernel and path; a row's launches are its path's.
     rows = (("tracer", "main"), ("tracer@scale", "scale"), ("tracer@fuzzy", "fuzzy"),
-            ("tracer@glass", "glass"), ("tracer@cornell-glass", "cornell-glass"),
+            ("tracer@glass", "glass"), ("tracer@glass-scale", "glass-scale"),
+            ("tracer@cornell-glass", "cornell-glass"),
             ("tracer@cornell-spheres", "cornell-spheres"), ("tracer@mesh", "mesh"),
             ("tracer@sky", "sky"), ("tracer@glass-tri", "mesh-glass"),
             ("tracer@tex", "cornell-checker"), ("tracer@diag", "diag"),

@@ -65,9 +65,9 @@
 //   floor(hy / scale) + floor(hz / scale) (IEEE division); on an odd count
 //   the albedo becomes the second colour, before any use of it;
 // - the diagnostics, compiled only when asked for (MM_DIAG): per reference
-//   block of B rays (ray i belongs to block i / B, threads of many CUDA
-//   blocks share one), the most segments any of its rays lived (atomicMax)
-//   and their sum (atomicAdd), and per block and segment one bit for every
+//   block of B rays (ray i belongs to block i / B, whichever warp traces
+//   it), the most segments any of its rays lived (atomicMax) and their sum
+//   (atomicAdd), and per block and segment one bit for every
 //   walked tile that a live ray's slab test reached (atomicOr, tried only
 //   while the bit reads as clear). The reference evaluates a tile for the
 //   whole block when any live lane reaches it; the wrapper counts the bits.
@@ -75,25 +75,68 @@
 // One source, four libraries: the macros MM_TEX and MM_DIAG (0 or 1, set on
 // nvcc's command line) choose which of the two extra stages a translation
 // unit instantiates, so a scene without textures traced without diagnostics
-// runs the 16 instantiations it always ran and the others are built when
-// first used.
+// runs none of their code.
 //
-// A lane that dies changes nothing in the reference's block-wide loop, so
-// each thread simply stops at its own death.
+// The order of work is free: a ray's light depends on its id alone (its PCG
+// stream, its inputs), never on the rays beside it or on the launch
+// geometry. The design for the card rests on that.
 //
 // Bound on the card: operations. Each (ray, plane) test costs ~16 f32
 // operations plus 16 per tested edge and one IEEE reciprocal, a sphere test
-// ~20 and a square root; memory traffic is the rays in and the light out. A
-// scene whose groups are all single-tile has its records (a few KB) staged
-// in shared memory once per block, and every thread reads the same record
-// at the same time (a broadcast). A multi-tile scene's records (215 KB for
-// a 64x64 maze) stay in global memory and are read through the read-only
-// path: a warp's threads walk the tiles in the same order and read the same
-// record together, and the table lives in L2. Only the tile table and the
-// walk order are staged. The stages a scene does not need are template
-// parameters (PRIMS: triangles or spheres; GLASS), so a maze of opaque
-// quads compiles the kernel it always had. Build with -fmad=false: a
-// contracted multiply-add would round differently from the reference.
+// ~20 and a square root; memory traffic is the rays in and the light out.
+// The kernel is built with -fmad=false (a contracted multiply-add would
+// round differently from the reference), so every multiply and add issues
+// on its own and the kernel can reach at most half of a bound that counts
+// 67 TFLOP/s (a rate that counts a fused multiply-add as two). On the H100
+// it is bound by instruction issue: a mode-1 record issues ~52 instructions
+// for the 32 operations counted (the reciprocal's range check, compares,
+// branches). What the design moves is how many lanes do useful work, how
+// many records a warp tests that none of its rays needs, and where the
+// records are read from:
+//
+// - Persistent warps that refill dead lanes. The grid fills the card (the
+//   SM count times the resident blocks per SM, from the occupancy of each
+//   instantiation) and no more. Each warp holds 32 rays; a lane whose ray
+//   dies writes its light (and its diagnostics) and takes a new ray id. One
+//   lane takes the ids for all of the warp's idle lanes with one atomicAdd
+//   on a counter in global memory, and hands them out in lane order
+//   (__ballot_sync / __popc / __shfl_sync), so fresh rays come in runs of
+//   consecutive, Morton-coherent ids, after every segment in which a ray
+//   died (against waiting for 16 idle lanes: within 2% where rays live
+//   long, 5-13% faster where they die early). A warp without rays and with
+//   the counter spent checks in at a second counter; the last one out sets
+//   both back to 0, so the launch needs no reset of its own. The two
+//   counters are the launch's `work` words, which the wrapper keeps one pair
+//   of per device and stream: launches on one stream run in order, and
+//   launches on two streams never share a pair.
+// - The whole scene resident in shared memory whenever it fits: the plane
+//   and sphere records, the texture rows, the tile table and the walk order
+//   are copied once per block (plain 16-byte loads: the copy is once per
+//   block of a persistent grid, so the TMA's bulk copy would save nothing
+//   that shows), and the single-tile scan and the tile walk both read them
+//   there, every lane of a warp the same record at once (a broadcast). The
+//   launcher decides from the byte count (smem_bytes) against the
+//   device's opt-in shared memory per block; a scene too large to fit keeps
+//   its records in global memory, read through the read-only path, and
+//   stages only the tile table and the walk order.
+// - Walked tiles tested by the warp together where few lanes need them. A
+//   warp of rays in different places reaches the union of its rays' tiles
+//   (on the mesh gallery 2.4 of 3 tiles a warp-segment where one ray needs
+//   0.6), and one thread a ray pays for every tile of that union in every
+//   lane. So all lanes walk the tiles together, and a tile that few of them
+//   reach is tested ray by ray by the whole warp: each lane takes every 32nd
+//   record, a warp reduction gives the nearest t, its first record and how
+//   many records tie there, and the ray's own lane then takes that record
+//   (on a tie, the records from it on) through the same scan as before, so
+//   the result is the sequential scan's bit for bit. A tile that many lanes
+//   reach is scanned by each of them alone, as before.
+// - The diagnostics are aggregated per warp: the lanes that finish a ray of
+//   the same reference block in the same step are grouped with
+//   __match_any_sync and one of them makes the block's two atomics.
+//
+// The stages a scene does not need are template parameters (PRIMS:
+// triangles or spheres; GLASS; WALK: multi-tile groups), so a maze of opaque
+// quads in one tile compiles none of them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,7 +147,6 @@
 #ifndef MM_DIAG
 #define MM_DIAG 0
 #endif
-
 #define BIG 1e30f
 #define RECORD 20  // floats per plane record (render/scenebuf.py RECORD_WIDTH)
 #define RECORD4 5  // the same in float4s
@@ -112,6 +154,7 @@
 #define SPHERE4 4
 #define TILE 9     // floats per tile row (render/scenebuf.py tile_table)
 #define TEX4 2     // float4s per texture row (TEX_WIDTH)
+#define FULL 0xffffffffu
 
 struct Params {
   const float* ori;
@@ -123,6 +166,7 @@ struct Params {
   const int* seed;
   const float* seed_row;  // [n_rays] in [0, 1), or null
   float* light;
+  unsigned int* work;     // [2]: the next ray id to hand out, the warps checked in
   int n_planes, n_spheres, n_tiles, n_single;
   int n_rays, block_rays, max_segments, bounce_limit, mirror_limit, fresnel;
   float mirror_tint, t_min;
@@ -145,12 +189,18 @@ struct Hit {
   float tk, tsc, c2r, c2g, c2b, w1x, w1y, w1z, b1, w2x, w2y, w2z, b2;
 };
 
+template <bool RESIDENT>
+__device__ __forceinline__ float4 load4(const float4* p) {
+  if constexpr (RESIDENT) return *p;
+  else return __ldg(p);
+}
+
 // The winner's texture row and edge constants: set when a primitive wins,
 // added when it ties. `tex` is the primitive's row of the texture table,
 // `w1`/`w2` its (w, b) float4s, zeros for a sphere.
-template <bool ADD>
+template <bool RESIDENT, bool ADD>
 __device__ __forceinline__ void carry_tex(Hit& h, const float4* tex, float4 w1, float4 w2) {
-  const float4 a = __ldg(tex), b = __ldg(tex + 1);  // kind, scale, colour2 rg | b
+  const float4 a = load4<RESIDENT>(tex), b = load4<RESIDENT>(tex + 1);  // kind, scale, colour2
   if (ADD) {
     h.tk += a.x; h.tsc += a.y; h.c2r += a.z; h.c2g += a.w; h.c2b += b.x;
     h.w1x += w1.x; h.w1y += w1.y; h.w1z += w1.z; h.b1 += w1.w;
@@ -177,47 +227,68 @@ __device__ __forceinline__ float sinpi_poly(float t) {
               t2 * (-0x1.4ab7dep+2f + t2 * (0x1.45bd9cp+1f + t2 * -0x1.1fc468p-1f)));
 }
 
-template <bool STAGED>
-__device__ __forceinline__ float4 load4(const float4* p) {
-  if constexpr (STAGED) return *p;
-  else return __ldg(p);
+// The hit distance of one plane record of a mode (BIG on a miss); `a` gets
+// the record's first float4 (normal, d).
+template <bool RESIDENT, int MODE>
+__device__ __forceinline__ float row_t(const float4* R, float ox, float oy, float oz, float dx,
+                                       float dy, float dz, float t_min, float4& a) {
+  constexpr bool TRIANGLE = MODE == 4 || MODE == 7;
+  constexpr bool EDGE1 = MODE == 0 || MODE == 1 || MODE == 6;
+  constexpr bool EDGE2 = MODE == 0 || MODE == 6;
+  a = load4<RESIDENT>(R);
+  const float numer = a.w - ((a.x * ox + a.y * oy) + a.z * oz);
+  const float denom = (a.x * dx + a.y * dy) + a.z * dz;
+  const float t = numer * (1.0f / denom);
+  bool ok = t > t_min;
+  if (EDGE1 || TRIANGLE) {
+    const float4 b = load4<RESIDENT>(R + 1);  // w1, b1
+    const float s1 = (((b.x * ox + b.y * oy) + b.z * oz) - b.w) +
+                     t * ((b.x * dx + b.y * dy) + b.z * dz);
+    if (EDGE1) ok = ok && (s1 >= 0.f) && (1.0f - s1 >= 0.f);
+    if (EDGE2 || TRIANGLE) {
+      const float4 c = load4<RESIDENT>(R + 2);  // w2, b2
+      const float s2 = (((c.x * ox + c.y * oy) + c.z * oz) - c.w) +
+                       t * ((c.x * dx + c.y * dy) + c.z * dz);
+      if (EDGE2) ok = ok && (s2 >= 0.f) && (1.0f - s2 >= 0.f);
+      if (TRIANGLE) ok = ok && (s1 >= 0.f) && (s2 >= 0.f) && (1.0f - (s1 + s2) >= 0.f);
+    }
+  }
+  return ok ? t : BIG;
+}
+
+// The hit distance of one sphere record (BIG on a miss). `sdo` = D.O and
+// `soo` = |O|^2 are the ray's share of the quadratic; FAR (glass spheres)
+// takes the far root when the near one is not past t_min. `a` gets the
+// record's first float4 (centre, |c|^2 - r^2).
+template <bool RESIDENT, bool FAR>
+__device__ __forceinline__ float sphere_t(const float4* S, float ox, float oy, float oz,
+                                          float dx, float dy, float dz, float sdo, float soo,
+                                          float t_min, float4& a) {
+  a = load4<RESIDENT>(S);
+  const float bq = sdo + -((a.x * dx + a.y * dy) + a.z * dz);
+  const float q = soo + (a.w - 2.0f * ((a.x * ox + a.y * oy) + a.z * oz));
+  const float disc = bq * bq - q;
+  const float root = sqrtf(fmaxf(disc, 0.0f));
+  float t = -bq - root;
+  if (FAR) t = t > t_min ? t : -bq + root;
+  return (disc > 0.0f && t > t_min) ? t : BIG;
 }
 
 // Test `count` plane records of one mode from row `first` on against the
 // ray and fold them into the running hit.
-template <bool STAGED, int MODE, bool PRIMS, bool GLASS, bool TEX>
+template <bool RESIDENT, int MODE, bool PRIMS, bool GLASS, bool TEX>
 __device__ __forceinline__ void scan_rows(const float4* rec, const float4* tex, int first,
                                           int count,
                                           float ox, float oy, float oz, float dx,
                                           float dy, float dz, float t_min, Hit& h,
                                           bool& own) {
-  constexpr bool TRIANGLE = MODE == 4 || MODE == 7;
-  constexpr bool EDGE1 = MODE == 0 || MODE == 1 || MODE == 6;
-  constexpr bool EDGE2 = MODE == 0 || MODE == 6;
   const float4* R = rec + (size_t)first * RECORD4;
   for (int k = 0; k < count; ++k, R += RECORD4) {
-    const float4 a = load4<STAGED>(R);  // normal, d
-    const float numer = a.w - ((a.x * ox + a.y * oy) + a.z * oz);
-    const float denom = (a.x * dx + a.y * dy) + a.z * dz;
-    const float t = numer * (1.0f / denom);
-    bool ok = t > t_min;
-    if (EDGE1 || TRIANGLE) {
-      const float4 b = load4<STAGED>(R + 1);  // w1, b1
-      const float s1 = (((b.x * ox + b.y * oy) + b.z * oz) - b.w) +
-                       t * ((b.x * dx + b.y * dy) + b.z * dz);
-      if (EDGE1) ok = ok && (s1 >= 0.f) && (1.0f - s1 >= 0.f);
-      if (EDGE2 || TRIANGLE) {
-        const float4 c = load4<STAGED>(R + 2);  // w2, b2
-        const float s2 = (((c.x * ox + c.y * oy) + c.z * oz) - c.w) +
-                         t * ((c.x * dx + c.y * dy) + c.z * dz);
-        if (EDGE2) ok = ok && (s2 >= 0.f) && (1.0f - s2 >= 0.f);
-        if (TRIANGLE) ok = ok && (s1 >= 0.f) && (s2 >= 0.f) && (1.0f - (s1 + s2) >= 0.f);
-      }
-    }
-    const float tv = ok ? t : BIG;
+    float4 a;
+    const float tv = row_t<RESIDENT, MODE>(R, ox, oy, oz, dx, dy, dz, t_min, a);
     if (tv < h.t) {
-      const float4 c = load4<STAGED>(R + 3);  // albedo, emission r
-      const float4 e = load4<STAGED>(R + 4);  // emission g b, is_mirror, ior
+      const float4 c = load4<RESIDENT>(R + 3);  // albedo, emission r
+      const float4 e = load4<RESIDENT>(R + 4);  // emission g b, is_mirror, ior
       h.t = tv;
       h.nx = a.x; h.ny = a.y; h.nz = a.z;
       h.cr = c.x; h.cg = c.y; h.cb = c.z;
@@ -226,28 +297,26 @@ __device__ __forceinline__ void scan_rows(const float4* rec, const float4* tex, 
       if constexpr (PRIMS) { h.inv_r = 0.f; h.sph = 0.f; }
       if constexpr (GLASS) h.ior = e.w;
       if constexpr (TEX)
-        carry_tex<false>(h, tex + (size_t)(first + k) * TEX4, load4<STAGED>(R + 1),
-                         load4<STAGED>(R + 2));
+        carry_tex<RESIDENT, false>(h, tex + (size_t)(first + k) * TEX4, load4<RESIDENT>(R + 1),
+                                   load4<RESIDENT>(R + 2));
       own = true;
     } else if (tv == h.t && own && tv < BIG) {
-      const float4 c = load4<STAGED>(R + 3);
-      const float4 e = load4<STAGED>(R + 4);
+      const float4 c = load4<RESIDENT>(R + 3);
+      const float4 e = load4<RESIDENT>(R + 4);
       h.nx += a.x; h.ny += a.y; h.nz += a.z;
       h.cr += c.x; h.cg += c.y; h.cb += c.z;
       h.er += c.w; h.eg += e.x; h.eb += e.y;
       h.mir += e.z;
       if constexpr (GLASS) h.ior += e.w;
       if constexpr (TEX)
-        carry_tex<true>(h, tex + (size_t)(first + k) * TEX4, load4<STAGED>(R + 1),
-                        load4<STAGED>(R + 2));
+        carry_tex<RESIDENT, true>(h, tex + (size_t)(first + k) * TEX4, load4<RESIDENT>(R + 1),
+                                  load4<RESIDENT>(R + 2));
     }
   }
 }
 
-// The same for `count` sphere records. `sdo` = D.O and `soo` = |O|^2 are
-// the ray's share of the quadratic; FAR (glass spheres) takes the far root
-// when the near one is not past t_min.
-template <bool STAGED, bool FAR, bool GLASS, bool TEX>
+// The same for `count` sphere records.
+template <bool RESIDENT, bool FAR, bool GLASS, bool TEX>
 __device__ __forceinline__ void scan_spheres(const float4* sph, const float4* tex, int first,
                                              int count,
                                              float ox, float oy, float oz, float dx,
@@ -256,57 +325,53 @@ __device__ __forceinline__ void scan_spheres(const float4* sph, const float4* te
   const float4* S = sph + (size_t)first * SPHERE4;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int k = 0; k < count; ++k, S += SPHERE4) {
-    const float4 a = load4<STAGED>(S);  // centre, |c|^2 - r^2
-    const float bq = sdo + -((a.x * dx + a.y * dy) + a.z * dz);
-    const float q = soo + (a.w - 2.0f * ((a.x * ox + a.y * oy) + a.z * oz));
-    const float disc = bq * bq - q;
-    const float root = sqrtf(fmaxf(disc, 0.0f));
-    float t = -bq - root;
-    if (FAR) t = t > t_min ? t : -bq + root;
-    const float tv = (disc > 0.0f && t > t_min) ? t : BIG;
+    float4 a;
+    const float tv = sphere_t<RESIDENT, FAR>(S, ox, oy, oz, dx, dy, dz, sdo, soo, t_min, a);
     if (tv < h.t) {
-      const float4 c = load4<STAGED>(S + 1);  // albedo, emission r
-      const float4 e = load4<STAGED>(S + 2);  // emission g b, is_mirror, ior
+      const float4 c = load4<RESIDENT>(S + 1);  // albedo, emission r
+      const float4 e = load4<RESIDENT>(S + 2);  // emission g b, is_mirror, ior
       h.t = tv;
       h.nx = a.x; h.ny = a.y; h.nz = a.z;
       h.cr = c.x; h.cg = c.y; h.cb = c.z;
       h.er = c.w; h.eg = e.x; h.eb = e.y;
       h.mir = e.z;
-      h.inv_r = load4<STAGED>(S + 3).x;
+      h.inv_r = load4<RESIDENT>(S + 3).x;
       h.sph = 1.0f;
       if constexpr (GLASS) h.ior = e.w;
-      if constexpr (TEX) carry_tex<false>(h, tex + (size_t)(first + k) * TEX4, zero, zero);
+      if constexpr (TEX)
+        carry_tex<RESIDENT, false>(h, tex + (size_t)(first + k) * TEX4, zero, zero);
       own = true;
     } else if (tv == h.t && own && tv < BIG) {
-      const float4 c = load4<STAGED>(S + 1);
-      const float4 e = load4<STAGED>(S + 2);
+      const float4 c = load4<RESIDENT>(S + 1);
+      const float4 e = load4<RESIDENT>(S + 2);
       h.nx += a.x; h.ny += a.y; h.nz += a.z;
       h.cr += c.x; h.cg += c.y; h.cb += c.z;
       h.er += c.w; h.eg += e.x; h.eb += e.y;
       h.mir += e.z;
-      h.inv_r += load4<STAGED>(S + 3).x;
+      h.inv_r += load4<RESIDENT>(S + 3).x;
       h.sph += 1.0f;
       if constexpr (GLASS) h.ior += e.w;
-      if constexpr (TEX) carry_tex<true>(h, tex + (size_t)(first + k) * TEX4, zero, zero);
+      if constexpr (TEX)
+        carry_tex<RESIDENT, true>(h, tex + (size_t)(first + k) * TEX4, zero, zero);
     }
   }
 }
 
-// One tile, by its test mode.
-template <bool STAGED, bool PRIMS, bool GLASS, bool TEX>
-__device__ __forceinline__ void scan_tile(const float4* rec, const float4* sph,
-                                          const float4* ptex, const float4* stex,
-                                          const float* tile, float ox, float oy, float oz,
-                                          float dx, float dy, float dz, float sdo,
-                                          float soo, float t_min, Hit& h, bool& own) {
-  const int first = (int)tile[6], count = (int)tile[7], mode = (int)tile[8];
+// `count` records of one test mode from `first` on (a tile: its row's
+// columns 6-8, or a part of one), by the mode.
+template <bool RESIDENT, bool PRIMS, bool GLASS, bool TEX>
+__device__ __forceinline__ void scan_group(const float4* rec, const float4* sph,
+                                           const float4* ptex, const float4* stex, int first,
+                                           int count, int mode, float ox, float oy, float oz,
+                                           float dx, float dy, float dz, float sdo,
+                                           float soo, float t_min, Hit& h, bool& own) {
   if (count == 0) return;
 #define ROWS(MODE) \
-  scan_rows<STAGED, MODE, PRIMS, GLASS, TEX>(rec, ptex, first, count, ox, oy, oz, dx, dy, dz, \
-                                             t_min, h, own)
+  scan_rows<RESIDENT, MODE, PRIMS, GLASS, TEX>(rec, ptex, first, count, ox, oy, oz, dx, dy, \
+                                               dz, t_min, h, own)
 #define SPHERES(FAR) \
-  scan_spheres<STAGED, FAR, GLASS, TEX>(sph, stex, first, count, ox, oy, oz, dx, dy, dz, sdo, \
-                                        soo, t_min, h, own)
+  scan_spheres<RESIDENT, FAR, GLASS, TEX>(sph, stex, first, count, ox, oy, oz, dx, dy, dz, \
+                                          sdo, soo, t_min, h, own)
   if (mode == 0) ROWS(0);
   else if (mode == 1) ROWS(1);
   else if (mode == 2 || !(PRIMS || GLASS)) ROWS(2);
@@ -327,277 +392,560 @@ __device__ __forceinline__ void scan_tile(const float4* rec, const float4* sph,
 #undef SPHERES
 }
 
+// This lane's share of a tile that the warp tests for one ray: records
+// lane, lane + 32, ... of the `count` from `first` on. Gives their nearest
+// t (`lm`, BIG if none), the first of them at it (`li`) and how many are
+// at it (`lc`).
+template <bool RESIDENT, bool SPHERES, int MODE>
+__device__ __forceinline__ void lane_min(const float4* base, int first, int count,
+                                         unsigned lane, float ox, float oy, float oz,
+                                         float dx, float dy, float dz, float sdo, float soo,
+                                         float t_min, float& lm, int& li, int& lc) {
+  for (int r = (int)lane; r < count; r += 32) {
+    float4 a;
+    float tv;
+    if constexpr (SPHERES)
+      tv = sphere_t<RESIDENT, MODE == 5>(base + (size_t)(first + r) * SPHERE4, ox, oy, oz, dx,
+                                         dy, dz, sdo, soo, t_min, a);
+    else
+      tv = row_t<RESIDENT, MODE>(base + (size_t)(first + r) * RECORD4, ox, oy, oz, dx, dy, dz,
+                                 t_min, a);
+    if (tv < lm) { lm = tv; li = r; lc = 1; }
+    else if (tv == lm) ++lc;
+  }
+}
+
+template <bool RESIDENT, bool PRIMS, bool GLASS>
+__device__ __forceinline__ void tile_lane_min(const float4* rec, const float4* sph, int first,
+                                              int count, int mode, unsigned lane, float ox,
+                                              float oy, float oz, float dx, float dy,
+                                              float dz, float sdo, float soo, float t_min,
+                                              float& lm, int& li, int& lc) {
+  lm = BIG; li = 0x7fffffff; lc = 0;
+#define LANE_MIN(B, SPH, MODE) \
+  lane_min<RESIDENT, SPH, MODE>(B, first, count, lane, ox, oy, oz, dx, dy, dz, sdo, soo, \
+                                t_min, lm, li, lc)
+  if (mode == 0) LANE_MIN(rec, false, 0);
+  else if (mode == 1) LANE_MIN(rec, false, 1);
+  else if (mode == 2 || !(PRIMS || GLASS)) LANE_MIN(rec, false, 2);
+  else {
+    if constexpr (PRIMS) {
+      if (mode == 3) LANE_MIN(sph, true, 3);
+      else if (mode == 4) LANE_MIN(rec, false, 4);
+    }
+    if constexpr (GLASS) {
+      if (mode == 6) LANE_MIN(rec, false, 6);
+    }
+    if constexpr (PRIMS && GLASS) {
+      if (mode == 5) LANE_MIN(sph, true, 5);
+      else if (mode == 7) LANE_MIN(rec, false, 7);
+    }
+  }
+#undef LANE_MIN
+}
+
 // 1/x clamped to +-BIG: a zero direction component gives a huge, finite
 // slab distance.
 __device__ __forceinline__ float clamped_rcp(float x) {
   return fminf(fmaxf(1.0f / x, -BIG), BIG);
 }
 
-// STAGED: every group is single-tile and the records are in shared memory.
-// PRIMS: the scene has triangles or spheres (modes 3, 4, 5, 7). GLASS: it
-// has a glass group (modes 5, 6, 7) and the dielectric stage runs. TEX: it
-// has a textured primitive and the texture stage runs. DIAG: the per-block
+// Copy n float4s from global to shared memory, the block's threads together.
+__device__ __forceinline__ void stage(float4* dst, const float* src, int n) {
+  const float4* s = (const float4*)src;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = s[k];
+}
+
+// Float4s of shared memory the records (and texture rows) of a resident
+// scene take, ahead of the tile table.
+__host__ __device__ __forceinline__ int resident_float4s(const Params& p, bool tex) {
+  return p.n_planes * RECORD4 + p.n_spheres * SPHERE4 +
+         (tex ? (p.n_planes + p.n_spheres) * TEX4 : 0);
+}
+
+// Bytes of shared memory a block stages: the resident records (RESIDENT
+// only), the tile table and the walk order.
+static size_t smem_bytes(const Params& p, bool resident, bool tex) {
+  return (size_t)(resident ? resident_float4s(p, tex) : 0) * sizeof(float4) +
+         (size_t)p.n_tiles * TILE * sizeof(float) +
+         (size_t)(p.n_tiles - p.n_single) * sizeof(int);
+}
+
+// RESIDENT: the records (and texture rows) are in shared memory. WALK: the
+// scene has multi-tile groups, walked tile by tile (a global-memory scene
+// always takes the walk, which runs no tile where there is none). PRIMS:
+// the scene has triangles or spheres (modes 3, 4, 5, 7). GLASS: it has a
+// glass group (modes 5, 6, 7) and the dielectric stage runs. TEX: it has a
+// textured primitive and the texture stage runs. DIAG: the per-block
 // diagnostics are gathered.
-template <bool STAGED, bool SKY, bool PRIMS, bool GLASS, bool TEX, bool DIAG>
-__global__ void trace_kernel(const Params p) {
-  // Shared: [plane records, sphere records: STAGED only] [tile table] [walk order].
+//
+// The libraries without the texture stage hold their kernels to blocks of
+// 1,024 threads, so to 64 registers: a walking kernel (78-92 registers
+// otherwise) then runs 32 warps on an SM beside a whole 64x64 maze, at the
+// cost of 120-240 bytes of spills a thread; the others use fewer than 64
+// anyway. The textured kernels (72-112 registers) keep what they use.
+#if MM_TEX
+#define TRACE_BOUNDS
+#else
+#define TRACE_BOUNDS __launch_bounds__(1024)
+#endif
+template <bool RESIDENT, bool WALK, bool SKY, bool PRIMS, bool GLASS, bool TEX, bool DIAG>
+__global__ void TRACE_BOUNDS trace_kernel(const Params p) {
+  // Shared: [plane records, sphere records, texture rows: RESIDENT only]
+  // [tile table] [walk order].
   extern __shared__ float4 shared[];
-  const int n_staged = STAGED ? p.n_planes * RECORD4 + p.n_spheres * SPHERE4 : 0;
-  float* s_tiles = (float*)(shared + n_staged);
+  const int n_res = RESIDENT ? resident_float4s(p, TEX) : 0;
+  float* s_tiles = (float*)(shared + n_res);
   int* s_order = (int*)(s_tiles + p.n_tiles * TILE);
   const int n_walk = p.n_tiles - p.n_single;
-  if (STAGED) {
-    const float4* src = (const float4*)p.planes;
-    for (int k = threadIdx.x; k < p.n_planes * RECORD4; k += blockDim.x) shared[k] = src[k];
-    if constexpr (PRIMS) {
-      const float4* ssrc = (const float4*)p.spheres;
-      float4* dst = shared + p.n_planes * RECORD4;
-      for (int k = threadIdx.x; k < p.n_spheres * SPHERE4; k += blockDim.x) dst[k] = ssrc[k];
+  const float4* rec = (const float4*)p.planes;
+  const float4* sph = (const float4*)p.spheres;
+  const float4* ptex = (const float4*)p.plane_tex;
+  const float4* stex = (const float4*)p.sphere_tex;
+  if constexpr (RESIDENT) {
+    float4* at = shared;
+    stage(at, p.planes, p.n_planes * RECORD4);
+    rec = at;
+    at += p.n_planes * RECORD4;
+    stage(at, p.spheres, p.n_spheres * SPHERE4);
+    sph = at;
+    at += p.n_spheres * SPHERE4;
+    if constexpr (TEX) {
+      stage(at, p.plane_tex, p.n_planes * TEX4);
+      ptex = at;
+      at += p.n_planes * TEX4;
+      stage(at, p.sphere_tex, p.n_spheres * TEX4);
+      stex = at;
     }
   }
   for (int k = threadIdx.x; k < p.n_tiles * TILE; k += blockDim.x) s_tiles[k] = p.tiles[k];
   for (int k = threadIdx.x; k < n_walk; k += blockDim.x) s_order[k] = p.order[k];
   __syncthreads();
-  const float4* rec = STAGED ? shared : (const float4*)p.planes;
-  const float4* sph = STAGED ? shared + p.n_planes * RECORD4 : (const float4*)p.spheres;
-  const float4* ptex = (const float4*)p.plane_tex;
-  const float4* stex = (const float4*)p.sphere_tex;
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n_rays) return;
-
-  // PCG init (_pcg_init): seed + pid * 2654435761 + r * 15823, then two
-  // scramble rounds (the scramble's output becomes the state), then the
-  // seed-row value in [0, 1) as a 24-bit integer, truncated toward zero.
-  const uint32_t pid = (uint32_t)(i / p.block_rays);
-  const uint32_t r = (uint32_t)(i % p.block_rays);
-  uint32_t rng = (uint32_t)p.seed[0] + pid * 2654435761u + r * 15823u;
-  for (int k = 0; k < 2; ++k) rng = pcg_scramble(rng);
-  if (p.seed_row != nullptr) rng += (uint32_t)(int)(p.seed_row[i] * 16777216.0f);
-
-  float ox = p.ori[3 * i], oy = p.ori[3 * i + 1], oz = p.ori[3 * i + 2];
-  float dx = p.dirs[3 * i], dy = p.dirs[3 * i + 1], dz = p.dirs[3 * i + 2];
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned below = (1u << lane) - 1u;   // the lanes before this one
+  const uint32_t seed = (uint32_t)p.seed[0];
   const float t_min = p.t_min;
-  float tr = 1.f, tg = 1.f, tb = 1.f;
-  float lr = 0.f, lg = 0.f, lb = 0.f;
-  int mh = 0, dc = 0;
-  int lived = 0;  // segments entered alive (DIAG)
+  bool more = true;   // the counter may still hold rays (the same in all lanes)
+  // This lane's ray (-1: none) and its state.
+  int i = -1, seg = 0, mh = 0, dc = 0;
+  uint32_t rng = 0;
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  float tr = 1.f, tg = 1.f, tb = 1.f, lr = 0.f, lg = 0.f, lb = 0.f;
 
-  for (int seg = 0; seg < p.max_segments; ++seg) {
-    Hit h = {BIG, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if constexpr (DIAG) ++lived;
-    float sdo = 0.f, soo = 0.f;
-    if constexpr (PRIMS) {
-      sdo = (ox * dx + oy * dy) + oz * dz;
-      soo = (ox * ox + oy * oy) + oz * oz;
+  while (true) {
+    // Refill: one atomicAdd for all idle lanes, ids handed out in lane order.
+    const unsigned idle = __ballot_sync(FULL, i < 0);
+    if (more && idle != 0) {
+      const unsigned want = __popc(idle);
+      unsigned base = 0;
+      if (lane == 0) base = atomicAdd(p.work, want);
+      base = __shfl_sync(FULL, base, 0);
+      more = base + want < (unsigned)p.n_rays;
+      const unsigned id = base + __popc(idle & below);
+      if (i < 0 && id < (unsigned)p.n_rays) {
+        i = (int)id;
+        // PCG init (_pcg_init): seed + pid * 2654435761 + r * 15823, then
+        // two scramble rounds (the scramble's output becomes the state),
+        // then the seed-row value in [0, 1) as a 24-bit integer, truncated
+        // toward zero.
+        const uint32_t pid = id / (unsigned)p.block_rays;
+        const uint32_t r = id - pid * (unsigned)p.block_rays;
+        rng = seed + pid * 2654435761u + r * 15823u;
+        for (int k = 0; k < 2; ++k) rng = pcg_scramble(rng);
+        if (p.seed_row != nullptr) rng += (uint32_t)(int)(p.seed_row[i] * 16777216.0f);
+        ox = p.ori[3 * i]; oy = p.ori[3 * i + 1]; oz = p.ori[3 * i + 2];
+        dx = p.dirs[3 * i]; dy = p.dirs[3 * i + 1]; dz = p.dirs[3 * i + 2];
+        tr = tg = tb = 1.f;
+        lr = lg = lb = 0.f;
+        mh = dc = seg = 0;
+      }
     }
-    // The single-tile groups are one joint scan: ties sum across them.
+    if (__ballot_sync(FULL, i >= 0) == 0) {
+      if (!more) break;
+      continue;
+    }
+    bool dead = false;
+    const bool active = i >= 0;
+    // One segment of each lane's ray.
+    Hit h = {BIG, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float sdo = 0.f, soo = 0.f;
     bool own = true;
-    for (int ti = 0; ti < p.n_single; ++ti)
-      scan_tile<STAGED, PRIMS, GLASS, TEX>(rec, sph, ptex, stex, s_tiles + ti * TILE, ox, oy,
-                                           oz, dx, dy, dz, sdo, soo, t_min, h, own);
-    if constexpr (!STAGED) {
-      const float idx = clamped_rcp(dx), idy = clamped_rcp(dy), idz = clamped_rcp(dz);
+    if (active) {
+      if constexpr (PRIMS) {
+        sdo = (ox * dx + oy * dy) + oz * dz;
+        soo = (ox * ox + oy * oy) + oz * oz;
+      }
+      // The single-tile groups are one joint scan: ties sum across them.
+      for (int ti = 0; ti < p.n_single; ++ti) {
+        const float* T = s_tiles + ti * TILE;
+        scan_group<RESIDENT, PRIMS, GLASS, TEX>(rec, sph, ptex, stex, (int)T[6], (int)T[7],
+                                                (int)T[8], ox, oy, oz, dx, dy, dz, sdo, soo,
+                                                t_min, h, own);
+      }
+    }
+    if constexpr (WALK) {
+      // The walked tiles, all lanes together. A tile that many lanes' rays
+      // reach, each of them scans alone. One that few reach, the whole warp
+      // tests for one of those rays at a time, each lane every 32nd record:
+      // the nearest t, its first record and the records at it; the ray's
+      // lane then takes that record (with ties, the records from it on),
+      // which is what its own scan of the tile would have kept.
+      float idx = 0.f, idy = 0.f, idz = 0.f;
+      if (active) {
+        idx = clamped_rcp(dx);
+        idy = clamped_rcp(dy);
+        idz = clamped_rcp(dz);
+      }
       for (int k = 0; k < n_walk; ++k) {
         const float* T = s_tiles + s_order[k] * TILE;
-        const float t1x = (T[0] - ox) * idx, t2x = (T[3] - ox) * idx;
-        const float t1y = (T[1] - oy) * idy, t2y = (T[4] - oy) * idy;
-        const float t1z = (T[2] - oz) * idz, t2z = (T[5] - oz) * idz;
-        float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-        float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
-        tn = tn - fabsf(tn) * 1e-3f;
-        tf = tf + fabsf(tf) * 1e-3f;
-        if (!((tf >= tn) && (tf > 0.f) && (tn < h.t))) continue;
+        bool reach = false;
+        if (active) {
+          const float t1x = (T[0] - ox) * idx, t2x = (T[3] - ox) * idx;
+          const float t1y = (T[1] - oy) * idy, t2y = (T[4] - oy) * idy;
+          const float t1z = (T[2] - oz) * idz, t2z = (T[5] - oz) * idz;
+          float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+          float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+          tn = tn - fabsf(tn) * 1e-3f;
+          tf = tf + fabsf(tf) * 1e-3f;
+          reach = (tf >= tn) && (tf > 0.f) && (tn < h.t);
+        }
         if constexpr (DIAG) {
-          unsigned int* word = p.diag_mask +
-              ((size_t)pid * p.max_segments + seg) * p.mask_words + (k >> 5);
-          const unsigned int bit = 1u << (k & 31);
-          if (!(*(volatile unsigned int*)word & bit)) atomicOr(word, bit);
+          if (reach) {
+            const uint32_t pid = (uint32_t)i / (unsigned)p.block_rays;
+            unsigned int* word = p.diag_mask +
+                ((size_t)pid * p.max_segments + seg) * p.mask_words + (k >> 5);
+            const unsigned int bit = 1u << (k & 31);
+            if (!(*(volatile unsigned int*)word & bit)) atomicOr(word, bit);
+          }
         }
-        own = false;
-        scan_tile<false, PRIMS, GLASS, TEX>(rec, sph, ptex, stex, T, ox, oy, oz, dx, dy, dz, sdo,
-                                            soo, t_min, h, own);
+        const unsigned need = __ballot_sync(FULL, reach);
+        if (need == 0) continue;
+        const int first = (int)T[6], count = (int)T[7], mode = (int)T[8];
+        // The warp tests the tile ray by ray when that costs less: per ray
+        // ceil(count / 32) records a lane and the reductions (~1.5 records),
+        // against `count` records once.
+        if (__popc(need) * (2 * ((count + 31) >> 5) + 3) < 2 * count) {
+          float best = BIG;  // for this lane's ray: the tile's nearest t,
+          int at = 0, ties = 0;  // its first record, the records at it
+          for (unsigned todo = need; todo != 0; todo &= todo - 1) {
+            const int j = __ffs(todo) - 1;
+            const float jox = __shfl_sync(FULL, ox, j), joy = __shfl_sync(FULL, oy, j);
+            const float joz = __shfl_sync(FULL, oz, j), jdx = __shfl_sync(FULL, dx, j);
+            const float jdy = __shfl_sync(FULL, dy, j), jdz = __shfl_sync(FULL, dz, j);
+            float jsdo = 0.f, jsoo = 0.f;
+            if constexpr (PRIMS) {
+              jsdo = __shfl_sync(FULL, sdo, j);
+              jsoo = __shfl_sync(FULL, soo, j);
+            }
+            float lm;
+            int li, lc;
+            tile_lane_min<RESIDENT, PRIMS, GLASS>(rec, sph, first, count, mode, lane, jox, joy,
+                                                  joz, jdx, jdy, jdz, jsdo, jsoo, t_min, lm,
+                                                  li, lc);
+            float m = lm;
+            for (int off = 16; off > 0; off >>= 1) m = fminf(m, __shfl_xor_sync(FULL, m, off));
+            const int fi = __reduce_min_sync(FULL, lm == m ? li : 0x7fffffff);
+            const int nt = __reduce_add_sync(FULL, lm == m ? lc : 0);
+            if (lane == (unsigned)j) {
+              best = m;
+              at = fi;
+              ties = nt;
+            }
+          }
+          if (reach && best < h.t) {
+            own = false;
+            scan_group<RESIDENT, PRIMS, GLASS, TEX>(rec, sph, ptex, stex, first + at,
+                                                    ties == 1 ? 1 : count - at, mode, ox, oy,
+                                                    oz, dx, dy, dz, sdo, soo, t_min, h, own);
+          }
+        } else if (reach) {
+          own = false;
+          scan_group<RESIDENT, PRIMS, GLASS, TEX>(rec, sph, ptex, stex, first, count, mode, ox,
+                                                  oy, oz, dx, dy, dz, sdo, soo, t_min, h, own);
+        }
       }
     }
 
-    const float t = h.t;
-    const bool hit = t < BIG;
-    if (!hit) {
-      if constexpr (SKY) {
-        // lighting_factor^(segment - mirror hits) * strength, with 0^0 = 1.
-        const float expo = (float)(seg - mh);
-        const float fac = p.sky_lf > 0.f ? expf(expo * p.sky_log_lf) * p.sky_strength
-                                         : (expo == 0.f ? p.sky_strength : 0.f);
-        lr = lr + p.sky_r * fac; lg = lg + p.sky_g * fac; lb = lb + p.sky_b * fac;
-      }
-      break;
-    }
-    float nx = h.nx, ny = h.ny, nz = h.nz;
-    if constexpr (PRIMS) {
-      // A sphere's normal, from the same o + d t as the position update.
-      if (h.sph > 0.f) {
-        nx = ((ox + dx * t) - nx) * h.inv_r;
-        ny = ((oy + dy * t) - ny) * h.inv_r;
-        nz = ((oz + dz * t) - nz) * h.inv_r;
-      }
-    }
-    if constexpr (TEX) {
-      // The checker: odd cells take the winner's second colour.
-      const float hx = ox + dx * t, hy = oy + dy * t, hz = oz + dz * t;
-      const float s1 = ((hx * h.w1x + hy * h.w1y) + hz * h.w1z) - h.b1;
-      const float s2 = ((hx * h.w2x + hy * h.w2y) + hz * h.w2z) - h.b2;
-      const float f1 = floorf(s1 * h.tsc) + floorf(s2 * h.tsc);
-      const float f2 = (floorf(__fdiv_rn(hx, h.tsc)) + floorf(__fdiv_rn(hy, h.tsc))) +
-                       floorf(__fdiv_rn(hz, h.tsc));
-      const float f = h.tk > 1.5f ? f2 : f1;
-      const bool odd = (f - 2.0f * floorf(f * 0.5f)) > 0.5f;
-      if (h.tk > 0.f && odd) { h.cr = h.c2r; h.cg = h.c2g; h.cb = h.c2b; }
-    }
-    const float dn = (dx * nx + dy * ny) + dz * nz;
-    const float side = dn > 0.f ? -1.f : (dn < 0.f ? 1.f : -dn);  // -sign(dn)
-    bool glass = false;
-    if constexpr (GLASS) glass = h.ior > 0.f;
-    const bool mirror = (h.mir > 0.f) && (side != -1.f) && !glass;
-    const bool diffuse = !mirror && !glass;
-    const bool spec = mirror || glass;
-    const int mh_new = mh + (spec ? 1 : 0);
-    const bool mirror_live = mirror && (mh_new < p.mirror_limit);
-
-    // One PCG word -> two 16-bit uniforms; (z, phi) unit vector.
-    uint32_t word = pcg_scramble(rng);
-    const float u1 = (float)(word & 0xFFFFu) * (1.0f / 65536.0f);
-    const float u2 = (float)(word >> 16) * (1.0f / 65536.0f);
-    const float z = u1 * 2.0f - 1.0f;
-    const float x = u2 * 2.0f - 1.0f;
-    const float k = rintf(x);
-    const float sphi = sinpi_poly(x - k) * (1.0f - 2.0f * fabsf(k));
-    const float cphi = sinpi_poly(0.5f - fabsf(x));
-    const float rr = sqrtf(fmaxf(1.0f - z * z, 0.0f));
-    const float ux = rr * cphi, uy = rr * sphi, uz = z;
-
-    if (diffuse) {
-      lr = lr + h.er * tr; lg = lg + h.eg * tg; lb = lb + h.eb * tb;
-      tr = tr * h.cr; tg = tg * h.cg; tb = tb * h.cb;
-    }
-    if (mirror_live) {
-      lr = lr + h.cr * p.mirror_tint;
-      lg = lg + h.cg * p.mirror_tint;
-      lb = lb + h.cb * p.mirror_tint;
-    }
-    float vx, vy, vz;
-    if (diffuse) {
-      vx = ux + nx * side; vy = uy + ny * side; vz = uz + nz * side;
-    } else {
-      vx = dx - 2.0f * dn * nx; vy = dy - 2.0f * dn * ny; vz = dz - 2.0f * dn * nz;
-    }
-    if constexpr (GLASS) {
-      // The third uniform, drawn by every ray that hit anything.
-      float u3 = 0.f;
-      if (p.fresnel) u3 = (float)(pcg_scramble(rng) >> 8) * (1.0f / 16777216.0f);
-      if (glass) {
-        // Snell refraction on the unit direction, Schlick's reflectance.
-        const float dinv = 1.0f / sqrtf((dx * dx + dy * dy) + dz * dz);
-        const float dhx = dx * dinv, dhy = dy * dinv, dhz = dz * dinv;
-        const float nex = nx * side, ney = ny * side, nez = nz * side;
-        const float cos_i = fminf(fmaxf(-((dhx * nex + dhy * ney) + dhz * nez), 0.0f), 1.0f);
-        const float eta = side > 0.f ? 1.0f / fmaxf(h.ior, 1e-6f) : h.ior;
-        const float sin2t = eta * eta * (1.0f - cos_i * cos_i);
-        const bool tir = sin2t > 1.0f;
-        bool do_refl = tir;
-        if (p.fresnel) {
-          float r0 = (1.0f - eta) / (1.0f + eta);
-          r0 = r0 * r0;
-          const float pw = 1.0f - cos_i;
-          const float p2 = pw * pw;
-          const float reflect_p = tir ? 1.0f : r0 + (1.0f - r0) * (p2 * p2 * pw);
-          do_refl = u3 < reflect_p;
+    if (active) {
+      const float t = h.t;
+      if (!(t < BIG)) {
+        if constexpr (SKY) {
+          // lighting_factor^(segment - mirror hits) * strength, with 0^0 = 1.
+          const float expo = (float)(seg - mh);
+          const float fac = p.sky_lf > 0.f ? expf(expo * p.sky_log_lf) * p.sky_strength
+                                           : (expo == 0.f ? p.sky_strength : 0.f);
+          lr = lr + p.sky_r * fac; lg = lg + p.sky_g * fac; lb = lb + p.sky_b * fac;
         }
-        const float coef = eta * cos_i - sqrtf(fmaxf(1.0f - sin2t, 0.0f));
-        const float dnh = dn * dinv;
-        if (do_refl) {
-          vx = dhx - 2.0f * dnh * nx; vy = dhy - 2.0f * dnh * ny; vz = dhz - 2.0f * dnh * nz;
-        } else {
-          vx = eta * dhx + coef * nex; vy = eta * dhy + coef * ney; vz = eta * dhz + coef * nez;
+        dead = true;
+      } else {
+        float nx = h.nx, ny = h.ny, nz = h.nz;
+        if constexpr (PRIMS) {
+          // A sphere's normal, from the same o + d t as the position update.
+          if (h.sph > 0.f) {
+            nx = ((ox + dx * t) - nx) * h.inv_r;
+            ny = ((oy + dy * t) - ny) * h.inv_r;
+            nz = ((oz + dz * t) - nz) * h.inv_r;
+          }
         }
-        if (mh_new < p.mirror_limit) {
+        if constexpr (TEX) {
+          // The checker: odd cells take the winner's second colour.
+          const float hx = ox + dx * t, hy = oy + dy * t, hz = oz + dz * t;
+          const float s1 = ((hx * h.w1x + hy * h.w1y) + hz * h.w1z) - h.b1;
+          const float s2 = ((hx * h.w2x + hy * h.w2y) + hz * h.w2z) - h.b2;
+          const float f1 = floorf(s1 * h.tsc) + floorf(s2 * h.tsc);
+          const float f2 = (floorf(__fdiv_rn(hx, h.tsc)) + floorf(__fdiv_rn(hy, h.tsc))) +
+                           floorf(__fdiv_rn(hz, h.tsc));
+          const float f = h.tk > 1.5f ? f2 : f1;
+          const bool odd = (f - 2.0f * floorf(f * 0.5f)) > 0.5f;
+          if (h.tk > 0.f && odd) { h.cr = h.c2r; h.cg = h.c2g; h.cb = h.c2b; }
+        }
+        const float dn = (dx * nx + dy * ny) + dz * nz;
+        const float side = dn > 0.f ? -1.f : (dn < 0.f ? 1.f : -dn);  // -sign(dn)
+        bool glass = false;
+        if constexpr (GLASS) glass = h.ior > 0.f;
+        const bool mirror = (h.mir > 0.f) && (side != -1.f) && !glass;
+        const bool diffuse = !mirror && !glass;
+        const bool spec = mirror || glass;
+        const int mh_new = mh + (spec ? 1 : 0);
+        const bool mirror_live = mirror && (mh_new < p.mirror_limit);
+
+        // One PCG word -> two 16-bit uniforms; (z, phi) unit vector.
+        uint32_t word = pcg_scramble(rng);
+        const float u1 = (float)(word & 0xFFFFu) * (1.0f / 65536.0f);
+        const float u2 = (float)(word >> 16) * (1.0f / 65536.0f);
+        const float z = u1 * 2.0f - 1.0f;
+        const float x = u2 * 2.0f - 1.0f;
+        const float k = rintf(x);
+        const float sphi = sinpi_poly(x - k) * (1.0f - 2.0f * fabsf(k));
+        const float cphi = sinpi_poly(0.5f - fabsf(x));
+        const float rr = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+        const float ux = rr * cphi, uy = rr * sphi, uz = z;
+
+        if (diffuse) {
+          lr = lr + h.er * tr; lg = lg + h.eg * tg; lb = lb + h.eb * tb;
           tr = tr * h.cr; tg = tg * h.cg; tb = tb * h.cb;
         }
+        if (mirror_live) {
+          lr = lr + h.cr * p.mirror_tint;
+          lg = lg + h.cg * p.mirror_tint;
+          lb = lb + h.cb * p.mirror_tint;
+        }
+        float vx, vy, vz;
+        if (diffuse) {
+          vx = ux + nx * side; vy = uy + ny * side; vz = uz + nz * side;
+        } else {
+          vx = dx - 2.0f * dn * nx; vy = dy - 2.0f * dn * ny; vz = dz - 2.0f * dn * nz;
+        }
+        if constexpr (GLASS) {
+          // The third uniform, drawn by every ray that hit anything.
+          float u3 = 0.f;
+          if (p.fresnel) u3 = (float)(pcg_scramble(rng) >> 8) * (1.0f / 16777216.0f);
+          if (glass) {
+            // Snell refraction on the unit direction, Schlick's reflectance.
+            const float dinv = 1.0f / sqrtf((dx * dx + dy * dy) + dz * dz);
+            const float dhx = dx * dinv, dhy = dy * dinv, dhz = dz * dinv;
+            const float nex = nx * side, ney = ny * side, nez = nz * side;
+            const float cos_i =
+                fminf(fmaxf(-((dhx * nex + dhy * ney) + dhz * nez), 0.0f), 1.0f);
+            const float eta = side > 0.f ? 1.0f / fmaxf(h.ior, 1e-6f) : h.ior;
+            const float sin2t = eta * eta * (1.0f - cos_i * cos_i);
+            const bool tir = sin2t > 1.0f;
+            bool do_refl = tir;
+            if (p.fresnel) {
+              float r0 = (1.0f - eta) / (1.0f + eta);
+              r0 = r0 * r0;
+              const float pw = 1.0f - cos_i;
+              const float p2 = pw * pw;
+              const float reflect_p = tir ? 1.0f : r0 + (1.0f - r0) * (p2 * p2 * pw);
+              do_refl = u3 < reflect_p;
+            }
+            const float coef = eta * cos_i - sqrtf(fmaxf(1.0f - sin2t, 0.0f));
+            const float dnh = dn * dinv;
+            if (do_refl) {
+              vx = dhx - 2.0f * dnh * nx; vy = dhy - 2.0f * dnh * ny;
+              vz = dhz - 2.0f * dnh * nz;
+            } else {
+              vx = eta * dhx + coef * nex; vy = eta * dhy + coef * ney;
+              vz = eta * dhz + coef * nez;
+            }
+            if (mh_new < p.mirror_limit) {
+              tr = tr * h.cr; tg = tg * h.cg; tb = tb * h.cb;
+            }
+          }
+        }
+        const float v_inv = 1.0f / sqrtf((vx * vx + vy * vy) + vz * vz);
+        ox = ox + dx * t; oy = oy + dy * t; oz = oz + dz * t;
+        dx = vx * v_inv; dy = vy * v_inv; dz = vz * v_inv;
+
+        mh = mh_new;
+        dc = dc + (diffuse ? 1 : 0);
+        dead = (spec && mh_new >= p.mirror_limit) || dc >= p.bounce_limit;
+      }
+      ++seg;   // the segments this ray entered alive
+      dead = dead || seg >= p.max_segments;
+      if (dead) {
+        p.light[3 * i] = lr;
+        p.light[3 * i + 1] = lg;
+        p.light[3 * i + 2] = lb;
       }
     }
-    const float v_inv = 1.0f / sqrtf((vx * vx + vy * vy) + vz * vz);
-    ox = ox + dx * t; oy = oy + dy * t; oz = oz + dz * t;
-    dx = vx * v_inv; dy = vy * v_inv; dz = vz * v_inv;
-
-    mh = mh_new;
-    dc = dc + (diffuse ? 1 : 0);
-    const bool alive = !(spec && mh_new >= p.mirror_limit) && dc < p.bounce_limit;
-    if (!alive) break;
+    if constexpr (DIAG) {
+      // The lanes that finish a ray of the same reference block now make
+      // its two atomics through one of them.
+      const unsigned done = __ballot_sync(FULL, dead);
+      if (dead) {
+        const int pid = (int)((uint32_t)i / (unsigned)p.block_rays);
+        const unsigned group = __match_any_sync(done, pid);
+        const int most = __reduce_max_sync(group, seg);
+        const int sum = __reduce_add_sync(group, seg);
+        if (lane == (unsigned)(__ffs(group) - 1)) {
+          const int n_blocks = (p.n_rays + p.block_rays - 1) / p.block_rays;
+          atomicMax(p.diag_segments + pid, most);
+          atomicAdd(p.diag_segments + n_blocks + pid, sum);
+        }
+      }
+    }
+    if (dead) i = -1;
   }
-  p.light[3 * i] = lr;
-  p.light[3 * i + 1] = lg;
-  p.light[3 * i + 2] = lb;
-  if constexpr (DIAG) {
-    const int n_blocks = (p.n_rays + p.block_rays - 1) / p.block_rays;
-    atomicMax(p.diag_segments + pid, lived);
-    atomicAdd(p.diag_segments + n_blocks + pid, lived);
+
+  // Check in; the last warp out resets the counters for the next launch.
+  if (lane == 0) {
+    __threadfence();
+    const unsigned warps = gridDim.x * (blockDim.x >> 5);
+    if (atomicAdd(p.work + 1, 1u) == warps - 1u) {
+      p.work[0] = 0;
+      p.work[1] = 0;
+      __threadfence();
+    }
   }
 }
 
-template <bool STAGED, bool SKY, bool PRIMS, bool GLASS>
-static int launch(const Params& p, cudaStream_t stream) {
+// The launch geometry of one instantiation on the current device, found
+// once per (device, shared memory): the block size whose blocks put the
+// most warps on an SM (the larger block on a tie, so fewer blocks stage the
+// scene), and how many of those blocks an SM holds.
+struct Geometry {
+  int device = -1;
+  size_t smem = 0;
+  int threads = 0, per_sm = 0, sms = 0, regs = 0;
+};
+
+template <typename K>
+static cudaError_t geometry_of(K kernel, size_t smem, Geometry& g) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (g.device == dev && g.smem == smem) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&g.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  g.threads = g.per_sm = 0;
+  for (int t = 32; t <= fa.maxThreadsPerBlock; t += 32) {
+    int b = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kernel, t, smem);
+    if (e != cudaSuccess) return e;
+    if (b > 0 && b * t >= g.per_sm * g.threads) {
+      g.threads = t;
+      g.per_sm = b;
+    }
+  }
+  if (g.threads == 0) return cudaErrorInvalidConfiguration;  // does not fit on an SM
+  g.regs = fa.numRegs;
+  g.device = dev;
+  g.smem = smem;
+  return cudaSuccess;
+}
+
+// geometry (out, host): blocks, threads, shared bytes, registers, blocks per
+// SM, resident (1) or not.
+template <bool RESIDENT, bool WALK, bool SKY, bool PRIMS, bool GLASS>
+static int launch(const Params& p, int max_blocks, int* geometry, cudaStream_t stream) {
   constexpr bool TEX = MM_TEX, DIAG = MM_DIAG;
   if (TEX && ((p.n_planes > 0 && p.plane_tex == nullptr) ||
               (p.n_spheres > 0 && p.sphere_tex == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (DIAG && (p.diag_segments == nullptr || p.diag_mask == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const int blocks = (p.n_rays + threads - 1) / threads;
-  const size_t smem =
-      (size_t)(STAGED ? p.n_planes * RECORD + p.n_spheres * SPHERE : 0) * sizeof(float) +
-      (size_t)p.n_tiles * TILE * sizeof(float) +
-      (size_t)(p.n_tiles - p.n_single) * sizeof(int);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(trace_kernel<STAGED, SKY, PRIMS, GLASS, TEX, DIAG>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  auto kernel = trace_kernel<RESIDENT, WALK, SKY, PRIMS, GLASS, TEX, DIAG>;
+  const size_t smem = smem_bytes(p, RESIDENT, TEX);
+  static Geometry g[16];   // per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  Geometry local;
+  Geometry& geo = dev < 16 ? g[dev] : local;
+  e = geometry_of(kernel, smem, geo);
+  if (e != cudaSuccess) return (int)e;
+  long long blocks = (long long)geo.sms * geo.per_sm;
+  const long long needed = ((long long)p.n_rays + geo.threads - 1) / geo.threads;
+  if (needed < blocks) blocks = needed;
+  if (max_blocks > 0 && max_blocks < blocks) blocks = max_blocks;
+  if (geometry != nullptr) {
+    geometry[0] = (int)blocks;
+    geometry[1] = geo.threads;
+    geometry[2] = (int)smem;
+    geometry[3] = geo.regs;
+    geometry[4] = geo.per_sm;
+    geometry[5] = RESIDENT;
   }
-  if (p.n_rays > 0)
-    trace_kernel<STAGED, SKY, PRIMS, GLASS, TEX, DIAG><<<blocks, threads, smem, stream>>>(p);
+  if (p.n_rays > 0) kernel<<<(unsigned)blocks, geo.threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <bool STAGED, bool SKY>
-static int launch_stages(const Params& p, bool prims, bool glass, cudaStream_t s) {
-  if (prims) return glass ? launch<STAGED, SKY, true, true>(p, s)
-                          : launch<STAGED, SKY, true, false>(p, s);
-  return glass ? launch<STAGED, SKY, false, true>(p, s)
-               : launch<STAGED, SKY, false, false>(p, s);
+template <bool RESIDENT, bool WALK, bool SKY>
+static int launch_stages(const Params& p, bool prims, bool glass, int max_blocks,
+                         int* geometry, cudaStream_t s) {
+  if (prims) return glass ? launch<RESIDENT, WALK, SKY, true, true>(p, max_blocks, geometry, s)
+                          : launch<RESIDENT, WALK, SKY, true, false>(p, max_blocks, geometry, s);
+  return glass ? launch<RESIDENT, WALK, SKY, false, true>(p, max_blocks, geometry, s)
+               : launch<RESIDENT, WALK, SKY, false, false>(p, max_blocks, geometry, s);
 }
 
+template <bool RESIDENT, bool WALK>
+static int launch_sky(const Params& p, bool sky, bool prims, bool glass, int max_blocks,
+                      int* geometry, cudaStream_t s) {
+  return sky ? launch_stages<RESIDENT, WALK, true>(p, prims, glass, max_blocks, geometry, s)
+             : launch_stages<RESIDENT, WALK, false>(p, prims, glass, max_blocks, geometry, s);
+}
+
+// work: two zeroed words of this launch's stream (see Params::work), left
+// zeroed by the launch. max_blocks: at most this many blocks (0: as many as
+// fill the card). geometry: 6 ints out, or null.
 extern "C" int mm_trace_paths(const float* ori, const float* dirs, const float* planes,
                               int n_planes, const float* spheres, int n_spheres,
                               const float* plane_tex, const float* sphere_tex,
                               const float* tiles, int n_tiles, int n_single,
                               const int* order, const int* seed, const float* seed_row,
-                              float* light, int* diag_segments, unsigned int* diag_mask,
+                              float* light, unsigned int* work, int* diag_segments, unsigned int* diag_mask,
                               int mask_words, int n_rays, int block_rays, int max_segments,
                               int bounce_limit, int mirror_limit, int prims, int glass,
                               int fresnel, float mirror_tint, float t_min, float sky_r,
                               float sky_g, float sky_b, float sky_strength, float sky_lf,
-                              float sky_log_lf, void* stream) {
-  const Params p = {ori, dirs, planes, spheres, tiles, order, seed, seed_row, light,
+                              float sky_log_lf, int max_blocks, int* geometry,
+                              void* stream) {
+  const Params p = {ori, dirs, planes, spheres, tiles, order, seed, seed_row, light, work,
                     n_planes, n_spheres, n_tiles, n_single,
                     n_rays, block_rays, max_segments, bounce_limit, mirror_limit, fresnel,
                     mirror_tint, t_min,
                     sky_r, sky_g, sky_b, sky_strength, sky_lf, sky_log_lf,
                     plane_tex, sphere_tex, diag_segments, diag_mask, mask_words};
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool staged = n_tiles == n_single;
   const bool sky = sky_strength != 0.f;
-  if (staged) return sky ? launch_stages<true, true>(p, prims, glass, s)
-                         : launch_stages<true, false>(p, prims, glass, s);
-  return sky ? launch_stages<false, true>(p, prims, glass, s)
-             : launch_stages<false, false>(p, prims, glass, s);
+  // The whole scene resident when it fits the shared memory a block of this
+  // device may opt in to.
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  const bool resident = smem_bytes(p, true, MM_TEX) <= (size_t)optin;
+  if (!resident) return launch_sky<false, true>(p, sky, prims, glass, max_blocks, geometry, s);
+  if (n_tiles > n_single)
+    return launch_sky<true, true>(p, sky, prims, glass, max_blocks, geometry, s);
+  return launch_sky<true, false>(p, sky, prims, glass, max_blocks, geometry, s);
 }

@@ -8,10 +8,10 @@ an unchanged one is reused. ``build()`` compiles every library at once, one
 ``nvcc`` process each, in parallel.
 
 The tracer's source gives four libraries (``LIBRARIES``): ``tracer``, the
-16 instantiations an untextured scene runs, ``tracer_tex`` with the texture
+24 instantiations an untextured scene runs, ``tracer_tex`` with the texture
 stage, and ``tracer_diag`` / ``tracer_tex_diag``, which also gather the
 per-block diagnostics. Each is a translation unit of its own, so a launch
-without textures or diagnostics runs the kernel it always ran.
+without textures or diagnostics compiles none of their code.
 
 Nothing here runs at import: the CPU tests import every module and this
 machine may have no ``nvcc`` at all.
@@ -53,13 +53,14 @@ _TRACER = ("mm_trace_paths", [
     _C.c_void_p, _C.c_int,                               # spheres, S
     _C.c_void_p, _C.c_void_p,                            # plane and sphere texture rows
     _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p,        # tiles, T, single, order
-    _C.c_void_p, _C.c_void_p, _C.c_void_p,               # seed, seed_row, light
+    _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,  # seed, seed_row, light, work
     _C.c_void_p, _C.c_void_p, _C.c_int,                  # diagnostics: segments, mask, words
     _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,    # R, B, segments, limits
     _C.c_int, _C.c_int, _C.c_int,                        # prims, glass, fresnel
     _C.c_float, _C.c_float,                              # mirror_tint, t_min
     _C.c_float, _C.c_float, _C.c_float, _C.c_float,      # sky rgb, strength
     _C.c_float, _C.c_float,                              # lighting factor, its log
+    _C.c_int, _C.c_void_p,                               # most blocks, geometry out
     _C.c_void_p,                                         # stream
 ])
 _PRESENT = ("mm_present", [
@@ -93,6 +94,17 @@ def _nvcc() -> str:
     if os.path.exists(default):
         return default
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def sass(name: str) -> str | None:
+    """``cuobjdump -sass`` of library ``name`` (built first), or None where
+    the toolkit has no ``cuobjdump`` (on the PATH or beside ``nvcc``)."""
+    build((name,))
+    tool = shutil.which("cuobjdump") or str(Path(_nvcc()).parent / "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, "-sass", str(_lib_path(name))], capture_output=True,
+                          text=True, check=True).stdout
 
 
 def _lib_path(name: str) -> Path:

@@ -3,9 +3,12 @@
 
 ``trace_paths_fused`` traces a ray wavefront through the whole bounce loop
 and returns the gathered light [R, 3]. On CUDA tensors it launches the
-hand-written kernel (csrc/tracer.cu, one thread per ray); on CPU tensors it
-runs ``trace_paths_plain``, the same function in PyTorch, vectorized over
-rays with [R, rows] intermediates and Python loops over segments and tiles.
+hand-written kernel (csrc/tracer.cu: a persistent grid whose warps refill
+the lanes of rays that died, the scene in shared memory where it fits the
+shared memory a block of the card may have, walked tiles that few lanes
+reach tested by the whole warp); on CPU tensors it runs
+``trace_paths_plain``, the same function in PyTorch, vectorized over rays
+with [R, rows] intermediates and Python loops over segments and tiles.
 
 Both reproduce the Pallas kernel as the CPU interpreter runs it, for
 quads, triangles and spheres, opaque or glass (the reference's eight test
@@ -79,6 +82,8 @@ with the noise seed row, the sky term and the per-block diagnostics:
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -94,6 +99,7 @@ from .scenebuf import (
 
 BIG = 1e30
 LANES = 128
+WARP = 32                # lanes of a CUDA warp (the plain version's warp statistics)
 MASK = 0xFFFFFFFF
 PLAIN_CHUNK = 1 << 16    # most rays per pass of the plain version
 PLAIN_BUDGET = 1 << 23   # most [rays, rows] elements of one intermediate
@@ -105,6 +111,10 @@ EDGE_TESTS = {0: 2, 1: 1, 2: 0, 4: 2, 6: 2, 7: 2}   # per plane test, by mode
 SEL_WIDTH = 13
 TEX_SEL_WIDTH = 26
 DIAG_ROWS = 5
+GEOMETRY = ("blocks", "threads", "smem", "registers", "per_sm", "resident")
+# The kernel's two work counters per (device, stream), zeroed once; each
+# launch leaves its pair zeroed (csrc/tracer.cu Params::work).
+_work: dict = {}
 
 
 def _f32(x: float) -> float:
@@ -306,7 +316,12 @@ def trace_paths_plain(
     tests and edge tests of those tiles' primitives and of the single-tile
     groups'; ``glass_hits``, the live hits on glass (each runs the
     dielectric stage); ``textured_hits``, the live hits on a textured
-    primitive (each evaluates a checker).
+    primitive (each evaluates a checker). For warps of 32 consecutive rays
+    (in the order given): ``warp_segments``, the (warp, segment) pairs with
+    a live lane, and ``warp_tile_visits``, the (warp, segment, tile) triples
+    where some lane's slab test passes, which a warp that keeps its rays
+    scans. ``segments_per_ray`` is set to the segments each ray entered
+    alive, [R] int32 (``utils/profiling.py warp_lane_share`` reads it).
 
     The diagnostics' blocks are ``ray_ids // B``. Without ``ray_ids`` the
     wavefront is padded to whole blocks as the reference pads it; with them
@@ -330,15 +345,21 @@ def trace_paths_plain(
                     segments=torch.zeros(n_blocks, dtype=torch.int32, device=dev),
                     live=torch.zeros(n_blocks, dtype=torch.int32, device=dev))
     widest = max([sum(g[1].shape[0] for g in single)] + [t[1].shape[0] for t in walk])
-    step = max(1, min(PLAIN_CHUNK, PLAIN_BUDGET // max(1, widest)))
-    parts = []
+    # Whole warps per pass, so that no warp of the statistics is split.
+    step = max(WARP, min(PLAIN_CHUNK, PLAIN_BUDGET // max(1, widest)) // WARP * WARP)
+    parts, lived = [], []
     for c0 in range(0, ori.shape[0], step):
         sl = slice(c0, c0 + step)
         if diag is not None:
             diag["block"] = ray_ids[sl] // block
-        parts.append(_trace_plain_chunk(single, walk, scene.has_glass, scene.textured,
-                                        ori[sl], dirs[sl], rng[sl], cfg, stats, skip, diag))
+        light, seg = _trace_plain_chunk(single, walk, scene.has_glass, scene.textured,
+                                        ori[sl], dirs[sl], rng[sl], cfg, stats, skip, diag)
+        parts.append(light)
+        lived.append(seg)
     light = torch.cat(parts)[:n_rays] if parts else torch.zeros_like(ori)
+    if stats is not None:
+        stats["segments_per_ray"] = (torch.cat(lived)[:n_rays] if lived else
+                                     torch.zeros(0, dtype=torch.int32, device=dev))
     if diag is None:
         return light
     tiles = (diag["votes"] > 0).sum(dim=1, dtype=torch.int32)
@@ -373,13 +394,19 @@ def _diag_rows(segments, live, tiles, n_single):
     ]).to(torch.int32)
 
 
+def _warp_any(mask: torch.Tensor) -> torch.Tensor:
+    """[ceil(R / 32)] bool: whether any ray of each warp of 32 consecutive
+    rays is set in ``mask`` [R]."""
+    return torch.nn.functional.pad(mask, (0, -mask.shape[0] % WARP)).view(-1, WARP).any(dim=1)
+
+
 def _nearest(single, walk, o, d, t_min, alive, counts, skip, width, vote=None):
     """Nearest hit over all groups in the reference's merge order:
-    (t [R], sel [R, width]). ``counts`` (or None) is a tensor of four
-    sums over the walked tiles: tile visits, plane tests, edge tests and
-    sphere tests. ``vote`` (or None) is (votes [walked tiles, blocks], the
-    rays' blocks [R]): each walked tile's count of rays that reach it is
-    added to its row."""
+    (t [R], sel [R, width]). ``counts`` (or None) is a tensor of five
+    sums over the walked tiles: tile visits, plane tests, edge tests,
+    sphere tests and warp tile visits. ``vote`` (or None) is (votes [walked
+    tiles, blocks], the rays' blocks [R]): each walked tile's count of rays
+    that reach it is added to its row."""
     sdo = (o[:, 0] * d[:, 0] + o[:, 1] * d[:, 1]) + o[:, 2] * d[:, 2]
     soo = (o[:, 0] * o[:, 0] + o[:, 1] * o[:, 1]) + o[:, 2] * o[:, 2]
     if single:
@@ -396,8 +423,9 @@ def _nearest(single, walk, o, d, t_min, alive, counts, skip, width, vote=None):
         if rows.shape[0] == 0:
             continue
         if counts is not None:
-            counts += reach.sum() * torch.tensor([1] + _test_counts(mode, rows.shape[0]),
-                                                 device=counts.device)
+            counts[:4] += reach.sum() * torch.tensor([1] + _test_counts(mode, rows.shape[0]),
+                                                     device=counts.device)
+            counts[4] += _warp_any(reach).sum()
         tile_t, tile_sel = _dense_nearest([(mode, rows, props)], o, d, t_min, sdo, soo)
         better = tile_t < tmin
         if skip:
@@ -421,7 +449,7 @@ def _trace_plain_chunk(single, walk, has_glass, textured, o, d, rng, cfg, stats,
     alive = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
     counts = None
     if stats is not None:
-        counts = torch.zeros(4, dtype=torch.int64, device=o.device)
+        counts = torch.zeros(5, dtype=torch.int64, device=o.device)
         glass_hits = torch.zeros((), dtype=torch.int64, device=o.device)
         textured_hits = torch.zeros((), dtype=torch.int64, device=o.device)
         per_segment = [1] + [sum(c) for c in zip(*(
@@ -436,6 +464,7 @@ def _trace_plain_chunk(single, walk, has_glass, textured, o, d, rng, cfg, stats,
             for name, n in zip(("ray_segments", "plane_tests", "edge_tests", "sphere_tests"),
                                per_segment):
                 stats[name] = stats.get(name, 0) + n_alive * n
+            stats["warp_segments"] = stats.get("warp_segments", 0) + int(_warp_any(alive).sum())
         vote = None if diag is None else (diag["votes"][seg], diag["block"])
         t, sel = _nearest(single, walk, o, d, t_min, alive, counts, skip, width, vote)
         n, c, e, mir = sel[:, 0:3], sel[:, 3:6], sel[:, 6:9], sel[:, 9]
@@ -533,14 +562,14 @@ def _trace_plain_chunk(single, walk, has_glass, textured, o, d, rng, cfg, stats,
         dc = dc + diffuse.to(torch.int32)
         alive = hit & ~(spec & (mh_new >= cfg.mirror_limit)) & (dc < cfg.bounce_limit)
     if stats is not None:
-        names = ("tile_visits", "plane_tests", "edge_tests", "sphere_tests", "glass_hits",
-                 "textured_hits")
+        names = ("tile_visits", "plane_tests", "edge_tests", "sphere_tests", "warp_tile_visits",
+                 "glass_hits", "textured_hits")
         for name, n in zip(names, counts.tolist() + [int(glass_hits), int(textured_hits)]):
             stats[name] = stats.get(name, 0) + n
     if diag is not None:
         diag["segments"].scatter_reduce_(0, diag["block"], lived, "amax")
         diag["live"].index_add_(0, diag["block"], lived)
-    return lt
+    return lt, lived
 
 
 def trace_paths_fused(
@@ -553,6 +582,8 @@ def trace_paths_fused(
     anchor: torch.Tensor | None = None,     # [3] float32 tile-order anchor (None = origin)
     seed_row: torch.Tensor | None = None,   # [R] float32 in [0, 1), mixed into the seeds
     return_block_segments: bool = False,
+    grid_blocks: int | None = None,
+    geometry: dict | None = None,
 ):
     """Trace a ray wavefront; returns light [R, 3], and with
     ``return_block_segments`` (light, the per-block diagnostics [5, ceil(R /
@@ -560,7 +591,12 @@ def trace_paths_fused(
     CUDA tensors, the plain version for CPU tensors. A textured scene and
     the diagnostics each run instantiations of their own (libraries
     ``tracer_tex``, ``tracer_diag``, ``tracer_tex_diag``, built at first
-    use), so that a launch without them runs the kernel it always ran."""
+    use), so that a launch without them compiles none of their code.
+    ``grid_blocks`` caps the kernel's persistent grid (None: as many blocks
+    as fill the card); the light never depends on it. A CUDA launch fills
+    ``geometry`` (when given) with the geometry the launcher chose: blocks,
+    threads, shared bytes, registers, blocks per SM, and whether the whole
+    scene was resident in shared memory (``GEOMETRY``)."""
     dev = ori.device
     planes, spheres, tiles = scene.planes, scene.spheres, scene.tiles
     if anchor is None:
@@ -626,19 +662,27 @@ def trace_paths_fused(
     modes = {g[0] for g in scene.group_meta}
     prims = bool(modes & {3, 4, 5, 7})
     ptr = lambda x: None if x is None else x.data_ptr()
+    out = (ctypes.c_int * len(GEOMETRY))()
     with torch.cuda.device(dev):            # the launch goes to this device's stream
+        key = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+        if key not in _work:
+            _work[key] = torch.zeros(2, dtype=torch.int32, device=dev)
         kernels.launch(
             name, ori.data_ptr(), dirs.data_ptr(), planes.data_ptr(), planes.shape[0],
             spheres.data_ptr(), spheres.shape[0], ptr(plane_tex), ptr(sphere_tex),
             tiles.data_ptr(), tiles.shape[0], tiles.shape[0] - order.shape[0], order.data_ptr(),
-            seed.data_ptr(), ptr(seed_row), light.data_ptr(), ptr(segments), ptr(mask),
+            seed.data_ptr(), ptr(seed_row), light.data_ptr(), _work[key].data_ptr(),
+            ptr(segments), ptr(mask),
             0 if mask is None else mask.shape[2], ori.shape[0], block,
             cfg.max_segments, cfg.bounce_limit, cfg.mirror_limit,
             int(prims), int(scene.has_glass), int(cfg.fresnel),
             _f32(cfg.mirror_tint), _f32(cfg.t_min),
             *(_f32(c) for c in cfg.sky_color), _f32(cfg.sky_strength), _f32(lf),
-            _f32(np.log(lf)) if lf > 0.0 else 0.0,
+            _f32(np.log(lf)) if lf > 0.0 else 0.0, grid_blocks or 0, out,
         )
+    if geometry is not None:
+        geometry.update(zip(GEOMETRY, out))
+        geometry["resident"] = bool(geometry["resident"])
     if not return_block_segments:
         return light
     bits = (mask[..., None] >> torch.arange(32, dtype=torch.int32, device=dev)) & 1

@@ -2,9 +2,10 @@
 chunk-major screen (counterpart of the JAX package's ``render/present.py``).
 
 On a CUDA tensor ``present`` launches the hand-written kernel
-(csrc/present.cu); on a CPU tensor it runs ``present_plain``, the same
-function in PyTorch (render/accumulate.py feedback_blur_cm +
-quantize_8bit), which the kernel matches bitwise.
+(csrc/present.cu: a thread per strip of a chunk, 16-byte loads and stores
+at chunk width 4, no integer division); on a CPU tensor it runs
+``present_plain``, the same function in PyTorch (render/accumulate.py
+feedback_blur_cm + quantize_8bit), which the kernel matches bitwise.
 
 With ``halo_top`` and ``halo_bot`` the screen is a row band of a taller
 screen (parallel/shard.py): the band's top pixel row blurs with the row
@@ -58,6 +59,8 @@ def present(cm: torch.Tensor, screen_cfg, quantize: bool,
     if cm.device.type != "cuda":
         raise ValueError(f"present runs on cuda or cpu tensors, got {cm.device}")
     src = cm.contiguous()
+    if src.data_ptr() % 16:                 # the kernel reads 16-byte words
+        src = src.clone()
     out = torch.empty_like(src)
     halo = halo_top is not None
     if halo:

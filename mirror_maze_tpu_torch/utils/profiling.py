@@ -1,14 +1,31 @@
 """Tracer diagnostics (counterpart of the JAX package's
 ``utils/profiling.py``, of which only ``tracer_segment_histogram`` is here;
-its frame timer, profiler trace and memory statistics are not ported yet).
+its frame timer, profiler trace and memory statistics are not ported yet),
+and ``warp_lane_share``, the port's own measure of a warp's idle lanes.
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
-from ..render.fused_tracer import LANES, trace_paths_fused
+from ..render.fused_tracer import LANES, WARP, trace_paths_fused
+
+
+def warp_lane_share(segments_per_ray, warp: int = WARP) -> float:
+    """The share of lanes alive per warp-segment when each warp of ``warp``
+    consecutive rays keeps its rays until the last one dies (one thread per
+    ray): the segments the rays lived, summed, over ``warp`` times the
+    segments each warp runs (its longest ray's), summed. ``segments_per_ray``
+    is [R] (``trace_paths_plain(..., stats=s)`` leaves it in
+    ``s["segments_per_ray"]``); a last, partial warp counts its empty lanes
+    as idle."""
+    seg = torch.as_tensor(segments_per_ray).reshape(-1).to(torch.int64)
+    seg = torch.nn.functional.pad(seg, (0, -seg.shape[0] % warp)).view(-1, warp)
+    runs = int(seg.max(dim=1).values.sum())
+    return float(seg.sum()) / (warp * runs) if runs else 0.0
 
 
 def tracer_segment_histogram(scene, cfg, ori, dirs, seed: int = 7, rows_per_block: int = 8,
@@ -41,3 +58,45 @@ def tracer_segment_histogram(scene, cfg, ori, dirs, seed: int = 7, rows_per_bloc
             (tiles - tiles3).sum() / max((segs - 3).clip(0).sum(), 1)),
         "live_lane_frac": float(live.sum() / max(segs.sum() * lanes, 1)),
     }
+
+
+F32_OPS = ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FSET")
+
+
+def sass_loops(sass_text: str, function: str, max_len: int = 400) -> list:
+    """The loops of one kernel in ``cuobjdump -sass`` output (``function`` is
+    its mangled name): one dict per backward branch whose body holds an
+    MUFU.RCP (a reciprocal: one per plane record tested) and at most
+    ``max_len`` instructions, with the body's instructions (``insts``),
+    reciprocals (``rcp``), shared-memory loads (``lds``) and f32 arithmetic
+    and compares (``f32``), by address."""
+    body = sass_text.split(f"Function : {function}\n", 1)
+    if len(body) < 2:
+        return []
+    body = body[1].split("Function : ", 1)[0]
+    insts, labels = [], {}
+    for line in body.splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            labels[label.group(1)] = len(insts)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            insts.append((int(m.group(1), 16), m.group(2).strip()))
+    at = {addr: k for k, (addr, _) in enumerate(insts)}
+    loops = []
+    for k, (addr, text) in enumerate(insts):
+        m = re.search(r"\bBRA\b[^`]*`?\(?(\.L_x_\d+|0x[0-9a-f]+)", text)
+        if not m:
+            continue
+        target = m.group(1)
+        start = labels.get(target) if target.startswith(".L") else at.get(int(target, 16))
+        if start is None or start > k or k - start >= max_len:
+            continue
+        ops = [t.split()[1] if t.startswith("@") else t.split()[0] for _, t in insts[start:k + 1]]
+        rcp = sum(op.startswith("MUFU.RCP") for op in ops)
+        if rcp:
+            loops.append(dict(start=insts[start][0], end=addr, insts=len(ops), rcp=rcp,
+                              lds=sum(op.startswith("LDS") for op in ops),
+                              f32=sum(op.split(".")[0] in F32_OPS for op in ops)))
+    return loops

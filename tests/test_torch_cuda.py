@@ -6,6 +6,7 @@ no JAX, so it also runs on a GPU machine that has none:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -16,9 +17,11 @@ import mirror_maze_tpu_torch as P
 from _torch_tools import (
     aimed_rays,
     assert_frames_match,
+    checker_floor,
     cornell_scene,
     golden_config,
     golden_script,
+    mesh_gallery_scene,
     multi_tile_config,
     multi_tile_script,
     primitive_zoo,
@@ -66,6 +69,27 @@ def test_present_kernel_matches_plain_bitwise(cuda_device, quantize):
     want = present_plain(s, cfg, quantize)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("halo", [False, True])
+@pytest.mark.parametrize("cw,w,h", [(1, 64, 48), (2, 64, 48), (4, 64, 48), (5, 60, 45),
+                                    (4, 4, 64), (5, 5, 40)])
+def test_present_kernel_chunk_widths_match_plain_bitwise(cuda_device, cw, w, h, halo):
+    """Chunk width 4 (three float4s a strip, neighbours by shuffles) and the
+    generic instance (1, 2, 5), a screen one chunk wide, and halo rows."""
+    cfg = ScreenConfig(width=w, height=h, chunk_width=cw)
+    rng = np.random.default_rng(cw * 100 + w)
+    x = rng.random((cfg.total_chunks, cfg.pixels_per_chunk * 3)).astype(np.float32) * 1.2 - 0.1
+    s = torch.from_numpy(x).to(cuda_device)
+    halos = (None, None)
+    if halo:
+        halos = tuple(torch.from_numpy(rng.random(w * 3).astype(np.float32)).to(cuda_device)
+                      for _ in range(2))
+    for quantize in (True, False):
+        got = present(s, cfg, quantize, *halos)
+        want = present_plain(s, cfg, quantize, *halos)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def _rays(n, seed, extent, device):
@@ -230,6 +254,101 @@ def test_diagnostics_kernel_matches_plain(cuda_device, name):
     assert torch.equal(diag, want)
     assert float(torch.isclose(light, want_light, rtol=1e-5, atol=1e-6).all(dim=1)
                  .float().mean()) >= 0.999
+
+
+GRID_SCENES = {
+    "staged_maze": (lambda: build_scene(config_interactive().maze), 45.0, None),
+    "walked_maze": (lambda: build_scene(MazeConfig(width=16, height=16)), 79.0, {0: 16, 1: 32}),
+}
+
+
+@pytest.mark.parametrize("name", list(GRID_SCENES))
+def test_tracer_light_does_not_depend_on_the_grid(cuda_device, name):
+    """The persistent grid forced to one block and at its full size give the
+    same light and diagnostics, bit for bit, and the plain version's light."""
+    build, extent, tiles = GRID_SCENES[name]
+    scene = build()
+    dev = upload_scene(scene, device=cuda_device, tile_by_mode=tiles)
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in aimed_rays(scene, 50_001, 8, extent))
+    seed = torch.tensor([7], dtype=torch.int32, device=cuda_device)
+    tracer = TracerConfig(bounce_limit=4, mirror_limit=6)
+    geo_full, geo_one = {}, {}
+    full = trace_paths_fused(dev, o, d, seed, tracer, 8, geometry=geo_full)
+    one = trace_paths_fused(dev, o, d, seed, tracer, 8, grid_blocks=1, geometry=geo_one)
+    assert geo_full["blocks"] > 1 and geo_one["blocks"] == 1
+    full_diag = trace_paths_fused(dev, o, d, seed, tracer, 8, return_block_segments=True)[1]
+    one_diag = trace_paths_fused(dev, o, d, seed, tracer, 8, return_block_segments=True,
+                                 grid_blocks=1)[1]
+    want = trace_paths_plain(dev, o, d, seed, tracer, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(full, one) and torch.equal(full_diag, one_diag)
+    assert torch.equal(full, want)
+
+
+@pytest.mark.parametrize("width", [16, 96])
+def test_resident_and_global_paths_match_plain_bitwise(cuda_device, width):
+    """The 16x16 maze's records fit a block's shared memory and the kernel
+    walks its tiles there; the 96x96 maze's (6,057 planes, 486,516 bytes)
+    do not, and it reads them from global memory. Both bitwise the plain
+    version."""
+    scene = build_scene(MazeConfig(width=width, height=width))
+    dev = upload_scene(scene, device=cuda_device)
+    assert max(g[2] for g in dev.group_meta) > 1
+    o, d = (torch.from_numpy(a).to(cuda_device)
+            for a in aimed_rays(scene, 50_001, 11, 5.0 * width - 1.0))
+    seed = torch.tensor([7], dtype=torch.int32, device=cuda_device)
+    tracer = TracerConfig(bounce_limit=4, mirror_limit=6)
+    anchor = torch.tensor([3.0, -1.0, 7.0], device=cuda_device)
+    geo = {}
+    got = trace_paths_fused(dev, o, d, seed, tracer, 8, anchor=anchor, geometry=geo)
+    assert geo["resident"] == (width == 16)
+    want = trace_paths_plain(dev, o, d, seed, tracer, 8, anchor=anchor)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float(want.mean()) > 0
+
+
+def _maze(name, **maze):
+    return lambda: build_scene(dataclasses.replace(P.NAMED_CONFIGS[name]().maze, **maze))
+
+
+# name -> (scene, resident on a card whose block may opt in to 232,448 B)
+RESIDENCY_SCENES = {
+    "interactive": (_maze("interactive"), True),
+    "scale": (_maze("scale"), True),
+    "scale_glass": (_maze("scale", glass_prob=0.5), True),
+    "fuzzy": (_maze("fuzzy"), True),
+    "cornell_glass": (lambda: cornell_scene("glass"), True),
+    "mesh": (mesh_gallery_scene, True),
+    "mesh_checker": (lambda: checker_floor(mesh_gallery_scene()), True),
+    "maze80": (lambda: build_scene(MazeConfig(width=80, height=80)), False),
+}
+
+
+@pytest.mark.parametrize("name", list(RESIDENCY_SCENES))
+def test_resident_decision_from_byte_counts(cuda_device, name):
+    """The launcher keeps the whole scene in shared memory when its records,
+    texture rows, tile table and walk order fit what a block may opt in to,
+    and reports that with the bytes it staged. config_scale's 64x64 maze is
+    216,276 bytes, inside the H100's 232,448."""
+    build, resident = RESIDENCY_SCENES[name]
+    dev = upload_scene(build(), device=cuda_device)
+    walked = sum(g[2] for g in dev.group_meta if g[2] > 1)
+    tex = 32 * (dev.num_planes + dev.num_spheres) if dev.textured else 0
+    records = 80 * dev.num_planes + 64 * dev.num_spheres + tex
+    tables = 36 * dev.tiles.shape[0] + 4 * walked
+    if name == "scale":
+        assert records + tables == 2692 * 80 + 23 * 36 + 22 * 4 == 216_276
+    limit = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+    if limit == 232_448:                    # the H100's
+        assert (records + tables <= limit) == resident
+    o = torch.zeros((4096, 3), device=cuda_device)
+    d = torch.nn.functional.normalize(torch.rand((4096, 3), device=cuda_device) - 0.5, dim=1)
+    seed = torch.tensor([7], dtype=torch.int32, device=cuda_device)
+    geo = {}
+    trace_paths_fused(dev, o, d, seed, TracerConfig(), 8, geometry=geo)
+    assert geo["resident"] == (records + tables <= limit)
+    assert geo["smem"] == (records if geo["resident"] else 0) + tables
 
 
 @pytest.mark.parametrize("quantize", [True, False])
