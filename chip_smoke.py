@@ -52,6 +52,28 @@ a spin so that the host's launch time is not in it; the back-to-back time
 from a CUDA graph is printed beside it (``time_present.py``, which also
 times another commit's kernel by the same method).
 
+Then the jnp tracer's backends (render/intersect.py, render/tracer.py; no
+kernel of their own, the present kernel presents their frames), the offline
+path and checkpoints, each phase with its seconds:
+
+- ``[golden-brute]`` the golden configuration with ``intersector="brute"``:
+  ``render_full_frame`` and the 28-frame script against
+  ``tests/goldens/frame_brute.npz`` and ``script_brute.npz``;
+- ``[v0]`` ``config_v0`` (4x4 maze, 256x256, 1 spp, brute), 40 frames, and
+  the same script on the CPU in this process, by the golden rule;
+- ``[bvh]`` / ``[exact]`` ``config_bvh``'s scene (8x8 maze, 512x384, 4 spp,
+  5 + 4 bounces) with the traversal and with the dense exact test, 8 frames
+  each, their last frames against each other; the walk's host check every
+  k iterations timed on frame 1's rays;
+- ``[validate]`` bench.py ``--validate``'s deterministic light (16x16 maze,
+  128x96, 1 spp, jitter 0, one segment) with brute, exact, bvh and the fused
+  kernel, each against brute by the reference's hardware rule;
+- ``[offline]`` a 4-frame orbit of ``config_bvh``'s scene through
+  ``render_path`` with the fused kernel, written as PNG and GIF, the PNG
+  read back;
+- ``[resume]`` ``config_interactive``: 8 frames, ``save_state``,
+  ``load_state`` onto the card, 8 more, bitwise 16 frames straight.
+
 Every phase prints one line; any failure exits non-zero. The last two lines
 are the ``{"kernels": [...]}`` summary (one row per kernel and path, every
 number measured or, for ``bound_ms``, computed in this run) and ``{"ok":
@@ -126,6 +148,289 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# The jnp-tracer paths' scripts: idle, walking, turning, idle frames.
+JNP_SCRIPTS = {"v0": (12, 12, 4, 12), "bvh": (2, 2, 2, 2), "resume": (4, 4, 2, 6)}
+# The BVH walk's host checks compared on [bvh]'s frame-1 rays.
+CHECK_INTERVALS = (1, 2, 4, 8, 16, 32)
+WALK_REPEATS = 3
+# The cross-backend check (bench.py --validate): 16x16 maze, 128x96, 1 spp,
+# no jitter, one diffuse segment, so every backend computes the same light.
+VALIDATE = dict(maze=(16, 16), screen=(128, 96), spawn=(-5.0, 0.0, -75.0))
+
+
+def _script(fi, counts) -> list:
+    idle, walk, turn, idle2 = counts
+    return ([fi.idle()] * idle + [fi.make(w=True)] * walk
+            + [fi.make(mouse_dx=-27.0)] * turn + [fi.idle()] * idle2)
+
+
+def _golden_rule(got, ref) -> tuple:
+    """(share of values within 1 LSB, largest difference) of two uint8
+    frames: the golden rule needs > 0.999 and <= 4."""
+    import numpy as np
+
+    diff = np.abs(got.astype(int) - ref.astype(int))
+    return float((diff <= 1).mean()), int(diff.max())
+
+
+def jnp_phases(dev, smi: str) -> None:
+    """The phases of the jnp tracer's backends, the offline path and the
+    checkpoints; any failure ends the run with SystemExit."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import mirror_maze_tpu_torch as P
+    from _torch_tools import golden_config, golden_script
+    from mirror_maze_tpu_torch import kernels
+    from mirror_maze_tpu_torch.ops import prng
+    from mirror_maze_tpu_torch.render import campath, intersect, make_camera, upload_scene
+    from mirror_maze_tpu_torch.render.pipeline import (
+        camera_rays,
+        frame_row_batches,
+        render_full_frame,
+    )
+    from mirror_maze_tpu_torch.render.scheduler import chunk_origin_xy, chunk_pixels, take_chunks
+    from mirror_maze_tpu_torch.runtime.loop import run_scripted
+    from mirror_maze_tpu_torch.runtime.state import (
+        EngineState,
+        FrameInputs,
+        init_state,
+        load_state,
+        save_state,
+    )
+    from mirror_maze_tpu_torch.runtime.step import derive_traversal_bounds, make_scan_step
+    from mirror_maze_tpu_torch.scene import build_scene
+    from mirror_maze_tpu_torch.utils import imageio
+
+    def timed(fn):
+        """(result, device ms) of fn, ended by a synchronize."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    # [golden-brute]: the brute backend's frame and script against the
+    # committed goldens.
+    t0 = time.perf_counter()
+    gcfg = golden_config().replace(intersector="brute")
+    gscene = upload_scene(build_scene(gcfg.maze), device=dev)
+    gcam = make_camera(gcfg.camera, gcfg.screen.width / gcfg.screen.height, dev)
+    kernels.reset_launches()
+    img = render_full_frame(gscene, gcam, prng.PRNGKey(0, device=dev), gcfg)
+    img = img.clamp(0, 1).cpu().numpy()
+    _, gframe = run_scripted(gscene, gcfg, inputs=golden_script(FrameInputs))
+    counts = dict(kernels.launches)
+    with np.load(os.path.join(ROOT, "tests", "goldens", "frame_brute.npz")) as z:
+        ref = z["img"]
+    close, mean_diff = float(np.isclose(img, ref, atol=2e-3).mean()), abs(img.mean() - ref.mean())
+    with np.load(os.path.join(ROOT, "tests", "goldens", "script_brute.npz")) as z:
+        within, worst = _golden_rule(gframe, z["img"])
+    log(f"[golden-brute] intersector brute on the card: frame vs tests/goldens/frame_brute.npz "
+        f"{close:.6f} of values within 2e-3 (need > 0.999), mean diff {mean_diff:.2e} (need "
+        f"<= 1e-4); 28-frame script vs script_brute.npz {within:.6f} within 1 LSB (need > "
+        f"0.999), max diff {worst} (need <= 4); launches {counts}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (close > 0.999 and mean_diff <= 1e-4 and within > 0.999 and worst <= 4
+            and counts == {"present": 28}):
+        raise SystemExit("[golden-brute] FAIL")
+
+    # [v0]: config_v0 at full size, on the card and on the CPU.
+    t0 = time.perf_counter()
+    cfg = P.NAMED_CONFIGS["v0"]()
+    sc = cfg.screen
+    inputs = _script(FrameInputs, JNP_SCRIPTS["v0"])
+    run = make_scan_step(upload_scene(build_scene(cfg.maze), device=dev), cfg)
+    run(init_state(cfg, device=dev), inputs[:2])                 # first-call costs
+    torch.cuda.synchronize()
+    st0 = init_state(cfg, seed=0, device=dev)
+    kernels.reset_launches()
+    (st, frame), ms = timed(lambda: run(st0, inputs))
+    counts = dict(kernels.launches)
+    n = len(inputs)
+    rays = sc.effective_chunks_per_frame * sc.pixels_per_chunk * sc.samples_per_pixel
+    checksum = int(frame.to(torch.int64).sum())
+    t_cpu = time.perf_counter()
+    cst, cframe = make_scan_step(upload_scene(build_scene(cfg.maze), device="cpu"), cfg)(
+        init_state(cfg, seed=0, device="cpu"), inputs)
+    t_cpu = time.perf_counter() - t_cpu
+    within, worst = _golden_rule(frame.cpu().numpy(), cframe.numpy())
+    same_state = all(torch.equal(getattr(st, f).cpu(), getattr(cst, f))
+                     for f in ("perm", "cursor", "key", "frame"))
+    cam_diff = float((st.cam_center.cpu() - cst.cam_center).abs().max())
+    log(f"[v0] config_v0 {sc.width}x{sc.height} {sc.samples_per_pixel} spp, intersector "
+        f"{cfg.intersector}, {n} frames {JNP_SCRIPTS['v0']}, {rays} rays/frame: "
+        f"{ms / n:.3f} ms/frame, {rays / (ms / n) / 1e3:.2f} Mrays/s, checksum {checksum}; the "
+        f"same script on the CPU ({t_cpu:.1f} s): {within:.6f} within 1 LSB, max diff {worst}, "
+        f"queue/cursor/key/frame equal {same_state}, camera diff {cam_diff:.1e}; launches "
+        f"{counts}; {time.perf_counter() - t0:.1f} s | {smi}")
+    if not (within > 0.999 and worst <= 4 and same_state and cam_diff <= 1e-6
+            and float(frame.float().mean()) > 0.1 and counts == {"present": n}):
+        raise SystemExit("[v0] FAIL")
+
+    # [bvh] and [exact]: config_bvh's scene (8x8 maze, 512x384, 4 spp, 5 + 4
+    # bounces) with the traversal and with the dense exact backend.
+    base = P.NAMED_CONFIGS["bvh"]()
+    bscene = upload_scene(build_scene(base.maze), device=dev)
+    inputs = _script(FrameInputs, JNP_SCRIPTS["bvh"])
+    n = len(inputs)
+    sc = base.screen
+    rays = sc.effective_chunks_per_frame * sc.pixels_per_chunk * sc.samples_per_pixel
+    last = {}
+    for backend in ("bvh", "exact"):
+        t0 = time.perf_counter()
+        cfg = base.replace(intersector=backend)
+        run = make_scan_step(bscene, cfg)
+        run(init_state(cfg, device=dev), inputs[:1])            # first-call costs
+        torch.cuda.synchronize()
+        st0 = init_state(cfg, seed=0, device=dev)
+        kernels.reset_launches()
+        intersect.walk_counts.clear()
+        (st, frame), ms = timed(lambda: run(st0, inputs))
+        counts, walks = dict(kernels.launches), dict(intersect.walk_counts)
+        walked = ""
+        if backend == "bvh":
+            per_walk = walks["iterations"] / walks["walks"]
+            walked = (f", {walks['syncs'] / n:.1f} host syncs/frame (every "
+                      f"{intersect.CHECK_EVERY} iterations), {per_walk:.1f} iterations/walk, "
+                      f"bounds {derive_traversal_bounds(bscene, cfg, None, None)}")
+        log(f"[{backend}] config_bvh scene {sc.width}x{sc.height} {sc.samples_per_pixel} spp, "
+            f"{cfg.tracer.bounce_limit} + {cfg.tracer.mirror_limit} bounces, intersector "
+            f"{backend}, {n} frames, {rays} rays/frame: {ms / n:.1f} ms/frame, "
+            f"{rays / (ms / n) / 1e3:.3f} Mrays/s{walked}, checksum "
+            f"{int(frame.to(torch.int64).sum())}; launches {counts}; "
+            f"{time.perf_counter() - t0:.1f} s | {smi}")
+        if counts != {"present": n} or float(frame.float().mean()) <= 1.0:
+            raise SystemExit(f"[{backend}] FAIL: launches {counts} or a blank frame")
+        last[backend] = frame.cpu().numpy()
+    within, worst = _golden_rule(last["bvh"], last["exact"])
+    log(f"[bvh] last frame vs [exact]'s: {within:.6f} within 1 LSB, max diff {worst}")
+    if not (within > 0.999 and worst <= 4):
+        raise SystemExit("[bvh] FAIL: the bvh and exact runs disagree")
+    # The walk's host check interval on frame 1's rays: the result is the
+    # same for every interval, the time is not.
+    cfg = base.replace(intersector="bvh")
+    st = init_state(cfg, device=dev)
+    ids, _ = take_chunks(st.perm, st.cursor, sc.effective_chunks_per_frame)
+    pixels = chunk_pixels(chunk_origin_xy(ids, sc), sc.chunk_width)
+    _, key = prng.split(st.key)
+    ori, dirs, _, _ = camera_rays(st.camera(cfg), pixels, prng.fold_in(key, 1), cfg)
+    bounds = derive_traversal_bounds(bscene, cfg, None, None)
+    tables = intersect.bvh_tables(bscene.prims, bounds[1])
+    walk = lambda k: intersect.nearest_hit_bvh(bscene.prims, ori, dirs, cfg.tracer.t_min,
+                                               *bounds, check_every=k, tables=tables)
+    ref_t, ref_i = walk(1)
+    times = []
+    for k in CHECK_INTERVALS:
+        walk(k)
+        (t_k, i_k), ms = timed(lambda: [walk(k) for _ in range(WALK_REPEATS)][-1])
+        if not (torch.equal(t_k, ref_t) and torch.equal(i_k, ref_i)):
+            raise SystemExit(f"[bvh] FAIL: check_every={k} changes the walk's result")
+        times.append(f"k={k} {ms / WALK_REPEATS:.2f} ms")
+    log(f"[bvh] one walk of frame 1's {ori.shape[0]} rays, host check every k iterations "
+        f"(mean of {WALK_REPEATS}; the default is k={intersect.CHECK_EVERY}): {', '.join(times)} "
+        f"(results bitwise equal) | {smi}")
+
+    # [validate]: bench.py --validate's deterministic light, every backend
+    # against brute by the reference's hardware rule.
+    t0 = time.perf_counter()
+    vcfg = P.EngineConfig(
+        maze=P.MazeConfig(width=VALIDATE["maze"][0], height=VALIDATE["maze"][1]),
+        tracer=P.TracerConfig(bounce_limit=1, mirror_limit=6, jitter=0.0, block_rows=16),
+        camera=P.CameraConfig(spawn=VALIDATE["spawn"]),
+        screen=P.ScreenConfig(width=VALIDATE["screen"][0], height=VALIDATE["screen"][1],
+                              samples_per_pixel=1))
+    vscene = upload_scene(build_scene(vcfg.maze), device=dev)
+    vcam = make_camera(vcfg.camera, vcfg.screen.width / vcfg.screen.height, dev)
+    vkey = prng.PRNGKey(0, device=dev)
+    frames, counts = {}, {}
+    for backend in ("brute", "exact", "bvh", "pallas"):
+        kernels.reset_launches()
+        frames[backend] = render_full_frame(vscene, vcam, vkey,
+                                            vcfg.replace(intersector=backend)).cpu().numpy()
+        counts[backend] = dict(kernels.launches)
+    ref = frames["brute"]
+    batches = len(list(frame_row_batches(vcfg, vkey, 64, dev)))
+    ok = (np.isfinite(ref).all() and ref.max() > 0.0 and counts["pallas"] == {"tracer": batches}
+          and all(counts[b] == {} for b in ("brute", "exact", "bvh")))
+    for backend in ("exact", "bvh", "pallas"):
+        d = np.abs(frames[backend] - ref)
+        stats = dict(max=float(d.max()), mean=float(d.mean()), p999=float(np.quantile(d, 0.999)),
+                     frac_gt_0_05=float((d > 0.05).mean()), frac_nonzero=float((d > 0).mean()))
+        good = stats["mean"] < 1e-4 and stats["p999"] < 1e-3 and stats["frac_gt_0_05"] < 1e-3
+        ok = ok and good
+        log(f"[validate] {backend} vs brute, 16x16 maze 128x96 1 spp jitter 0 bounce_limit 1: "
+            f"{json.dumps(stats)} (need mean < 1e-4, p999 < 1e-3, frac_gt_0.05 < 1e-3): "
+            f"{'ok' if good else 'FAIL'}")
+    log(f"[validate] launches {counts}; {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise SystemExit("[validate] FAIL")
+
+    # [offline]: an orbit of config_bvh's scene through render_path with the
+    # fused kernel, written as PNG and GIF and read back.
+    t0 = time.perf_counter()
+    ocfg = base
+    osc = ocfg.screen
+    ocam = make_camera(ocfg.camera, osc.width / osc.height, dev)
+    cams = campath.orbit_cameras(ocam, (0.0, -3.0, 0.0), 25.0, 0.0, 4)
+    kernels.reset_launches()
+    path_frames, ms = timed(lambda: campath.render_path(bscene, cams, prng.PRNGKey(0, device=dev),
+                                                        ocfg))
+    counts = dict(kernels.launches)
+    host = path_frames.cpu().numpy()
+    n = host.shape[0]
+    batches = len(list(frame_row_batches(ocfg, prng.PRNGKey(0, device=dev), 64, dev)))
+    with tempfile.TemporaryDirectory() as td:
+        png, gif = os.path.join(td, "frame0.png"), os.path.join(td, "orbit.gif")
+        imageio.write_png(png, host[0])
+        back = imageio.read_png(png)
+        imageio.write_gif(gif, host, fps=10)
+        with open(gif, "rb") as f:
+            gif_head, gif_size = f.read(6), os.path.getsize(gif)
+    differ = all(not np.array_equal(host[i], host[i + 1]) for i in range(n - 1))
+    log(f"[offline] orbit_cameras x {n} of config_bvh's scene ({osc.width}x{osc.height} "
+        f"{osc.samples_per_pixel} spp, fused kernel) through render_path: {ms / n:.1f} ms/frame; "
+        f"PNG read back equal {np.array_equal(back, host[0])}, GIF {gif_size} bytes; frames "
+        f"differ {differ}; launches {counts}; {time.perf_counter() - t0:.1f} s | {smi}")
+    if not (host.shape == (n, osc.height, osc.width, 3) and np.array_equal(back, host[0])
+            and gif_head == b"GIF89a" and differ and host.mean() > 1.0
+            and counts == {"tracer": n * batches}):
+        raise SystemExit("[offline] FAIL")
+
+    # [resume]: config_interactive, 8 frames, checkpoint, load onto the card,
+    # 8 more; against 16 frames straight, bitwise.
+    t0 = time.perf_counter()
+    icfg = P.NAMED_CONFIGS["interactive"]()
+    run = make_scan_step(upload_scene(build_scene(icfg.maze), device=dev), icfg)
+    inputs = _script(FrameInputs, JNP_SCRIPTS["resume"])
+    half = len(inputs) // 2
+    kernels.reset_launches()
+    st_a, _ = run(init_state(icfg, device=dev), inputs[:half])
+    with tempfile.TemporaryDirectory() as td:
+        ckpt = os.path.join(td, "state.npz")
+        save_state(ckpt, st_a)
+        st_b = load_state(ckpt, icfg, device=dev)
+        ckpt_mb = os.path.getsize(ckpt) / 1e6
+    loaded = all(torch.equal(getattr(st_a, f), getattr(st_b, f)) for f in EngineState._fields)
+    st_c, frame_c = run(st_b, inputs[half:])
+    st_d, frame_d = run(init_state(icfg, device=dev), inputs)
+    counts = dict(kernels.launches)
+    same = (all(torch.equal(getattr(st_c, f), getattr(st_d, f)) for f in EngineState._fields)
+            and torch.equal(frame_c, frame_d))
+    log(f"[resume] config_interactive {half} frames, save_state ({ckpt_mb:.1f} MB), load_state "
+        f"onto the card (equal {loaded}), {len(inputs) - half} more: state and frame == "
+        f"{len(inputs)} frames straight, bitwise: {same}; launches {counts}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    total = 2 * len(inputs)
+    if not (loaded and same and counts == {"tracer": total, "present": total}):
+        raise SystemExit("[resume] FAIL")
+
+
 def main() -> int:
     # The smoke drives one card: show it only the first one, so that the
     # device count it reports is the count it used.
@@ -178,7 +483,12 @@ def main() -> int:
     )
     from mirror_maze_tpu_torch.ops import prng
     from mirror_maze_tpu_torch.runtime.loop import run_scripted
-    from mirror_maze_tpu_torch.runtime.state import FrameInputs, init_state
+    from mirror_maze_tpu_torch.runtime.state import (
+        FrameInputs,
+        init_state,
+        load_state,
+        save_state,
+    )
     from mirror_maze_tpu_torch.runtime.step import make_scan_step
     from mirror_maze_tpu_torch.scene import build_scene
     from mirror_maze_tpu_torch.scene.builder import Scene
@@ -188,8 +498,11 @@ def main() -> int:
         warp_lane_share,
     )
 
-    # The plain versions' comparison paths run in full float32.
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # Nothing in the package enables TF32: the brute backend's products and
+    # the plain versions' comparison paths run in full float32.
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        print("chip_smoke: TF32 matmuls are enabled", file=sys.stderr)
+        return 1
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. Device.
@@ -822,6 +1135,11 @@ def main() -> int:
         compare_tracer(tag, tag.replace("tracer-", "tracer@"), scene, pin_cfg.tracer, rays,
                        cam.center, programs=GALLERY_PLAIN_PROGRAMS // 4)
         del rays
+
+    # 8. The jnp tracer's backends (brute, exact, bvh), the offline path and
+    # checkpoints: each phase prints its seconds, and its kernels' launch
+    # counts are set to 0 just before it and read just after.
+    jnp_phases(dev, smi)
 
     # One row per kernel and path; a row's launches are its path's.
     rows = (("tracer", "main"), ("tracer@scale", "scale"), ("tracer@fuzzy", "fuzzy"),

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from .vecmath import cross, dot, norm, normalize
+from .vecmath import cross, dot, norm, normalize, sqrt
 
 
 def _rounded(fn, x: torch.Tensor) -> torch.Tensor:
@@ -57,13 +57,36 @@ def from_look_dir(look: torch.Tensor) -> torch.Tensor:
     return torch.cat([axis_n * s, c], dim=-1)
 
 
+def aim(look: torch.Tensor) -> torch.Tensor:
+    """Exact roll-free look-at quaternion (the JAX package's ``aim``; no
+    reference twin): pitch about local x to the look's elevation, then yaw
+    about world y to its azimuth, so ``rotate((0, 0, 1), aim(v))`` is
+    ``normalize(v)`` and the right axis stays horizontal. A zero look gives
+    the identity. The angles and their half-angle sines and cosines are
+    evaluated in float64 and rounded once."""
+    mag = norm(look)[..., None]
+    forward = torch.zeros_like(look)
+    forward[..., 2] = 1.0
+    look_n = torch.where(mag > 0, look / torch.where(mag > 0, mag, torch.ones_like(mag)),
+                         forward)
+    lx, ly, lz = look_n[..., 0], look_n[..., 1], look_n[..., 2]
+    yaw = torch.atan2(-lx.double(), lz.double()).float()
+    pitch = _rounded(torch.asin, torch.clamp(ly, -1.0, 1.0))
+    zeros = torch.zeros_like(yaw)
+    q_pitch = torch.stack([_rounded(torch.sin, pitch / 2), zeros, zeros,
+                           _rounded(torch.cos, pitch / 2)], dim=-1)
+    q_yaw = torch.stack([zeros, _rounded(torch.sin, yaw / 2), zeros,
+                         _rounded(torch.cos, yaw / 2)], dim=-1)
+    return hamilton(q_pitch, q_yaw)
+
+
 def update_angle(q: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     """Re-aim a yaw quaternion at half-angle theta, keeping its axis
     (`maths.rs:159-162`). Uses |xyz| where the reference uses
     sin(acos(w)) — equal for a unit quaternion and free of the inf that
     the reference's form produces near w = +-1 (see the JAX package)."""
     xyz = q[..., :3]
-    mag = torch.sqrt(dot(xyz, xyz))
+    mag = sqrt(dot(xyz, xyz))
     ratio = _rounded(torch.sin, theta) / mag
     return torch.cat([xyz * ratio[..., None], _rounded(torch.cos, theta)[..., None]], dim=-1)
 

@@ -1,11 +1,13 @@
 """Random sampling primitives (counterpart of the JAX package's
-``ops/sampling.py``)."""
+``ops/sampling.py``): the diffuse scatter's unit vectors and the camera
+jitter."""
 
 from __future__ import annotations
 
 import torch
 
 from . import prng
+from .vecmath import sqrt
 
 
 def ray_jitter(key: torch.Tensor, shape: tuple, scale: float) -> torch.Tensor:
@@ -14,3 +16,15 @@ def ray_jitter(key: torch.Tensor, shape: tuple, scale: float) -> torch.Tensor:
     u = prng.uniform(key, shape + (2,), minval=-1.0, maxval=1.0)
     z = torch.zeros(shape + (1,), dtype=torch.float32, device=key.device)
     return torch.cat([u, z], dim=-1) * scale
+
+
+def unit_sphere(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """Uniform random unit vectors [*shape, 3] (batch + shape for keys
+    [*batch, 2]): normalized Gaussian triples (`shaders.metal:315-319`
+    rejection-samples the cube instead). The squared length is summed as
+    XLA-CPU contracts it, fma(z, z, fma(y, y, x * x)), each FMA rounded
+    once from float64."""
+    g = prng.normal(key, shape + (3,))
+    x, y, z = g[..., 0], g[..., 1], g[..., 2]
+    sq = prng.fma(z, z, prng.fma(y, y, x * x))
+    return g / torch.clamp_min(sqrt(sq), 1e-12)[..., None]

@@ -27,9 +27,11 @@ returns a new tensor. A copy between two devices is made with
 ``non_blocking=True`` and no host staging; PyTorch orders it against both
 devices' current streams with events, and nothing here synchronizes.
 
-Only the fused tracer (``intersector="pallas"``) is ported, so the
-reference's lazy BVH traversal bounds have no counterpart yet, and
-``load_sharded_state`` waits for the port's save/load.
+Every intersector runs here. The jnp backends' bvh traversal bounds come
+from the concrete scene at the first call (``_lazy_backends``, as the
+reference's ``_make_lazy_bounds_step``), and each device's copy of the
+scene gets its nearest-hit backend once. ``load_sharded_state`` restores any ``save_state``
+checkpoint (runtime/state.py) as bands on a device list.
 """
 
 from __future__ import annotations
@@ -51,10 +53,17 @@ from ..render.accumulate import (
     to_display,
 )
 from ..render.camera import Camera, make_camera
-from ..render.pipeline import render_pixels
+from ..render.pipeline import render_pixels, scene_nearest_fn
 from ..render.present import present
-from ..render.scenebuf import DeviceScene
-from ..runtime.state import EngineState, FrameInputs
+from ..render.scenebuf import DeviceScene, ScenePrims
+from ..runtime.state import (
+    EngineState,
+    FrameInputs,
+    check_checkpoint_shapes,
+    from_reference_sharded_state,
+    load_state,
+    read_checkpoint,
+)
 from ..runtime.step import advance_to_scatter
 
 
@@ -79,7 +88,7 @@ def replicate_scene(scene: DeviceScene, devices: Sequence) -> list:
         if d not in copies:
             copies[d] = scene if scene.planes.device == d else scene._replace(
                 **{f: getattr(scene, f).to(d) for f in scene._fields
-                   if isinstance(getattr(scene, f), torch.Tensor)})
+                   if isinstance(getattr(scene, f), (torch.Tensor, ScenePrims))})
     return [copies[d] for d in devices]
 
 
@@ -108,8 +117,10 @@ def make_sharded_renderer(cfg: EngineConfig, devices=None, n_cam: int = 1,
         raise ValueError(f"{h} rows do not split into {n_tile} tiles")
     rows_local = h // n_tile
 
-    def render(scene: DeviceScene, cams: Camera, key: torch.Tensor):
-        scenes = replicate_scene(scene, devs)
+    scenes_of = _scene_cache(devs)
+    backends = _lazy_backends(cfg, None, None)
+
+    def render_tiles(scenes, nearest, cams: Camera, key: torch.Tensor):
         b = cams.center.shape[0]
         if b % n_cam:
             raise ValueError(f"{b} cameras do not split into {n_cam} groups")
@@ -127,7 +138,8 @@ def make_sharded_renderer(cfg: EngineConfig, devices=None, n_cam: int = 1,
                 for i in range(b_local):
                     cam = Camera(*(x[ci * b_local + i].to(dev) for x in cams))
                     k = prng.fold_in(prng.fold_in(key.to(dev), ci * 65536 + i), ti)
-                    cols = render_pixels(scenes[ci * n_tile + ti], cam, pix, k, cfg)
+                    cols = render_pixels(scenes[ci * n_tile + ti], cam, pix, k, cfg,
+                                         nearest[ci * n_tile + ti])
                     out.append(cols.reshape(rows_local, w, 3))
                 tile = torch.stack(out)
                 part = tile.sum().to(devs[0], non_blocking=True)
@@ -135,6 +147,10 @@ def make_sharded_renderer(cfg: EngineConfig, devices=None, n_cam: int = 1,
                 row.append(tile)
             frames.append(row)
         return frames, total / (b * h * w * 3)
+
+    def render(scene: DeviceScene, cams: Camera, key: torch.Tensor):
+        scenes = scenes_of(scene)
+        return render_tiles(scenes, backends(scenes), cams, key)
 
     return render
 
@@ -220,15 +236,29 @@ def _present_with_halo(cm: torch.Tensor, band: ScreenConfig, quantize: bool,
     return present(cm, band, quantize, halo_top=halo_top, halo_bot=halo_bot)
 
 
-def _engine_locals(cfg: EngineConfig, devices):
+def _lazy_backends(cfg: EngineConfig, max_depth: int | None, max_leaf: int | None):
+    """scenes -> the nearest-hit backend of each per-device copy (None for
+    the fused kernel): the reference's ``_make_lazy_bounds_step``. The bvh
+    traversal bounds come from the CONCRETE scene at its first use
+    (render/pipeline.py scene_nearest_fn; None bounds are derived), and
+    the backends are made once and kept for the latest scene only, so a
+    long-lived engine pins no dead scene."""
+    slot: list = []     # [(scenes, backends)]
+
+    def get(scenes):
+        if not (slot and slot[0][0] is scenes):
+            slot[:] = [(scenes, [scene_nearest_fn(sc, cfg, max_depth, max_leaf)
+                                 for sc in scenes])]
+        return slot[0][1]
+
+    return get
+
+
+def _engine_locals(cfg: EngineConfig, devices, max_depth=None, max_leaf=None):
     """(band ScreenConfig, init_fn, local_step, scenes_of) shared by the
     per-frame and the scan engine: ``init_fn(seed=0)`` makes the band state,
     ``local_step(scenes, state, inputs)`` one frame of every band, and
     ``scenes_of(scene)`` the scene's copies on the device list."""
-    if cfg.intersector != "pallas":
-        raise NotImplementedError(
-            f"intersector {cfg.intersector!r} is not ported yet; the band engine traces "
-            "with the fused kernel (intersector='pallas')")
     devs = check_devices(devices)
     n_tile = len(devs)
     band = _band_screen_cfg(cfg, n_tile)
@@ -251,12 +281,15 @@ def _engine_locals(cfg: EngineConfig, devices):
             frame=torch.tensor(0, dtype=torch.int32, device=dev),
         )
 
+    backends = _lazy_backends(cfg, max_depth, max_leaf)
+
     def local_step(scenes, state: ShardedEngineState, inputs: FrameInputs):
+        nearest = backends(scenes)
         # 1-4 per band: the band-local window (Morton-sorted and adaptively
         # reordered on the band's grid), the replicated camera, rays against
         # the whole screen at the band's row offset, the band-local scatter.
         bands = [advance_to_scatter(scenes[ti], cfg, n_chunks, state.band(ti), inputs,
-                                    grid=band, row0=ti * band.height)
+                                    grid=band, row0=ti * band.height, nearest_fn=nearest[ti])
                  for ti in range(n_tile)]
         # 5. Present with the neighbours' rows, all read before any present.
         halo_top, halo_bot = _exchange_halo_rows([b.screen for b in bands], band)
@@ -295,16 +328,17 @@ def _scene_cache(devs):
     slot: list = []
 
     def get(scene):
-        if not isinstance(scene, DeviceScene):      # the per-device copies themselves
-            return list(scene)
         if not (slot and slot[0][0] is scene):
-            slot[:] = [(scene, replicate_scene(scene, devs))]
+            copies = (replicate_scene(scene, devs) if isinstance(scene, DeviceScene)
+                      else list(scene))         # the per-device copies themselves
+            slot[:] = [(scene, copies)]
         return slot[0][1]
 
     return get
 
 
-def make_sharded_engine(cfg: EngineConfig, devices=None):
+def make_sharded_engine(cfg: EngineConfig, devices=None, max_depth: int | None = None,
+                        max_leaf: int | None = None):
     """(init_fn, step_fn) of the row-band engine on the device list.
 
     ``init_fn(seed=0) -> ShardedEngineState``; ``step_fn(scene, state,
@@ -312,8 +346,9 @@ def make_sharded_engine(cfg: EngineConfig, devices=None):
     device)``. ``scene`` is a DeviceScene (copied to the other devices at its
     first use) or the list of its per-device copies. The camera behaves as the
     single engine's (runtime/step.py), every band refreshes its own rows from
-    its own queue, and the blur crosses the band seams."""
-    band, init_fn, local_step, scenes_of = _engine_locals(cfg, devices)
+    its own queue, and the blur crosses the band seams. The bvh traversal
+    bounds default to the scene's (derived at the first call)."""
+    band, init_fn, local_step, scenes_of = _engine_locals(cfg, devices, max_depth, max_leaf)
 
     def step_fn(scene, state: ShardedEngineState, inputs: FrameInputs):
         state = local_step(scenes_of(scene), state, inputs)
@@ -322,12 +357,13 @@ def make_sharded_engine(cfg: EngineConfig, devices=None):
     return init_fn, step_fn
 
 
-def make_sharded_scan_engine(cfg: EngineConfig, devices=None):
+def make_sharded_scan_engine(cfg: EngineConfig, devices=None, max_depth: int | None = None,
+                             max_leaf: int | None = None):
     """(init_fn, scan_fn): many frames per call, ``scan_fn(scene, state,
-    [inputs...]) -> (state, last frame)``. A plain loop of band steps with no
-    host sync inside, as runtime/step.py make_scan_step; only the final
-    frame's display is built."""
-    band, init_fn, local_step, scenes_of = _engine_locals(cfg, devices)
+    [inputs...]) -> (state, last frame)``. A plain loop of band steps, as
+    runtime/step.py make_scan_step; only the final frame's display is
+    built."""
+    band, init_fn, local_step, scenes_of = _engine_locals(cfg, devices, max_depth, max_leaf)
 
     def scan_fn(scene, state: ShardedEngineState, inputs: Sequence[FrameInputs]):
         scenes = scenes_of(scene)
@@ -390,3 +426,40 @@ def single_to_sharded(state: EngineState, cfg: EngineConfig, devices) -> Sharded
             key=prng.fold_in(state.key.to(dev), t), frame=state.frame.to(dev),
         ))
     return ShardedEngineState.from_bands(bands)
+
+
+def load_sharded_state(path: str, cfg: EngineConfig, devices=None) -> ShardedEngineState:
+    """Restore any ``save_state`` checkpoint (either package's) as bands on
+    the device list (None = one band on the CUDA card). A band checkpoint
+    with as many bands restores bit for bit; a single engine's, or one with
+    another band count, converts through the single layout
+    (``sharded_to_single`` / ``single_to_sharded``)."""
+    devs = check_devices(devices)
+    arrays = read_checkpoint(path)
+    if arrays["cursor"].ndim == 1:
+        if arrays["cursor"].shape[0] == len(devs):
+            _validate_band_shapes(arrays, cfg, len(devs), path)
+            return from_reference_sharded_state(arrays, devs)
+        saved = from_reference_sharded_state(arrays, ["cpu"] * arrays["cursor"].shape[0])
+        check_checkpoint_shapes(path, arrays["screen"].shape, arrays["perm"].shape, cfg)
+        single = sharded_to_single(saved, cfg)
+    else:
+        single = load_state(path, cfg, device="cpu")
+    return single_to_sharded(single, cfg, devs)
+
+
+def _validate_band_shapes(arrays: dict, cfg: EngineConfig, n_tile: int, path: str) -> None:
+    """A band checkpoint's screen, queue and keys against the config and
+    the band count."""
+    want = (cfg.screen.total_chunks, cfg.screen.pixels_per_chunk * 3)
+    if arrays["screen"].shape != want:
+        raise ValueError(
+            f"checkpoint {path!r} screen shape {arrays['screen'].shape} does not match this "
+            f"config's chunk-major {want}; resume with the resolution/chunking it was "
+            "saved under")
+    if arrays["perm"].shape != (cfg.screen.total_chunks,):
+        raise ValueError(f"checkpoint {path!r} chunk queue {arrays['perm'].shape} does not "
+                         f"match this config's {(cfg.screen.total_chunks,)}")
+    if arrays["key"].shape != (n_tile, 2):
+        raise ValueError(f"checkpoint {path!r} key shape {arrays['key'].shape} does not "
+                         f"match {(n_tile, 2)}")

@@ -25,6 +25,36 @@ def scatter_chunk_rows(
     return screen_cm.index_copy(0, chunk_ids.to(torch.int64), colors.reshape(k, -1))
 
 
+def scatter_chunks(
+    screen: torch.Tensor,       # [H, W, 3] float32 spatial screen
+    pixel_xy: torch.Tensor,     # [K, 2] int (x, y), distinct
+    colors: torch.Tensor,       # [K, 3] float32
+) -> torch.Tensor:
+    """Write traced pixels into a SPATIAL screen (the kernel's texout.write,
+    `shaders.metal:366`). Indices are those of jnp's ``.at[y, x]``: a
+    negative one counts from the end, and a pixel still outside the screen
+    is dropped (``mode="drop"``). A new tensor. The engine writes
+    chunk-major rows instead (``scatter_chunk_rows``); this is for offline
+    use."""
+    h, w, _ = screen.shape
+    x, y = pixel_xy[:, 0].to(torch.int64), pixel_xy[:, 1].to(torch.int64)
+    x, y = torch.where(x < 0, x + w, x), torch.where(y < 0, y + h, y)
+    inside = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+    # Dropped pixels go to one spare row past the end.
+    flat = torch.where(inside, y * w + x, h * w)
+    out = torch.cat([screen.reshape(h * w, 3), screen.new_zeros((1, 3))])
+    out = out.index_copy(0, flat, colors.to(screen.dtype))
+    return out[:h * w].reshape(h, w, 3)
+
+
+def spatial_to_cm(sp: torch.Tensor, screen_cfg) -> torch.Tensor:
+    """Spatial [H, W, 3] -> chunk-major [C, cw*cw*3]."""
+    cw = screen_cfg.chunk_width
+    t = sp.reshape(screen_cfg.chunks_y, cw, screen_cfg.chunks_x, cw, 3)
+    # axes: (cy, y_off, cx, x_off, c) -> (cy, cx, x_off, y_off, c)
+    return t.permute(0, 2, 3, 1, 4).reshape(screen_cfg.total_chunks, cw * cw * 3)
+
+
 def cm_to_spatial(cm: torch.Tensor, screen_cfg) -> torch.Tensor:
     """Chunk-major [C, cw*cw*3] -> spatial [H, W, 3]."""
     cw = screen_cfg.chunk_width
@@ -70,6 +100,17 @@ def feedback_blur_cm(cm: torch.Tensor, screen_cfg, halo_top: torch.Tensor | None
     right = torch.cat([t[:, :, 1:], next_x], dim=2)
     out = (t + (left + right) * 0.5 + (u + d) * 0.5) * RCP3
     return out.reshape(cy * cx, cw * cw * 3)
+
+
+def feedback_blur(screen: torch.Tensor) -> torch.Tensor:
+    """The cross blur (c + (l+r)/2 + (u+d)/2) / 3 on a spatial [H, W, 3]
+    screen, edges clamped (`shaders.metal:219-222`); the divisions as
+    ``feedback_blur_cm``'s, which it equals on the same screen."""
+    p = torch.nn.functional.pad(screen.permute(2, 0, 1)[None], (1, 1, 1, 1),
+                                mode="replicate")[0].permute(1, 2, 0)
+    c, left, right = p[1:-1, 1:-1], p[1:-1, :-2], p[1:-1, 2:]
+    u, d = p[:-2, 1:-1], p[2:, 1:-1]
+    return (c + (left + right) * 0.5 + (u + d) * 0.5) * RCP3
 
 
 def quantize_8bit(screen: torch.Tensor) -> torch.Tensor:

@@ -89,6 +89,7 @@ import torch
 
 from .. import kernels
 from ..config import TracerConfig
+from ..ops.vecmath import sqrt
 from .scenebuf import (
     SPHERE_MODES,
     SPHERE_RECORD_WIDTH,
@@ -189,7 +190,7 @@ def _hit_ts(mode, rows, o, d, t_min, sdo, soo):
         bq = sdo[:, None] + -_dot3(d, c)
         q = soo[:, None] + (rows[:, 3] - 2.0 * _dot3(o, c))
         disc = bq * bq - q
-        root = torch.sqrt(torch.clamp_min(disc, 0.0))
+        root = sqrt(torch.clamp_min(disc, 0.0))
         t = -bq - root
         if mode == 5:
             t = torch.where(t > t_min, t, -bq + root)
@@ -519,7 +520,7 @@ def _trace_plain_chunk(single, walk, has_glass, textured, o, d, rng, cfg, stats,
         k = torch.round(x)
         sphi = _sinpi(x - k) * (1.0 - 2.0 * torch.abs(k))
         cphi = _sinpi(0.5 - torch.abs(x))
-        r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+        r = sqrt(torch.clamp_min(1.0 - z * z, 0.0))
         u = torch.stack([r * cphi, r * sphi, z], dim=1)
 
         dif = diffuse[:, None]
@@ -529,7 +530,7 @@ def _trace_plain_chunk(single, walk, has_glass, textured, o, d, rng, cfg, stats,
         v = torch.where(dif, u + n * side[:, None], d - 2.0 * dn[:, None] * n)
         if has_glass:
             # Snell refraction on the unit direction, Schlick's reflectance.
-            dinv = 1.0 / torch.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2])
+            dinv = 1.0 / sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2])
             dh = d * dinv[:, None]
             ne = n * side[:, None]
             cos_i = torch.clamp(
@@ -548,14 +549,14 @@ def _trace_plain_chunk(single, walk, has_glass, textured, o, d, rng, cfg, stats,
                 do_refl = u3 < reflect_p
             else:
                 do_refl = tir
-            coef = eta * cos_i - torch.sqrt(torch.clamp_min(1.0 - sin2t, 0.0))
+            coef = eta * cos_i - sqrt(torch.clamp_min(1.0 - sin2t, 0.0))
             dnh = dn * dinv
             g = torch.where(do_refl[:, None], dh - 2.0 * dnh[:, None] * n,
                             eta[:, None] * dh + coef[:, None] * ne)
             v = torch.where(glass[:, None], g, v)
             glass_live = glass & (mh_new < cfg.mirror_limit)
             tp = torch.where(glass_live[:, None], tp * c, tp)
-        v_inv = 1.0 / torch.sqrt((v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]) + v[:, 2] * v[:, 2])
+        v_inv = 1.0 / sqrt((v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]) + v[:, 2] * v[:, 2])
         o = o + d * t[:, None]
         d = v * v_inv[:, None]
         mh = mh_new

@@ -1,6 +1,8 @@
 """Frame rendering pipeline: pixels -> traced colors (counterpart of the JAX
 package's ``render/pipeline.py``: the pinhole and thin-lens cameras, the
-fused-tracer branch and the offline full-frame render).
+backend dispatch — the fused tracer kernel for ``intersector="pallas"``,
+the jnp tracer of render/tracer.py with the brute, exact or bvh nearest-hit
+backend otherwise — and the offline full-frame render).
 
 Per sample, as the compute kernel (`shaders.metal:281-303`): one camera ray
 per pixel, an unnormalized direction jitter of scale ``cfg.tracer.jitter``
@@ -13,6 +15,7 @@ camera plane and its direction is aimed again at the ray's point at
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 
@@ -20,25 +23,27 @@ from ..config import EngineConfig
 from ..ops import prng
 from ..ops import quat as quat_ops
 from ..ops.sampling import ray_jitter
-from ..ops.vecmath import normalize
+from ..ops.vecmath import normalize, sqrt
+from ..scene.bvh import traversal_bounds
 from ..utils.noise import sample_noise
 from .camera import Camera, ray_directions
 from .fused_tracer import trace_paths_fused
+from .intersect import bvh_tables, nearest_hit_brute, nearest_hit_bvh, nearest_hit_exact
 from .scenebuf import DeviceScene
-from .tracer import tone_map
+from .tracer import tone_map, trace_paths
 
 INT32_MAX = 2 ** 31 - 1
 
 
-def frame_rays(
+def camera_rays(
     cam: Camera,
     pixels_xy: torch.Tensor,   # [K, 2] int (x, y)
     key: torch.Tensor,
     cfg: EngineConfig,
     noise: torch.Tensor | None = None,   # the scene's noise texture (noise_rng)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
-    """The tracer's inputs for spp samples of each pixel: (ori [K*spp, 3],
-    dirs [K*spp, 3], kernel seed int32 [1], seed row [K*spp] or None). With
+    """The rays of spp samples of each pixel and the tracer's key: (ori
+    [K*spp, 3], dirs [K*spp, 3], tkey [2], seed row [K*spp] or None). With
     ``cfg.tracer.noise_rng`` the seed row is the pixel's sample of ``noise``,
     shared by the pixel's samples (`shaders.metal:288-300`)."""
     spp = cfg.screen.samples_per_pixel
@@ -55,7 +60,7 @@ def frame_rays(
         # aperture, angle 2 pi u2) in the camera plane. sin and cos are
         # evaluated in float64 and rounded once, the same on every device.
         u = prng.uniform(prng.fold_in(jkey, 1), (2, k * spp))
-        r = torch.sqrt(u[0]) * cfg.camera.aperture
+        r = sqrt(u[0]) * cfg.camera.aperture
         phi = (u[1] * (2.0 * math.pi)).double()
         off_cam = torch.stack([r * torch.cos(phi).float(), r * torch.sin(phi).float(),
                                torch.zeros_like(r)], dim=-1)
@@ -64,13 +69,68 @@ def frame_rays(
         ori = ori + off
         # Normalized: t, and with it t_min, is measured in units of |d|.
         dirs = normalize(focus_p - ori)
-    seed = prng.randint(tkey, (), 0, INT32_MAX).reshape(1)
     seed_row = None
     if cfg.tracer.noise_rng:
         if noise is None:
             raise ValueError("noise_rng needs the scene's noise texture")
         seed_row = torch.repeat_interleave(sample_noise(noise, pixels_xy), spp)
+    return ori, dirs, tkey, seed_row
+
+
+def frame_rays(
+    cam: Camera,
+    pixels_xy: torch.Tensor,   # [K, 2] int (x, y)
+    key: torch.Tensor,
+    cfg: EngineConfig,
+    noise: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """The fused tracer's inputs: ``camera_rays`` with the tracer key drawn
+    into the kernel seed, (ori, dirs, seed int32 [1], seed row or None)."""
+    ori, dirs, tkey, seed_row = camera_rays(cam, pixels_xy, key, cfg, noise)
+    seed = prng.randint(tkey, (), 0, INT32_MAX).reshape(1)
     return ori, dirs, seed, seed_row
+
+
+def derive_traversal_bounds(scene: DeviceScene, cfg: EngineConfig, max_depth: int | None,
+                            max_leaf: int | None) -> tuple[int, int]:
+    """Fill None traversal bounds from the scene's BVH (scene/bvh.py
+    traversal_bounds): a fixed max_leaf would drop primitives of large
+    leaves, a fixed max_depth overflow the stack. Only the ``bvh``
+    intersector walks the BVH, so only it fetches the arrays to the host;
+    the others keep the defaults 32 and 4."""
+    if max_depth is not None and max_leaf is not None:
+        return max_depth, max_leaf
+    if cfg.intersector != "bvh":
+        return max_depth or 32, max_leaf or 4
+    d, leaf = traversal_bounds(scene.prims.bvh_left_first.cpu().numpy(),
+                               scene.prims.bvh_count.cpu().numpy())
+    return (max_depth or d), (max_leaf or leaf)
+
+
+def scene_nearest_fn(scene: DeviceScene, cfg: EngineConfig, max_depth: int | None = None,
+                     max_leaf: int | None = None) -> Callable | None:
+    """The backend of ``cfg.intersector`` for a scene, made once by the
+    callers that trace it many times: None for the fused kernel
+    (``pallas``), else ``make_nearest_fn`` with the bounds derived from the
+    scene."""
+    if cfg.intersector == "pallas":
+        return None
+    return make_nearest_fn(scene, cfg, *derive_traversal_bounds(scene, cfg, max_depth, max_leaf))
+
+
+def make_nearest_fn(scene: DeviceScene, cfg: EngineConfig, max_depth: int,
+                    max_leaf: int) -> Callable:
+    """The nearest-hit backend of ``cfg.intersector`` over the scene's
+    scene-order view: ``fn(o, d) -> (t, idx)``. For ``bvh`` the packed
+    traversal tables are built here, once."""
+    prims, t_min = scene.prims, cfg.tracer.t_min
+    if cfg.intersector == "bvh":
+        tables = bvh_tables(prims, max_leaf)
+        return lambda o, d: nearest_hit_bvh(prims, o, d, t_min, max_depth, max_leaf,
+                                            tables=tables)
+    if cfg.intersector == "exact":
+        return lambda o, d: nearest_hit_exact(prims, o, d, t_min)
+    return lambda o, d: nearest_hit_brute(prims, o, d, t_min)
 
 
 def render_pixels(
@@ -79,19 +139,28 @@ def render_pixels(
     pixels_xy: torch.Tensor,   # [K, 2] int (x, y)
     key: torch.Tensor,
     cfg: EngineConfig,
+    nearest_fn: Callable | None = None,
 ) -> torch.Tensor:
-    """Trace spp samples for each pixel; returns tone-mapped colors [K, 3]."""
-    if cfg.intersector != "pallas":
-        raise NotImplementedError(
-            f"intersector {cfg.intersector!r} is not ported yet; the port "
-            "traces with the fused kernel (intersector='pallas')"
-        )
-    ori, dirs, seed, seed_row = frame_rays(cam, pixels_xy, key, cfg, scene.noise)
-    light = trace_paths_fused(
-        scene, ori, dirs, seed, cfg.tracer, rows_per_block=cfg.tracer.block_rows,
-        anchor=cam.center, seed_row=seed_row,
-    )
+    """Trace spp samples for each pixel; returns tone-mapped colors [K, 3].
+
+    ``intersector="pallas"`` with no ``nearest_fn`` launches the fused
+    tracer kernel; otherwise the jnp tracer runs with ``nearest_fn``, or
+    with the configured backend built here (the bvh bounds then come from
+    the scene's BVH, a host fetch: callers that render many times pass a
+    ``nearest_fn`` made once with ``make_nearest_fn``)."""
     spp = cfg.screen.samples_per_pixel
+    if cfg.intersector == "pallas" and nearest_fn is None:
+        ori, dirs, seed, seed_row = frame_rays(cam, pixels_xy, key, cfg, scene.noise)
+        light = trace_paths_fused(
+            scene, ori, dirs, seed, cfg.tracer, rows_per_block=cfg.tracer.block_rows,
+            anchor=cam.center, seed_row=seed_row,
+        )
+    else:
+        if nearest_fn is None:
+            nearest_fn = scene_nearest_fn(scene, cfg)
+        ori, dirs, tkey, seed_row = camera_rays(cam, pixels_xy, key, cfg, scene.noise)
+        light = trace_paths(scene.prims, ori, dirs, tkey, cfg.tracer, nearest_fn,
+                            seed_row=seed_row)
     return tone_map(light).reshape(-1, spp, 3).mean(dim=1)
 
 
@@ -118,10 +187,15 @@ def render_full_frame(
     key: torch.Tensor,
     cfg: EngineConfig,
     rows_per_batch: int = 64,
+    nearest_fn: Callable | None = None,
 ) -> torch.Tensor:
     """Offline full-frame render [H, W, 3] (float32, tone-mapped, not
-    blurred), one block of pixel rows at a time, each with its own key."""
+    blurred), one block of pixel rows at a time, each with its own key.
+    A jnp backend (``brute``, ``exact``, ``bvh``) is built once for the
+    frame when ``nearest_fn`` is None."""
+    if nearest_fn is None:
+        nearest_fn = scene_nearest_fn(scene, cfg)
     w = cfg.screen.width
-    return torch.cat([render_pixels(scene, cam, pix, bkey, cfg).reshape(-1, w, 3)
+    return torch.cat([render_pixels(scene, cam, pix, bkey, cfg, nearest_fn).reshape(-1, w, 3)
                       for pix, bkey in frame_row_batches(cfg, key, rows_per_batch,
                                                          cam.center.device)])

@@ -1,6 +1,7 @@
 """Device-resident scene buffers (counterpart of the JAX package's
-``render/scenebuf.py``, reduced to what the fused tracer and the collision
-query read, with the in-step sphere refresh).
+``render/scenebuf.py``: what the fused tracer, the jnp-style backends of
+render/intersect.py and the collision query read, with the in-step sphere
+refresh).
 
 The reference uploads its scene once at init (`main.rs:723-730`). Here the
 upload builds the Morton/kind-ordered plane table of the JAX package's
@@ -8,7 +9,10 @@ Pallas tracer (same rows, same order, bitwise), the compact per-plane
 records the CUDA tracer reads (planes and spheres, grouped by test mode),
 the tile table (the reference's partition of each test mode's primitives
 into tiles with a conservative AABB), the noise texture and the collision
-boxes (BVH leaves and spheres). The TPU's matrix-unit operand packing
+boxes (BVH leaves and spheres). ``DeviceScene.prims`` is the scene once
+more in SCENE order, the columns and the flat BVH the reference's jnp
+backends read (``ScenePrims``): its indices are scene-order ids, never the
+kernel's grouped order. The TPU's matrix-unit operand packing
 (``_pack_group``) has no counterpart: the CUDA tracer tests planes per
 thread with plain f32 arithmetic.
 """
@@ -68,6 +72,55 @@ GLASS_MODES = (5, 6, 7)
 N_MODES = 8
 
 
+class ScenePrims(NamedTuple):
+    """The scene in scene order (the JAX package's DeviceScene columns),
+    read by render/intersect.py and render/tracer.py. Plane ``i`` is row i
+    of every plane field (invalid planes included, never hit); sphere ``i``
+    is reported by the intersectors as ``num_planes + i``. ``ior`` and
+    ``sph_ior`` are None in a scene without glass, ``tex`` and ``sph_tex``
+    ([*, 5] rows: kind, scale, color2) None in an untextured one, as in the
+    reference."""
+
+    normal: torch.Tensor        # [N, 3]
+    d: torch.Tensor             # [N]
+    w1: torch.Tensor            # [N, 3]
+    b1: torch.Tensor            # [N]
+    w2: torch.Tensor            # [N, 3]
+    b2: torch.Tensor            # [N]
+    color: torch.Tensor         # [N, 3]
+    is_mirror: torch.Tensor     # [N] bool
+    emission: torch.Tensor      # [N, 4]
+    valid: torch.Tensor         # [N] bool
+    is_tri: torch.Tensor        # [N] bool (kind 3)
+    sph_center: torch.Tensor    # [S, 3]
+    sph_radius: torch.Tensor    # [S]
+    sph_inv_r: torch.Tensor     # [S] 1 / radius
+    sph_c2r2: torch.Tensor      # [S] |c|^2 - r^2, summed in float64, rounded once
+    sph_color: torch.Tensor     # [S, 3]
+    sph_is_mirror: torch.Tensor  # [S] bool
+    sph_emission: torch.Tensor  # [S, 4]
+    ior: torch.Tensor | None    # [N] or None
+    sph_ior: torch.Tensor | None  # [S] or None
+    tex: torch.Tensor | None    # [N, 5] or None
+    sph_tex: torch.Tensor | None  # [S, 5] or None
+    bvh_min: torch.Tensor       # [M, 3] flat BVH (`main.rs:74-81` layout)
+    bvh_max: torch.Tensor       # [M, 3]
+    bvh_left_first: torch.Tensor  # [M] int64
+    bvh_count: torch.Tensor     # [M] int64
+    bvh_prim: torch.Tensor      # [N] int64
+
+    @property
+    def num_planes(self) -> int:
+        return self.normal.shape[0]
+
+    @property
+    def num_spheres(self) -> int:
+        return self.sph_center.shape[0]
+
+    def to(self, device) -> "ScenePrims":
+        return ScenePrims(*(None if x is None else x.to(device) for x in self))
+
+
 class DeviceScene(NamedTuple):
     plane_table: torch.Tensor   # [P, 40] ordered plane table (reference layout)
     planes: torch.Tensor        # [P, 20] fused-tracer records, grouped by mode
@@ -83,6 +136,7 @@ class DeviceScene(NamedTuple):
     sphere_tex: torch.Tensor    # [S, 8] the same of the spheres
     sph_center: torch.Tensor    # [S, 3] sphere centres in scene order (make_sphere_refresh)
     sph_radius: torch.Tensor    # [S] their radii
+    prims: ScenePrims           # the scene in scene order (render/intersect.py)
 
     @property
     def num_planes(self) -> int:
@@ -318,7 +372,8 @@ def upload_scene(scene: Scene, device=None, noise: np.ndarray | None = None,
     tiles, group_meta = tile_table(table, tile_by_mode, sphere_table)
     if noise is None:
         noise = generate_noise()
-    leaf_min, leaf_max = build_bvh(scene.origin, scene.u, scene.v).leaf_boxes()
+    bvh = build_bvh(scene.origin, scene.u, scene.v)
+    leaf_min, leaf_max = bvh.leaf_boxes()
     if scene.num_spheres:
         centre = np.asarray(scene.sph_center, np.float32)
         radius = np.asarray(scene.sph_radius, np.float32)[:, None]
@@ -341,6 +396,53 @@ def upload_scene(scene: Scene, device=None, noise: np.ndarray | None = None,
         sphere_tex=as_dev(sphere_tex),
         sph_center=as_dev(np.asarray(scene.sph_center, np.float32).reshape(-1, 3)),
         sph_radius=as_dev(np.asarray(scene.sph_radius, np.float32).reshape(-1)),
+        prims=scene_prims(scene, bvh, dev),
+    )
+
+
+def _pack_tex(kind, scale, color2) -> np.ndarray:
+    """[*, 5] texture rows: (kind, scale, color2 rgb)."""
+    return np.concatenate([np.asarray(kind, np.float32).reshape(-1, 1),
+                           np.asarray(scale, np.float32).reshape(-1, 1),
+                           np.asarray(color2, np.float32).reshape(-1, 3)], axis=1)
+
+
+def scene_prims(scene: Scene, bvh, device) -> ScenePrims:
+    """The scene-order view (the JAX package's upload_scene columns, value
+    for value) on ``device``. The scene is textured iff a valid primitive
+    is, the predicate of the tile tables; it has glass iff some ior > 0."""
+    der = scene.derived()
+    dev = torch.device(device)
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    i64 = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+    flag = lambda a: torch.from_numpy(np.asarray(a, bool).copy()).to(dev)
+    centre = np.asarray(scene.sph_center, np.float32).reshape(-1, 3)
+    radius = np.asarray(scene.sph_radius, np.float32).reshape(-1)
+    c2r2 = (np.sum(centre.astype(np.float64) ** 2, axis=-1)
+            - radius.astype(np.float64) ** 2).astype(np.float32)
+    textured = bool(np.any((np.asarray(scene.tex_kind) > 0) & np.asarray(der.valid))
+                    or (scene.num_spheres and np.any(np.asarray(scene.sph_tex_kind) > 0)))
+    ior = np.asarray(scene.ior, np.float32)
+    sph_ior = np.asarray(scene.sph_ior, np.float32).reshape(-1)
+    return ScenePrims(
+        normal=f32(der.normal), d=f32(der.d), w1=f32(der.w1), b1=f32(der.b1),
+        w2=f32(der.w2), b2=f32(der.b2), color=f32(der.color),
+        is_mirror=flag(der.is_mirror), emission=f32(der.emission), valid=flag(der.valid),
+        is_tri=flag(np.asarray(scene.kind) == 3),
+        sph_center=f32(centre), sph_radius=f32(radius),
+        sph_inv_r=f32((1.0 / radius).astype(np.float32)), sph_c2r2=f32(c2r2),
+        sph_color=f32(np.asarray(scene.sph_color, np.float32).reshape(-1, 3)),
+        sph_is_mirror=flag(np.asarray(scene.sph_is_mirror, bool).reshape(-1)),
+        sph_emission=f32(np.asarray(scene.sph_emission, np.float32).reshape(-1, 4)),
+        ior=f32(ior) if np.any(ior > 0) else None,
+        sph_ior=f32(sph_ior) if scene.num_spheres and np.any(sph_ior > 0) else None,
+        tex=f32(_pack_tex(scene.tex_kind, scene.tex_scale, scene.tex_color2))
+        if textured else None,
+        sph_tex=f32(_pack_tex(scene.sph_tex_kind, scene.sph_tex_scale, scene.sph_tex_color2))
+        if textured else None,
+        bvh_min=f32(bvh.aabb_min), bvh_max=f32(bvh.aabb_max),
+        bvh_left_first=i64(bvh.left_first), bvh_count=i64(bvh.count),
+        bvh_prim=i64(bvh.prim_index),
     )
 
 
@@ -352,9 +454,10 @@ def make_sphere_refresh(scene: DeviceScene):
     whose centres were moved on the device (``scene._replace(sph_center=
     ...)``) be traced where they are. Rebuilt: the sphere table's centre, 1/r
     and |c|^2 - r^2 (summed in float64 and rounded once, as at upload), the
-    sphere records, and the boxes of the sphere tiles. The opaque/glass
-    partition, the tiles' extents and the textured flag are fixed at upload
-    and captured here. The collision boxes stay as uploaded, as in the
+    sphere records, the boxes of the sphere tiles, and the same four of the
+    scene-order view (``prims``, which the jnp-style backends read). The
+    opaque/glass partition, the tiles' extents and the textured flag are
+    fixed at upload and captured here. The collision boxes stay as uploaded, as in the
     reference, whose moved spheres (avatars) do not collide. Returns None for
     a sphere-free scene."""
     if scene.num_spheres == 0:
@@ -386,6 +489,7 @@ def make_sphere_refresh(scene: DeviceScene):
         for ti, first, count in tile_rows:
             tiles[ti, 0:3] = lo[first:first + count].min(dim=0).values - eps
             tiles[ti, 3:6] = hi[first:first + count].max(dim=0).values + eps
-        return d._replace(sphere_table=table, spheres=rec, tiles=tiles)
+        prims = d.prims._replace(sph_center=c, sph_radius=r, sph_inv_r=inv_r, sph_c2r2=c2r2)
+        return d._replace(sphere_table=table, spheres=rec, tiles=tiles, prims=prims)
 
     return refresh

@@ -5,6 +5,10 @@ Everything the reference keeps across frames — camera position, quaternion
 and yaw half-angle (`main.rs:735-741`), the frame counter, the shuffled
 chunk queue and the screen — lives in one tuple of device tensors that the
 step threads through, so the frame loop never waits on the host.
+
+``save_state`` / ``load_state`` checkpoint it in the JAX package's ``.npz``
+layout (one array per field, the key as its two uint32 words), so a
+checkpoint written by either package resumes in the other, bit for bit.
 """
 
 from __future__ import annotations
@@ -139,3 +143,78 @@ def from_reference_sharded_state(arrays, devices=None):
             cursor=np.asarray(arrays["cursor"]).reshape(-1)[t],
             key=np.asarray(arrays["key"]).reshape(n, 2)[t]), device=dev))
     return ShardedEngineState.from_bands(bands)
+
+
+def save_state(path: str, state) -> None:
+    """Checkpoint the engine state to a compressed ``.npz`` in the JAX
+    package's layout: one array per field, the key as uint32 words. The band
+    engine's ShardedEngineState is written in the reference's gathered band
+    layout: the replicated camera fields and frame counter once, the screens
+    and queues stacked in band order, ``cursor`` [n] and ``key`` [n, 2].
+    The reference has no checkpoint; this one restores camera, yaw, screen,
+    chunk queue, key and frame counter exactly."""
+    host = lambda x: x.detach().cpu().numpy()
+    if isinstance(state, EngineState):
+        out = {f: host(getattr(state, f)) for f in EngineState._fields}
+    else:
+        out = {f: host(getattr(state, f)[0]) for f in ("cam_center", "quat", "half_theta",
+                                                        "frame")}
+        out["screen"] = np.concatenate([host(x) for x in state.screen])
+        out["perm"] = np.concatenate([host(x) for x in state.perm])
+        out["cursor"] = np.stack([host(x) for x in state.cursor])
+        out["key"] = np.stack([host(x) for x in state.key])
+    out["key"] = out["key"].astype(np.uint32)
+    np.savez_compressed(path, **out)
+
+
+def check_checkpoint_shapes(path: str, screen_shape: tuple, perm_shape: tuple,
+                            cfg: EngineConfig) -> None:
+    """The screen and queue shapes of a checkpoint against the config that
+    will drive it."""
+    want = (cfg.screen.total_chunks, cfg.screen.pixels_per_chunk * 3)
+    if tuple(screen_shape) != want:
+        hint = (" (spatial [H, W, 3] layout: checkpoint predates the chunk-major screen "
+                "and cannot be resumed)" if len(screen_shape) == 3 else "")
+        raise ValueError(
+            f"checkpoint {path!r} screen shape {tuple(screen_shape)} does not match this "
+            f"config's chunk-major {want}{hint}; resume with the resolution/chunking it "
+            "was saved under")
+    if tuple(perm_shape) != (cfg.screen.total_chunks,):
+        raise ValueError(f"checkpoint {path!r} chunk queue {tuple(perm_shape)} does not "
+                         f"match this config's {(cfg.screen.total_chunks,)}")
+
+
+def read_checkpoint(path: str) -> dict:
+    """The arrays of a ``save_state`` checkpoint (either package's), all
+    fields present or a ValueError."""
+    with np.load(path) as z:
+        missing = [k for k in EngineState._fields if k not in z]
+        if missing:
+            raise ValueError(f"checkpoint {path!r} lacks field(s) {missing} — not a "
+                             "save_state checkpoint (or from an incompatible version)")
+        return {k: np.asarray(z[k]) for k in EngineState._fields}
+
+
+def load_state(path: str, cfg: EngineConfig | None = None, device=None) -> EngineState:
+    """Restore a ``save_state`` checkpoint, written by either package, onto
+    ``device`` (None = the CUDA card), bit for bit. With ``cfg`` the
+    screen and queue shapes are checked against it. A band engine's
+    checkpoint (its cursor has a band axis) needs ``cfg`` and is converted
+    to the single layout (``parallel.shard.sharded_to_single``: camera,
+    screen and frame exact, the bands' queues interleaved)."""
+    dev = resolve_device(device)
+    arrays = read_checkpoint(path)
+    if arrays["cursor"].ndim == 1:
+        if cfg is None:
+            raise ValueError(f"checkpoint {path!r} is tile-sharded ({arrays['cursor'].shape[0]} "
+                             "bands); pass cfg so it can be converted to the single-chip layout")
+        from ..parallel.shard import sharded_to_single
+
+        n = arrays["cursor"].shape[0]
+        single = sharded_to_single(from_reference_sharded_state(arrays, ["cpu"] * n), cfg)
+        state = EngineState(*(x.to(dev) for x in single))
+    else:
+        state = from_reference_state(arrays, device=dev)
+    if cfg is not None:
+        check_checkpoint_shapes(path, state.screen.shape, state.perm.shape, cfg)
+    return state

@@ -7,14 +7,15 @@ One frame, in the reference's order (`main.rs:767-894`):
 2. integrate WASD movement in the camera frame, revert it on collision;
 3. apply the mouse yaw with the finite guard, regenerating the chunk queue
    on a successful rotation (it takes effect NEXT frame, as the reference);
-4. trace the popped chunks (the fused tracer kernel) and write them into
-   the screen; with ``adaptive_refresh`` the queue is first reordered by the
-   screen's detail whenever the pop wrapped it;
+4. trace the popped chunks (the fused tracer kernel, or the jnp tracer with
+   the brute, exact or bvh backend, built once per scene) and write them
+   into the screen; with ``adaptive_refresh`` the queue is first reordered
+   by the screen's detail whenever the pop wrapped it;
 5. feedback blur + 8-bit quantization (the present kernel).
 
 Every value the frame depends on stays a device tensor, and the inputs are
 host values, so a loop of steps never waits on the host until it reads a
-frame.
+frame (the bvh backend's walk excepted, intersect.py).
 """
 
 from __future__ import annotations
@@ -34,7 +35,12 @@ from ..render.accumulate import (
     scatter_chunk_rows,
     to_display,
 )
-from ..render.pipeline import render_pixels
+# derive_traversal_bounds is re-exported, where the JAX package has it.
+from ..render.pipeline import (  # noqa: F401
+    derive_traversal_bounds,
+    render_pixels,
+    scene_nearest_fn,
+)
 from ..render.present import present
 from ..render.scenebuf import DeviceScene
 from ..render.scheduler import (
@@ -115,21 +121,24 @@ def rotation_update(
 
 
 def make_step(
-    scene: DeviceScene, cfg: EngineConfig
+    scene: DeviceScene, cfg: EngineConfig, max_depth: int | None = None,
+    max_leaf: int | None = None,
 ) -> Callable[[EngineState, FrameInputs], tuple[EngineState, torch.Tensor]]:
     """The frame step bound to a scene: (state, inputs) -> (state, uint8
-    display frame [H, W, 3] on the state's device)."""
+    display frame [H, W, 3] on the state's device). The bvh traversal
+    bounds default to those of the scene's BVH (derive_traversal_bounds)."""
     n_chunks = cfg.screen.effective_chunks_per_frame
+    nearest_fn = scene_nearest_fn(scene, cfg, max_depth, max_leaf)
 
     def step(state: EngineState, inputs: FrameInputs):
-        new_state = _advance(scene, cfg, n_chunks, state, inputs)
+        new_state = _advance(scene, cfg, n_chunks, state, inputs, nearest_fn)
         return new_state, to_display(cm_to_spatial(new_state.screen, cfg.screen))
 
     return step
 
 
 def advance_to_scatter(scene, cfg, n_chunks, state: EngineState, inputs: FrameInputs,
-                       grid=None, row0: int = 0) -> EngineState:
+                       grid=None, row0: int = 0, nearest_fn=None) -> EngineState:
     """Steps 1-4 of a frame: the new state with the refreshed chunks written
     into the screen and the present still to come.
 
@@ -137,7 +146,8 @@ def advance_to_scatter(scene, cfg, n_chunks, state: EngineState, inputs: FrameIn
     (None = ``cfg.screen``) and ``row0`` the pixel row of the whole screen at
     which that grid starts: the row-band engine (parallel/shard.py) steps
     each band with its own grid and offset, while the rays are made against
-    the whole screen, ``cfg.screen``."""
+    the whole screen, ``cfg.screen``. ``nearest_fn`` is the jnp backend
+    (``scene_nearest_fn``), None for the fused kernel."""
     grid = cfg.screen if grid is None else grid
     frame = state.frame + 1
 
@@ -167,7 +177,7 @@ def advance_to_scatter(scene, cfg, n_chunks, state: EngineState, inputs: FrameIn
         origins = origins + torch.tensor([0, row0], dtype=torch.int32, device=origins.device)
     pixels = chunk_pixels(origins, grid.chunk_width)
     cam = state._replace(cam_center=center, quat=quat).camera(cfg)
-    colors = render_pixels(scene, cam, pixels, fkey, cfg)
+    colors = render_pixels(scene, cam, pixels, fkey, cfg, nearest_fn)
     screen = scatter_chunk_rows(state.screen, ids, colors)
     return EngineState(
         cam_center=center, quat=quat, half_theta=half_theta, screen=screen,
@@ -175,8 +185,9 @@ def advance_to_scatter(scene, cfg, n_chunks, state: EngineState, inputs: FrameIn
     )
 
 
-def _advance(scene, cfg, n_chunks, state: EngineState, inputs: FrameInputs) -> EngineState:
-    state = advance_to_scatter(scene, cfg, n_chunks, state, inputs)
+def _advance(scene, cfg, n_chunks, state: EngineState, inputs: FrameInputs,
+             nearest_fn=None) -> EngineState:
+    state = advance_to_scatter(scene, cfg, n_chunks, state, inputs, nearest_fn=nearest_fn)
 
     # 5. Present: feedback blur + quantization.
     screen = present_stage(
@@ -188,16 +199,19 @@ def _advance(scene, cfg, n_chunks, state: EngineState, inputs: FrameInputs) -> E
 
 
 def make_scan_step(
-    scene: DeviceScene, cfg: EngineConfig
+    scene: DeviceScene, cfg: EngineConfig, max_depth: int | None = None,
+    max_leaf: int | None = None,
 ) -> Callable[[EngineState, Sequence[FrameInputs]], tuple[EngineState, torch.Tensor]]:
     """Many frames per call: (state, [inputs...]) -> (final state, last
-    display frame). A plain loop of steps with no host sync inside; only
-    the final frame's display is built."""
+    display frame). A plain loop of steps; only the final frame's display is
+    built. The fused kernel's frames never wait on the host; the bvh walk
+    fetches its liveness every ``intersect.CHECK_EVERY`` iterations."""
     n_chunks = cfg.screen.effective_chunks_per_frame
+    nearest_fn = scene_nearest_fn(scene, cfg, max_depth, max_leaf)
 
     def run(state: EngineState, inputs: Sequence[FrameInputs]):
         for inp in inputs:
-            state = _advance(scene, cfg, n_chunks, state, inp)
+            state = _advance(scene, cfg, n_chunks, state, inp, nearest_fn)
         return state, to_display(cm_to_spatial(state.screen, cfg.screen))
 
     return run

@@ -1,5 +1,5 @@
 """Noise texture: the reference's RNG seed source (counterpart of the JAX
-package's ``utils/noise.py``; loading a PNG is not ported yet).
+package's ``utils/noise.py``).
 
 The reference seeds each GPU thread's PCG state from a sample of a 512x512
 noise texture (`shaders.metal:288-300`, `main.rs:667-695`). With
@@ -31,6 +31,18 @@ def generate_noise(size: int = NOISE_SIZE, seed: int = 0) -> np.ndarray:
     return (word >> np.uint32(8)).astype(np.float32).reshape(size, size) / float(
         1 << 24
     )
+
+
+def load_noise_png(path: str) -> np.ndarray:
+    """A noise PNG (e.g. the reference's textures/noiseTexture-2.png) as
+    [H, W] float32 in [0, 1): the red channel, the reference's
+    single-component sample (`shaders.metal:289`)."""
+    from .imageio import read_png
+
+    img = read_png(path)
+    if img.ndim == 3:
+        img = img[..., 0]
+    return img.astype(np.float32) / 255.0
 
 
 def sample_noise(tex: torch.Tensor, pixels_xy: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,96 @@
-"""Tracer diagnostics (counterpart of the JAX package's
-``utils/profiling.py``, of which only ``tracer_segment_histogram`` is here;
-its frame timer, profiler trace and memory statistics are not ported yet),
-and ``warp_lane_share``, the port's own measure of a warp's idle lanes.
+"""Profiling and observability (counterpart of the JAX package's
+``utils/profiling.py``): ``FrameStats``, a rolling frame-time and ray
+throughput account of an engine loop; ``trace``, a ``torch.profiler``
+capture; ``device_memory_stats``; the fused tracer's
+``tracer_segment_histogram``; and the port's own ``warp_lane_share`` and
+``sass_loops``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import re
+import time
+from collections import deque
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..render.fused_tracer import LANES, WARP, trace_paths_fused
+
+
+@dataclass
+class FrameStats:
+    """Rolling window of frame timings and ray throughput, on the host
+    clock (``tick`` once a frame; no device sync of its own)."""
+
+    rays_per_frame: int
+    window: int = 120
+    _times: deque = field(default_factory=lambda: deque(maxlen=121))
+    _frames: int = 0
+
+    def tick(self) -> None:
+        self._times.append(time.perf_counter())
+        self._frames += 1
+
+    @property
+    def frames(self) -> int:
+        return self._frames
+
+    @property
+    def fps(self) -> float:
+        if len(self._times) < 2:
+            return 0.0
+        dt = self._times[-1] - self._times[0]
+        return (len(self._times) - 1) / dt if dt > 0 else 0.0
+
+    @property
+    def frame_ms(self) -> float:
+        f = self.fps
+        return 1000.0 / f if f > 0 else 0.0
+
+    @property
+    def mrays_per_s(self) -> float:
+        return self.rays_per_frame * self.fps / 1e6
+
+    def summarize(self) -> dict:
+        return {
+            "frames": self.frames,
+            "fps": round(self.fps, 2),
+            "frame_ms": round(self.frame_ms, 3),
+            "mrays_per_s": round(self.mrays_per_s, 2),
+            "rays_per_frame": self.rays_per_frame,
+        }
+
+
+@contextlib.contextmanager
+def trace(path: str | None = None):
+    """Capture a ``torch.profiler`` trace of the enclosed block (the host,
+    and the card's kernels where CUDA is available); yields the profiler,
+    whose ``key_averages()`` the caller may read. With ``path`` the chrome
+    trace is written there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    if path is not None:
+        prof.export_chrome_trace(path)
+
+
+def device_memory_stats(device=None) -> dict:
+    """Live, peak and total bytes of a CUDA device (None = the current
+    one), from ``torch.cuda.memory_stats`` and the device's properties."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"device memory statistics are a CUDA device's, not {dev}")
+    stats = torch.cuda.memory_stats(dev)
+    return {"bytes_in_use": stats.get("allocated_bytes.all.current", 0),
+            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
+            "bytes_limit": torch.cuda.get_device_properties(dev).total_memory}
 
 
 def warp_lane_share(segments_per_ray, warp: int = WARP) -> float:

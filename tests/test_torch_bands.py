@@ -171,8 +171,11 @@ def test_band_layout_and_devices_are_checked(monkeypatch):
         shard._band_screen_cfg(cfg, 16)
     with pytest.raises(ValueError, match="empty"):
         shard.check_devices([])
-    with pytest.raises(NotImplementedError):
-        shard.make_sharded_engine(dataclasses.replace(cfg, intersector="bvh"), ["cpu"] * 2)
+    # Every intersector builds; bvh's traversal bounds come from the scene
+    # at the first step (test_torch_jnp_engine.py runs it).
+    init_fn, step_fn = shard.make_sharded_engine(dataclasses.replace(cfg, intersector="bvh"),
+                                                 ["cpu"] * 2)
+    assert callable(step_fn) and init_fn(seed=0).n_bands == 2
     # No device list means the card, and never the CPU.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

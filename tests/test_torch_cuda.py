@@ -455,3 +455,47 @@ def test_multi_tile_scripted_run_on_the_card(cuda_device):
     _, want = run_scripted(upload_scene(scene, device="cpu"), cfg, inputs=script)
     assert_frames_match(frame, want)
     assert frame.mean() > 1.0
+
+
+def test_float32_sqrt_on_the_card_is_correctly_rounded(cuda_device):
+    """ops/vecmath.py sqrt takes the float64 root for PyTorch's CPU float32
+    sqrt, which is not correctly rounded; the card's float32 sqrt is, so
+    there the two are the same."""
+    from mirror_maze_tpu_torch.ops.vecmath import sqrt
+
+    x = torch.rand(1 << 20, generator=torch.Generator().manual_seed(0)) * 100
+    x = x.to(cuda_device)
+    assert torch.equal(torch.sqrt(x), sqrt(x))
+    assert torch.equal(sqrt(x).cpu(), sqrt(x.cpu()))
+
+
+def test_normal_and_unit_sphere_on_the_card_are_the_cpus(cuda_device):
+    """The jnp tracer's draws (XLA's erf_inv and log1p in float32 ops, each
+    FMA emulated in float64) are the same bits on the card as on the CPU."""
+    from mirror_maze_tpu_torch.ops import prng
+    from mirror_maze_tpu_torch.ops.sampling import unit_sphere
+
+    g = prng.normal(prng.PRNGKey(5, device=cuda_device), (4096, 3))
+    assert g.device.type == "cuda"
+    assert torch.equal(g.cpu(), prng.normal(prng.PRNGKey(5), (4096, 3)))
+    ids = torch.arange(2048)
+    u = unit_sphere(prng.fold_in(prng.PRNGKey(3, device=cuda_device), ids.to(cuda_device)), ())
+    assert torch.equal(u.cpu(), unit_sphere(prng.fold_in(prng.PRNGKey(3), ids), ()))
+
+
+@pytest.mark.parametrize("backend", ["brute", "exact", "bvh"])
+def test_jnp_backends_on_the_card_match_the_cpu(cuda_device, backend):
+    """The golden script with each jnp backend on the card and on the CPU:
+    exact and bvh sum their products in the same order on both (frames
+    bitwise), brute's matrix products may round otherwise (golden rule)."""
+    cfg = golden_config().replace(intersector=backend)
+    script = golden_script(FrameInputs)
+    st_c, frame_c = run_scripted(upload_scene(build_scene(cfg.maze), device="cpu"), cfg,
+                                 inputs=script)
+    st_g, frame_g = run_scripted(upload_scene(build_scene(cfg.maze), device=cuda_device), cfg,
+                                 inputs=script)
+    assert_frames_match(frame_g, frame_c)
+    if backend != "brute":
+        assert np.array_equal(frame_g, frame_c)
+    for f in ("perm", "cursor", "key", "frame"):
+        assert torch.equal(getattr(st_g, f).cpu(), getattr(st_c, f)), f

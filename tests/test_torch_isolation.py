@@ -26,6 +26,9 @@ def test_importing_every_module_pulls_in_no_jax():
     assert "mirror_maze_tpu_torch.scene.mesh" in mods
     assert "mirror_maze_tpu_torch.parallel.shard" in mods
     assert "mirror_maze_tpu_torch.utils.profiling" in mods
+    for m in ("render.intersect", "render.tracer", "render.campath", "scene.io",
+              "utils.imageio", "utils.minimap", "runtime.watchdog"):
+        assert f"mirror_maze_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -40,6 +43,20 @@ def test_importing_every_module_pulls_in_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_nothing_in_the_package_enables_tf32():
+    """The brute backend's products run in full float32: no module of the
+    port turns TF32 matmuls on (chip_smoke.py asserts it on the card)."""
+    root = os.path.join(REPO, "mirror_maze_tpu_torch")
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name)) as f:
+                    src = f.read()
+                assert "allow_tf32" not in src and "set_float32_matmul_precision" not in src, name
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
@@ -77,6 +94,14 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         check_devices(["cpu", "cuda:0"])
     with pytest.raises(RuntimeError, match="CUDA"):
         from_reference_sharded_state({})
+    # Checkpoints load onto the card unless the caller names the CPU.
+    from mirror_maze_tpu_torch.parallel.shard import load_sharded_state
+    from mirror_maze_tpu_torch.runtime.state import load_state
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_state("no-such-checkpoint.npz")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_sharded_state("no-such-checkpoint.npz", cfg)
     assert check_devices(["cpu"] * 2) == [torch.device("cpu")] * 2
     assert resolve_device("cpu") == torch.device("cpu")
 
