@@ -74,15 +74,37 @@ path and checkpoints, each phase with its seconds:
 - ``[resume]`` ``config_interactive``: 8 frames, ``save_state``,
   ``load_state`` onto the card, 8 more, bitwise 16 frames straight.
 
+Then the drivers (``driver_phases``), the entry points a user calls, at
+``config_interactive``'s full width, each phase with its seconds and the
+kernel launches counted around it (one tracer and one present a frame
+stepped, a warm-up frame included where the driver steps one):
+
+- ``[cli-render]`` ``python -m mirror_maze_tpu_torch render`` in a subprocess
+  with no ``--device``: its PNG bitwise the in-process ``render_full_frame``;
+- ``[play]`` headless ``play`` of 64 frames through ``main()``, per frame,
+  with ``--batch-frames 8`` and through ``--save-state`` / ``--load-state``,
+  each bitwise ``run_scripted``'s 64 idle frames, with the wall fps;
+- ``[play-tty]`` ``play`` in a subprocess on a pseudo-terminal: 'w' for 30
+  frames, then 'q'; exit 0, the camera moved, the terminal's modes restored;
+- ``[play-bands]`` ``play --sharded-bands 2``, bitwise the band engine;
+- ``[serve]`` an ``EngineServer`` over HTTP: every endpoint, input moving
+  the camera, ``/ckpt`` bitwise the engine's state; engine fps, delivered
+  stream fps, ``fetch_ms``, ``encode_ms``;
+- ``[multiplayer]`` two player processes over gloo on the one card: ms/frame
+  each, the gathered positions, player 1's avatar in player 0's view;
+- ``[demo]``, ``[animate]`` (``config_bvh``'s scene), ``[multicam]`` (4
+  cameras) and ``[minimap]`` (host only) through ``main()``: their files
+  non-blank and of the right shape.
+
 Every phase prints one line; any failure exits non-zero. The last two lines
 are the ``{"kernels": [...]}`` summary (one row per kernel and path, every
 number measured or, for ``bound_ms``, computed in this run) and ``{"ok":
 true, "device": {...}}``.
 
 Needs a CUDA card: without one it exits 2 and prints no result. It uses
-the first visible card only. Imports torch and numpy, the port and the
-port's JAX-free test helpers (``tests/_torch_tools.py``) and
-``time_present.py``, nothing of JAX.
+the first visible card only (the multiplayer phase's two processes share
+it). Imports torch and numpy, the port and the port's JAX-free test helpers
+(``tests/_torch_tools.py``) and ``time_present.py``, nothing of JAX.
 """
 
 from __future__ import annotations
@@ -429,6 +451,495 @@ def jnp_phases(dev, smi: str) -> None:
     total = 2 * len(inputs)
     if not (loaded and same and counts == {"tracer": total, "present": total}):
         raise SystemExit("[resume] FAIL")
+
+
+# The drivers' phases run the CLI with these arguments: config_interactive
+# at full width (1920x1080, 64 spp); animate on config_bvh's scene.
+DRIVER_ARGS = ["--config", "interactive"]
+ANIMATE_ARGS = ["--config", "bvh"]
+# [play-tty]: the walking frames sent, then 'q'.
+TTY_WALK = 30
+# [multiplayer]: player 1 walks this many frames while player 0 stands,
+# then one more idle frame.
+MP_WALK = 20
+# One player of [multiplayer]: argv = player id, rendezvous port, walking
+# frames, then the CLI's configuration arguments. Prints one "MP {json}" line.
+MP_WORKER = r"""
+import json, sys, time
+import numpy as np
+import torch
+pid, port, walk, argv = int(sys.argv[1]), sys.argv[2], int(sys.argv[3]), sys.argv[4:]
+from mirror_maze_tpu_torch import __main__ as cli, kernels
+from mirror_maze_tpu_torch.parallel import initialize_multihost
+from mirror_maze_tpu_torch.parallel.multiplayer import (make_multiplayer_engine,
+                                                         make_position_exchange)
+from mirror_maze_tpu_torch.render import upload_scene
+from mirror_maze_tpu_torch.runtime.loop import run_scripted
+from mirror_maze_tpu_torch.runtime.state import FrameInputs
+
+args = cli.build_parser().parse_args(["play"] + argv)
+dev = cli._device(args)
+assert initialize_multihost(f"localhost:{port}", 2, pid, timeout_s=120) == 2
+cfg, scene, noise = cli._build_world(args)
+mdev, init_fn, step_fn = make_multiplayer_engine(cfg, me=pid, scene=scene, device=dev)
+exchange = make_position_exchange()
+step_fn(init_fn(0), FrameInputs.idle())          # first-use costs, on a scratch state
+sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+sync()
+kernels.reset_launches()
+st = init_fn(0)
+t0 = time.perf_counter()
+for _ in range(walk):
+    st, frame = step_fn(st, FrameInputs.make(w=pid == 1))
+positions = exchange(st.cam_center)
+cam = st.cam_center.cpu().tolist()
+st, frame = step_fn(st, FrameInputs.idle())
+frame = frame.cpu().numpy()
+ms = (time.perf_counter() - t0) * 1000.0 / (walk + 1)
+launches = dict(kernels.launches)
+out = dict(pid=pid, ms_per_frame=ms, launches=launches, cam=[float(c).hex() for c in cam],
+           positions=[[float(c).hex() for c in row] for row in positions.cpu().tolist()],
+           spheres=mdev.num_spheres, z=cam[2])
+if pid == 0:
+    # The same frames of a single-player run: the avatar must show.
+    _, alone = run_scripted(upload_scene(scene, device=dev), cfg, n_frames=walk + 1)
+    out["pixels_differing_from_single_player"] = int((alone != frame).any(axis=-1).sum())
+print("MP " + json.dumps(out), flush=True)
+"""
+
+
+def driver_phases(dev, smi: str) -> None:
+    """The phases of the drivers: the CLI (``python -m mirror_maze_tpu_torch``),
+    terminal play (headless, under a pseudo-terminal, as row bands), the HTTP
+    server, two players over gloo, and the offline commands. Each phase prints
+    its seconds and the kernel launches counted around it, which must be one
+    tracer and one present a frame stepped (none where ``dev`` is the CPU, the
+    rehearsal); any failure ends the run with SystemExit."""
+    import ast
+    import contextlib
+    import io
+    import pty
+    import re
+    import select
+    import shutil
+    import socket
+    import tempfile
+    import termios
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from mirror_maze_tpu_torch import __main__ as cli
+    from mirror_maze_tpu_torch import kernels
+    from mirror_maze_tpu_torch.ops import prng
+    from mirror_maze_tpu_torch.parallel import shard
+    from mirror_maze_tpu_torch.render import make_camera, render_full_frame, to_display
+    from mirror_maze_tpu_torch.render.pipeline import frame_row_batches
+    from mirror_maze_tpu_torch.render.scenebuf import upload_scene
+    from mirror_maze_tpu_torch.runtime.loop import InteractiveLoop, run_scripted
+    from mirror_maze_tpu_torch.runtime.server import EngineServer
+    from mirror_maze_tpu_torch.runtime.state import EngineState, FrameInputs, load_state
+    from mirror_maze_tpu_torch.utils import imageio
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    dev_args = [] if on_card else ["--device", "cpu"]
+    cfg, host_scene, _ = cli._build_world(cli.build_parser().parse_args(["play"] + DRIVER_ARGS))
+    sc = cfg.screen
+    scene = upload_scene(host_scene, device=dev)
+    key0 = prng.PRNGKey(0, device=dev)
+    batches = len(list(frame_row_batches(cfg, key0, 64, dev)))
+    tmp = tempfile.mkdtemp(prefix="mm_drivers_")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+    def want(n, **kw) -> dict:
+        """The launches of n frames stepped: one tracer and one present each
+        (or the counts given), none on the CPU."""
+        counts = kw or {"tracer": n, "present": n}
+        return {k: v for k, v in counts.items() if v} if on_card else {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def run_cli(argv):
+        """main(argv) in this process, its output captured; (text, launches)."""
+        buf = io.StringIO()
+        kernels.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        sync()
+        if rc != 0:
+            raise SystemExit(f"[cli] FAIL: {argv} exited {rc}:\n{buf.getvalue()}")
+        return buf.getvalue(), dict(kernels.launches)
+
+    def launches_in(text, label):
+        m = re.search(label + r".*?kernel launches (\{[^}]*\})", text)
+        return ast.literal_eval(m.group(1)) if m else None
+
+    @contextlib.contextmanager
+    def headless():
+        saved = sys.stdin
+        with open(os.devnull) as f:
+            sys.stdin = f
+            try:
+                yield
+            finally:
+                sys.stdin = saved
+
+    try:
+        # [cli-render]: the real entry point in a subprocess with no --device:
+        # bitwise the in-process render_full_frame at the same seed.
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "render.png")
+        proc = subprocess.run([sys.executable, "-m", "mirror_maze_tpu_torch", "render",
+                               *DRIVER_ARGS, *dev_args, "--out", out],
+                              cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        t_sub = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SystemExit(f"[cli-render] FAIL: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+        sub_launches = launches_in(proc.stdout, "rendered")
+        cam = make_camera(cfg.camera, sc.width / sc.height, dev)
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        img = to_display(render_full_frame(scene, cam, key0, cfg)).cpu().numpy()
+        t_in = time.perf_counter() - t1
+        counts = dict(kernels.launches)
+        got = imageio.read_png(out)
+        rays = sc.width * sc.height * sc.samples_per_pixel
+        line = next(x for x in proc.stdout.splitlines() if x.startswith("rendered"))
+        same = got.shape == img.shape and np.array_equal(got, img)
+        log(f"[cli-render] python -m mirror_maze_tpu_torch render {' '.join(DRIVER_ARGS)} "
+            f"(no --device) in a subprocess: {t_sub:.1f} s with start-up; it printed "
+            f"\"{line}\"; PNG read back bitwise the in-process render_full_frame: {same}; in "
+            f"process {t_in * 1e3:.1f} ms, {rays / t_in / 1e6:.1f} Mrays/s; launches "
+            f"{sub_launches} / {counts} ({batches} row blocks) | {smi}")
+        if not (same and img.mean() > 1.0 and sub_launches == counts
+                == want(1, tracer=batches)):
+            raise SystemExit("[cli-render] FAIL")
+
+        # [play]: headless play through main(), bitwise run_scripted's idle
+        # frames; batched; and through a checkpoint. One warm-up frame a run.
+        t0 = time.perf_counter()
+        _, want64 = run_scripted(scene, cfg, n_frames=64)
+        base = ["play", *DRIVER_ARGS, *dev_args, "--display", "none"]
+        ck = os.path.join(tmp, "play.npz")
+        runs = {"per-frame": [base + ["--frames", "64"]],
+                "batch-frames 8": [base + ["--frames", "64", "--batch-frames", "8"]],
+                "save 32 + load 32": [base + ["--frames", "32", "--save-state", ck],
+                                      base + ["--frames", "32", "--load-state", ck]]}
+        results = []
+        with headless():
+            for name, argvs in runs.items():
+                png = os.path.join(tmp, f"play-{len(results)}.png")
+                launched, fps, frames = {}, [], 0
+                for argv in argvs:
+                    text, counts = run_cli(argv + ["--out", png])
+                    for k, v in counts.items():
+                        launched[k] = launched.get(k, 0) + v
+                    m = re.search(r"session: (\d+) frames, wall ([\d.]+)s \(~([\d.]+) fps", text)
+                    frames += int(m.group(1))
+                    fps.append(m.group(3))
+                same = np.array_equal(imageio.read_png(png), want64)
+                ok = same and frames == 64 and launched == want(frames + len(argvs))
+                results.append(ok)
+                log(f"[play] {name}: {frames} frames + {len(argvs)} warm-up, final frame "
+                    f"bitwise run_scripted's 64 idle frames: {same}; {'/'.join(fps)} fps wall "
+                    f"(paced to {sc.fps:g}); launches {launched}")
+        log(f"[play] {time.perf_counter() - t0:.1f} s | {smi}")
+        if not all(results):
+            raise SystemExit("[play] FAIL")
+
+        # [play-tty]: play in a subprocess on a pseudo-terminal: 'w' for
+        # TTY_WALK frames, then 'q'.
+        t0 = time.perf_counter()
+        master, slave = pty.openpty()
+        before = termios.tcgetattr(slave)
+        chunks, stop = [], threading.Event()
+
+        def drain():
+            while not stop.is_set():
+                if select.select([master], [], [], 0.05)[0]:
+                    try:
+                        chunks.append(os.read(master, 1 << 16))
+                    except OSError:
+                        return
+
+        reader = threading.Thread(target=drain, daemon=True)
+        reader.start()
+        with open(os.path.join(tmp, "tty.err"), "w+") as err:
+            child = subprocess.Popen([sys.executable, "-m", "mirror_maze_tpu_torch", "play",
+                                      *DRIVER_ARGS, *dev_args, "--frames", "120"],
+                                     stdin=slave, stdout=slave, stderr=err, cwd=tmp, env=env)
+            try:
+                deadline = time.monotonic() + 300
+                while InteractiveLoop.MOUSE_ON.encode() not in b"".join(chunks):
+                    if child.poll() is not None or time.monotonic() > deadline:
+                        raise SystemExit("[play-tty] FAIL: no cbreak mode")
+                    time.sleep(0.02)
+                # 'w' a frame time apart, at least TTY_WALK times and until a
+                # status line shows the camera moved.
+                sent, spawn = 0, f"{cfg.camera.spawn[2]:+.1f})"
+                while sent < TTY_WALK or spawn in b"".join(chunks).decode(
+                        "utf-8", "replace").rsplit("frame ", 1)[-1][:40]:
+                    if child.poll() is not None or time.monotonic() > deadline:
+                        raise SystemExit("[play-tty] FAIL: the camera did not move")
+                    os.write(master, b"w")
+                    sent += 1
+                    time.sleep(1.0 / sc.fps)
+                os.write(master, b"q")
+                rc = child.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                raise SystemExit("[play-tty] FAIL: the session did not end")
+            finally:
+                time.sleep(0.1)
+                stop.set()
+                reader.join()
+                after = termios.tcgetattr(slave)
+                os.close(master)
+                os.close(slave)
+            err.seek(0)
+            err_text = err.read()
+        text = b"".join(chunks).decode("utf-8", "replace")
+        status = re.findall(r"frame (\d+)  \(([+-][\d.]+), ([+-][\d.]+)\)", text)
+        session = re.search(r"session: (\d+) frames.*?\(~([\d.]+) fps.*?kernel launches "
+                            r"(\{[^}]*\})", text)
+        warm = launches_in(text, "warm-up frame")
+        spawn_z = cfg.camera.spawn[2]
+        moved = bool(status) and float(status[-1][2]) != round(spawn_z, 1)
+        frames = int(session.group(1)) if session else -1
+        sess_launches = ast.literal_eval(session.group(3)) if session else None
+        log(f"[play-tty] play on a pty, {sent} x 'w' then 'q': exit {rc}, {frames} frames "
+            f"at {session.group(2) if session else '?'} fps wall, {len(status)} status lines, "
+            f"camera z {spawn_z:+.1f} -> {status[-1][2] if status else '?'}, termios restored "
+            f"{after == before}, MOUSE_OFF written {InteractiveLoop.MOUSE_OFF in text}; launches "
+            f"warm-up {warm}, session {sess_launches}; {time.perf_counter() - t0:.1f} s")
+        if not (rc == 0 and moved and after == before and InteractiveLoop.MOUSE_OFF in text
+                and warm == want(1) and sess_launches == want(frames)):
+            raise SystemExit(f"[play-tty] FAIL\n{err_text[-4000:]}")
+
+        # [play-bands]: play with 2 row bands on the one device against the
+        # band engine.
+        t0 = time.perf_counter()
+        init_fn, step_fn = shard.make_sharded_engine(cfg, [dev] * 2)
+        st = init_fn(seed=0)
+        for _ in range(16):
+            st, ref = step_fn(scene, st, FrameInputs.idle())
+        ref = ref.cpu().numpy()
+        png = os.path.join(tmp, "bands.png")
+        with headless():
+            text, counts = run_cli(base + ["--sharded-bands", "2", "--frames", "16",
+                                           "--out", png])
+        same = np.array_equal(imageio.read_png(png), ref)
+        log(f"[play-bands] play --sharded-bands 2 --frames 16 (both bands on {dev}): final "
+            f"frame bitwise make_sharded_engine's: {same}; launches {counts} (17 frames x 2 "
+            f"bands, the warm-up included); {time.perf_counter() - t0:.1f} s")
+        if not (same and counts == want(0, tracer=34, present_halo=34)):
+            raise SystemExit("[play-bands] FAIL")
+
+        # [serve]: an EngineServer on port 0 driven over HTTP.
+        t0 = time.perf_counter()
+        ck = os.path.join(tmp, "serve.npz")
+        kernels.reset_launches()
+        srv = EngineServer(scene, cfg, port=0, host_scene=host_scene, ckpt_path=ck)
+        kept = {}
+        do_checkpoint = srv._do_checkpoint
+
+        def keep(eng):
+            kept["state"] = EngineState(*(x.clone() for x in eng.state))
+            do_checkpoint(eng)
+
+        srv._do_checkpoint = keep
+        url = f"http://127.0.0.1:{srv.port}"
+
+        def get(path):
+            with urllib.request.urlopen(url + path, timeout=60) as r:
+                return r.status, r.headers.get("Content-Type", ""), r.read()
+
+        def post(path, obj):
+            req = urllib.request.Request(url + path, data=json.dumps(obj).encode(),
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, r.read()
+
+        def stats_until(pred, timeout=60.0):
+            end = time.monotonic() + timeout
+            while time.monotonic() < end:
+                s = json.loads(get("/stats")[2])
+                if s["error"] is not None:
+                    raise SystemExit(f"[serve] FAIL: engine error\n{s['error']}")
+                if pred(s):
+                    return s
+                time.sleep(0.02)
+            raise SystemExit(f"[serve] FAIL: {s} after {timeout} s")
+
+        srv.start()
+        t_start = time.perf_counter()
+        try:
+            page = get("/")
+            s0 = stats_until(lambda s: s["frame"] > 0)
+            status, ctype, body = get("/frame")
+            if ctype == "image/png":
+                frame_shape = imageio.decode_png(body).shape
+            else:
+                from PIL import Image
+
+                frame_shape = np.asarray(Image.open(io.BytesIO(body))).shape
+            with socket.create_connection(("127.0.0.1", srv.port), 30) as sk:
+                sk.settimeout(30.0)
+                sk.sendall(b"GET /stream HTTP/1.1\r\nHost: 127.0.0.1\r\n\r\n")
+                buf, t_s = b"", time.monotonic()
+                while time.monotonic() - t_s < 3.0:
+                    buf += sk.recv(1 << 20)
+                parts = buf.count(b"--mmxframe")
+            map_status, map_ctype, map_body = get("/map")
+            map_shape = imageio.decode_png(map_body).shape
+            s1 = stats_until(lambda s: True)
+            post("/input", {"w": True})
+            s2 = stats_until(lambda s: abs(s["cam"][2] - s1["cam"][2]) > 0.5)
+            post("/input", {"w": False})
+            ck_status, ck_body = post("/ckpt", {})
+            info = json.loads(ck_body)
+            loaded = load_state(ck, cfg, device=dev)
+            ck_same = all(torch.equal(getattr(loaded, f), getattr(kept["state"], f))
+                          for f in EngineState._fields)
+            s3 = stats_until(lambda s: s["frame"] > s2["frame"] + 30)
+        finally:
+            srv.stop()
+        sync()
+        t_session = time.perf_counter() - t_start
+        counts = dict(kernels.launches)
+        stepped = srv._frames_stepped
+        final = srv.stats()
+        log(f"[serve] EngineServer on port {srv.port}: / {page[0]}, /frame {status} {ctype} "
+            f"{frame_shape}, /stream {parts} parts in 3 s ({parts / 3.0:.1f} fps delivered), "
+            f"/map {map_status} {map_shape}, POST /input w moved z {s1['cam'][2]:+.3f} -> "
+            f"{s2['cam'][2]:+.3f}, POST /ckpt {ck_status} at frame {info.get('frame')}: "
+            f"load_state bitwise the engine's state {ck_same}; engine {s1['fps']:.1f} fps "
+            f"while streaming (the last 1 s window), {stepped / t_session:.1f} over the "
+            f"{t_session:.1f} s session (the checkpoint's save included); fetch_ms "
+            f"{s1['fetch_ms']}, encode_ms {s1['encode_ms']} while streaming (fetched "
+            f"{s3['fetched']}, encoded {s3['encoded']} in all); {stepped} frames + 1 warm-up, "
+            f"launches {counts}; "
+            f"{time.perf_counter() - t0:.1f} s | {smi}")
+        if not (page[0] == 200 and s0["frame"] > 0 and status == 200
+                and frame_shape == (sc.height, sc.width, 3) and parts >= 3
+                and map_status == 200 and map_shape == (320, 320, 3) and ck_status == 200
+                and ck_same and info["frame"] == int(kept["state"].frame)
+                and final["error"] is None and counts == want(stepped + 1)):
+            raise SystemExit("[serve] FAIL")
+
+        # [multiplayer]: two player processes on the one device over gloo.
+        t0 = time.perf_counter()
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = str(s.getsockname()[1])
+        procs = [subprocess.Popen([sys.executable, "-c", MP_WORKER, str(i), port, str(MP_WALK),
+                                   *DRIVER_ARGS, *dev_args],
+                                  cwd=tmp, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for i in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            raise SystemExit("[multiplayer] FAIL: timed out\n" + "\n".join(outs))
+        rcs = [p.returncode for p in procs]
+        res = []
+        for o in outs:
+            line = next((x for x in o.splitlines() if x.startswith("MP ")), None)
+            res.append(json.loads(line[3:]) if line else None)
+        if rcs != [0, 0] or None in res:
+            raise SystemExit(f"[multiplayer] FAIL: exits {rcs}\n" + "\n".join(o[-3000:]
+                                                                               for o in outs))
+        same_pos = res[0]["positions"] == res[1]["positions"] == [r["cam"] for r in res]
+        shows = res[0]["pixels_differing_from_single_player"]
+        log(f"[multiplayer] 2 players over gloo on {dev}, player 1 walks {MP_WALK} frames, "
+            f"then 1 idle: ms/frame {res[0]['ms_per_frame']:.2f} / {res[1]['ms_per_frame']:.2f}"
+            f" (player 0 / 1, exchange included); gathered positions == each player's "
+            f"cam_center: {same_pos}; player 1 z {res[1]['z']:+.3f}; player 0's frame differs "
+            f"from the single-player run's in {shows} pixels; launches {res[0]['launches']} / "
+            f"{res[1]['launches']}; {time.perf_counter() - t0:.1f} s | {smi}")
+        if not (same_pos and shows > 0 and res[1]["z"] > cfg.camera.spawn[2]
+                and all(r["launches"] == want(MP_WALK + 1) for r in res)):
+            raise SystemExit("[multiplayer] FAIL")
+
+        # [demo]: the fixed 640-frame script, a PNG per phase.
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "demo")
+        text, counts = run_cli(["demo", *DRIVER_ARGS, *dev_args, "--out", out])
+        pngs = sorted(os.listdir(out))
+        imgs = [imageio.read_png(os.path.join(out, n)) for n in pngs]
+        good = len(pngs) == 6 and all(i.shape == (sc.height, sc.width, 3) and i.mean() > 1.0
+                                      for i in imgs)
+        n = len(cli.demo_script(FrameInputs))
+        log(f"[demo] {text.strip().splitlines()[-1]}; {len(pngs)} PNGs {pngs[0]} .. {pngs[-1]}, "
+            f"non-blank {good}; {time.perf_counter() - t0:.1f} s")
+        if not (good and counts == want(n)):
+            raise SystemExit("[demo] FAIL")
+
+        # [animate]: the default spin path on config_bvh's scene, as a GIF.
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "anim.gif")
+        seen = {}
+        write_gif = imageio.write_gif
+
+        def keep_frames(path, frames, fps=20, loop=0):
+            seen["frames"] = np.asarray(frames)
+            write_gif(path, frames, fps=fps, loop=loop)
+
+        imageio.write_gif = keep_frames
+        try:
+            text, counts = run_cli(["animate", *ANIMATE_ARGS, *dev_args, "--out", out])
+        finally:
+            imageio.write_gif = write_gif
+        acfg, _, _ = cli._build_world(cli.build_parser().parse_args(["animate"] + ANIMATE_ARGS))
+        fr = seen["frames"]
+        a_batches = len(list(frame_row_batches(acfg, key0, 64, dev)))
+        with open(out, "rb") as f:
+            head = f.read(10)
+        good = (fr.shape == (48, acfg.screen.height, acfg.screen.width, 3)
+                and all(f.mean() > 1.0 for f in fr) and head[:6] == b"GIF89a"
+                and int.from_bytes(head[6:8], "little") == acfg.screen.width)
+        log(f"[animate] {text.strip().splitlines()[-1]}; frames {fr.shape} non-blank, GIF "
+            f"{os.path.getsize(out)} bytes: {good}; {time.perf_counter() - t0:.1f} s")
+        if not (good and counts == want(0, tracer=48 * a_batches)):
+            raise SystemExit("[animate] FAIL")
+
+        # [multicam]: 4 cameras fanned around the spawn, a 2x2 grid.
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "multicam.png")
+        text, counts = run_cli(["multicam", *DRIVER_ARGS, *dev_args, "--cameras", "4",
+                                "--out", out])
+        grid = imageio.read_png(out)
+        h, w = sc.height, sc.width
+        good = grid.shape == (2 * h, 2 * w, 3) and all(
+            grid[r * h:(r + 1) * h, c * w:(c + 1) * w].mean() > 1.0
+            for r in range(2) for c in range(2))
+        log(f"[multicam] {text.strip().splitlines()[-1]}; grid {grid.shape} with 4 non-blank "
+            f"views: {good}; {time.perf_counter() - t0:.1f} s")
+        # One launch a camera and row tile: the renderer traces a tile's rows
+        # at once (parallel/shard.py make_sharded_renderer).
+        if not (good and counts == want(0, tracer=4)):
+            raise SystemExit("[multicam] FAIL")
+
+        # [minimap]: host only, no launch.
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "minimap.png")
+        text, counts = run_cli(["minimap", *DRIVER_ARGS, "--out", out])
+        mm = imageio.read_png(out)
+        good = mm.shape == (512, 512, 3) and len(np.unique(mm.reshape(-1, 3), axis=0)) > 3
+        log(f"[minimap] {text.strip()}; non-blank {good}; launches {counts}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not (good and counts == {}):
+            raise SystemExit("[minimap] FAIL")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -1140,6 +1651,11 @@ def main() -> int:
     # checkpoints: each phase prints its seconds, and its kernels' launch
     # counts are set to 0 just before it and read just after.
     jnp_phases(dev, smi)
+
+    # 9. The drivers: the CLI, terminal play, the HTTP server, multiplayer
+    # and the offline commands, at full width; each phase prints its seconds
+    # and the launches counted around it.
+    driver_phases(dev, smi)
 
     # One row per kernel and path; a row's launches are its path's.
     rows = (("tracer", "main"), ("tracer@scale", "scale"), ("tracer@fuzzy", "fuzzy"),

@@ -7,7 +7,7 @@ row tile) each. The list may name a device several times: ``["cuda:0"] * 2``
 puts two bands on one card, ``["cpu"] * 4`` is what the CPU tests use, four
 cards are four names. ``devices=None`` means one band on the CUDA card and
 raises where there is none. Process groups are not used: they belong to the
-multi-process multiplayer engine, which is not ported yet.
+multi-process multiplayer engine (parallel/multiplayer.py).
 
 - ``make_sharded_renderer``: a batch of cameras x row tiles of full frames,
   every (camera group, tile) on its own device, the scene replicated.
@@ -64,7 +64,7 @@ from ..runtime.state import (
     load_state,
     read_checkpoint,
 )
-from ..runtime.step import advance_to_scatter
+from ..runtime.step import advance_to_scatter, frame_inputs
 
 
 def check_devices(devices, need: int | None = None) -> list:
@@ -360,14 +360,15 @@ def make_sharded_engine(cfg: EngineConfig, devices=None, max_depth: int | None =
 def make_sharded_scan_engine(cfg: EngineConfig, devices=None, max_depth: int | None = None,
                              max_leaf: int | None = None):
     """(init_fn, scan_fn): many frames per call, ``scan_fn(scene, state,
-    [inputs...]) -> (state, last frame)``. A plain loop of band steps, as
-    runtime/step.py make_scan_step; only the final frame's display is
-    built."""
+    inputs) -> (state, last frame)`` with ``inputs`` a list of FrameInputs or
+    a stacked one (runtime/step.py ``stack_inputs``). A plain loop of band
+    steps, as runtime/step.py make_scan_step; only the final frame's display
+    is built."""
     band, init_fn, local_step, scenes_of = _engine_locals(cfg, devices, max_depth, max_leaf)
 
-    def scan_fn(scene, state: ShardedEngineState, inputs: Sequence[FrameInputs]):
+    def scan_fn(scene, state: ShardedEngineState, inputs):
         scenes = scenes_of(scene)
-        for inp in inputs:
+        for inp in frame_inputs(inputs):
             state = local_step(scenes, state, inp)
         return state, assemble_frame(band_frames(state, band))
 

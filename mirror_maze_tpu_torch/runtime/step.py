@@ -137,6 +137,23 @@ def make_step(
     return step
 
 
+def make_step_fn(cfg: EngineConfig, max_depth: int | None = None,
+                 max_leaf: int | None = None):
+    """The frame step with the scene an argument: ``step(scene, state,
+    inputs) -> (state, frame)``, for scenes that change between frames
+    (moved spheres: parallel/multiplayer.py). The jnp backend, if any, is
+    made for the scene of each call; pass the bvh traversal bounds
+    (``derive_traversal_bounds``) to keep that free of host fetches."""
+    n_chunks = cfg.screen.effective_chunks_per_frame
+
+    def step(scene: DeviceScene, state: EngineState, inputs: FrameInputs):
+        nearest_fn = scene_nearest_fn(scene, cfg, max_depth, max_leaf)
+        new_state = _advance(scene, cfg, n_chunks, state, inputs, nearest_fn)
+        return new_state, to_display(cm_to_spatial(new_state.screen, cfg.screen))
+
+    return step
+
+
 def advance_to_scatter(scene, cfg, n_chunks, state: EngineState, inputs: FrameInputs,
                        grid=None, row0: int = 0, nearest_fn=None) -> EngineState:
     """Steps 1-4 of a frame: the new state with the refreshed chunks written
@@ -201,17 +218,50 @@ def _advance(scene, cfg, n_chunks, state: EngineState, inputs: FrameInputs,
 def make_scan_step(
     scene: DeviceScene, cfg: EngineConfig, max_depth: int | None = None,
     max_leaf: int | None = None,
-) -> Callable[[EngineState, Sequence[FrameInputs]], tuple[EngineState, torch.Tensor]]:
-    """Many frames per call: (state, [inputs...]) -> (final state, last
-    display frame). A plain loop of steps; only the final frame's display is
-    built. The fused kernel's frames never wait on the host; the bvh walk
+) -> Callable[[EngineState, Sequence[FrameInputs] | FrameInputs],
+              tuple[EngineState, torch.Tensor]]:
+    """Many frames per call: (state, inputs) -> (final state, last display
+    frame), where ``inputs`` is a list of FrameInputs or one stacked
+    FrameInputs with an [n]-leading axis (``stack_inputs``,
+    ``repeat_input``). A plain loop of steps; only the final frame's display
+    is built. The fused kernel's frames never wait on the host; the bvh walk
     fetches its liveness every ``intersect.CHECK_EVERY`` iterations."""
     n_chunks = cfg.screen.effective_chunks_per_frame
     nearest_fn = scene_nearest_fn(scene, cfg, max_depth, max_leaf)
 
-    def run(state: EngineState, inputs: Sequence[FrameInputs]):
-        for inp in inputs:
+    def run(state: EngineState, inputs):
+        for inp in frame_inputs(inputs):
             state = _advance(scene, cfg, n_chunks, state, inp, nearest_fn)
         return state, to_display(cm_to_spatial(state.screen, cfg.screen))
 
     return run
+
+
+def stack_inputs(frames: Sequence[FrameInputs]) -> FrameInputs:
+    """Per-frame inputs stacked into one FrameInputs with an [n]-leading
+    axis, on the host: keys bool [n, 4], mouse_dx float32 [n], rot_updated
+    bool [n]."""
+    return FrameInputs(
+        keys=np.array([tuple(f.keys) for f in frames], dtype=bool).reshape(-1, 4),
+        mouse_dx=np.array([f.mouse_dx for f in frames], dtype=np.float32),
+        rot_updated=np.array([f.rot_updated for f in frames], dtype=bool),
+    )
+
+
+def repeat_input(inp: FrameInputs, n: int) -> FrameInputs:
+    """One FrameInputs repeated into an [n]-leading stack."""
+    return stack_inputs([inp] * n)
+
+
+def frame_inputs(inputs) -> list:
+    """The per-frame FrameInputs of a list of them or of a stacked one."""
+    if not isinstance(inputs, FrameInputs):
+        return list(inputs)
+    if np.ndim(inputs.mouse_dx) != 1:
+        raise TypeError("a multi-frame step takes a list of FrameInputs or one stacked "
+                        "with an [n]-leading axis (stack_inputs, repeat_input)")
+    keys = np.asarray(inputs.keys, dtype=bool)
+    return [FrameInputs(keys=tuple(bool(k) for k in keys[i]), mouse_dx=float(dx),
+                        rot_updated=bool(r))
+            for i, (dx, r) in enumerate(zip(np.asarray(inputs.mouse_dx, np.float32),
+                                            np.asarray(inputs.rot_updated, bool)))]

@@ -17,15 +17,20 @@ from .state import EngineState
 
 def state_is_finite(state: EngineState) -> bool:
     """The simulation-critical fields (camera position, quaternion, yaw)
-    are finite: one host fetch of a bool. The screen is not scanned: a
-    non-finite screen comes only from a non-finite camera upstream."""
-    ok = (torch.isfinite(state.cam_center).all() & torch.isfinite(state.quat).all()
-          & torch.isfinite(state.half_theta).all())
-    return bool(ok)
+    are finite: one host fetch of a bool per band. The screen is not
+    scanned: a non-finite screen comes only from a non-finite camera
+    upstream. A band engine's state (parallel/shard.py ShardedEngineState,
+    every field a tuple over the bands) is checked on every band."""
+    fields = (state.cam_center, state.quat, state.half_theta)
+    bands = zip(*(x if isinstance(x, tuple) else (x,) for x in fields))
+    return all(bool(torch.isfinite(c).all() & torch.isfinite(q).all() & torch.isfinite(h).all())
+               for c, q, h in bands)
 
 
-def _copy(state: EngineState) -> EngineState:
-    return EngineState(*(x.clone() for x in state))
+def _copy(state):
+    """A copy of every tensor of the state (of every band's)."""
+    return type(state)(*(tuple(t.clone() for t in x) if isinstance(x, tuple) else x.clone()
+                         for x in state))
 
 
 class Watchdog:
@@ -41,7 +46,7 @@ class Watchdog:
         self._since = 0
         self.rollbacks = 0
 
-    def check(self, state: EngineState, n: int = 1) -> EngineState:
+    def check(self, state, n: int = 1):
         """``state``, or a copy of the last good snapshot if ``state`` is not
         finite. Validates (and snapshots) every ``interval`` frames; ``n`` is
         the frames this call advances (a multi-frame step passes its count)."""

@@ -183,3 +183,24 @@ def test_watchdog_rolls_back_a_nan_state():
     assert wd.rollbacks == 2 and torch.equal(again.cam_center, good.cam_center)
     with pytest.raises(FloatingPointError):
         Watchdog(interval=1).check(bad)
+
+
+def test_watchdog_rolls_back_a_band_engine_state():
+    """The band engine's state (every field a tuple over the bands), as the
+    reference's watchdog takes any state: a non-finite camera on one band
+    rolls every band back to the snapshot."""
+    from mirror_maze_tpu_torch.parallel.shard import make_sharded_engine
+
+    cfg = port_config(golden_cfg("brute"))
+    init_fn, _ = make_sharded_engine(cfg, ["cpu"] * 2)
+    good = init_fn(seed=0)
+    assert state_is_finite(good)
+    bad = good._replace(cam_center=(good.cam_center[0],
+                                    torch.tensor([0.0, float("nan"), 0.0])))
+    assert not state_is_finite(bad)
+    wd = Watchdog(interval=1)
+    assert wd.check(good) is good
+    back = wd.check(bad)
+    assert wd.rollbacks == 1 and type(back) is type(good)
+    for a, b in zip(back, good):
+        assert all(torch.equal(x, y) and x is not y for x, y in zip(a, b))

@@ -499,3 +499,86 @@ def test_jnp_backends_on_the_card_match_the_cpu(cuda_device, backend):
         assert np.array_equal(frame_g, frame_c)
     for f in ("perm", "cursor", "key", "frame"):
         assert torch.equal(getattr(st_g, f).cpu(), getattr(st_c, f)), f
+
+
+def test_server_frame_on_the_card_is_the_step_frame(cuda_device, monkeypatch):
+    """The HTTP server driving an engine on the card: its /frame (as PNG) is
+    bitwise the frame ``make_step`` gives at the same step, and the engine
+    thread launched one tracer and one present a frame."""
+    import json
+    import time
+    import urllib.request
+
+    from mirror_maze_tpu_torch.runtime.loop import InteractiveLoop
+    from mirror_maze_tpu_torch.runtime.server import EngineServer
+    from mirror_maze_tpu_torch.runtime.state import init_state
+    from mirror_maze_tpu_torch.runtime.step import make_step
+    from mirror_maze_tpu_torch.utils import imageio
+
+    cfg = golden_config()
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    n = 6
+    base = make_step(scene, cfg)
+    held = {"n": 0}
+
+    def step_fn(st, inp):          # n idle frames, then the same state and frame
+        if held["n"] < n:
+            held["n"] += 1
+            held["state"], held["frame"] = base(st, FrameInputs.idle())
+        return held["state"], held["frame"]
+
+    monkeypatch.setattr(imageio, "jpeg_bytes", lambda img, quality=85: None)
+    kernels.reset_launches()
+    eng = InteractiveLoop.from_engine(cfg, step_fn, init_state(cfg, 0, device=cuda_device))
+    srv = EngineServer(None, cfg, port=0, engine=eng)
+    srv.start()
+    try:
+        t0 = time.monotonic()
+        while srv.stats()["frame"] < n + 2 and time.monotonic() - t0 < 60:
+            time.sleep(0.02)
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/frame", timeout=30) as r:
+            assert r.headers["Content-Type"] == "image/png"
+            got = imageio.decode_png(r.read())
+        stats = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.port}/stats", timeout=30).read())
+    finally:
+        srv.stop()
+    assert stats["error"] is None
+    assert kernels.launches["tracer"] == kernels.launches["present"] == n
+    _, want = run_scripted(scene, cfg, n_frames=n)
+    assert np.array_equal(got, want)
+
+
+def test_thumb_slices_on_the_device(cuda_device):
+    """The terminal thumbnail is a strided view on the card: only its pixels
+    cross to the host."""
+    from mirror_maze_tpu_torch.runtime.loop import InteractiveLoop
+
+    frame = torch.randint(0, 255, (1080, 1920, 3), dtype=torch.uint8, device=cuda_device)
+    small = InteractiveLoop._thumb(frame, 20)
+    assert small.device == frame.device and small.shape == (54, 96, 3)
+    assert small.data_ptr() == frame.data_ptr()
+    assert np.array_equal(small.cpu().numpy(), frame.cpu().numpy()[::20, ::20])
+
+
+def test_gloo_position_exchange_with_one_process_on_the_card(cuda_device):
+    """A gloo process group of one: the exchange stages the position through
+    the host and returns [1, 3] on the card."""
+    import socket
+
+    import torch.distributed as dist
+
+    from mirror_maze_tpu_torch.parallel import initialize_multihost
+    from mirror_maze_tpu_torch.parallel.multiplayer import make_position_exchange
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    assert initialize_multihost(f"localhost:{port}", 1, 0, timeout_s=30) == 1
+    try:
+        me = torch.tensor([1.5, -2.0, 3.25], device=cuda_device)
+        got = make_position_exchange()(me)
+        assert got.device == me.device and got.shape == (1, 3)
+        assert torch.equal(got[0], me)
+    finally:
+        dist.destroy_process_group()

@@ -27,7 +27,8 @@ def test_importing_every_module_pulls_in_no_jax():
     assert "mirror_maze_tpu_torch.parallel.shard" in mods
     assert "mirror_maze_tpu_torch.utils.profiling" in mods
     for m in ("render.intersect", "render.tracer", "render.campath", "scene.io",
-              "utils.imageio", "utils.minimap", "runtime.watchdog"):
+              "utils.imageio", "utils.minimap", "runtime.watchdog", "runtime.loop",
+              "runtime.server", "parallel.multiplayer", "__main__"):
         assert f"mirror_maze_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -102,6 +103,11 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         load_state("no-such-checkpoint.npz")
     with pytest.raises(RuntimeError, match="CUDA"):
         load_sharded_state("no-such-checkpoint.npz", cfg)
+    # The multiplayer engine uploads its scene to the card unless told.
+    from mirror_maze_tpu_torch.parallel.multiplayer import make_multiplayer_engine
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_multiplayer_engine(cfg)
     assert check_devices(["cpu"] * 2) == [torch.device("cpu")] * 2
     assert resolve_device("cpu") == torch.device("cpu")
 
