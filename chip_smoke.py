@@ -96,6 +96,28 @@ stepped, a warm-up frame included where the driver steps one):
   cameras) and ``[minimap]`` (host only) through ``main()``: their files
   non-blank and of the right shape.
 
+Then the repository's own entry points on the port (``entry_phases``), each
+phase with its seconds:
+
+- ``[bench]`` ``python -m mirror_maze_tpu_torch.bench`` in a subprocess with
+  no ``--device``, at its defaults (``config_interactive``'s operating point,
+  60 frames x 3 timed calls after a warm-up call): its JSON line
+  (``backend`` cuda), one tracer and one present launch a frame, and its
+  ``frame_checksum`` equal to the same configuration stepped through 240
+  idle frames in process;
+- ``[bench-validate]`` ``--validate``: exit 0 and ``ok`` under the CPU gates
+  (bvh and exact bitwise brute; the fused kernel all but exact ties);
+- ``[bench-bands]`` ``--sharded-bands 2 --frames 8 --launches 1``: the
+  checksum of the band engine in process, halo present launches counted;
+- ``[soak]`` the kernel exactness soak (``tools/soak_kernel.py``): 40 random
+  soups of 65,536 rays, the kernel bitwise its plain version under the
+  default grid and one of 1 or 7 blocks, and within 1e-4 of the jnp tracer
+  on >= 99% of rays;
+- ``[examples]`` the Cornell box and the mesh gallery (``--intersector
+  pallas --size 256 --spp 64``) in subprocesses, their PNGs bitwise the
+  in-process render, and the multiplayer demo (3 players, 24 frames): every
+  process exits 0, the GIF has 6 frames, each walker ends past its spawn.
+
 Every phase prints one line; any failure exits non-zero. The last two lines
 are the ``{"kernels": [...]}`` summary (one row per kernel and path, every
 number measured or, for ``bound_ms``, computed in this run) and ``{"ok":
@@ -175,9 +197,6 @@ JNP_SCRIPTS = {"v0": (12, 12, 4, 12), "bvh": (2, 2, 2, 2), "resume": (4, 4, 2, 6
 # The BVH walk's host checks compared on [bvh]'s frame-1 rays.
 CHECK_INTERVALS = (1, 2, 4, 8, 16, 32)
 WALK_REPEATS = 3
-# The cross-backend check (bench.py --validate): 16x16 maze, 128x96, 1 spp,
-# no jitter, one diffuse segment, so every backend computes the same light.
-VALIDATE = dict(maze=(16, 16), screen=(128, 96), spawn=(-5.0, 0.0, -75.0))
 
 
 def _script(fi, counts) -> list:
@@ -206,7 +225,7 @@ def jnp_phases(dev, smi: str) -> None:
 
     import mirror_maze_tpu_torch as P
     from _torch_tools import golden_config, golden_script
-    from mirror_maze_tpu_torch import kernels
+    from mirror_maze_tpu_torch import bench, kernels
     from mirror_maze_tpu_torch.ops import prng
     from mirror_maze_tpu_torch.render import campath, intersect, make_camera, upload_scene
     from mirror_maze_tpu_torch.render.pipeline import (
@@ -359,27 +378,16 @@ def jnp_phases(dev, smi: str) -> None:
         f"(results bitwise equal) | {smi}")
 
     # [validate]: bench.py --validate's deterministic light, every backend
-    # against brute by the reference's hardware rule.
+    # (the port's bench renders the frames) against brute by the reference's
+    # hardware rule; only the fused kernel launches a kernel.
     t0 = time.perf_counter()
-    vcfg = P.EngineConfig(
-        maze=P.MazeConfig(width=VALIDATE["maze"][0], height=VALIDATE["maze"][1]),
-        tracer=P.TracerConfig(bounce_limit=1, mirror_limit=6, jitter=0.0, block_rows=16),
-        camera=P.CameraConfig(spawn=VALIDATE["spawn"]),
-        screen=P.ScreenConfig(width=VALIDATE["screen"][0], height=VALIDATE["screen"][1],
-                              samples_per_pixel=1))
-    vscene = upload_scene(build_scene(vcfg.maze), device=dev)
-    vcam = make_camera(vcfg.camera, vcfg.screen.width / vcfg.screen.height, dev)
-    vkey = prng.PRNGKey(0, device=dev)
-    frames, counts = {}, {}
-    for backend in ("brute", "exact", "bvh", "pallas"):
-        kernels.reset_launches()
-        frames[backend] = render_full_frame(vscene, vcam, vkey,
-                                            vcfg.replace(intersector=backend)).cpu().numpy()
-        counts[backend] = dict(kernels.launches)
+    kernels.reset_launches()
+    frames = bench.validate_frames(dev)
+    counts = dict(kernels.launches)
     ref = frames["brute"]
-    batches = len(list(frame_row_batches(vcfg, vkey, 64, dev)))
-    ok = (np.isfinite(ref).all() and ref.max() > 0.0 and counts["pallas"] == {"tracer": batches}
-          and all(counts[b] == {} for b in ("brute", "exact", "bvh")))
+    batches = len(list(frame_row_batches(bench.validate_config(), prng.PRNGKey(0, device=dev),
+                                         64, dev)))
+    ok = np.isfinite(ref).all() and ref.max() > 0.0 and counts == {"tracer": batches}
     for backend in ("exact", "bvh", "pallas"):
         d = np.abs(frames[backend] - ref)
         stats = dict(max=float(d.max()), mean=float(d.mean()), p999=float(np.quantile(d, 0.999)),
@@ -938,6 +946,193 @@ def driver_phases(dev, smi: str) -> None:
             f"{time.perf_counter() - t0:.1f} s")
         if not (good and counts == {}):
             raise SystemExit("[minimap] FAIL")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# The repository's own entry points on the port: the bench at its defaults
+# (config_interactive's operating point, 60 frames x 3 timed calls after one
+# warm-up call), the same as 2 row bands, the card soak and the examples.
+BENCH_ARGS: list = []
+BENCH_BANDS_ARGS = ["--sharded-bands", "2", "--frames", "8", "--launches", "1"]
+SOAK_SCENES = 40
+EXAMPLE_ARGS = ["--intersector", "pallas", "--size", "256", "--spp", "64"]
+MP_DEMO_ARGS = ["--players", "3", "--frames", "24"]
+
+
+def entry_phases(dev, smi: str) -> None:
+    """The phases of the repository's own entry points on the port: the
+    bench (``python -m mirror_maze_tpu_torch.bench``), its ``--validate`` and
+    ``--sharded-bands``, the kernel exactness soak and the three examples.
+    The bench and the examples run in subprocesses with no ``--device`` (the
+    card; ``--device cpu`` where ``dev`` is the CPU, the rehearsal). Each
+    phase prints its seconds; any failure ends the run with SystemExit."""
+    import ast
+    import re
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mirror_maze_tpu_torch import bench, kernels
+    from mirror_maze_tpu_torch.examples import cornell_box, mesh_gallery, multiplayer_demo
+    from mirror_maze_tpu_torch.parallel.shard import make_sharded_scan_engine
+    from mirror_maze_tpu_torch.runtime.state import FrameInputs, init_state
+    from mirror_maze_tpu_torch.runtime.step import make_scan_step, repeat_input
+    from mirror_maze_tpu_torch.tools import soak_kernel
+    from mirror_maze_tpu_torch.utils import imageio
+    from _torch_tools import gif_frame_count
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    dev_args = [] if on_card else ["--device", "cpu"]
+    tmp = tempfile.mkdtemp(prefix="mm_entry_")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t_all = time.perf_counter()
+
+    def want(**counts) -> dict:
+        return {k: v for k, v in counts.items() if v} if on_card else {}
+
+    def run(tag, module, argv, timeout=600):
+        """``python -m module argv`` in a subprocess: (stdout, stderr)."""
+        proc = subprocess.run([sys.executable, "-m", module, *argv, *dev_args], cwd=tmp,
+                              env=env, capture_output=True, text=True, timeout=timeout)
+        if proc.returncode != 0:
+            raise SystemExit(f"[{tag}] FAIL: {module} {' '.join(argv)} exited "
+                             f"{proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        return proc.stdout, proc.stderr
+
+    def bench_run(tag, argv):
+        """The bench's JSON line and the launches it printed to stderr."""
+        out, err = run(tag, "mirror_maze_tpu_torch.bench", argv)
+        m = re.search(r"kernel launches (\{[^}]*\})", err)
+        return json.loads(out.strip().splitlines()[-1]), ast.literal_eval(m.group(1))
+
+    try:
+        # [bench]: the bench at its defaults; its checksum against the same
+        # configuration stepped through as many idle frames in this process.
+        t0 = time.perf_counter()
+        res, sub = bench_run("bench", BENCH_ARGS)
+        args = bench.build_parser().parse_args(BENCH_ARGS + dev_args)
+        n = args.frames * (1 + args.launches)
+        cfg, _, scene = bench.build_bench_setup(args)
+        kernels.reset_launches()
+        _, frame = make_scan_step(scene, cfg)(init_state(cfg, seed=0, device=dev),
+                                               repeat_input(FrameInputs.idle(), n))
+        checksum = float(frame.sum())
+        counts = dict(kernels.launches)
+        del scene, frame
+        log(f"[bench] python -m mirror_maze_tpu_torch.bench {' '.join(BENCH_ARGS)} "
+            f"(no --device) in a subprocess: {res['value']} Mrays/s, frame_ms "
+            f"{res['frame_ms']}, launch_ms {res['launch_ms']}, setup_s {res['setup_s']:.3f}, "
+            f"compile_s {res['compile_s']} (B = {cfg.tracer.block_rows * 128}, "
+            f"{res['rays_per_frame']} rays a frame, {res['kernel_planes']} kernel planes); "
+            f"backend {res['backend']}, device {res['device']!r}; frame_checksum "
+            f"{res['frame_checksum']} against {checksum} for {n} idle frames in process; "
+            f"launches {sub} / {counts}; {time.perf_counter() - t0:.1f} s | {smi}")
+        if not (res["backend"] == dev.type and res["frame_checksum"] == round(checksum, 1)
+                and sub == counts == want(tracer=n, present=n)
+                and len(res["launch_ms"]) == args.launches):
+            raise SystemExit("[bench] FAIL")
+
+        # [bench-validate]: the cross-backend check under the CPU gates.
+        t0 = time.perf_counter()
+        out, _ = run("bench-validate", "mirror_maze_tpu_torch.bench", ["--validate"])
+        res = json.loads(out.strip().splitlines()[-1])
+        log(f"[bench-validate] --validate on {res['device']!r}: ok {res['ok']}; "
+            + "; ".join(f"{b} {json.dumps(res[b])}" for b in ("pallas", "bvh", "exact"))
+            + f" (bvh and exact need max 0, pallas frac_nonzero and mean < 1e-3); "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not (res["ok"] is True and res["backend"] == dev.type):
+            raise SystemExit("[bench-validate] FAIL")
+
+        # [bench-bands]: 2 row bands on the one device against the band
+        # engine stepped in this process.
+        t0 = time.perf_counter()
+        res, sub = bench_run("bench-bands", BENCH_ARGS + BENCH_BANDS_ARGS)
+        args = bench.build_parser().parse_args(BENCH_ARGS + BENCH_BANDS_ARGS + dev_args)
+        n, bands = args.frames * (1 + args.launches), args.sharded_bands
+        cfg, _, scene = bench.build_bench_setup(args)
+        init_fn, scan_fn = make_sharded_scan_engine(cfg, devices=[dev] * bands)
+        _, frame = scan_fn(scene, init_fn(seed=0), repeat_input(FrameInputs.idle(), n))
+        checksum = float(frame.sum())
+        del scene, frame
+        log(f"[bench-bands] --sharded-bands {bands} (every band on {dev}): {res['value']} "
+            f"Mrays/s, frame_ms {res['frame_ms']}; frame_checksum {res['frame_checksum']} "
+            f"against the band engine's {checksum} over {n} frames; launches {sub}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not (res["frame_checksum"] == round(checksum, 1) and res["sharded_bands"] == bands
+                and sub == want(tracer=bands * n, present_halo=bands * n)):
+            raise SystemExit("[bench-bands] FAIL")
+
+        # [soak]: the random soups, the kernel bitwise its plain version under
+        # two grids and within the jnp tracer's gate.
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        recs = soak_kernel.run_soak(SOAK_SCENES, dev, log=lambda line: log(f"[soak] {line}"))
+        counts = dict(kernels.launches)
+        fails = [r["seed"] for r in recs if not r["ok"]]
+        resident = sum(bool(r["geometry"].get("resident")) for r in recs)
+        walked = [r["walked_tiles"] for r in recs]
+        grids = sorted({k for r in recs for k in r["bitwise"]})
+        n_rays = soak_kernel.CARD_RAYS if on_card else soak_kernel.CPU_RAYS
+        log(f"[soak] {len(recs)} scenes of {n_rays} rays: failures {fails}; {resident} resident in shared memory, "
+            f"{len(recs) - resident} not; {sum(w > 0 for w in walked)} scenes walk tiles "
+            f"({sum(walked)} walked tiles in all, at most {max(walked)}); launches compared: "
+            f"{grids}; min agreement with the jnp tracer "
+            f"{min(r['agree'] for r in recs):.4f}; launches {counts}; "
+            f"{time.perf_counter() - t0:.1f} s | {smi}")
+        # One launch a scene and grid, of the textured library where the scene
+        # is textured.
+        expected = sum(len(r["bitwise"]) for r in recs) if on_card else 0
+        if (fails or len(recs) != SOAK_SCENES or sum(counts.values()) != expected
+                or set(counts) - {"tracer", "tracer_tex"}):
+            raise SystemExit("[soak] FAIL")
+
+        # [examples]: the Cornell box and the mesh gallery in subprocesses,
+        # their PNGs bitwise the in-process render; three players over gloo.
+        t0 = time.perf_counter()
+        size = int(EXAMPLE_ARGS[EXAMPLE_ARGS.index("--size") + 1])
+        spp = int(EXAMPLE_ARGS[EXAMPLE_ARGS.index("--spp") + 1])
+        for name, mod, scene in (
+                ("cornell_box", cornell_box, cornell_box.build_cornell_box()),
+                ("mesh_gallery", mesh_gallery, mesh_gallery.build_mesh_gallery())):
+            t1 = time.perf_counter()
+            png, npz = os.path.join(tmp, name + ".png"), os.path.join(tmp, name + ".npz")
+            run("examples", f"mirror_maze_tpu_torch.examples.{name}",
+                EXAMPLE_ARGS + ["--out", png, "--save-scene", npz])
+            t_sub = time.perf_counter() - t1
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            img = mod.render_scene(scene, cornell_box.render_config(size, spp, "pallas"), dev)
+            t_in = time.perf_counter() - t1
+            counts = dict(kernels.launches)
+            got = imageio.read_png(png)
+            same = got.shape == img.shape and bool((got == img).all())
+            log(f"[examples] {name} {' '.join(EXAMPLE_ARGS)} in a subprocess {t_sub:.1f} s "
+                f"with start-up; PNG bitwise the in-process render_full_frame ({t_in:.2f} s): "
+                f"{same}; launches {counts}")
+            if not (same and img.mean() > 1.0 and counts == want(tracer=-(-size // 64))):
+                raise SystemExit("[examples] FAIL")
+        t1 = time.perf_counter()
+        gif = os.path.join(tmp, "mp.gif")
+        out, _ = run("examples", "mirror_maze_tpu_torch.examples.multiplayer_demo",
+                     MP_DEMO_ARGS + ["--out", gif], timeout=300)
+        players = int(MP_DEMO_ARGS[MP_DEMO_ARGS.index("--players") + 1])
+        frames = int(MP_DEMO_ARGS[MP_DEMO_ARGS.index("--frames") + 1])
+        z = {int(p): float.fromhex(json.loads(pos)[2]) for p, pos in
+             re.findall(r"player (\d+) done at z=\S+ (\[.*\])", out)}
+        spawn = {p: multiplayer_demo.player_config(p).camera.spawn[2] for p in range(players)}
+        n_gif = gif_frame_count(gif)
+        log(f"[examples] multiplayer_demo {' '.join(MP_DEMO_ARGS)}: {players} processes over "
+            f"gloo on {dev}, final z {z} from spawn z {spawn}; GIF of {n_gif} frames; "
+            f"{time.perf_counter() - t1:.1f} s")
+        if not (sorted(z) == list(range(players)) and z[0] == spawn[0]
+                and all(z[p] > spawn[p] for p in range(1, players))
+                and n_gif == frames // multiplayer_demo.GIF_EVERY):
+            raise SystemExit("[examples] FAIL")
+        log(f"[examples] {time.perf_counter() - t0:.1f} s; the entry points' phases "
+            f"{time.perf_counter() - t_all:.1f} s in all")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1656,6 +1851,10 @@ def main() -> int:
     # and the offline commands, at full width; each phase prints its seconds
     # and the launches counted around it.
     driver_phases(dev, smi)
+
+    # 10. The repository's own entry points on the port: the bench, its
+    # --validate and --sharded-bands, the soak and the examples.
+    entry_phases(dev, smi)
 
     # One row per kernel and path; a row's launches are its path's.
     rows = (("tracer", "main"), ("tracer@scale", "scale"), ("tracer@fuzzy", "fuzzy"),

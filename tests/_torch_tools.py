@@ -13,11 +13,10 @@ apart.
 """
 
 import dataclasses
-import os
-import tempfile
 
 import numpy as np
 import mirror_maze_tpu_torch as P
+from mirror_maze_tpu_torch.examples import cornell_box, mesh_gallery
 from mirror_maze_tpu_torch.scene import build_scene, mesh
 from mirror_maze_tpu_torch.scene.builder import Scene
 
@@ -100,93 +99,23 @@ def _quad_scene(rows) -> Scene:
                  grid=np.zeros((1, 1), np.uint8))
 
 
-def _room(half, z_min, z_max, white, left, right, light_quad) -> list:
-    """The closed room of the gallery scenes (+y is down: floor at 2,
-    ceiling at -8): floor, ceiling, back, front, left, right, light panel."""
-    floor_y, ceil_y = 2.0, -8.0
-    depth, up = z_max - z_min, (0.0, ceil_y - floor_y, 0.0)
-    dark = (0, 0, 0, 0)
-    return [
-        ((-half, floor_y, z_min), (0, 0, depth), (2 * half, 0, 0), white, False, dark),
-        ((-half, ceil_y, z_min), (2 * half, 0, 0), (0, 0, depth), white, False, dark),
-        ((-half, floor_y, z_max), up, (2 * half, 0, 0), white, False, dark),
-        ((-half, floor_y, z_min), up, (2 * half, 0, 0), white, False, dark),
-        ((-half, floor_y, z_min), up, (0, 0, depth), left, False, dark),
-        ((half, floor_y, z_min), (0, 0, depth), up, right, False, dark),
-        light_quad,
-    ]
-
-
-GALLERY_SPAWN = (0.0, -3.0, -10.0)          # the examples' camera
+GALLERY_SPAWN = cornell_box.SPAWN           # the examples' camera
 CORNELL_GLASS_CENTRE = (1.6, 2.0 - 1.8, -2.2)
 
 
-def _block(rows, cx, cz, half, height, theta_deg, color, mirror, floor_y=2.0) -> None:
-    """An axis box rotated ``theta_deg`` about y, appended to ``rows``: four
-    outward sides and a top (examples/cornell_box.py _Soup.block)."""
-    th = np.deg2rad(theta_deg)
-    rot = np.array([[np.cos(th), np.sin(th)], [-np.sin(th), np.cos(th)]])
-    base = np.array([[-half, -half], [-half, half], [half, half], [half, -half]]) @ rot.T
-    base += (cx, cz)
-    dark = (0, 0, 0, 0)
-    for i in range(4):
-        c0, c1 = base[i], base[(i + 1) % 4]
-        rows.append(((c0[0], floor_y, c0[1]), (0.0, -height, 0.0),
-                     (c1[0] - c0[0], 0.0, c1[1] - c0[1]), color, mirror, dark))
-    c0, c1, c3 = base[0], base[1], base[3]
-    rows.append(((c0[0], floor_y - height, c0[1]), (c3[0] - c0[0], 0.0, c3[1] - c0[1]),
-                 (c1[0] - c0[0], 0.0, c1[1] - c0[1]), color, mirror, dark))
-
-
 def cornell_scene(variant: str) -> Scene:
-    """The Cornell box of examples/cornell_box.py build_cornell_box, variant
+    """The Cornell box of the port's examples/cornell_box.py (the JAX
+    example's scene, array for array: test_torch_examples.py), variant
     ``blocks`` (a short diffuse and a tall mirror block, 17 quads),
     ``spheres`` (a mirror and a diffuse sphere: test mode 3) or ``glass`` (a
-    glass sphere beside a tall mirror block: mode 5), built with the port's
-    Scene (test_torch_scene.py holds it equal to the example's, array for
-    array)."""
-    white = (0.725, 0.71, 0.68)
-    rows = _room(5.0, -10.5, 5.0, white, (0.63, 0.065, 0.05), (0.14, 0.45, 0.091),
-                 ((-2.0, -8.0 + 0.01, -1.75), (0, 0, 3.5), (4.0, 0, 0), (0.0, 0.0, 0.0), False,
-                  (1.0, 0.85, 0.55, 34.0)))
-    floor_y = 2.0
-    if variant == "spheres":
-        r_mirror, r_diff = 2.2, 1.5
-        return dataclasses.replace(
-            _quad_scene(rows),
-            sph_center=np.float32([[-2.0, floor_y - r_mirror, 1.8], [2.0, floor_y - r_diff, -1.7]]),
-            sph_radius=np.float32([r_mirror, r_diff]),
-            sph_color=np.float32([(0, 0, 0), white]),
-            sph_is_mirror=np.array([True, False]),
-            sph_emission=np.zeros((2, 4), np.float32),
-            sph_ior=np.zeros(2, np.float32),
-        )
-    if variant == "blocks":
-        _block(rows, 2.0, -1.7, 1.5, 3.0, -17.0, white, False)
-        _block(rows, -2.0, 1.8, 1.5, 6.0, 17.0, white, True)
-        return _quad_scene(rows)
-    if variant != "glass":
-        raise ValueError(f"variant must be 'blocks', 'spheres' or 'glass', got {variant!r}")
-    _block(rows, -2.0, 1.8, 1.5, 6.0, 17.0, white, True)
-    return dataclasses.replace(
-        _quad_scene(rows),
-        sph_center=np.float32([CORNELL_GLASS_CENTRE]),
-        sph_radius=np.float32([1.8]),
-        sph_color=np.float32([(0.94, 0.97, 1.0)]),
-        sph_is_mirror=np.array([False]),
-        sph_emission=np.zeros((1, 4), np.float32),
-        sph_ior=np.float32([1.5]),
-    )
+    glass sphere beside a tall mirror block: mode 5)."""
+    return cornell_box.build_cornell_box(variant)
 
 
 def checker_floor(scene: Scene, cells: float = 8.0, color2=(0.25, 0.25, 0.3)) -> Scene:
     """The scene with its floor (plane 0) a UV checker, ``tex_kind`` 1
-    (examples/cornell_box.py checker_floor)."""
-    kind = np.zeros(scene.num_planes, np.uint8)
-    scale = np.ones(scene.num_planes, np.float32)
-    color = np.zeros((scene.num_planes, 3), np.float32)
-    kind[0], scale[0], color[0] = 1, cells, color2
-    return dataclasses.replace(scene, tex_kind=kind, tex_scale=scale, tex_color2=color)
+    (the port's examples/cornell_box.py checker_floor)."""
+    return cornell_box.checker_floor(scene, cells, color2)
 
 
 def textured_cornell(variant: str) -> Scene:
@@ -236,27 +165,10 @@ def textured_maze_scene():
 
 
 def mesh_gallery_scene() -> Scene:
-    """The mesh gallery of examples/mesh_gallery.py build_mesh_gallery: a room
-    of 7 quads, a 320-triangle mirror icosphere and two 20-triangle gems (the
-    second through an OBJ file), built with the port's scene/mesh.py."""
-    floor_y = 2.0
-    room = _quad_scene(_room(
-        6.0, -11.0, 5.0, (0.73, 0.71, 0.68), (0.62, 0.08, 0.06), (0.12, 0.43, 0.09),
-        ((-2.5, -8.0 + 0.01, -2.5), (0, 0, 5.0), (5.0, 0, 0), (0.0, 0.0, 0.0), False,
-         (1.0, 0.85, 0.55, 30.0))))
-    sv, sf = mesh.icosphere(subdivisions=2, radius=2.0, center=(-2.4, floor_y - 2.0, 1.2))
-    mirror_ball = mesh.mesh_scene(sv, sf, color=(0.0, 0.0, 0.0), is_mirror=True)
-    gv, gf = mesh.icosphere(subdivisions=0, radius=1.4)
-    gv = mesh.transform_vertices(gv, rotate_y_deg=20.0, translate=(2.6, floor_y - 1.5, -1.8))
-    gem = mesh.mesh_scene(gv, gf, color=(0.9, 0.55, 0.15), emission=(1.0, 0.6, 0.2, 0.25))
-    with tempfile.TemporaryDirectory() as td:
-        path = os.path.join(td, "gem.obj")
-        mesh.save_obj(path, gv, gf)
-        ov, of = mesh.load_obj(path)
-    gem2 = mesh.mesh_scene(
-        mesh.transform_vertices(ov, scale=0.7, rotate_y_deg=-35.0, translate=(-2.2, 0.0, -3.4)),
-        of, color=(0.25, 0.5, 0.9))
-    return mesh.merge_scenes(room, mirror_ball, gem, gem2)
+    """The mesh gallery of the port's examples/mesh_gallery.py: a room of 7
+    quads, a 320-triangle mirror icosphere and two 20-triangle gems (the
+    second through an OBJ file)."""
+    return mesh_gallery.build_mesh_gallery()
 
 
 def gallery_config(size: int, spp: int, aperture: float = 0.0, focus_dist: float = 10.0):
@@ -340,6 +252,34 @@ def aimed_rays(scene, n, seed, extent):
         d[::2] = (aim - o)[::2]
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return o, d.astype(np.float32)
+
+
+def gif_frame_count(path: str) -> int:
+    """The images of a GIF file, counted by walking its blocks (no
+    decoding): the machine with the card may lack PIL."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError(f"{path} is not a GIF")
+
+    def table_end(pos, flags):
+        return pos + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+
+    def sub_blocks_end(pos):
+        while data[pos]:
+            pos += data[pos] + 1
+        return pos + 1
+
+    pos, count = table_end(13, data[10]), 0
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:                   # extension: label, sub-blocks
+            pos = sub_blocks_end(pos + 2)
+        elif data[pos] == 0x2C:                 # image: descriptor, table, LZW
+            count += 1
+            pos = sub_blocks_end(table_end(pos + 10, data[pos + 9]) + 1)
+        else:
+            raise ValueError(f"{path}: no GIF block at byte {pos}")
+    return count
 
 
 def port_config(cfg) -> "P.EngineConfig":

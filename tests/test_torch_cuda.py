@@ -582,3 +582,16 @@ def test_gloo_position_exchange_with_one_process_on_the_card(cuda_device):
         assert torch.equal(got[0], me)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_soak_scenes_on_the_card(cuda_device, seed):
+    """The soak's random soups (tools/soak_kernel.py) at 4,096 rays: the
+    kernel bitwise its plain version, under the default grid and the seed's
+    drawn one, and within 1e-4 of the jnp tracer on >= 99% of rays."""
+    from mirror_maze_tpu_torch.tools import soak_kernel
+
+    rec = soak_kernel.check_case(soak_kernel.soak_case(seed, 4096, soak_kernel.CARD_ROWS),
+                                 cuda_device)
+    assert rec["geometry"]["blocks"] > 0
+    assert rec["ok"], soak_kernel.format_record(rec)

@@ -28,7 +28,9 @@ def test_importing_every_module_pulls_in_no_jax():
     assert "mirror_maze_tpu_torch.utils.profiling" in mods
     for m in ("render.intersect", "render.tracer", "render.campath", "scene.io",
               "utils.imageio", "utils.minimap", "runtime.watchdog", "runtime.loop",
-              "runtime.server", "parallel.multiplayer", "__main__"):
+              "runtime.server", "parallel.multiplayer", "__main__", "bench",
+              "tools.soak_kernel", "examples.cornell_box", "examples.mesh_gallery",
+              "examples.multiplayer_demo"):
         assert f"mirror_maze_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -108,6 +110,18 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         make_multiplayer_engine(cfg)
+    # The bench, the soak and the examples run on the card unless told.
+    from mirror_maze_tpu_torch.bench import validate, validate_frames
+    from mirror_maze_tpu_torch.examples import cornell_box, multiplayer_demo
+    from mirror_maze_tpu_torch.tools import soak_kernel
+
+    for entry in (validate, validate_frames, lambda: soak_kernel.run_soak(1),
+                  lambda: cornell_box.render_scene(cornell_box.build_cornell_box(),
+                                                   cornell_box.render_config(8, 1, "brute"),
+                                                   None),
+                  lambda: multiplayer_demo.main(["--frames", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
     assert check_devices(["cpu"] * 2) == [torch.device("cpu")] * 2
     assert resolve_device("cpu") == torch.device("cpu")
 
@@ -129,3 +143,17 @@ def test_kernel_wrappers_never_take_the_plain_version_on_a_cuda_tensor():
         head = src[:src.index(plain)]
         assert head.rstrip().endswith("return") and 'type == "cpu":' in head.splitlines()[-2]
         assert "kernels.launch(" in src[src.index(plain):]
+
+
+def test_installed_script_runs_the_ports_cli():
+    """pyproject.toml installs ``mirror-maze-tpu-torch`` for the port's CLI."""
+    import importlib
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    module, func = scripts["mirror-maze-tpu-torch"].split(":")
+    from mirror_maze_tpu_torch import __main__ as cli
+
+    assert getattr(importlib.import_module(module), func) is cli.main
+    assert scripts["mirror-maze-tpu"] == "mirror_maze_tpu.__main__:main"
