@@ -36,6 +36,18 @@ with its triangles made glass; and further paths of the engine:
   THE ONE CARD (no multi-GPU number), each band presented by the present
   kernel's halo variant with its neighbours' rows;
 
+Every frame of those engine paths is one replay of the step's captured CUDA
+graph (runtime/graph.py; the first frame of each input kind eager), and each
+path also runs its script through the eager loop (``make_scan_step_fn``, or
+the band body without graphs): the state and frame must be bitwise equal,
+and the line prints the eager ms/frame beside the graph's, the replays a
+frame, the capture seconds, the graphs' pool bytes and the peak memory
+reserved (each phase drops its runner first). ``[graph]`` then runs
+``[main]``'s 168 frames through ``make_scan_step`` (captured under
+``torch.cuda.set_sync_debug_mode("error")``), ``make_step`` one call a frame
+and a ``make_step_fn`` loop before and after: bitwise equal, with the
+device copies a frame of each graph route.
+
 with the kernel checks ``[present-halo]`` (bands put together are bitwise
 the whole screen's present), ``[tracer-tex-*]``, ``[tracer-diag-*]`` (the
 per-block diagnostics, exact against the plain version) and ``[tracer-sky*]``;
@@ -60,7 +72,9 @@ path and checkpoints, each phase with its seconds:
   ``render_full_frame`` and the 28-frame script against
   ``tests/goldens/frame_brute.npz`` and ``script_brute.npz``;
 - ``[v0]`` ``config_v0`` (4x4 maze, 256x256, 1 spp, brute), 40 frames, and
-  the same script on the CPU in this process, by the golden rule;
+  the same script on the CPU in this process, by the golden rule; it and
+  ``[exact]`` replay graphs and are held bitwise against the eager loop, as
+  ``[bvh]`` (eager: its walk reads the host) is;
 - ``[bvh]`` / ``[exact]`` ``config_bvh``'s scene (8x8 maze, 512x384, 4 spp,
   5 + 4 bounces) with the traversal and with the dense exact test, 8 frames
   each, their last frames against each other; the walk's host check every
@@ -199,6 +213,56 @@ CHECK_INTERVALS = (1, 2, 4, 8, 16, 32)
 WALK_REPEATS = 3
 
 
+def timed(fn):
+    """(result, device ms) of fn, ended by a synchronize."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def states_bitwise(a, b) -> bool:
+    """Two engine states (single or band), every tensor bitwise equal."""
+    import torch
+
+    flat = lambda s: [t for f in s for t in (f if isinstance(f, tuple) else (f,))]
+    return all(x.dtype == y.dtype and torch.equal(x.reshape(-1).view(torch.uint8),
+                                                         y.reshape(-1).view(torch.uint8))
+               for x, y in zip(flat(a), flat(b)))
+
+
+def only_graphs(runner):
+    """The StepGraphs of a runner that has run on one card."""
+    (graphs,) = runner.graphs.values()
+    return graphs
+
+
+def graph_line(graphs) -> str:
+    """A runner's graphs: kinds, capture seconds, pool bytes, and the
+    peak device memory reserved since the phase reset it."""
+    import torch
+
+    return (f"graphs of kinds {list(graphs.kinds)} (rotating: True), capture "
+            f"{graphs.capture_s:.3f} s, pool {graphs.pool_bytes / 2**20:.1f} MiB, max reserved "
+            f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
+
+
+def release() -> None:
+    """Drop what a phase left: its runners' graphs and their pools."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
 def _script(fi, counts) -> list:
     idle, walk, turn, idle2 = counts
     return ([fi.idle()] * idle + [fi.make(w=True)] * walk
@@ -212,6 +276,80 @@ def _golden_rule(got, ref) -> tuple:
 
     diff = np.abs(got.astype(int) - ref.astype(int))
     return float((diff <= 1).mean()), int(diff.max())
+
+
+def graph_phase(dev, smi: str, cfg, scene) -> None:
+    """[graph]: ``[main]``'s script through ``make_scan_step`` (a captured
+    graph per input kind, captured under the sync debug mode "error"),
+    through ``make_step`` one call a frame (the drivers' route), and through
+    a loop of ``make_step_fn`` (eager) before and after them, in this call:
+    the last state and frame bitwise equal, ms/frame of each, graph replays
+    and device copies a frame, capture seconds and pool bytes."""
+    import torch
+
+    from mirror_maze_tpu_torch import kernels
+    from mirror_maze_tpu_torch.runtime.state import FrameInputs, init_state
+    from mirror_maze_tpu_torch.runtime.step import make_scan_step, make_step, make_step_fn
+
+    t0 = time.perf_counter()
+    inputs = _script(FrameInputs, SCRIPTS["main"])
+    n = len(inputs)
+    warm = [FrameInputs.idle(), FrameInputs.make(mouse_dx=-27.0)]   # one frame of each kind
+    fresh = lambda: init_state(cfg, seed=0, device=dev)             # noqa: E731
+    release()
+    eager_step = make_step_fn(cfg)
+
+    def eager():
+        st = fresh()
+        for inp in inputs:
+            st, frame = eager_step(scene, st, inp)
+        return st, frame
+
+    (est, eframe), eager_ms = timed(eager)
+    run = make_scan_step(scene, cfg)
+    st = fresh()
+    torch.cuda.set_sync_debug_mode("error")          # a hidden host sync raises
+    try:
+        run(st, warm)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graphs = only_graphs(run.runner)
+    replays, copies = graphs.replays, graphs.copies
+    kernels.reset_launches()
+    (st, frame), graph_ms = timed(lambda: run(fresh(), inputs))
+    counts = dict(kernels.launches)
+    replays, copies = (graphs.replays - replays) / n, (graphs.copies - copies) / n
+    step = make_step(scene, cfg)
+    for inp in warm:
+        step(fresh(), inp)
+    one = only_graphs(step.runner)
+    one_copies = one.copies
+
+    def per_frame():
+        st = fresh()
+        for inp in inputs:
+            st, frame = step(st, inp)
+        return st, frame
+
+    (sst, sframe), step_ms = timed(per_frame)
+    one_copies = (one.copies - one_copies) / n
+    (est2, eframe2), eager2_ms = timed(eager)
+    same = states_bitwise(st, est) and torch.equal(frame, eframe)
+    same_step = states_bitwise(sst, est) and torch.equal(sframe, eframe)
+    same_eager = states_bitwise(est, est2) and torch.equal(eframe, eframe2)
+    sc = cfg.screen
+    log(f"[graph] config_interactive {sc.width}x{sc.height} {sc.samples_per_pixel} spp, "
+        f"{n} frames {SCRIPTS['main']}: make_scan_step (graphs) {graph_ms / n:.3f} ms/frame, "
+        f"{replays:g} replays and {copies:.3f} device copies a frame; make_step one call a "
+        f"frame {step_ms / n:.3f} ms/frame, {one_copies:.3f} device copies a frame; eager "
+        f"make_step_fn loop {eager_ms / n:.3f} then {eager2_ms / n:.3f} ms/frame; last state and "
+        f"frame bitwise the eager loop's: scan {same}, per frame {same_step} (eager twice "
+        f"{same_eager}); launches {counts}; scan {graph_line(graphs)}; per frame graphs capture "
+        f"{one.capture_s:.3f} s, pool {one.pool_bytes / 2**20:.1f} MiB; checksum "
+        f"{int(frame.to(torch.int64).sum())}; {time.perf_counter() - t0:.1f} s | {smi}")
+    if not (same and same_step and same_eager and counts == {"tracer": n, "present": n}
+            and replays == 1.0):
+        raise SystemExit("[graph] FAIL")
 
 
 def jnp_phases(dev, smi: str) -> None:
@@ -242,19 +380,15 @@ def jnp_phases(dev, smi: str) -> None:
         load_state,
         save_state,
     )
-    from mirror_maze_tpu_torch.runtime.step import derive_traversal_bounds, make_scan_step
+    from mirror_maze_tpu_torch.runtime.step import (
+        derive_traversal_bounds,
+        make_scan_step,
+        make_scan_step_fn,
+    )
     from mirror_maze_tpu_torch.scene import build_scene
     from mirror_maze_tpu_torch.utils import imageio
 
-    def timed(fn):
-        """(result, device ms) of fn, ended by a synchronize."""
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return out, start.elapsed_time(end)
+    turning = FrameInputs.make(mouse_dx=-27.0)
 
     # [golden-brute]: the brute backend's frame and script against the
     # committed goldens.
@@ -286,14 +420,19 @@ def jnp_phases(dev, smi: str) -> None:
     cfg = P.NAMED_CONFIGS["v0"]()
     sc = cfg.screen
     inputs = _script(FrameInputs, JNP_SCRIPTS["v0"])
-    run = make_scan_step(upload_scene(build_scene(cfg.maze), device=dev), cfg)
-    run(init_state(cfg, device=dev), inputs[:2])                 # first-call costs
+    release()
+    v0_scene = upload_scene(build_scene(cfg.maze), device=dev)
+    run = make_scan_step(v0_scene, cfg)
+    run(init_state(cfg, device=dev), [inputs[0], turning])       # first-call costs
     torch.cuda.synchronize()
     st0 = init_state(cfg, seed=0, device=dev)
     kernels.reset_launches()
     (st, frame), ms = timed(lambda: run(st0, inputs))
     counts = dict(kernels.launches)
     n = len(inputs)
+    (est, eframe), eager_ms = timed(lambda: make_scan_step_fn(cfg, n)(
+        v0_scene, init_state(cfg, seed=0, device=dev), inputs))
+    same = states_bitwise(st, est) and torch.equal(frame, eframe)
     rays = sc.effective_chunks_per_frame * sc.pixels_per_chunk * sc.samples_per_pixel
     checksum = int(frame.to(torch.int64).sum())
     t_cpu = time.perf_counter()
@@ -309,8 +448,9 @@ def jnp_phases(dev, smi: str) -> None:
         f"{ms / n:.3f} ms/frame, {rays / (ms / n) / 1e3:.2f} Mrays/s, checksum {checksum}; the "
         f"same script on the CPU ({t_cpu:.1f} s): {within:.6f} within 1 LSB, max diff {worst}, "
         f"queue/cursor/key/frame equal {same_state}, camera diff {cam_diff:.1e}; launches "
-        f"{counts}; {time.perf_counter() - t0:.1f} s | {smi}")
-    if not (within > 0.999 and worst <= 4 and same_state and cam_diff <= 1e-6
+        f"{counts}; eager loop {eager_ms / n:.3f} ms/frame, graph == eager bitwise {same}; "
+        f"{graph_line(only_graphs(run.runner))}; {time.perf_counter() - t0:.1f} s | {smi}")
+    if not (within > 0.999 and worst <= 4 and same_state and cam_diff <= 1e-6 and same
             and float(frame.float().mean()) > 0.1 and counts == {"present": n}):
         raise SystemExit("[v0] FAIL")
 
@@ -326,14 +466,20 @@ def jnp_phases(dev, smi: str) -> None:
     for backend in ("bvh", "exact"):
         t0 = time.perf_counter()
         cfg = base.replace(intersector=backend)
+        release()
         run = make_scan_step(bscene, cfg)
-        run(init_state(cfg, device=dev), inputs[:1])            # first-call costs
+        run(init_state(cfg, device=dev), [inputs[0], turning])  # first-call costs
         torch.cuda.synchronize()
         st0 = init_state(cfg, seed=0, device=dev)
         kernels.reset_launches()
         intersect.walk_counts.clear()
         (st, frame), ms = timed(lambda: run(st0, inputs))
         counts, walks = dict(kernels.launches), dict(intersect.walk_counts)
+        (est, eframe), eager_ms = timed(lambda: make_scan_step_fn(cfg, n)(
+            bscene, init_state(cfg, seed=0, device=dev), inputs))
+        same = states_bitwise(st, est) and torch.equal(frame, eframe)
+        route = ("eager (the walk reads the host)" if backend == "bvh" else
+                 graph_line(only_graphs(run.runner)))
         walked = ""
         if backend == "bvh":
             per_walk = walks["iterations"] / walks["walks"]
@@ -344,10 +490,12 @@ def jnp_phases(dev, smi: str) -> None:
             f"{cfg.tracer.bounce_limit} + {cfg.tracer.mirror_limit} bounces, intersector "
             f"{backend}, {n} frames, {rays} rays/frame: {ms / n:.1f} ms/frame, "
             f"{rays / (ms / n) / 1e3:.3f} Mrays/s{walked}, checksum "
-            f"{int(frame.to(torch.int64).sum())}; launches {counts}; "
+            f"{int(frame.to(torch.int64).sum())}; launches {counts}; eager loop "
+            f"{eager_ms / n:.1f} ms/frame, make_scan_step == eager bitwise {same}; {route}; "
             f"{time.perf_counter() - t0:.1f} s | {smi}")
-        if counts != {"present": n} or float(frame.float().mean()) <= 1.0:
-            raise SystemExit(f"[{backend}] FAIL: launches {counts} or a blank frame")
+        if counts != {"present": n} or float(frame.float().mean()) <= 1.0 or not same:
+            raise SystemExit(f"[{backend}] FAIL: launches {counts}, a blank frame, or not the "
+                             "eager step's")
         last[backend] = frame.cpu().numpy()
     within, worst = _golden_rule(last["bvh"], last["exact"])
     log(f"[bvh] last frame vs [exact]'s: {within:.6f} within 1 LSB, max diff {worst}")
@@ -1195,7 +1343,8 @@ def main() -> int:
         load_state,
         save_state,
     )
-    from mirror_maze_tpu_torch.runtime.step import make_scan_step
+    from mirror_maze_tpu_torch.runtime.graph import StepRunner
+    from mirror_maze_tpu_torch.runtime.step import make_scan_step, make_scan_step_fn, run_frames
     from mirror_maze_tpu_torch.scene import build_scene
     from mirror_maze_tpu_torch.scene.builder import Scene
     from mirror_maze_tpu_torch.utils.profiling import (
@@ -1602,18 +1751,26 @@ def main() -> int:
         raise SystemExit("[golden] FAIL")
 
     # 6. The driven paths: each configuration at full width, scripted, with
-    # the launch counts set to 0 just before and read just after.
+    # the launch counts set to 0 just before and read just after. Every
+    # frame of make_scan_step is a replay of a captured graph (the first
+    # frame of each input kind eager: the warm-up call steps one of each);
+    # the same script through the eager loop must give the same state and
+    # frame, bitwise.
     def drive(path, script=None):
         """Run ``path``'s configuration through its script (or another
         path's): (launch counts, last frame)."""
         cfg, scene = configs[path], scenes[path]
         sc = cfg.screen
         idle, walk, turn, idle2 = SCRIPTS[script or path]
+        turning = FrameInputs.make(mouse_dx=-27.0)
         inputs = ([FrameInputs.idle()] * idle + [FrameInputs.make(w=True)] * walk
-                  + [FrameInputs.make(mouse_dx=-27.0)] * turn + [FrameInputs.idle()] * idle2)
+                  + [turning] * turn + [FrameInputs.idle()] * idle2)
+        release()
         run = make_scan_step(scene, cfg)
-        run(init_state(cfg, seed=0, device=dev), inputs[:2])   # first-launch costs
+        run(init_state(cfg, seed=0, device=dev), [FrameInputs.idle(), turning])  # first-use costs
         torch.cuda.synchronize()
+        graphs = only_graphs(run.runner)
+        replays = graphs.replays
         st = init_state(cfg, seed=0, device=dev)
         start_center = st.cam_center.clone()
         kernels.reset_launches()
@@ -1630,6 +1787,11 @@ def main() -> int:
         ms_frame = t_start.elapsed_time(t_end) / n_frames
         rays = sc.effective_chunks_per_frame * sc.pixels_per_chunk * sc.samples_per_pixel
         moved = float((st.cam_center - start_center).abs().max())
+        replays = (graphs.replays - replays) / n_frames
+        eager_run = make_scan_step_fn(cfg, n_frames)
+        (est, eframe), eager_ms = timed(lambda: eager_run(scene, init_state(cfg, seed=0,
+                                                                            device=dev), inputs))
+        same = states_bitwise(st, est) and torch.equal(frame, eframe)
         cfg_name = {"main": "interactive", "glass": "interactive + glass_prob 0.5",
                     "glass-scale": "scale + glass_prob 0.5",
                     "sky": "interactive + sky_strength 0.7"}.get(path, path)
@@ -1638,7 +1800,11 @@ def main() -> int:
             f"{n_frames} frames ({idle} idle, {walk} walk, {turn} turn, {idle2} idle), "
             f"{rays} rays/frame: {ms_frame:.3f} ms/frame, "
             f"{rays / ms_frame / 1e3:.2f} Mrays/s (host wall {wall:.2f} s), checksum "
-            f"{checksum}, camera moved {moved:.3f}, launches {counts} | {smi}")
+            f"{checksum}, camera moved {moved:.3f}, launches {counts}; graph {replays:g} "
+            f"replays/frame, eager loop {eager_ms / n_frames:.3f} ms/frame, graph == eager "
+            f"bitwise {same}; {graph_line(graphs)} | {smi}")
+        if not same:
+            raise SystemExit(f"[{path}] FAIL: the graph's state or frame is not the eager step's")
         display = frame.to(torch.float32)
         if not (tuple(frame.shape) == (sc.height, sc.width, 3) and frame.dtype == torch.uint8
                 and float(display.mean()) > 1.0 and moved > 0.0
@@ -1662,6 +1828,7 @@ def main() -> int:
         configs["main"].screen, adaptive_refresh=True))
     asc = acfg.screen
     epoch = -(-asc.total_chunks // asc.effective_chunks_per_frame)
+    release()
     arun = make_scan_step(scenes["main"], acfg)
     ast = init_state(acfg, seed=0, device=dev)
     kernels.reset_launches()
@@ -1677,29 +1844,45 @@ def main() -> int:
     is_perm = torch.equal(ast.perm.sort().values.to(torch.int64),
                           torch.arange(asc.total_chunks, device=dev))
     moved_share = float((ast.perm != before).float().mean())
+    est, _ = make_scan_step_fn(acfg, epoch - 1)(scenes["main"], init_state(acfg, seed=0,
+                                                                           device=dev),
+                                                [FrameInputs.idle()] * (epoch - 1))
+    (est, eframe), a_eager_ms = timed(lambda: make_scan_step_fn(acfg, 9)(
+        scenes["main"], est, [FrameInputs.idle()] * 9))
+    same = states_bitwise(ast, est) and torch.equal(aframe, eframe)
     log(f"[adaptive] config_interactive + adaptive_refresh, {epoch - 1} + 9 idle frames (the "
         f"queue of {asc.total_chunks} chunks wraps on frame {epoch}): queue still a permutation "
         f"{is_perm}, {moved_share:.4f} of its places changed at the wrap, "
-        f"{a_start.elapsed_time(a_end) / 9:.3f} ms/frame over the last 9, launches {counts} | {smi}")
+        f"{a_start.elapsed_time(a_end) / 9:.3f} ms/frame over the last 9, launches {counts}; "
+        f"eager loop {a_eager_ms / 9:.3f} ms/frame over the last 9, graph == eager bitwise "
+        f"{same}; {graph_line(only_graphs(arun.runner))} | {smi}")
     if not (is_perm and moved_share > 0.5 and float(aframe.float().mean()) > 1.0):
         raise SystemExit("[adaptive] FAIL: the queue was not reordered at the wrap")
+    if not same:
+        raise SystemExit("[adaptive] FAIL: the graph's state or frame is not the eager step's")
     if counts != {"tracer": epoch + 8, "present": epoch + 8}:
         raise SystemExit(f"[adaptive] FAIL: launches {counts}")
-    del ast, aframe, before
+    del ast, aframe, before, arun, est, eframe
 
     # The row-band engine: the screen cut into bands, every band on this
     # one card. Camera against the single engine's, the kernel present
-    # against the plain halo blur, launches counted.
+    # against the plain halo blur, launches counted; one graph per input kind
+    # holds every band's step, the halo rows and the halo presents, and the
+    # same body stepped eagerly must give the same state and frame, bitwise.
     def drive_bands(tag, path, n_bands):
         cfg, scene = configs[path], scenes[path]
         sc = cfg.screen
         idle, walk, turn, idle2 = SCRIPTS.get(tag, SCRIPTS["glass"])
+        turning = FrameInputs.make(mouse_dx=-27.0)
         inputs = ([FrameInputs.idle()] * idle + [FrameInputs.make(w=True)] * walk
-                  + [FrameInputs.make(mouse_dx=-27.0)] * turn + [FrameInputs.idle()] * idle2)
+                  + [turning] * turn + [FrameInputs.idle()] * idle2)
         devices = [dev] * n_bands
+        release()
         init_fn, scan_fn = shard.make_sharded_scan_engine(cfg, devices)
-        scan_fn(scene, init_fn(0), inputs[:2])                  # first-launch costs
+        scan_fn(scene, init_fn(0), [FrameInputs.idle(), turning])   # first-use costs
         torch.cuda.synchronize()
+        graphs = only_graphs(scan_fn.runner_of(scene))
+        replays = graphs.replays
         st = init_fn(0)
         kernels.reset_launches()
         t_start = torch.cuda.Event(enable_timing=True)
@@ -1711,6 +1894,12 @@ def main() -> int:
         counts = dict(kernels.launches)
         n_frames = len(inputs)
         ms_frame = t_start.elapsed_time(t_end) / n_frames
+        replays = (graphs.replays - replays) / n_frames
+        eager = StepRunner(scan_fn.runner_of(scene)._body, graphs=False)
+        est, eager_ms = timed(lambda: run_frames(eager, init_fn(0), inputs))
+        eframe = shard.assemble_frame(shard.band_frames(est, shard._band_screen_cfg(cfg,
+                                                                                    n_bands)))
+        same = states_bitwise(st, est) and torch.equal(frame, eframe)
         band = shard._band_screen_cfg(cfg, n_bands)
         rays = (n_bands * band.effective_chunks_per_frame * sc.pixels_per_chunk
                 * sc.samples_per_pixel)
@@ -1728,10 +1917,12 @@ def main() -> int:
             f"number), {n_frames} frames ({idle} idle, {walk} walk, {turn} turn, {idle2} idle), "
             f"{rays} rays/frame: {ms_frame:.3f} ms/frame, {rays / ms_frame / 1e3:.2f} Mrays/s, "
             f"checksum {checksum}, camera == the single engine's {camera}, band screens == the "
-            f"plain halo blur's bitwise {screens}, launches {counts} | {smi}")
+            f"plain halo blur's bitwise {screens}, launches {counts}; graph {replays:g} "
+            f"replays/frame, eager loop {eager_ms / n_frames:.3f} ms/frame, graph == eager "
+            f"bitwise {same}; {graph_line(graphs)} | {smi}")
         if not (tuple(frame.shape) == (sc.height, sc.width, 3) and frame.dtype == torch.uint8
                 and float(frame.float().mean()) > 1.0 and camera and screens
-                and torch.equal(frame, pframe)):
+                and torch.equal(frame, pframe) and same):
             raise SystemExit(f"[{tag}] FAIL: frame malformed, or the camera or the present "
                              "disagrees")
         if counts != {"tracer": n_bands * n_frames, "present_halo": n_bands * n_frames}:
@@ -1740,6 +1931,8 @@ def main() -> int:
 
     drive_bands("bands", "main", 2)
     drive_bands("bands-4k", "scale", 4)
+    graph_phase(dev, smi, configs["main"], scenes["main"])
+    release()
 
     # 7. The offline renders through render_full_frame: the kernel against
     # its plain version on one block of pixel rows, then the whole frame.

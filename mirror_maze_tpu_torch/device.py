@@ -1,4 +1,5 @@
-"""Device resolution: the CUDA card by default, the CPU only on request.
+"""Device resolution: the CUDA card by default, the CPU only on request;
+and the step's device constants (``constant``).
 
 There is no silent fallback. ``device=None`` means ``cuda`` and raises when
 no card is present, so a run that was meant for the GPU can never quietly
@@ -22,3 +23,18 @@ def resolve_device(device=None) -> torch.device:
             "card by default — pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+_constants: dict = {}
+
+
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once per
+    (values, dtype, device) and shared: READ-ONLY. The step body takes its
+    constants from here, so that after its first frame it copies nothing
+    from the host, which a CUDA graph capture (runtime/graph.py) forbids."""
+    key = (values, dtype, torch.device(device))
+    t = _constants.get(key)
+    if t is None:
+        t = _constants[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t

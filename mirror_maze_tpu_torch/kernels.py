@@ -18,12 +18,16 @@ machine may have no ``nvcc`` at all.
 
 ``launches`` counts kernel launches by name. Each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that it went
-through the kernels.
+through the kernels. A launch made while a CUDA graph is captured runs
+nothing: inside ``counting_capture()`` it is counted apart, and the graph's
+runner adds those counts to ``launches`` on every replay
+(runtime/graph.py).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -78,12 +82,32 @@ LIBRARIES = {
 }
 
 launches: collections.Counter = collections.Counter()
+_captures: list = []    # the Counters of the captures in progress, innermost last
 _libs: dict = {}
 _lock = threading.Lock()
 
 
 def reset_launches() -> None:
     launches.clear()
+
+
+@contextlib.contextmanager
+def counting_capture():
+    """Count the launches made inside into the yielded Counter instead of
+    ``launches``: the block is a CUDA graph capture, where a launch is
+    recorded and nothing runs."""
+    counted = collections.Counter()
+    _captures.append(counted)
+    try:
+        yield counted
+    finally:
+        _captures.pop()
+
+
+def add_launches(counts) -> None:
+    """Count the launches of one replay of a captured graph (the Counter
+    ``counting_capture`` yielded for it)."""
+    launches.update(counts)
 
 
 def _nvcc() -> str:
@@ -169,10 +193,11 @@ def build(names=tuple(LIBRARIES), verbose: bool = False) -> dict:
 
 def launch(name: str, *args, count_as: str | None = None) -> None:
     """Call library ``name``'s C entry on the current stream, count the
-    launch (under ``count_as`` where one library serves two variants) and
-    raise if CUDA refused it."""
+    launch (under ``count_as`` where one library serves two variants; into
+    the innermost ``counting_capture`` where one is open) and raise if CUDA
+    refused it."""
     fn = _libs.get(name) or build((name,))[name]
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch: error {err}")
-    launches[count_as or name] += 1
+    (_captures[-1] if _captures else launches)[count_as or name] += 1

@@ -20,6 +20,7 @@ import math
 import numpy as np
 import torch
 
+from ..device import constant
 from .vecmath import sqrt
 
 MASK = 0xFFFFFFFF
@@ -93,8 +94,8 @@ def uniform(key: torch.Tensor, shape: tuple, minval: float = 0.0,
     bits = random_bits(key, shape)
     fbits = (bits >> 9) | 0x3F800000
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = constant(float(minval), torch.float32, key.device)
+    hi = constant(float(maxval), torch.float32, key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
@@ -173,8 +174,8 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     w = -log1p(x * -x)
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, sqrt(w) - 3.0)
-    f32 = dict(dtype=torch.float64, device=x.device)
-    coef = [torch.where(lt, torch.tensor(a, **f32), torch.tensor(b, **f32))
+    coef = [torch.where(lt, constant(a, torch.float64, x.device),
+                        constant(b, torch.float64, x.device))
             for a, b in zip(_ERFINV_W_LT_5, _ERFINV_W_GE_5)]
     p = coef[0].float()
     for c in coef[1:]:

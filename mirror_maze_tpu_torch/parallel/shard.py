@@ -64,7 +64,8 @@ from ..runtime.state import (
     load_state,
     read_checkpoint,
 )
-from ..runtime.step import advance_to_scatter, frame_inputs
+from ..runtime.graph import StepRunner
+from ..runtime.step import GRAPH_INTERSECTORS, advance_to_scatter, frame_inputs, run_frames
 
 
 def check_devices(devices, need: int | None = None) -> list:
@@ -255,10 +256,11 @@ def _lazy_backends(cfg: EngineConfig, max_depth: int | None, max_leaf: int | Non
 
 
 def _engine_locals(cfg: EngineConfig, devices, max_depth=None, max_leaf=None):
-    """(band ScreenConfig, init_fn, local_step, scenes_of) shared by the
-    per-frame and the scan engine: ``init_fn(seed=0)`` makes the band state,
-    ``local_step(scenes, state, inputs)`` one frame of every band, and
-    ``scenes_of(scene)`` the scene's copies on the device list."""
+    """(band ScreenConfig, init_fn, runner_of) shared by the per-frame and
+    the scan engine: ``init_fn(seed=0)`` makes the band state and
+    ``runner_of(scene)`` the StepRunner of ``local_step(scenes, state,
+    input_row, rotate)``, one frame of every band, on the scene's copies on
+    the device list (a runner per scene, the latest kept)."""
     devs = check_devices(devices)
     n_tile = len(devs)
     band = _band_screen_cfg(cfg, n_tile)
@@ -283,13 +285,14 @@ def _engine_locals(cfg: EngineConfig, devices, max_depth=None, max_leaf=None):
 
     backends = _lazy_backends(cfg, max_depth, max_leaf)
 
-    def local_step(scenes, state: ShardedEngineState, inputs: FrameInputs):
+    def local_step(scenes, state: ShardedEngineState, inp: torch.Tensor, rotate: bool):
         nearest = backends(scenes)
         # 1-4 per band: the band-local window (Morton-sorted and adaptively
         # reordered on the band's grid), the replicated camera, rays against
         # the whole screen at the band's row offset, the band-local scatter.
-        bands = [advance_to_scatter(scenes[ti], cfg, n_chunks, state.band(ti), inputs,
-                                    grid=band, row0=ti * band.height, nearest_fn=nearest[ti])
+        bands = [advance_to_scatter(scenes[ti], cfg, n_chunks, state.band(ti),
+                                    inp.to(devs[ti], non_blocking=True), rotate, grid=band,
+                                    row0=ti * band.height, nearest_fn=nearest[ti])
                  for ti in range(n_tile)]
         # 5. Present with the neighbours' rows, all read before any present.
         halo_top, halo_bot = _exchange_halo_rows([b.screen for b in bands], band)
@@ -307,7 +310,17 @@ def _engine_locals(cfg: EngineConfig, devices, max_depth=None, max_leaf=None):
     def init_fn(seed: int = 0) -> ShardedEngineState:
         return ShardedEngineState.from_bands([local_init(seed, ti) for ti in range(n_tile)])
 
-    return band, init_fn, local_step, _scene_cache(devs)
+    scenes_of, slot = _scene_cache(devs), []    # [(scenes, StepRunner)]
+
+    def runner_of(scene) -> StepRunner:
+        scenes = scenes_of(scene)
+        if not (slot and slot[0][0] is scenes):
+            slot[:] = [(scenes, StepRunner(
+                lambda st, inp, rotate: local_step(scenes, st, inp, rotate),
+                graphs=cfg.intersector in GRAPH_INTERSECTORS))]
+        return slot[0][1]
+
+    return band, init_fn, runner_of
 
 
 def band_frames(state: ShardedEngineState, band: ScreenConfig) -> list:
@@ -347,13 +360,18 @@ def make_sharded_engine(cfg: EngineConfig, devices=None, max_depth: int | None =
     first use) or the list of its per-device copies. The camera behaves as the
     single engine's (runtime/step.py), every band refreshes its own rows from
     its own queue, and the blur crosses the band seams. The bvh traversal
-    bounds default to the scene's (derived at the first call)."""
-    band, init_fn, local_step, scenes_of = _engine_locals(cfg, devices, max_depth, max_leaf)
+    bounds default to the scene's (derived at the first call). With every
+    band on one CUDA card (intersector ``pallas``, ``brute`` or ``exact``) a
+    frame is one replay of a captured graph that holds every band's step, the
+    halo row copies and the halo presents (runtime/graph.py); over several
+    devices, an eager loop of the bands."""
+    band, init_fn, runner_of = _engine_locals(cfg, devices, max_depth, max_leaf)
 
     def step_fn(scene, state: ShardedEngineState, inputs: FrameInputs):
-        state = local_step(scenes_of(scene), state, inputs)
+        state = run_frames(runner_of(scene), state, [inputs])
         return state, assemble_frame(band_frames(state, band))
 
+    step_fn.runner_of = runner_of
     return init_fn, step_fn
 
 
@@ -361,17 +379,16 @@ def make_sharded_scan_engine(cfg: EngineConfig, devices=None, max_depth: int | N
                              max_leaf: int | None = None):
     """(init_fn, scan_fn): many frames per call, ``scan_fn(scene, state,
     inputs) -> (state, last frame)`` with ``inputs`` a list of FrameInputs or
-    a stacked one (runtime/step.py ``stack_inputs``). A plain loop of band
-    steps, as runtime/step.py make_scan_step; only the final frame's display
-    is built."""
-    band, init_fn, local_step, scenes_of = _engine_locals(cfg, devices, max_depth, max_leaf)
+    a stacked one (runtime/step.py ``stack_inputs``). Graph replays where
+    ``make_sharded_engine`` replays them, else a loop of band steps, as
+    runtime/step.py make_scan_step; only the final frame's display is built."""
+    band, init_fn, runner_of = _engine_locals(cfg, devices, max_depth, max_leaf)
 
     def scan_fn(scene, state: ShardedEngineState, inputs):
-        scenes = scenes_of(scene)
-        for inp in frame_inputs(inputs):
-            state = local_step(scenes, state, inp)
+        state = run_frames(runner_of(scene), state, frame_inputs(inputs))
         return state, assemble_frame(band_frames(state, band))
 
+    scan_fn.runner_of = runner_of
     return init_fn, scan_fn
 
 

@@ -6,11 +6,14 @@ under torch.profiler.
 
 Runs the named configuration (default ``config_interactive``, 1920x1080,
 64 spp; ``scale`` and ``fuzzy`` are the multi-tile ones) for a few warm-up
-frames, then ``--frames`` idle frames through ``make_scan_step`` under the profiler,
+frames, then ``--frames`` idle frames through ``make_scan_step`` under the profiler
+(every frame one replay of the step's captured CUDA graph, runtime/graph.py),
 and prints one JSON line: ms/frame on the host clock (ending in a
 synchronize), device busy ms/frame (the sum of CUDA kernel times), the
-device's idle share, and the kernels by total device time. ``--trace``
-writes the chrome trace. Needs a CUDA card.
+device's idle share, the kernels by total device time and their launches a
+frame (the kernels inside the graph), and the graph's replays a frame,
+capture seconds and pool bytes. ``--trace`` writes the chrome trace. Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ def main() -> None:
     run = make_scan_step(scene, cfg)
     st, _ = run(init_state(cfg), [FrameInputs.idle()] * 4)
     torch.cuda.synchronize()
+    (graphs,) = run.runner.graphs.values()
+    replays = graphs.replays
     inputs = [FrameInputs.idle()] * args.frames
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -81,6 +86,8 @@ def main() -> None:
             for e in kernels[:args.top]
         ],
         "launches_per_frame": sum(e.count for e in kernels) / n,
+        "graph": {"replays_per_frame": (graphs.replays - replays) / n,
+                  "capture_s": graphs.capture_s, "pool_bytes": graphs.pool_bytes},
     }))
 
 

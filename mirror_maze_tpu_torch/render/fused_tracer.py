@@ -82,6 +82,7 @@ with the noise seed row, the sky term and the per-block diagnostics:
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -114,8 +115,26 @@ TEX_SEL_WIDTH = 26
 DIAG_ROWS = 5
 GEOMETRY = ("blocks", "threads", "smem", "registers", "per_sm", "resident")
 # The kernel's two work counters per (device, stream), zeroed once; each
-# launch leaves its pair zeroed (csrc/tracer.cu Params::work).
+# launch leaves its pair zeroed (csrc/tracer.cu Params::work). A CUDA graph
+# capture brings its own pair (``work_counters``): a graph replays on
+# whatever stream is current, so its pair cannot be the capture stream's.
 _work: dict = {}
+_graph_work: list = []
+
+
+@contextlib.contextmanager
+def work_counters(pair: torch.Tensor):
+    """Launches made inside use ``pair`` (two zeroed int32 on the launch's
+    device, allocated before a capture) as their work counters: the pair of
+    one graph runner (runtime/graph.py), whose replays run one after
+    another, each leaving the pair zeroed."""
+    if pair.dtype != torch.int32 or pair.shape != (2,):
+        raise ValueError(f"work counters are two int32, got {pair.dtype} {tuple(pair.shape)}")
+    _graph_work.append(pair)
+    try:
+        yield
+    finally:
+        _graph_work.pop()
 
 
 def _f32(x: float) -> float:
@@ -665,14 +684,20 @@ def trace_paths_fused(
     ptr = lambda x: None if x is None else x.data_ptr()
     out = (ctypes.c_int * len(GEOMETRY))()
     with torch.cuda.device(dev):            # the launch goes to this device's stream
-        key = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
-        if key not in _work:
-            _work[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+        if _graph_work:
+            work = _graph_work[-1]
+            if work.device != ori.device:
+                raise ValueError(f"work counters on {work.device}, rays on {ori.device}")
+        else:
+            key = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+            if key not in _work:
+                _work[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+            work = _work[key]
         kernels.launch(
             name, ori.data_ptr(), dirs.data_ptr(), planes.data_ptr(), planes.shape[0],
             spheres.data_ptr(), spheres.shape[0], ptr(plane_tex), ptr(sphere_tex),
             tiles.data_ptr(), tiles.shape[0], tiles.shape[0] - order.shape[0], order.data_ptr(),
-            seed.data_ptr(), ptr(seed_row), light.data_ptr(), _work[key].data_ptr(),
+            seed.data_ptr(), ptr(seed_row), light.data_ptr(), work.data_ptr(),
             ptr(segments), ptr(mask),
             0 if mask is None else mask.shape[2], ori.shape[0], block,
             cfg.max_segments, cfg.bounce_limit, cfg.mirror_limit,

@@ -35,6 +35,7 @@ from typing import Callable
 import torch
 
 from ..config import TracerConfig
+from ..device import constant
 from ..ops import prng
 from ..ops.sampling import unit_sphere
 from ..ops.vecmath import dot, normalize, reflect, sqrt
@@ -66,7 +67,7 @@ def trace_paths(
         nearest_fn = lambda o, d: nearest_hit_brute(prims, o, d, cfg.t_min)
     n_rays = ori.shape[0]
     dev = ori.device
-    sky = torch.tensor(cfg.sky_color, dtype=torch.float32, device=dev)
+    sky = constant(tuple(cfg.sky_color), torch.float32, dev)
     ray_keys = None
     if seed_row is not None:
         # The ray index is folded in before the noise sample, so the

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..config import EngineConfig
-from ..device import resolve_device
+from ..device import constant, resolve_device
 from ..ops import prng
 from ..ops import quat as quat_ops
 from ..render.camera import Camera, make_camera
@@ -39,12 +39,12 @@ class EngineState(NamedTuple):
     def camera(self, cfg: EngineConfig) -> Camera:
         vh = cfg.camera.viewport_height
         aspect = cfg.screen.width / cfg.screen.height
-        f32 = dict(dtype=torch.float32, device=self.cam_center.device)
+        dev = self.cam_center.device
         return Camera(
             center=self.cam_center,
             rotation=self.quat,
-            focal=torch.tensor(cfg.camera.focal_length, **f32),
-            viewport=torch.tensor([vh * aspect, vh], **f32),
+            focal=constant(cfg.camera.focal_length, torch.float32, dev),
+            viewport=constant((vh * aspect, vh), torch.float32, dev),
         )
 
 

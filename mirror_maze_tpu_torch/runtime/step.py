@@ -13,9 +13,19 @@ One frame, in the reference's order (`main.rs:767-894`):
    by the screen's detail whenever the pop wrapped it;
 5. feedback blur + 8-bit quantization (the present kernel).
 
-Every value the frame depends on stays a device tensor, and the inputs are
-host values, so a loop of steps never waits on the host until it reads a
-frame (the bvh backend's walk excepted, intersect.py).
+The step body reads a frame's input from a device tensor, one row of
+``upload_inputs`` (keys A, S, D, W as 0/1 and the mouse delta), and holds
+no host value, so it can be captured into a CUDA graph. Whether the frame
+rotates is the one thing the host decides: it picks between two bodies
+(the JAX package's ``lax.cond``), and with them between two graphs.
+
+``make_step`` / ``make_scan_step`` are the counterparts of the JAX
+package's jitted, donated steps: on a CUDA state with the ``pallas``,
+``brute`` or ``exact`` intersector every frame is one replay of a captured
+CUDA graph (runtime/graph.py); on the CPU, and with ``bvh`` (its walk reads
+``any(live)`` on the host, intersect.py), they run the body eagerly.
+``make_step_fn`` / ``make_scan_step_fn`` are the unjitted forms, eager
+everywhere, with the scene an argument.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import numpy as np
 import torch
 
 from ..config import EngineConfig
+from ..device import constant
 from ..ops import prng
 from ..ops import quat as quat_ops
 from ..render.accumulate import (
@@ -51,21 +62,52 @@ from ..render.scheduler import (
     take_chunks,
 )
 from ..scene.collision import collides
+from .graph import StepRunner
 from .state import EngineState, FrameInputs
 
 PI_F32 = float(np.float32(np.pi))
+# A frame's input row: keys A, S, D, W as 0.0 / 1.0, then mouse_dx (float32).
+INPUT_WIDTH = 5
+# The intersectors whose step is captured into a CUDA graph on the card.
+GRAPH_INTERSECTORS = ("pallas", "brute", "exact")
+
+
+def input_stack(frames: Sequence[FrameInputs]) -> np.ndarray:
+    """The frames' input rows, float32 [n, INPUT_WIDTH]."""
+    rows = np.zeros((len(frames), INPUT_WIDTH), dtype=np.float32)
+    for i, f in enumerate(frames):
+        rows[i, :4] = [bool(k) for k in f.keys]
+        rows[i, 4] = np.float32(f.mouse_dx)
+    return rows
+
+
+def graph_kinds(frames: Sequence[FrameInputs]) -> list:
+    """Per frame whether it rotates (``rot_updated``): the body, and on the
+    card the graph, that steps it."""
+    return [bool(f.rot_updated) for f in frames]
+
+
+def upload_inputs(frames: Sequence[FrameInputs], device) -> torch.Tensor:
+    """``input_stack`` on ``device``: to a CUDA device one pinned,
+    non-blocking copy for the whole call."""
+    rows = torch.from_numpy(input_stack(frames))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return rows.pin_memory().to(dev, non_blocking=True)
+    return rows.to(dev)
 
 
 def integrate_movement(
-    cfg: EngineConfig, center: torch.Tensor, quat: torch.Tensor, keys
+    cfg: EngineConfig, center: torch.Tensor, quat: torch.Tensor, keys: torch.Tensor
 ) -> torch.Tensor:
     """WASD integration (`main.rs:786-815`): per-key displacement of
-    speed/fps rotated into the camera frame; A/S subtract, D/W add."""
+    speed/fps rotated into the camera frame; A/S subtract, D/W add. ``keys``
+    is [4] float32 (A, S, D, W as 0/1) on the state's device."""
     step = cfg.camera.move_speed / cfg.screen.fps
-    f32 = dict(dtype=torch.float32, device=center.device)
-    right = quat_ops.rotate(torch.tensor([step, 0.0, 0.0], **f32), quat)
-    fwd = quat_ops.rotate(torch.tensor([0.0, 0.0, step], **f32), quat)
-    a, s, d, w = (float(k) for k in keys)
+    dev = center.device
+    right = quat_ops.rotate(constant((step, 0.0, 0.0), torch.float32, dev), quat)
+    fwd = quat_ops.rotate(constant((0.0, 0.0, step), torch.float32, dev), quat)
+    a, s, d, w = keys.unbind()
     delta = -right * a - fwd * s + right * d + fwd * w
     return center + delta
 
@@ -77,8 +119,7 @@ def resolve_collision(
     old_center: torch.Tensor,
 ) -> torch.Tensor:
     """Revert the whole move on any hit (`main.rs:817-826`)."""
-    half = torch.tensor(cfg.camera.player_half_extent, dtype=torch.float32,
-                        device=new_center.device)
+    half = constant(cfg.camera.player_half_extent, torch.float32, new_center.device)
     hit = collides(scene.leaf_min, scene.leaf_max, new_center - half, new_center + half)
     return torch.where(hit, old_center, new_center)
 
@@ -96,20 +137,23 @@ def rotation_update(
     perm: torch.Tensor,
     cursor: torch.Tensor,
     key: torch.Tensor,
-    inputs: FrameInputs,
+    mouse_dx: torch.Tensor,
+    rotate: bool,
     cfg: EngineConfig,
 ):
     """Mouse yaw update (`main.rs:828-842`, `main.rs:922-925`):
     half_theta -= dx * sensitivity, wrapped into [0, pi); the quaternion is
     re-aimed, keeping the old one if the update is not finite. On a
     successful rotation the chunk queue is regenerated and the cursor reset.
-    The key is split every frame, rotation or not.
+    The key is split every frame, rotation or not. ``mouse_dx`` is a
+    float32 scalar on the state's device; ``rotate`` (the frame's
+    ``rot_updated``) picks the body, as the reference's ``lax.cond``.
 
     Returns (quat, half_theta, perm, cursor, key)."""
     rkey, key = prng.split(key)
-    if not inputs.rot_updated:
+    if not rotate:
         return quat, half_theta, perm, cursor, key
-    dx = float(np.float32(inputs.mouse_dx) * np.float32(cfg.camera.mouse_sensitivity))
+    dx = mouse_dx * float(np.float32(cfg.camera.mouse_sensitivity))
     new_half = _mod(half_theta - dx, PI_F32)
     candidate = quat_ops.update_angle(quat, new_half)
     ok = torch.isfinite(candidate).all()
@@ -120,44 +164,99 @@ def rotation_update(
     return quat_out, new_half, perm_out, cursor_out, key
 
 
+def display(state: EngineState, cfg: EngineConfig) -> torch.Tensor:
+    """The uint8 display frame [H, W, 3] of a state's screen."""
+    return to_display(cm_to_spatial(state.screen, cfg.screen))
+
+
+def _body(scene, cfg, nearest_fn):
+    """The step body bound to a scene: (state, input row, rotate) -> state."""
+    n_chunks = cfg.screen.effective_chunks_per_frame
+    return lambda state, inp, rotate: _advance(scene, cfg, n_chunks, state, inp, rotate,
+                                               nearest_fn)
+
+
+def _runner(scene, cfg, max_depth, max_leaf) -> StepRunner:
+    return StepRunner(_body(scene, cfg, scene_nearest_fn(scene, cfg, max_depth, max_leaf)),
+                      graphs=cfg.intersector in GRAPH_INTERSECTORS)
+
+
+def run_frames(runner: StepRunner, state, frames: Sequence[FrameInputs]):
+    """The state after ``frames`` stepped by ``runner`` (one upload of the
+    inputs to the device of the state's first tensor)."""
+    first = state.screen if isinstance(state.screen, torch.Tensor) else state.screen[0]
+    return runner(state, upload_inputs(frames, first.device), graph_kinds(frames))
+
+
 def make_step(
     scene: DeviceScene, cfg: EngineConfig, max_depth: int | None = None,
     max_leaf: int | None = None,
 ) -> Callable[[EngineState, FrameInputs], tuple[EngineState, torch.Tensor]]:
     """The frame step bound to a scene: (state, inputs) -> (state, uint8
-    display frame [H, W, 3] on the state's device). The bvh traversal
-    bounds default to those of the scene's BVH (derive_traversal_bounds)."""
-    n_chunks = cfg.screen.effective_chunks_per_frame
-    nearest_fn = scene_nearest_fn(scene, cfg, max_depth, max_leaf)
+    display frame [H, W, 3] on the state's device); the JAX package's jitted
+    step with the state donated. On a CUDA state (intersector ``pallas``,
+    ``brute`` or ``exact``) the frame is one replay of a captured graph; the
+    state and frame handed back are the caller's, never written again. The
+    bvh traversal bounds default to those of the scene's BVH
+    (derive_traversal_bounds). ``step.runner`` is the StepRunner."""
+    runner = _runner(scene, cfg, max_depth, max_leaf)
 
     def step(state: EngineState, inputs: FrameInputs):
-        new_state = _advance(scene, cfg, n_chunks, state, inputs, nearest_fn)
-        return new_state, to_display(cm_to_spatial(new_state.screen, cfg.screen))
+        state = run_frames(runner, state, [inputs])
+        return state, display(state, cfg)
 
+    step.runner = runner
     return step
 
 
 def make_step_fn(cfg: EngineConfig, max_depth: int | None = None,
                  max_leaf: int | None = None):
     """The frame step with the scene an argument: ``step(scene, state,
-    inputs) -> (state, frame)``, for scenes that change between frames
-    (moved spheres: parallel/multiplayer.py). The jnp backend, if any, is
-    made for the scene of each call; pass the bvh traversal bounds
-    (``derive_traversal_bounds``) to keep that free of host fetches."""
+    inputs) -> (state, frame)``, eager on every device, for scenes that
+    change between frames (moved spheres: parallel/multiplayer.py). The jnp
+    backend, if any, is made for the scene of each call; pass the bvh
+    traversal bounds (``derive_traversal_bounds``) to keep that free of host
+    fetches."""
     n_chunks = cfg.screen.effective_chunks_per_frame
 
     def step(scene: DeviceScene, state: EngineState, inputs: FrameInputs):
         nearest_fn = scene_nearest_fn(scene, cfg, max_depth, max_leaf)
-        new_state = _advance(scene, cfg, n_chunks, state, inputs, nearest_fn)
-        return new_state, to_display(cm_to_spatial(new_state.screen, cfg.screen))
+        rows = upload_inputs([inputs], state.screen.device)
+        state = _advance(scene, cfg, n_chunks, state, rows[0], inputs.rot_updated, nearest_fn)
+        return state, display(state, cfg)
 
     return step
 
 
-def advance_to_scatter(scene, cfg, n_chunks, state: EngineState, inputs: FrameInputs,
-                       grid=None, row0: int = 0, nearest_fn=None) -> EngineState:
+def make_scan_step_fn(cfg: EngineConfig, n_frames: int, max_depth: int | None = None,
+                      max_leaf: int | None = None):
+    """``n_frames`` frames per call with the scene an argument: ``run(scene,
+    state, inputs) -> (final state, last display frame)``, the JAX package's
+    unjitted ``make_scan_step_fn``: an eager loop of the step body on every
+    device (its scan), only the final frame's display built. ``inputs`` as
+    for ``make_scan_step``; it must hold ``n_frames`` frames."""
+    n_chunks = cfg.screen.effective_chunks_per_frame
+
+    def run(scene: DeviceScene, state: EngineState, inputs):
+        frames = frame_inputs(inputs)
+        if len(frames) != n_frames:
+            raise ValueError(f"a scan of {n_frames} frames was given {len(frames)}")
+        nearest_fn = scene_nearest_fn(scene, cfg, max_depth, max_leaf)
+        rows = upload_inputs(frames, state.screen.device)
+        for i, rotate in enumerate(graph_kinds(frames)):
+            state = _advance(scene, cfg, n_chunks, state, rows[i], rotate, nearest_fn)
+        return state, display(state, cfg)
+
+    return run
+
+
+def advance_to_scatter(scene, cfg, n_chunks, state: EngineState, inp: torch.Tensor,
+                       rotate: bool, grid=None, row0: int = 0,
+                       nearest_fn=None) -> EngineState:
     """Steps 1-4 of a frame: the new state with the refreshed chunks written
-    into the screen and the present still to come.
+    into the screen and the present still to come. ``inp`` is the frame's
+    input row [INPUT_WIDTH] on the state's device, ``rotate`` its
+    ``rot_updated``.
 
     ``grid`` is the ScreenConfig of the chunk grid the queue addresses
     (None = ``cfg.screen``) and ``row0`` the pixel row of the whole screen at
@@ -178,20 +277,20 @@ def advance_to_scatter(scene, cfg, n_chunks, state: EngineState, inputs: FrameIn
         perm_in = adaptive_reorder(state.perm, state.cursor, cursor_next, state.screen)
 
     # 2. Movement + collision.
-    moved = integrate_movement(cfg, state.cam_center, state.quat, inputs.keys)
+    moved = integrate_movement(cfg, state.cam_center, state.quat, inp[:4])
     center = resolve_collision(cfg, scene, moved, state.cam_center)
 
     # 3. Rotation (+ queue regeneration for the NEXT frame).
     quat, half_theta, perm, cursor, key = rotation_update(
         state.quat, state.half_theta, perm_in, cursor_next, state.key,
-        inputs, cfg,
+        inp[4], rotate, cfg,
     )
 
     # 4. Trace the popped chunks and write them as chunk-major rows.
     fkey = prng.fold_in(key, frame)
     origins = chunk_origin_xy(ids, grid)
     if row0:
-        origins = origins + torch.tensor([0, row0], dtype=torch.int32, device=origins.device)
+        origins = origins + constant((0, row0), torch.int32, origins.device)
     pixels = chunk_pixels(origins, grid.chunk_width)
     cam = state._replace(cam_center=center, quat=quat).camera(cfg)
     colors = render_pixels(scene, cam, pixels, fkey, cfg, nearest_fn)
@@ -202,9 +301,10 @@ def advance_to_scatter(scene, cfg, n_chunks, state: EngineState, inputs: FrameIn
     )
 
 
-def _advance(scene, cfg, n_chunks, state: EngineState, inputs: FrameInputs,
+def _advance(scene, cfg, n_chunks, state: EngineState, inp: torch.Tensor, rotate: bool,
              nearest_fn=None) -> EngineState:
-    state = advance_to_scatter(scene, cfg, n_chunks, state, inputs, nearest_fn=nearest_fn)
+    state = advance_to_scatter(scene, cfg, n_chunks, state, inp, rotate,
+                               nearest_fn=nearest_fn)
 
     # 5. Present: feedback blur + quantization.
     screen = present_stage(
@@ -223,17 +323,19 @@ def make_scan_step(
     """Many frames per call: (state, inputs) -> (final state, last display
     frame), where ``inputs`` is a list of FrameInputs or one stacked
     FrameInputs with an [n]-leading axis (``stack_inputs``,
-    ``repeat_input``). A plain loop of steps; only the final frame's display
-    is built. The fused kernel's frames never wait on the host; the bvh walk
-    fetches its liveness every ``intersect.CHECK_EVERY`` iterations."""
-    n_chunks = cfg.screen.effective_chunks_per_frame
-    nearest_fn = scene_nearest_fn(scene, cfg, max_depth, max_leaf)
+    ``repeat_input``); the JAX package's jitted scan with the state donated.
+    On a CUDA state (``pallas``, ``brute`` or ``exact``) a call of n frames
+    is one upload of the inputs and n graph replays; elsewhere an eager loop
+    (the bvh walk fetches its liveness every ``intersect.CHECK_EVERY``
+    iterations). Only the final frame's display is built; the state and
+    frame handed back are the caller's. ``run.runner`` is the StepRunner."""
+    runner = _runner(scene, cfg, max_depth, max_leaf)
 
     def run(state: EngineState, inputs):
-        for inp in frame_inputs(inputs):
-            state = _advance(scene, cfg, n_chunks, state, inp, nearest_fn)
-        return state, to_display(cm_to_spatial(state.screen, cfg.screen))
+        state = run_frames(runner, state, frame_inputs(inputs))
+        return state, display(state, cfg)
 
+    run.runner = runner
     return run
 
 

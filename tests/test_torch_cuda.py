@@ -595,3 +595,189 @@ def test_soak_scenes_on_the_card(cuda_device, seed):
                                  cuda_device)
     assert rec["geometry"]["blocks"] > 0
     assert rec["ok"], soak_kernel.format_record(rec)
+
+
+# --- The step as captured CUDA graphs (runtime/graph.py) ---------------------
+
+
+def _graph_vs_eager(cuda_device, cfg, script):
+    """(graph state, graph frame, eager state, eager frame, the runner's
+    StepGraphs, launches counted around the graph run) of one script."""
+    from mirror_maze_tpu_torch.runtime.state import init_state
+    from mirror_maze_tpu_torch.runtime.step import make_scan_step, make_scan_step_fn
+
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    # The eager run first: it builds the kernels and the step's constants.
+    est, eframe = make_scan_step_fn(cfg, len(script))(scene, init_state(cfg, device=cuda_device),
+                                                      script)
+    run = make_scan_step(scene, cfg)
+    st = init_state(cfg, device=cuda_device)
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")     # no hidden host sync in the glue
+    try:
+        st, frame = run(st, script)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = dict(kernels.launches)
+    torch.cuda.synchronize()
+    return st, frame, est, eframe, run.runner.graphs[st.screen.device], counts
+
+
+def _states_bitwise(a, b) -> bool:
+    return all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                           y.view(torch.int32) if y.dtype == torch.float32 else y)
+               for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("intersector", ["pallas", "brute", "exact"])
+def test_graph_step_is_bitwise_the_eager_step(cuda_device, intersector):
+    """The golden script through make_scan_step (a graph per input kind, the
+    first frame of each kind eager) against the eager loop: every state
+    field and the frame bitwise; one tracer and one present launch a frame."""
+    cfg = golden_config().replace(intersector=intersector)
+    script = golden_script(FrameInputs)
+    st, frame, est, eframe, graphs, counts = _graph_vs_eager(cuda_device, cfg, script)
+    assert _states_bitwise(st, est) and torch.equal(frame, eframe)
+    assert graphs.kinds == (False, True)
+    assert graphs.eager_frames == 2 and graphs.replays == len(script) - 2
+    want = {"present": len(script)}
+    if intersector == "pallas":
+        want["tracer"] = len(script)
+    assert counts == want
+    assert float(frame.float().mean()) > 1.0
+
+
+def test_graph_band_engine_is_bitwise_the_eager_bands(cuda_device):
+    """Two bands on the one card, one graph per input kind holding both
+    bands' steps, the halo rows and the halo presents: against the same
+    body stepped eagerly on the card."""
+    from mirror_maze_tpu_torch.runtime.graph import StepRunner
+    from mirror_maze_tpu_torch.runtime.step import run_frames
+
+    cfg = golden_config()
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    script = golden_script(FrameInputs)
+    init_fn, scan_fn = shard.make_sharded_scan_engine(cfg, [cuda_device] * 2)
+    kernels.reset_launches()
+    st, frame = scan_fn(scene, init_fn(0), script)
+    counts = dict(kernels.launches)
+    runner = scan_fn.runner_of(scene)
+    graphs = runner.graphs[st.screen[0].device]
+    eager = StepRunner(runner._body, graphs=False)
+    est = run_frames(eager, init_fn(0), script)
+    eframe = shard.assemble_frame(shard.band_frames(est, shard._band_screen_cfg(cfg, 2)))
+    assert all(_states_bitwise(a, b) for a, b in zip(zip(*st), zip(*est)))
+    assert torch.equal(frame, eframe)
+    assert graphs.kinds == (False, True) and graphs.replays == len(script) - 2
+    assert counts == {"tracer": 2 * len(script), "present_halo": 2 * len(script)}
+
+
+def test_graph_step_hands_back_states_no_later_call_writes(cuda_device):
+    """A state and frame handed back stay as they were through later calls;
+    a state passed again (no longer the last handed back) or changed in place
+    is copied in, and the step gives what the eager step gives."""
+    from mirror_maze_tpu_torch.runtime.state import init_state
+    from mirror_maze_tpu_torch.runtime.step import make_scan_step, make_scan_step_fn, make_step
+
+    cfg = golden_config()
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    script = golden_script(FrameInputs)
+    run = make_scan_step(scene, cfg)
+    eager = lambda st, frames: make_scan_step_fn(cfg, len(frames))(scene, st, frames)
+    st0 = init_state(cfg, device=cuda_device)
+    keep0 = [t.clone() for t in st0]
+    st1, f1 = run(st0, script[:18])
+    keep1, keep_f1 = [t.clone() for t in st1], f1.clone()
+    st2, f2 = run(st1, script[18:])                     # chained: no copy in
+    st2b, f2b = run(st1, script[18:])                   # st1 again: copied in
+    for got, kept in ((st0, keep0), (st1, keep1)):
+        assert all(torch.equal(a, b) for a, b in zip(got, kept))
+    assert torch.equal(f1, keep_f1)
+    assert _states_bitwise(st2, st2b) and torch.equal(f2, f2b)
+    est, ef = eager(st1, script[18:])
+    assert _states_bitwise(st2, est) and torch.equal(f2, ef)
+    st2.screen.mul_(0.5)                                # changed in place after handing back
+    got, gf = run(st2, script[:3])
+    est, ef = eager(st2, script[:3])
+    assert _states_bitwise(got, est) and torch.equal(gf, ef)
+    # make_step, one frame a call, the state chained through.
+    step, st = make_step(scene, cfg), init_state(cfg, device=cuda_device)
+    frames = []
+    for inp in script:
+        st, f = step(st, inp)
+        frames.append(f)
+    est, ef = eager(init_state(cfg, device=cuda_device), script)
+    assert _states_bitwise(st, est) and torch.equal(frames[-1], ef)
+    assert not torch.equal(frames[0], frames[-1])
+
+
+def test_graph_step_accepts_a_watchdog_rollback(cuda_device):
+    from mirror_maze_tpu_torch.runtime.state import init_state
+    from mirror_maze_tpu_torch.runtime.step import make_scan_step, make_scan_step_fn
+    from mirror_maze_tpu_torch.runtime.watchdog import Watchdog
+
+    cfg = golden_config()
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    script = golden_script(FrameInputs)
+    run, wd = make_scan_step(scene, cfg), Watchdog(interval=1)
+    st, _ = run(init_state(cfg, device=cuda_device), script[:10])
+    assert wd.check(st) is st                           # snapshot taken
+    st, _ = run(st, script[10:14])
+    bad = st._replace(cam_center=torch.full_like(st.cam_center, float("nan")))
+    back = wd.check(bad)
+    assert wd.rollbacks == 1 and torch.isfinite(back.cam_center).all()
+    got, frame = run(back, script[14:])
+    est, eframe = make_scan_step_fn(cfg, len(script) - 14)(scene, back, script[14:])
+    assert _states_bitwise(got, est) and torch.equal(frame, eframe)
+
+
+def test_graph_runners_on_two_streams_keep_their_own_work_counters(cuda_device):
+    """Two runners replaying on two streams at once: each graph launches the
+    tracer with its own refill counter pair (left zeroed), and each result
+    is the eager step's."""
+    from mirror_maze_tpu_torch.runtime.state import init_state
+    from mirror_maze_tpu_torch.runtime.step import make_scan_step, make_scan_step_fn
+
+    cfg = golden_config()
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    script = golden_script(FrameInputs)
+    runs = [make_scan_step(scene, cfg) for _ in range(2)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for run, s in zip(runs, streams):                   # capture both kinds
+        with torch.cuda.stream(s):
+            run(init_state(cfg, device=cuda_device), script[15:17])
+    torch.cuda.synchronize()
+    out = []
+    for run, s in zip(runs, streams):                   # queued side by side
+        with torch.cuda.stream(s):
+            out.append(run(init_state(cfg, device=cuda_device), script))
+    torch.cuda.synchronize()
+    work = [run.runner.graphs[out[0][0].screen.device]._work for run in runs]
+    assert work[0].data_ptr() != work[1].data_ptr()
+    assert all(int(w.abs().sum()) == 0 for w in work)
+    est, eframe = make_scan_step_fn(cfg, len(script))(scene, init_state(cfg, device=cuda_device),
+                                                      script)
+    for st, frame in out:
+        assert _states_bitwise(st, est) and torch.equal(frame, eframe)
+
+
+def test_failed_capture_raises(cuda_device):
+    """A body that reads a tensor on the host cannot be captured: the call
+    raises, and no graph of that kind is kept."""
+    from mirror_maze_tpu_torch.runtime.graph import StepGraphs
+
+    def body(state, inp, rotate):
+        scale = float(inp[4])                           # a host read
+        return state._replace(screen=state.screen * scale)
+
+    from mirror_maze_tpu_torch.runtime.state import init_state
+
+    cfg = golden_config()
+    graphs = StepGraphs(body, cuda_device)
+    rows = torch.ones((3, 5), device=cuda_device)
+    with pytest.raises(RuntimeError):
+        graphs.run(init_state(cfg, device=cuda_device), rows, [False] * 3)
+    assert graphs.kinds == ()
+    torch.cuda.synchronize()
+    x = torch.ones(4, device=cuda_device)               # the context still works
+    assert float((x * 2).sum()) == 8.0
