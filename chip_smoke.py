@@ -5,7 +5,7 @@
 
 Builds the hand-written kernels from ``mirror_maze_tpu_torch/csrc`` (nvcc,
 sm_90a: the tracer's four libraries, with and without the texture stage and
-the diagnostics, and the present), holds each against its plain PyTorch
+the diagnostics, the present and the BVH walk), holds each against its plain PyTorch
 version on the card at the shapes of every path it drives, checks the
 engine's scripted run against the committed golden frame, and drives four
 configurations at full width through ``make_scan_step``:
@@ -64,21 +64,29 @@ a spin so that the host's launch time is not in it; the back-to-back time
 from a CUDA graph is printed beside it (``time_present.py``, which also
 times another commit's kernel by the same method).
 
-Then the jnp tracer's backends (render/intersect.py, render/tracer.py; no
-kernel of their own, the present kernel presents their frames), the offline
-path and checkpoints, each phase with its seconds:
+Then the jnp tracer's backends (render/intersect.py, render/tracer.py; the
+bvh backend's walk is the ``bvh_walk`` kernel, csrc/bvh_walk.cu, and the
+present kernel presents their frames), the offline path and checkpoints,
+each phase with its seconds:
 
 - ``[golden-brute]`` the golden configuration with ``intersector="brute"``:
   ``render_full_frame`` and the 28-frame script against
   ``tests/goldens/frame_brute.npz`` and ``script_brute.npz``;
 - ``[v0]`` ``config_v0`` (4x4 maze, 256x256, 1 spp, brute), 40 frames, and
-  the same script on the CPU in this process, by the golden rule; it and
-  ``[exact]`` replay graphs and are held bitwise against the eager loop, as
-  ``[bvh]`` (eager: its walk reads the host) is;
+  the same script on the CPU in this process, by the golden rule; it,
+  ``[bvh]`` and ``[exact]`` replay graphs and are held bitwise against the
+  eager loop;
+- ``[bvh-kernel]`` the walk kernel against the plain walk, t and idx bitwise
+  on every ray of six sets: frame 1 of ``config_bvh``'s scene and of
+  ``config_interactive``'s (2,027,520 rays), the mesh gallery, the Cornell
+  box with spheres, the giant leaf, and rays with exact zero direction
+  components; ms per launch, the plain walk's ms, the bound and its share;
 - ``[bvh]`` / ``[exact]`` ``config_bvh``'s scene (8x8 maze, 512x384, 4 spp,
   5 + 4 bounces) with the traversal and with the dense exact test, 8 frames
-  each, their last frames against each other; the walk's host check every
-  k iterations timed on frame 1's rays;
+  each, the timed call under the sync debug mode "error" (no host sync),
+  their last frames against each other; ``[bands-bvh]`` the same scene and
+  walk as 2 bands on the one card, graph against the eager band loop; the
+  plain walk's host check every k iterations timed on frame 1's rays;
 - ``[validate]`` bench.py ``--validate``'s deterministic light (16x16 maze,
   128x96, 1 spp, jitter 0, one segment) with brute, exact, bvh and the fused
   kernel, each against brute by the reference's hardware rule;
@@ -104,8 +112,11 @@ stepped, a warm-up frame included where the driver steps one):
 - ``[serve]`` an ``EngineServer`` over HTTP: every endpoint, input moving
   the camera, ``/ckpt`` bitwise the engine's state; engine fps, delivered
   stream fps, ``fetch_ms``, ``encode_ms``;
-- ``[multiplayer]`` two player processes over gloo on the one card: ms/frame
-  each, the gathered positions, player 1's avatar in player 0's view;
+- ``[multiplayer]`` two player processes over gloo on the one card, each
+  stepping its script through the engine (one graph replay a frame) and
+  again through the eager route: final states and frames bitwise, ms/frame
+  of both, the gathered positions, player 1's avatar in player 0's view;
+  then player 1 leaves and player 0's next step raises;
 - ``[demo]``, ``[animate]`` (``config_bvh``'s scene), ``[multicam]`` (4
   cameras) and ``[minimap]`` (host only) through ``main()``: their files
   non-blank and of the right shape.
@@ -123,6 +134,10 @@ phase with its seconds:
   (bvh and exact bitwise brute; the fused kernel all but exact ties);
 - ``[bench-bands]`` ``--sharded-bands 2 --frames 8 --launches 1``: the
   checksum of the band engine in process, halo present launches counted;
+- ``[bench-bvh]`` ``--intersector bvh`` at the defaults (2,027,520 rays a
+  frame): Mrays/s, ``launch_ms`` and the checksum, one walk launch a
+  segment; in process 4 frames of it as graph replays (no host sync) and as
+  the eager loop, bitwise;
 - ``[soak]`` the kernel exactness soak (``tools/soak_kernel.py``): 40 random
   soups of 65,536 rays, the kernel bitwise its plain version under the
   default grid and one of 1 or 7 blocks, and within 1e-4 of the jnp tracer
@@ -134,7 +149,8 @@ phase with its seconds:
 
 Every phase prints one line; any failure exits non-zero. The last two lines
 are the ``{"kernels": [...]}`` summary (one row per kernel and path, every
-number measured or, for ``bound_ms``, computed in this run) and ``{"ok":
+number measured or, for ``bound_ms``, computed in this run; the walk
+kernel's rows ``bvh_walk`` and ``bvh_walk@interactive``) and ``{"ok":
 true, "device": {...}}``.
 
 Needs a CUDA card: without one it exits 2 and prints no result. It uses
@@ -159,13 +175,18 @@ FP32_OPS_PER_S = 67e12
 
 # The TPU kernels these replace (file:line of the function that reaches
 # pl.pallas_call in the JAX package).
+# The walk kernel replaces no pl.pallas_call: the JAX package's BVH walk is
+# a jax.lax.while_loop over every ray.
 REPLACES = {
     "tracer": "mirror_maze_tpu/render/pallas_tracer.py:639",
     "present": "mirror_maze_tpu/render/present.py:44",
+    "bvh_walk": "mirror_maze_tpu/render/intersect.py:362 (jax.lax.while_loop of "
+                "nearest_hit_bvh; no pallas_call)",
 }
 SOURCES = {
     "tracer": "mirror_maze_tpu_torch/csrc/tracer.cu",
     "present": "mirror_maze_tpu_torch/csrc/present.cu",
+    "bvh_walk": "mirror_maze_tpu_torch/csrc/bvh_walk.cu",
 }
 
 # The driven paths' scripts: idle, walking, turning, idle frames.
@@ -234,6 +255,17 @@ def states_bitwise(a, b) -> bool:
     return all(x.dtype == y.dtype and torch.equal(x.reshape(-1).view(torch.uint8),
                                                          y.reshape(-1).view(torch.uint8))
                for x, y in zip(flat(a), flat(b)))
+
+
+def no_sync(fn):
+    """fn() under the sync debug mode "error": a host sync in it raises."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def only_graphs(runner):
@@ -352,9 +384,121 @@ def graph_phase(dev, smi: str, cfg, scene) -> None:
         raise SystemExit("[graph] FAIL")
 
 
-def jnp_phases(dev, smi: str) -> None:
-    """The phases of the jnp tracer's backends, the offline path and the
-    checkpoints; any failure ends the run with SystemExit."""
+# [bvh-kernel]: the ray sets the walk kernel is held against its plain
+# version on (name -> rays; 0 = a frame's rays of the configuration).
+WALK_SETS = {"config_bvh": 0, "interactive": 0, "mesh": 1 << 20, "cornell-spheres": 1 << 20,
+             "leaf": 1 << 16, "zero-components": 1 << 16}
+WALK_REPS = 10
+# f32 operations counted for the walk's bound: a slab test (two an interior
+# visit; the tracer counts a walked slab so) and a primitive test.
+SLAB_OPS, PRIM_TEST_OPS = 30, 16
+
+
+def frame1_rays(cfg, scene):
+    """(ori, dirs) of frame 1 of an idle start: the step's window (Morton
+    sorted where the configuration sorts it), camera and key."""
+    from mirror_maze_tpu_torch.ops import prng
+    from mirror_maze_tpu_torch.render.pipeline import camera_rays
+    from mirror_maze_tpu_torch.render.scheduler import (
+        chunk_origin_xy,
+        chunk_pixels,
+        sort_window_morton,
+        take_chunks,
+    )
+    from mirror_maze_tpu_torch.runtime.state import init_state
+
+    sc = cfg.screen
+    st = init_state(cfg, device=scene.planes.device)
+    ids, _ = take_chunks(st.perm, st.cursor, sc.effective_chunks_per_frame)
+    if sc.sort_chunk_window:
+        ids = sort_window_morton(ids, sc)
+    pixels = chunk_pixels(chunk_origin_xy(ids, sc), sc.chunk_width)
+    _, key = prng.split(st.key)
+    ori, dirs, _, _ = camera_rays(st.camera(cfg), pixels, prng.fold_in(key, 1), cfg)
+    return ori, dirs
+
+
+def bvh_kernel_phase(dev, smi: str) -> dict:
+    """[bvh-kernel]: the walk kernel against the plain walk on six ray sets,
+    t and idx bitwise on every ray; ms per launch (CUDA events over
+    WALK_REPS launches replayed from a graph), the plain walk's ms beside
+    it, and the bound from the plain walk's visits. Returns the kernel
+    rows' entries by set."""
+    import torch
+
+    import mirror_maze_tpu_torch as P
+    from _torch_tools import intersect_scene, scene_rays, zero_component_rays
+    from mirror_maze_tpu_torch import kernels
+    from mirror_maze_tpu_torch.render import intersect, upload_scene
+    from mirror_maze_tpu_torch.scene import build_scene
+    from mirror_maze_tpu_torch.scene.bvh import traversal_bounds
+    from time_present import HBM_BYTES_PER_S, time_ms
+
+    t0 = time.perf_counter()
+    bvh_cfg = P.NAMED_CONFIGS["bvh"]().replace(intersector="bvh")
+    t_min = bvh_cfg.tracer.t_min
+    entries = {}
+    for name, n in WALK_SETS.items():
+        if name in ("config_bvh", "interactive"):
+            cfg = bvh_cfg if name == "config_bvh" else P.NAMED_CONFIGS[name]()
+            host = build_scene(cfg.maze)
+            scene = upload_scene(host, device=dev)
+            ori, dirs = frame1_rays(cfg, scene)
+        else:
+            host = (build_scene(bvh_cfg.maze) if name == "zero-components" else
+                    intersect_scene({"cornell-spheres": "spheres"}.get(name, name)))
+            scene = upload_scene(host, device=dev)
+            make = zero_component_rays if name == "zero-components" else scene_rays
+            ori, dirs = (torch.from_numpy(x).to(dev) for x in make(host, n, seed=7))
+        p = scene.prims
+        depth, leaf = traversal_bounds(p.bvh_left_first.cpu().numpy(),
+                                       p.bvh_count.cpu().numpy())
+        tables = intersect.bvh_tables(p, leaf)
+        before = kernels.launches["bvh_walk"]
+        t, idx = intersect.nearest_hit_bvh_kernel(p, ori, dirs, t_min, depth, leaf,
+                                                  tables=tables)
+        launched = kernels.launches["bvh_walk"] - before
+        stats = {}
+        (pt, pi), plain_ms = timed(lambda: intersect.nearest_hit_bvh(
+            p, ori, dirs, t_min, depth, leaf, tables=tables, stats=stats))
+        same = (torch.equal(t.view(torch.int32), pt.view(torch.int32))
+                and torch.equal(idx, pi))
+        hit = float((pt < intersect.BIG).float().mean())
+        zeros = int((dirs == 0).any(dim=1).sum())
+        del t, idx, pt, pi
+        ms = time_ms(lambda: intersect.bvh_walk(tables, ori, dirs, t_min, depth, leaf),
+                     WALK_REPS, graph=True)
+        interior, tests = int(stats["interior"]), int(stats["tests"])
+        n_rays = ori.shape[0]
+        ops = SLAB_OPS * 2 * interior + PRIM_TEST_OPS * tests
+        n_bytes = (tables.noderow.numel() + tables.leafpack.numel()) * 4 + n_rays * (24 + 8)
+        ops_ms, bytes_ms = ops / FP32_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+        bound_ms, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+        log(f"[bvh-kernel] {name}: {n_rays} rays ({zeros} with a zero direction component), "
+            f"{p.num_planes} planes, {p.num_spheres} spheres, tree depth {depth}, leaves of "
+            f"<= {leaf}; kernel bitwise the plain walk (t and idx): {same}; {hit:.4f} hit; "
+            f"kernel {ms:.4f} ms/launch ({launched} launch a call), plain walk {plain_ms:.2f} ms; "
+            f"{interior / n_rays:.2f} interior visits and {tests / n_rays:.2f} primitive tests a "
+            f"ray: bound {bound_ms:.6f} ms by {by} (operations {ops_ms:.6f}, bytes "
+            f"{bytes_ms:.6f}), share {bound_ms / ms:.1%} (at most 50% under -fmad=false) | {smi}")
+        if not (same and launched == 1 and hit > 0.05):
+            raise SystemExit(f"[bvh-kernel] FAIL: {name}")
+        if name == "zero-components" and zeros != n_rays:
+            raise SystemExit("[bvh-kernel] FAIL: the zero-component set lost its zeros")
+        entries[name] = dict(kernel="bvh_walk", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                             plain_rays=n_rays, bound_ms=bound_ms, bound_by=by)
+        del scene, tables, ori, dirs
+        release()
+    log(f"[bvh-kernel] {len(WALK_SETS)} ray sets in {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
+def jnp_phases(dev, smi: str) -> dict:
+    """The phases of the jnp tracer's backends (with the walk kernel), the
+    offline path and the checkpoints; any failure ends the run with
+    SystemExit. Returns the walk kernel's entries by ray set
+    (``bvh_kernel_phase``) and the walk launches of ``[bvh]`` and
+    ``[bands-bvh]``."""
     import dataclasses
     import tempfile
 
@@ -366,12 +510,9 @@ def jnp_phases(dev, smi: str) -> None:
     from mirror_maze_tpu_torch import bench, kernels
     from mirror_maze_tpu_torch.ops import prng
     from mirror_maze_tpu_torch.render import campath, intersect, make_camera, upload_scene
-    from mirror_maze_tpu_torch.render.pipeline import (
-        camera_rays,
-        frame_row_batches,
-        render_full_frame,
-    )
-    from mirror_maze_tpu_torch.render.scheduler import chunk_origin_xy, chunk_pixels, take_chunks
+    from mirror_maze_tpu_torch.parallel import shard
+    from mirror_maze_tpu_torch.render.pipeline import frame_row_batches, render_full_frame
+    from mirror_maze_tpu_torch.runtime.graph import StepRunner
     from mirror_maze_tpu_torch.runtime.loop import run_scripted
     from mirror_maze_tpu_torch.runtime.state import (
         EngineState,
@@ -384,6 +525,7 @@ def jnp_phases(dev, smi: str) -> None:
         derive_traversal_bounds,
         make_scan_step,
         make_scan_step_fn,
+        run_frames,
     )
     from mirror_maze_tpu_torch.scene import build_scene
     from mirror_maze_tpu_torch.utils import imageio
@@ -454,61 +596,94 @@ def jnp_phases(dev, smi: str) -> None:
             and float(frame.float().mean()) > 0.1 and counts == {"present": n}):
         raise SystemExit("[v0] FAIL")
 
+    # [bvh-kernel]: the walk kernel against the plain walk.
+    walk_entries = bvh_kernel_phase(dev, smi)
+
     # [bvh] and [exact]: config_bvh's scene (8x8 maze, 512x384, 4 spp, 5 + 4
-    # bounces) with the traversal and with the dense exact backend.
+    # bounces) with the traversal (the walk kernel) and with the dense exact
+    # backend; both replay graphs, with no host sync in the frames.
     base = P.NAMED_CONFIGS["bvh"]()
     bscene = upload_scene(build_scene(base.maze), device=dev)
     inputs = _script(FrameInputs, JNP_SCRIPTS["bvh"])
     n = len(inputs)
     sc = base.screen
     rays = sc.effective_chunks_per_frame * sc.pixels_per_chunk * sc.samples_per_pixel
-    last = {}
+    last, path_launches = {}, {}
     for backend in ("bvh", "exact"):
         t0 = time.perf_counter()
         cfg = base.replace(intersector=backend)
         release()
         run = make_scan_step(bscene, cfg)
-        run(init_state(cfg, device=dev), [inputs[0], turning])  # first-call costs
+        run(init_state(cfg, device=dev), [inputs[0], turning])  # first-call costs, captures
         torch.cuda.synchronize()
         st0 = init_state(cfg, seed=0, device=dev)
         kernels.reset_launches()
         intersect.walk_counts.clear()
-        (st, frame), ms = timed(lambda: run(st0, inputs))
+        (st, frame), ms = timed(lambda: no_sync(lambda: run(st0, inputs)))
         counts, walks = dict(kernels.launches), dict(intersect.walk_counts)
         (est, eframe), eager_ms = timed(lambda: make_scan_step_fn(cfg, n)(
             bscene, init_state(cfg, seed=0, device=dev), inputs))
         same = states_bitwise(st, est) and torch.equal(frame, eframe)
-        route = ("eager (the walk reads the host)" if backend == "bvh" else
-                 graph_line(only_graphs(run.runner)))
+        graphs = only_graphs(run.runner)
+        want = {"present": n}
         walked = ""
         if backend == "bvh":
-            per_walk = walks["iterations"] / walks["walks"]
-            walked = (f", {walks['syncs'] / n:.1f} host syncs/frame (every "
-                      f"{intersect.CHECK_EVERY} iterations), {per_walk:.1f} iterations/walk, "
-                      f"bounds {derive_traversal_bounds(bscene, cfg, None, None)}")
+            want["bvh_walk"] = n * cfg.tracer.max_segments
+            path_launches["bvh"] = counts.get("bvh_walk", 0)
+            walked = (f", 0 host syncs a frame (the call ran under the sync debug mode "
+                      f"'error'; plain walks {walks.get('walks', 0)}), "
+                      f"{cfg.tracer.max_segments} walk launches a frame, bounds "
+                      f"{derive_traversal_bounds(bscene, cfg, None, None)}")
         log(f"[{backend}] config_bvh scene {sc.width}x{sc.height} {sc.samples_per_pixel} spp, "
             f"{cfg.tracer.bounce_limit} + {cfg.tracer.mirror_limit} bounces, intersector "
             f"{backend}, {n} frames, {rays} rays/frame: {ms / n:.1f} ms/frame, "
             f"{rays / (ms / n) / 1e3:.3f} Mrays/s{walked}, checksum "
-            f"{int(frame.to(torch.int64).sum())}; launches {counts}; eager loop "
-            f"{eager_ms / n:.1f} ms/frame, make_scan_step == eager bitwise {same}; {route}; "
-            f"{time.perf_counter() - t0:.1f} s | {smi}")
-        if counts != {"present": n} or float(frame.float().mean()) <= 1.0 or not same:
-            raise SystemExit(f"[{backend}] FAIL: launches {counts}, a blank frame, or not the "
-                             "eager step's")
+            f"{int(frame.to(torch.int64).sum())}; launches {counts}; eager loop {eager_ms / n:.1f} ms/frame, make_scan_step == eager "
+            f"bitwise {same}; {graph_line(graphs)}; {time.perf_counter() - t0:.1f} s | {smi}")
+        if counts != want or float(frame.float().mean()) <= 1.0 or not same or walks:
+            raise SystemExit(f"[{backend}] FAIL: launches {counts} (want {want}), a blank frame, "
+                             "a plain walk, or not the eager step's")
         last[backend] = frame.cpu().numpy()
     within, worst = _golden_rule(last["bvh"], last["exact"])
     log(f"[bvh] last frame vs [exact]'s: {within:.6f} within 1 LSB, max diff {worst}")
     if not (within > 0.999 and worst <= 4):
         raise SystemExit("[bvh] FAIL: the bvh and exact runs disagree")
-    # The walk's host check interval on frame 1's rays: the result is the
-    # same for every interval, the time is not.
+
+    # [bands-bvh]: config_bvh's scene with the walk as 2 bands on the one
+    # card: graph replays against the band body stepped eagerly.
+    t0 = time.perf_counter()
     cfg = base.replace(intersector="bvh")
-    st = init_state(cfg, device=dev)
-    ids, _ = take_chunks(st.perm, st.cursor, sc.effective_chunks_per_frame)
-    pixels = chunk_pixels(chunk_origin_xy(ids, sc), sc.chunk_width)
-    _, key = prng.split(st.key)
-    ori, dirs, _, _ = camera_rays(st.camera(cfg), pixels, prng.fold_in(key, 1), cfg)
+    release()
+    init_fn, scan_fn = shard.make_sharded_scan_engine(cfg, [dev] * 2)
+    scan_fn(bscene, init_fn(0), [inputs[0], turning])            # bounds, captures
+    torch.cuda.synchronize()
+    runner = scan_fn.runner_of(bscene)
+    graphs = only_graphs(runner)
+    replays = graphs.replays
+    st0 = init_fn(0)
+    kernels.reset_launches()
+    (st, frame), ms = timed(lambda: no_sync(lambda: scan_fn(bscene, st0, inputs)))
+    counts = dict(kernels.launches)
+    replays = graphs.replays - replays
+    eager = StepRunner(runner._body, graphs=False)
+    est, eager_ms = timed(lambda: run_frames(eager, init_fn(0), inputs))
+    eframe = shard.assemble_frame(shard.band_frames(est, shard._band_screen_cfg(cfg, 2)))
+    same = states_bitwise(st, est) and torch.equal(frame, eframe)
+    want = {"bvh_walk": 2 * n * cfg.tracer.max_segments, "present_halo": 2 * n}
+    log(f"[bands-bvh] config_bvh scene as 2 bands on the one card, intersector bvh, {n} "
+        f"frames: {ms / n:.1f} ms/frame, {replays / n:g} replays a frame, 0 host syncs a frame "
+        f"(sync debug mode 'error'); eager band loop {eager_ms / n:.1f} ms/frame, graph == eager "
+        f"bitwise {same}; launches {counts}; {graph_line(graphs)}; "
+        f"{time.perf_counter() - t0:.1f} s | {smi}")
+    if not (same and counts == want and replays == n and float(frame.float().mean()) > 1.0):
+        raise SystemExit("[bands-bvh] FAIL")
+    path_launches["bands-bvh"] = counts["bvh_walk"]
+
+    # The plain walk's host check interval on frame 1's rays (the CPU's path
+    # and the kernel's twin): the result is the same for every interval, the
+    # time is not.
+    cfg = base.replace(intersector="bvh")
+    ori, dirs = frame1_rays(cfg, bscene)
     bounds = derive_traversal_bounds(bscene, cfg, None, None)
     tables = intersect.bvh_tables(bscene.prims, bounds[1])
     walk = lambda k: intersect.nearest_hit_bvh(bscene.prims, ori, dirs, cfg.tracer.t_min,
@@ -519,11 +694,11 @@ def jnp_phases(dev, smi: str) -> None:
         walk(k)
         (t_k, i_k), ms = timed(lambda: [walk(k) for _ in range(WALK_REPEATS)][-1])
         if not (torch.equal(t_k, ref_t) and torch.equal(i_k, ref_i)):
-            raise SystemExit(f"[bvh] FAIL: check_every={k} changes the walk's result")
+            raise SystemExit(f"[bvh] FAIL: check_every={k} changes the plain walk's result")
         times.append(f"k={k} {ms / WALK_REPEATS:.2f} ms")
-    log(f"[bvh] one walk of frame 1's {ori.shape[0]} rays, host check every k iterations "
-        f"(mean of {WALK_REPEATS}; the default is k={intersect.CHECK_EVERY}): {', '.join(times)} "
-        f"(results bitwise equal) | {smi}")
+    log(f"[bvh] the plain walk (the CPU's path) on frame 1's {ori.shape[0]} rays, host check "
+        f"every k iterations (mean of {WALK_REPEATS}; the default is k="
+        f"{intersect.CHECK_EVERY}): {', '.join(times)} (results bitwise equal) | {smi}")
 
     # [validate]: bench.py --validate's deterministic light, every backend
     # (the port's bench renders the frames) against brute by the reference's
@@ -535,7 +710,9 @@ def jnp_phases(dev, smi: str) -> None:
     ref = frames["brute"]
     batches = len(list(frame_row_batches(bench.validate_config(), prng.PRNGKey(0, device=dev),
                                          64, dev)))
-    ok = np.isfinite(ref).all() and ref.max() > 0.0 and counts == {"tracer": batches}
+    walks = batches * bench.validate_config().replace(intersector="bvh").tracer.max_segments
+    ok = (np.isfinite(ref).all() and ref.max() > 0.0
+          and counts == {"tracer": batches, "bvh_walk": walks})
     for backend in ("exact", "bvh", "pallas"):
         d = np.abs(frames[backend] - ref)
         stats = dict(max=float(d.max()), mean=float(d.mean()), p999=float(np.quantile(d, 0.999)),
@@ -607,6 +784,7 @@ def jnp_phases(dev, smi: str) -> None:
     total = 2 * len(inputs)
     if not (loaded and same and counts == {"tracer": total, "present": total}):
         raise SystemExit("[resume] FAIL")
+    return {"walk": walk_entries, "launches": path_launches}
 
 
 # The drivers' phases run the CLI with these arguments: config_interactive
@@ -619,19 +797,25 @@ TTY_WALK = 30
 # then one more idle frame.
 MP_WALK = 20
 # One player of [multiplayer]: argv = player id, rendezvous port, walking
-# frames, then the CLI's configuration arguments. Prints one "MP {json}" line.
+# frames, then the CLI's configuration arguments. Runs the script through the
+# engine (graph replays on the card), then again from the same initial state
+# through the eager route (the exchange, update_avatars, the sphere refresh,
+# make_step_fn); then player 1 leaves and player 0's next step must raise.
+# Prints one "MP {json}" line.
 MP_WORKER = r"""
 import json, sys, time
 import numpy as np
 import torch
 pid, port, walk, argv = int(sys.argv[1]), sys.argv[2], int(sys.argv[3]), sys.argv[4:]
+from _torch_tools import eager_multiplayer_step
 from mirror_maze_tpu_torch import __main__ as cli, kernels
 from mirror_maze_tpu_torch.parallel import initialize_multihost
-from mirror_maze_tpu_torch.parallel.multiplayer import (make_multiplayer_engine,
+from mirror_maze_tpu_torch.parallel.multiplayer import (avatar_scene, make_multiplayer_engine,
                                                          make_position_exchange)
 from mirror_maze_tpu_torch.render import upload_scene
 from mirror_maze_tpu_torch.runtime.loop import run_scripted
 from mirror_maze_tpu_torch.runtime.state import FrameInputs
+from mirror_maze_tpu_torch.runtime.step import derive_traversal_bounds
 
 args = cli.build_parser().parse_args(["play"] + argv)
 dev = cli._device(args)
@@ -639,27 +823,50 @@ assert initialize_multihost(f"localhost:{port}", 2, pid, timeout_s=120) == 2
 cfg, scene, noise = cli._build_world(args)
 mdev, init_fn, step_fn = make_multiplayer_engine(cfg, me=pid, scene=scene, device=dev)
 exchange = make_position_exchange()
-step_fn(init_fn(0), FrameInputs.idle())          # first-use costs, on a scratch state
+script = [FrameInputs.make(w=pid == 1)] * walk + [FrameInputs.idle()]
+step_fn(init_fn(0), FrameInputs.idle())          # first-use costs and the capture, on a scratch state
 sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 sync()
+graphs = next(iter(step_fn.runner.graphs.values()), None)
+replays = graphs.replays if graphs else 0
 kernels.reset_launches()
 st = init_fn(0)
 t0 = time.perf_counter()
-for _ in range(walk):
-    st, frame = step_fn(st, FrameInputs.make(w=pid == 1))
+for inp in script[:-1]:
+    st, frame = step_fn(st, inp)
 positions = exchange(st.cam_center)
 cam = st.cam_center.cpu().tolist()
-st, frame = step_fn(st, FrameInputs.idle())
-frame = frame.cpu().numpy()
-ms = (time.perf_counter() - t0) * 1000.0 / (walk + 1)
+st, frame = step_fn(st, script[-1])
+sync()
+ms = (time.perf_counter() - t0) * 1000.0 / len(script)
 launches = dict(kernels.launches)
-out = dict(pid=pid, ms_per_frame=ms, launches=launches, cam=[float(c).hex() for c in cam],
+replays = (graphs.replays - replays) if graphs else 0
+_, slots = avatar_scene(scene, 2, pid)
+eager = eager_multiplayer_step(cfg, mdev, slots, [1 - pid],
+                               derive_traversal_bounds(mdev, cfg, None, None))
+est = init_fn(0)
+t0 = time.perf_counter()
+for inp in script:
+    est, eframe = eager(est, inp, exchange(est.cam_center))
+sync()
+eager_ms = (time.perf_counter() - t0) * 1000.0 / len(script)
+same = (all(torch.equal(a, b) for a, b in zip(st, est)) and torch.equal(frame, eframe))
+frame = frame.cpu().numpy()
+out = dict(pid=pid, ms_per_frame=ms, eager_ms_per_frame=eager_ms, launches=launches,
+           replays=replays, graph_equals_eager=bool(same), cam=[float(c).hex() for c in cam],
            positions=[[float(c).hex() for c in row] for row in positions.cpu().tolist()],
            spheres=mdev.num_spheres, z=cam[2])
-if pid == 0:
-    # The same frames of a single-player run: the avatar must show.
-    _, alone = run_scripted(upload_scene(scene, device=dev), cfg, n_frames=walk + 1)
-    out["pixels_differing_from_single_player"] = int((alone != frame).any(axis=-1).sum())
+if pid == 1:
+    print("MP " + json.dumps(out), flush=True)
+    sys.exit(0)                                   # leaves the session
+# The same frames of a single-player run: the avatar must show.
+_, alone = run_scripted(upload_scene(scene, device=dev), cfg, n_frames=walk + 1)
+out["pixels_differing_from_single_player"] = int((alone != frame).any(axis=-1).sum())
+try:
+    step_fn(st, FrameInputs.idle())
+    out["after_leave"] = "stepped"
+except RuntimeError as e:
+    out["after_leave"] = str(e)
 print("MP " + json.dumps(out), flush=True)
 """
 
@@ -993,9 +1200,10 @@ def driver_phases(dev, smi: str) -> None:
         with socket.socket() as s:
             s.bind(("localhost", 0))
             port = str(s.getsockname()[1])
+        mp_env = dict(env, PYTHONPATH=os.path.join(ROOT, "tests") + os.pathsep + env["PYTHONPATH"])
         procs = [subprocess.Popen([sys.executable, "-c", MP_WORKER, str(i), port, str(MP_WALK),
                                    *DRIVER_ARGS, *dev_args],
-                                  cwd=tmp, env=env, stdout=subprocess.PIPE,
+                                  cwd=tmp, env=mp_env, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True) for i in range(2)]
         outs = []
         try:
@@ -1015,14 +1223,24 @@ def driver_phases(dev, smi: str) -> None:
                                                                                for o in outs))
         same_pos = res[0]["positions"] == res[1]["positions"] == [r["cam"] for r in res]
         shows = res[0]["pixels_differing_from_single_player"]
+        frames = MP_WALK + 1
+        left = res[0]["after_leave"]
         log(f"[multiplayer] 2 players over gloo on {dev}, player 1 walks {MP_WALK} frames, "
-            f"then 1 idle: ms/frame {res[0]['ms_per_frame']:.2f} / {res[1]['ms_per_frame']:.2f}"
-            f" (player 0 / 1, exchange included); gathered positions == each player's "
-            f"cam_center: {same_pos}; player 1 z {res[1]['z']:+.3f}; player 0's frame differs "
-            f"from the single-player run's in {shows} pixels; launches {res[0]['launches']} / "
-            f"{res[1]['launches']}; {time.perf_counter() - t0:.1f} s | {smi}")
+            f"then 1 idle: graph engine ms/frame {res[0]['ms_per_frame']:.2f} / "
+            f"{res[1]['ms_per_frame']:.2f} (player 0 / 1, exchange included), "
+            f"{res[0]['replays'] / frames:g} / {res[1]['replays'] / frames:g} replays a frame; "
+            f"eager route {res[0]['eager_ms_per_frame']:.2f} / {res[1]['eager_ms_per_frame']:.2f}"
+            f" ms/frame; final state and frame bitwise the eager route's: "
+            f"{res[0]['graph_equals_eager']} / {res[1]['graph_equals_eager']}; gathered positions "
+            f"== each player's cam_center: {same_pos}; player 1 z {res[1]['z']:+.3f}; player 0's "
+            f"frame differs from the single-player run's in {shows} pixels; launches "
+            f"{res[0]['launches']} / {res[1]['launches']}; after player 1 left, player 0's step: "
+            f"{left[:80]!r}; {time.perf_counter() - t0:.1f} s | {smi}")
         if not (same_pos and shows > 0 and res[1]["z"] > cfg.camera.spawn[2]
-                and all(r["launches"] == want(MP_WALK + 1) for r in res)):
+                and all(r["launches"] == want(frames) for r in res)
+                and all(r["graph_equals_eager"] for r in res)
+                and all(r["replays"] == (frames if on_card else 0) for r in res)
+                and "a peer left the session" in left):
             raise SystemExit("[multiplayer] FAIL")
 
         # [demo]: the fixed 640-frame script, a PNG per phase.
@@ -1103,18 +1321,23 @@ def driver_phases(dev, smi: str) -> None:
 # warm-up call), the same as 2 row bands, the card soak and the examples.
 BENCH_ARGS: list = []
 BENCH_BANDS_ARGS = ["--sharded-bands", "2", "--frames", "8", "--launches", "1"]
+BENCH_BVH_ARGS = ["--intersector", "bvh"]
+# [bench-bvh]: the frames of the bench's configuration run in process as
+# graph replays and as the eager loop.
+BENCH_BVH_FRAMES = 4
 SOAK_SCENES = 40
 EXAMPLE_ARGS = ["--intersector", "pallas", "--size", "256", "--spp", "64"]
 MP_DEMO_ARGS = ["--players", "3", "--frames", "24"]
 
 
-def entry_phases(dev, smi: str) -> None:
+def entry_phases(dev, smi: str) -> dict:
     """The phases of the repository's own entry points on the port: the
-    bench (``python -m mirror_maze_tpu_torch.bench``), its ``--validate`` and
-    ``--sharded-bands``, the kernel exactness soak and the three examples.
-    The bench and the examples run in subprocesses with no ``--device`` (the
-    card; ``--device cpu`` where ``dev`` is the CPU, the rehearsal). Each
-    phase prints its seconds; any failure ends the run with SystemExit."""
+    bench (``python -m mirror_maze_tpu_torch.bench``), its ``--validate``,
+    ``--sharded-bands`` and ``--intersector bvh``, the kernel exactness soak
+    and the three examples. The bench and the examples run in subprocesses
+    with no ``--device`` (the card; ``--device cpu`` where ``dev`` is the
+    CPU, the rehearsal). Each phase prints its seconds; any failure ends the
+    run with SystemExit. Returns the walk launches of ``[bench-bvh]``."""
     import ast
     import re
     import shutil
@@ -1126,7 +1349,7 @@ def entry_phases(dev, smi: str) -> None:
     from mirror_maze_tpu_torch.examples import cornell_box, mesh_gallery, multiplayer_demo
     from mirror_maze_tpu_torch.parallel.shard import make_sharded_scan_engine
     from mirror_maze_tpu_torch.runtime.state import FrameInputs, init_state
-    from mirror_maze_tpu_torch.runtime.step import make_scan_step, repeat_input
+    from mirror_maze_tpu_torch.runtime.step import make_scan_step, make_scan_step_fn, repeat_input
     from mirror_maze_tpu_torch.tools import soak_kernel
     from mirror_maze_tpu_torch.utils import imageio
     from _torch_tools import gif_frame_count
@@ -1213,6 +1436,51 @@ def entry_phases(dev, smi: str) -> None:
                 and sub == want(tracer=bands * n, present_halo=bands * n)):
             raise SystemExit("[bench-bands] FAIL")
 
+        # [bench-bvh]: the bench with the BVH walk at its defaults
+        # (config_interactive's point); in process, a few frames of the same
+        # configuration as graph replays (no host sync) and as the eager
+        # loop, bitwise.
+        t0 = time.perf_counter()
+        res, sub = bench_run("bench-bvh", BENCH_ARGS + BENCH_BVH_ARGS)
+        args = bench.build_parser().parse_args(BENCH_ARGS + BENCH_BVH_ARGS + dev_args)
+        n = args.frames * (1 + args.launches)
+        cfg, _, scene = bench.build_bench_setup(args)
+        segs, k = cfg.tracer.max_segments, BENCH_BVH_FRAMES
+        frames = [FrameInputs.idle()] * (k - 2) + [FrameInputs.make(w=True, mouse_dx=-27.0)] * 2
+        scan = make_scan_step(scene, cfg)
+        scan(init_state(cfg, seed=0, device=dev), [frames[0], frames[-1]])   # the captures
+        st0 = init_state(cfg, seed=0, device=dev)
+        graphs = next(iter(scan.runner.graphs.values()), None)
+        replays = graphs.replays if graphs else 0
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        st, frame = (no_sync if on_card else (lambda f: f()))(lambda: scan(st0, frames))
+        checksum = int(frame.to(torch.int64).sum())
+        graph_ms = (time.perf_counter() - t1) * 1e3 / k
+        counts = dict(kernels.launches)
+        replays = (graphs.replays - replays) if graphs else 0
+        t1 = time.perf_counter()
+        est, eframe = make_scan_step_fn(cfg, k)(scene, init_state(cfg, seed=0, device=dev), frames)
+        eager_ms = (time.perf_counter() - t1) * 1e3 / k
+        same = states_bitwise(st, est) and torch.equal(frame, eframe)
+        del scene, scan, st, est, frame, eframe
+        if on_card:
+            release()
+        log(f"[bench-bvh] python -m mirror_maze_tpu_torch.bench {' '.join(BENCH_BVH_ARGS)} (no "
+            f"--device) in a subprocess: {res['value']} Mrays/s, frame_ms {res['frame_ms']}, "
+            f"launch_ms {res['launch_ms']}, frame_checksum {res['frame_checksum']} "
+            f"({res['rays_per_frame']} rays a frame, {n} frames); launches {sub}; in process "
+            f"{k} frames (idle, then walking and turning): graph {graph_ms:.2f} ms/frame (host "
+            f"clock, synchronized), {replays / k:g} replays a frame, 0 host syncs (sync debug "
+            f"mode 'error'), launches {counts}; eager loop {eager_ms:.2f} ms/frame; graph == "
+            f"eager bitwise {same}; checksum {checksum}; {time.perf_counter() - t0:.1f} s | {smi}")
+        if not (res["backend"] == dev.type and same and len(res["launch_ms"]) == args.launches
+                and sub == want(present=n, bvh_walk=n * segs)
+                and counts == want(present=k, bvh_walk=k * segs)
+                and replays == (k if on_card else 0)):
+            raise SystemExit("[bench-bvh] FAIL")
+        bench_bvh_launches = sub.get("bvh_walk", 0)
+
         # [soak]: the random soups, the kernel bitwise its plain version under
         # two grids and within the jnp tracer's gate.
         t0 = time.perf_counter()
@@ -1283,6 +1551,7 @@ def entry_phases(dev, smi: str) -> None:
             f"{time.perf_counter() - t_all:.1f} s in all")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return {"bench-bvh": bench_bvh_launches}
 
 
 def main() -> int:
@@ -2038,7 +2307,7 @@ def main() -> int:
     # 8. The jnp tracer's backends (brute, exact, bvh), the offline path and
     # checkpoints: each phase prints its seconds, and its kernels' launch
     # counts are set to 0 just before it and read just after.
-    jnp_phases(dev, smi)
+    jnp = jnp_phases(dev, smi)
 
     # 9. The drivers: the CLI, terminal play, the HTTP server, multiplayer
     # and the offline commands, at full width; each phase prints its seconds
@@ -2047,7 +2316,7 @@ def main() -> int:
 
     # 10. The repository's own entry points on the port: the bench, its
     # --validate and --sharded-bands, the soak and the examples.
-    entry_phases(dev, smi)
+    entry = entry_phases(dev, smi)
 
     # One row per kernel and path; a row's launches are its path's.
     rows = (("tracer", "main"), ("tracer@scale", "scale"), ("tracer@fuzzy", "fuzzy"),
@@ -2067,6 +2336,17 @@ def main() -> int:
                          launches=launches[path][e["lib"]], max_abs_err=e["max_abs_err"],
                          ms=e["ms"], plain_ms=e["plain_ms"],
                          plain_rays=e.get("plain_rays"), bound_ms=e["bound_ms"],
+                         bound_by=e["bound_by"], library_ms=None))
+    # The walk kernel's rows: on [bvh]'s frame-1 rays with [bvh]'s launches,
+    # on config_interactive's frame-1 rays with [bench-bvh]'s. No PyTorch
+    # call computes a BVH walk, so library_ms is null.
+    for row, walk_set, n in (("bvh_walk", "config_bvh", jnp["launches"]["bvh"]),
+                             ("bvh_walk@interactive", "interactive", entry["bench-bvh"])):
+        e = jnp["walk"][walk_set]
+        kern.append(dict(name=row, route="cuda", source=SOURCES["bvh_walk"],
+                         replaces=REPLACES["bvh_walk"], launches=n,
+                         max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],
+                         plain_rays=e["plain_rays"], bound_ms=e["bound_ms"],
                          bound_by=e["bound_by"], library_ms=None))
     log(json.dumps({"kernels": kern}))
     count = torch.cuda.device_count()

@@ -92,8 +92,8 @@ def _build_world(args):
         overrides["intersector"] = args.intersector
         if args.intersector == "bvh":
             print(
-                "note: the stack-traversal backend is a reference-parity path, "
-                "bound by its many small launches a walk iteration (PERF.md); "
+                "note: the stack-traversal backend is a reference-parity path "
+                "(the bvh_walk kernel on the card, one thread a ray; PERF.md); "
                 "--intersector exact is the dense exact test, --intersector "
                 "pallas the fused CUDA kernel.",
                 file=sys.stderr,

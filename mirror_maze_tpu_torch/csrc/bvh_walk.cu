@@ -1,0 +1,145 @@
+// BVH walk: the nearest plane hit of every ray by the ordered stack
+// traversal of the jnp tracer's bvh backend, one thread a ray.
+//
+// Replaces the `jax.lax.while_loop` of the JAX package's
+// mirror_maze_tpu/render/intersect.py::nearest_hit_bvh (a loop over every
+// ray at once, not a Pallas kernel). Its plain version is the port's
+// render/intersect.py nearest_hit_bvh, a masked vector loop in which every
+// update is gated by the ray's own `live`: rays are independent, so walking
+// one ray until it is no longer live gives that loop's result bit for bit.
+// Spheres are not in the BVH; the wrapper folds them in after the walk.
+//
+// Inputs, float32 (render/intersect.py bvh_tables):
+//   noderow  [M, 14]: per node both children's boxes (bmin, bmax of the left
+//            child, then of the right) and (count, left_first) as exact floats;
+//   leafpack [N, L*15]: per primitive slot the whole leaf run that starts
+//            there, 15 floats a slot (normal, d, w1, b1, w2, b2, valid,
+//            scene id, triangle flag);
+//   ori, dirs [R, 3].
+// Outputs: t [R] float32 (1e30 = miss), idx [R] int32 (scene-order id).
+//
+// Exactness against the plain version (built with -fmad=false and IEEE
+// division, as every kernel of the port):
+// - dots sum as (a0*b0 + a1*b1) + a2*b2; tk = (d - o.n) / (d.n) is a true
+//   division; the hit point is o + tk*d, a multiply then an add; the slab
+//   reciprocals are 1/d;
+// - the slab test: torch.minimum / maximum and amax / amin propagate NaN
+//   ((bmin - o) * inf where bmin == o), and a NaN makes every comparison
+//   false, so one NaN among the six slab distances is a miss. fminf / fmaxf
+//   drop NaN, so that rule is written out before them;
+// - visit order: the near child first (d1 <= d2 -> the left one), the far
+//   one pushed when it is hit too; a leaf's slots k < min(count, L) in
+//   order; a hit replaces the current one only when strictly nearer;
+// - the stack: a push writes slot min(sp, levels - 1), a pop reads
+//   stack[sp - 1] (0 past the levels), as the plain version clamps.
+//
+// A ray holds at most one pending node a level below the root, so a stack
+// of max_depth + 2 levels never fills; one too shallow would send the plain
+// walk round for ever (a pop past the levels restarts at the root). A walk
+// visits each node at most once, so the kernel stops a ray after M visits:
+// that bound is never reached where the stack holds, and it keeps a wrong
+// max_depth from hanging the card.
+//
+// Design (right and simple): one thread walks its ray to the end with its
+// stack in a per-thread array; the tables are read through the L1. Walks of
+// one warp diverge, and nothing is staged in shared memory.
+
+#include <cuda_runtime.h>
+
+#define MM_BVH_STACK 64  // levels a ray's stack holds (intersect.BVH_STACK)
+
+namespace {
+
+constexpr float BIG = 1e30f;
+constexpr int NODE_WIDTH = 14;
+constexpr int SLOT_WIDTH = 15;
+constexpr int THREADS = 128;
+
+// Entry distance of the ray into the box (bmin = box[0:3], bmax = box[3:6]),
+// or BIG: render/intersect.py _slab.
+__device__ __forceinline__ float slab(const float* __restrict__ box, float ox, float oy,
+                                      float oz, float ix, float iy, float iz, float t_cur) {
+  const float t1x = (box[0] - ox) * ix, t2x = (box[3] - ox) * ix;
+  const float t1y = (box[1] - oy) * iy, t2y = (box[4] - oy) * iy;
+  const float t1z = (box[2] - oz) * iz, t2z = (box[5] - oz) * iz;
+  if (isnan(t1x) || isnan(t2x) || isnan(t1y) || isnan(t2y) || isnan(t1z) || isnan(t2z))
+    return BIG;
+  const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+  const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+  return (tf >= tn && tn < t_cur && tf > 0.0f) ? tn : BIG;
+}
+
+__global__ void __launch_bounds__(THREADS)
+    bvh_walk(const float* __restrict__ noderow, const float* __restrict__ leafpack,
+             int n_nodes, int n_slots, int max_leaf, const float* __restrict__ ori,
+             const float* __restrict__ dirs, float* __restrict__ t_out,
+             int* __restrict__ idx_out, int n_rays, int n_levels, float t_min) {
+  const int r = blockIdx.x * THREADS + threadIdx.x;
+  if (r >= n_rays) return;
+  const float ox = ori[3 * r], oy = ori[3 * r + 1], oz = ori[3 * r + 2];
+  const float dx = dirs[3 * r], dy = dirs[3 * r + 1], dz = dirs[3 * r + 2];
+  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
+  const size_t leaf_row = (size_t)max_leaf * SLOT_WIDTH;
+  float t = BIG;
+  int idx = 0;
+  int stack[MM_BVH_STACK];
+  int sp = 0, cur = 0;
+  for (int visit = 0; visit < n_nodes; ++visit) {
+    const float* nr = noderow + (size_t)cur * NODE_WIDTH;
+    const int ct = (int)nr[12];
+    const int lf = (int)nr[13];
+    if (ct >= 1) {
+      // A leaf: its primitives in slot order.
+      const float* lp = leafpack + (size_t)min(max(lf, 0), n_slots - 1) * leaf_row;
+      const int n = min(ct, max_leaf);
+      for (int k = 0; k < n; ++k) {
+        const float* pk = lp + k * SLOT_WIDTH;
+        const float denom = (dx * pk[0] + dy * pk[1]) + dz * pk[2];
+        const float tk = (pk[3] - ((ox * pk[0] + oy * pk[1]) + oz * pk[2])) / denom;
+        const float px = ox + tk * dx, py = oy + tk * dy, pz = oz + tk * dz;
+        const float s1 = ((px * pk[4] + py * pk[5]) + pz * pk[6]) - pk[7];
+        const float s2 = ((px * pk[8] + py * pk[9]) + pz * pk[10]) - pk[11];
+        const bool inside = pk[14] > 0.0f ? s1 + s2 <= 1.0f : (s1 <= 1.0f && s2 <= 1.0f);
+        if (pk[12] > 0.0f && denom != 0.0f && tk > t_min && s1 >= 0.0f && s2 >= 0.0f &&
+            inside && tk < t) {
+          t = tk;
+          idx = (int)pk[13];
+        }
+      }
+    } else {
+      // Interior: follow the near child, push the far one when it is hit too.
+      const float d1 = slab(nr, ox, oy, oz, ix, iy, iz, t);
+      const float d2 = slab(nr + 6, ox, oy, oz, ix, iy, iz, t);
+      const bool first = d1 <= d2;
+      if (fminf(d1, d2) < BIG) {
+        if (fmaxf(d1, d2) < BIG) {
+          stack[min(sp, n_levels - 1)] = first ? lf + 1 : lf;
+          ++sp;
+        }
+        cur = first ? lf : lf + 1;
+        continue;
+      }
+    }
+    // A leaf, or a missed interior node: pop the latest far child, or stop.
+    if (sp == 0) break;
+    --sp;
+    cur = sp < n_levels ? stack[sp] : 0;
+  }
+  t_out[r] = t;
+  idx_out[r] = idx;
+}
+
+}  // namespace
+
+extern "C" int mm_bvh_walk(const float* noderow, const float* leafpack, int n_nodes,
+                           int n_slots, int max_leaf, const float* ori, const float* dirs,
+                           float* t, int* idx, int n_rays, int n_levels, float t_min,
+                           void* stream) {
+  if (n_levels < 1 || n_levels > MM_BVH_STACK || n_nodes < 1 || n_slots < 1 || max_leaf < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n_rays <= 0) return (int)cudaGetLastError();
+  const int blocks = (n_rays + THREADS - 1) / THREADS;
+  bvh_walk<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      noderow, leafpack, n_nodes, n_slots, max_leaf, ori, dirs, t, idx, n_rays, n_levels, t_min);
+  return (int)cudaGetLastError();
+}

@@ -11,7 +11,8 @@ The tracer's source gives four libraries (``LIBRARIES``): ``tracer``, the
 24 instantiations an untextured scene runs, ``tracer_tex`` with the texture
 stage, and ``tracer_diag`` / ``tracer_tex_diag``, which also gather the
 per-block diagnostics. Each is a translation unit of its own, so a launch
-without textures or diagnostics compiles none of their code.
+without textures or diagnostics compiles none of their code. ``present``
+and ``bvh_walk`` (the jnp tracer's BVH traversal) have a source each.
 
 Nothing here runs at import: the CPU tests import every module and this
 machine may have no ``nvcc`` at all.
@@ -72,6 +73,13 @@ _PRESENT = ("mm_present", [
     _C.c_int, _C.c_int, _C.c_int, _C.c_int,              # chunks x, y, chunk width, quantize
     _C.c_void_p,                                         # stream
 ])
+_BVH_WALK = ("mm_bvh_walk", [
+    _C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int,        # noderow, leafpack, nodes, slots
+    _C.c_int,                                            # max leaf
+    _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,  # ori, dirs, t out, idx out
+    _C.c_int, _C.c_int, _C.c_float,                      # R, stack levels, t_min
+    _C.c_void_p,                                         # stream
+])
 # name -> (source in csrc/, macros for nvcc, (C symbol, argument types))
 LIBRARIES = {
     "tracer": ("tracer.cu", (), _TRACER),
@@ -79,6 +87,7 @@ LIBRARIES = {
     "tracer_diag": ("tracer.cu", ("-DMM_DIAG=1",), _TRACER),
     "tracer_tex_diag": ("tracer.cu", ("-DMM_TEX=1", "-DMM_DIAG=1"), _TRACER),
     "present": ("present.cu", (), _PRESENT),
+    "bvh_walk": ("bvh_walk.cu", (), _BVH_WALK),
 }
 
 launches: collections.Counter = collections.Counter()

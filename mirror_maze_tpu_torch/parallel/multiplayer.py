@@ -18,6 +18,13 @@ so moving them changes no step.
   writes; for the fused kernel (``intersector="pallas"``) the step puts
   ``scenebuf.make_sphere_refresh`` in front, which derives the kernel's
   sphere records and tile boxes again from the moved centres on the device.
+- A frame is the exchange on the host, then ONE replay of a captured CUDA
+  graph on the card (runtime/graph.py ``StepRunner``): the gathered
+  positions ride in the frame's input row after the keys and the mouse
+  delta, and the graph's body (``multiplayer_body``) moves the avatars,
+  refreshes the sphere records and steps the frame, as the JAX package's
+  jitted ``shard_map`` does. The one host read a frame is the exchange's
+  12 bytes of this player's position.
 - Avatars do not collide (players pass through each other): collision uses
   the boxes captured at upload, which hold the avatars' park positions far
   outside the world.
@@ -99,7 +106,9 @@ def avatar_scene(scene, n_players: int, me: int, radius: float = 1.0,
 
 
 def update_avatars(dev: DeviceScene, slots, centers: torch.Tensor) -> DeviceScene:
-    """Move the avatar spheres at ``slots`` to ``centers`` [A, 3]: the
+    """Move the avatar spheres at ``slots`` (a list of sphere indices, or the
+    same as a long tensor on the scene's device, made once by a body that a
+    CUDA graph captures) to ``centers`` [A, 3]: the
     scene's ``sph_center`` and the two centre-derived fields of the
     scene-order view the jnp backends read, ``sph_center`` and
     ``sph_c2r2`` = |c|^2 - r^2 in float32 as the reference's jitted step
@@ -107,10 +116,13 @@ def update_avatars(dev: DeviceScene, slots, centers: torch.Tensor) -> DeviceScen
     fma(-r, r, fma(z, z, fma(y, y, x * x))) (each FMA emulated in float64
     and rounded once, ops/prng.py ``fma``). Radius, 1/r and colour stay.
     Returns a new DeviceScene; the given one is unchanged."""
-    if not slots:
-        return dev
     d = dev.sph_center.device
-    idx = torch.tensor(list(slots), dtype=torch.long, device=d)
+    if isinstance(slots, torch.Tensor):
+        idx = slots
+    else:
+        idx = torch.tensor(list(slots), dtype=torch.long, device=d)
+    if idx.numel() == 0:
+        return dev
     centers = centers.to(device=d, dtype=torch.float32)
     new_center = dev.sph_center.index_copy(0, idx, centers)
     r = dev.sph_radius[idx]
@@ -140,6 +152,40 @@ def make_position_exchange():
     return exchange
 
 
+def multiplayer_body(cfg: EngineConfig, dev: DeviceScene, slots, others,
+                     max_depth: int, max_leaf: int):
+    """One player's frame after the exchange, ``body(state, row, rotate) ->
+    state``: ``row`` is the frame's input row (runtime/step.py
+    ``INPUT_WIDTH`` values) followed by every player's position, [P * 3]
+    float32, on the state's device. It moves the avatars at ``slots`` to
+    the positions of the players ``others`` (``update_avatars``; none with
+    no ``others``: a player alone keeps them parked), for the fused kernel
+    re-derives the sphere records (``make_sphere_refresh``), and
+    steps the single engine's frame on that scene. It reads nothing on the
+    host, so a StepRunner captures it; its index tensors are made here,
+    once. ``max_depth`` / ``max_leaf`` are the bvh traversal bounds."""
+    from ..render.pipeline import scene_nearest_fn
+    from ..render.scenebuf import make_sphere_refresh
+    from ..runtime.step import INPUT_WIDTH, advance
+
+    device = dev.planes.device
+    refresh = make_sphere_refresh(dev) if cfg.intersector == "pallas" and slots else None
+    slot_idx = torch.tensor(list(slots), dtype=torch.long, device=device)
+    others_idx = torch.tensor(list(others), dtype=torch.long, device=device)
+
+    def body(state, row: torch.Tensor, rotate: bool):
+        scene = dev
+        if others:
+            positions = row[INPUT_WIDTH:].reshape(-1, 3)
+            scene = update_avatars(scene, slot_idx, positions[others_idx])
+        if refresh is not None:
+            scene = refresh(scene)
+        return advance(scene, cfg, state, row, rotate,
+                       scene_nearest_fn(scene, cfg, max_depth, max_leaf))
+
+    return body
+
+
 def make_multiplayer_engine(cfg: EngineConfig, me: int | None = None, scene=None,
                             radius: float = 1.0, glow: float = 0.25, noise=None,
                             device=None):
@@ -153,18 +199,19 @@ def make_multiplayer_engine(cfg: EngineConfig, me: int | None = None, scene=None
     ``noise``.
 
     ``step_fn(state, inputs) -> (state, frame)`` exchanges the positions
-    (``make_position_exchange``), moves the avatars (``update_avatars``),
-    for the fused kernel re-derives its sphere records
-    (``make_sphere_refresh``), and runs the single engine's frame on that
-    scene. ``init_fn(seed=0)`` makes the state. The state and frame are the
-    single engine's, so ``InteractiveLoop.from_engine`` and
+    (``make_position_exchange``, on the host) and runs ``multiplayer_body``
+    with them in the frame's input row: on the card one replay of a captured
+    graph (``step_fn.runner`` is the StepRunner), on the CPU the body
+    eagerly. ``init_fn(seed=0)`` makes the state. The state and frame are
+    the single engine's, so ``InteractiveLoop.from_engine`` and
     ``EngineServer(engine=...)`` drive it unchanged; a failed exchange
     raises "a peer left the session"."""
     import torch.distributed as dist
 
-    from ..render.scenebuf import make_sphere_refresh, upload_scene
+    from ..render.scenebuf import upload_scene
+    from ..runtime.graph import StepRunner
     from ..runtime.state import init_state
-    from ..runtime.step import derive_traversal_bounds, make_step_fn
+    from ..runtime.step import derive_traversal_bounds, display, input_stack, upload_rows
     from ..scene import build_scene
 
     joined = dist.is_available() and dist.is_initialized()
@@ -174,28 +221,28 @@ def make_multiplayer_engine(cfg: EngineConfig, me: int | None = None, scene=None
     host_scene = scene if scene is not None else build_scene(cfg.maze)
     host_scene, slots = avatar_scene(host_scene, n_players, me, radius, glow=glow)
     dev = upload_scene(host_scene, device=device, noise=noise)
-    base_step = make_step_fn(cfg, *derive_traversal_bounds(dev, cfg, None, None))
-    refresh = make_sphere_refresh(dev) if cfg.intersector == "pallas" and slots else None
-    others = torch.tensor([i for i in range(n_players) if i != me], dtype=torch.long,
-                          device=dev.planes.device)
+    others = [i for i in range(n_players) if i != me] if n_players > 1 else []
+    runner = StepRunner(multiplayer_body(cfg, dev, slots, others,
+                                         *derive_traversal_bounds(dev, cfg, None, None)),
+                        graphs=True)
     exchange = make_position_exchange() if n_players > 1 else None
 
     def init_fn(seed: int = 0):
         return init_state(cfg, seed, device=dev.planes.device)
 
     def step_fn(state, inputs):
-        scene_ = dev
+        row = input_stack([inputs])
         if exchange is not None:
             try:
-                positions = exchange(state.cam_center)
+                positions = exchange(state.cam_center.cpu())
             except Exception as e:  # noqa: BLE001 — annotate the death
                 raise RuntimeError(
                     "multiplayer step failed — most likely a peer left the session "
                     "(the per-frame exchange is a collective); the session is over "
                     "for everyone") from e
-            scene_ = update_avatars(scene_, slots, positions[others])
-        if refresh is not None:
-            scene_ = refresh(scene_)
-        return base_step(scene_, state, inputs)
+            row = np.concatenate([row, positions.numpy().reshape(1, -1)], axis=1)
+        state = runner(state, upload_rows(row, state.screen.device), [bool(inputs.rot_updated)])
+        return state, display(state, cfg)
 
+    step_fn.runner = runner
     return dev, init_fn, step_fn

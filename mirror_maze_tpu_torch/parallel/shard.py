@@ -360,9 +360,9 @@ def make_sharded_engine(cfg: EngineConfig, devices=None, max_depth: int | None =
     first use) or the list of its per-device copies. The camera behaves as the
     single engine's (runtime/step.py), every band refreshes its own rows from
     its own queue, and the blur crosses the band seams. The bvh traversal
-    bounds default to the scene's (derived at the first call). With every
-    band on one CUDA card (intersector ``pallas``, ``brute`` or ``exact``) a
-    frame is one replay of a captured graph that holds every band's step, the
+    bounds default to the scene's (derived at the first call, which runs
+    eagerly). With every band on one CUDA card (any intersector) a frame is
+    one replay of a captured graph that holds every band's step, the
     halo row copies and the halo presents (runtime/graph.py); over several
     devices, an eager loop of the bands."""
     band, init_fn, runner_of = _engine_locals(cfg, devices, max_depth, max_leaf)

@@ -2,10 +2,11 @@
 under torch.profiler.
 
     python -m mirror_maze_tpu_torch.profile_frames [--config interactive]
-        [--frames 16] [--trace out.json]
+        [--intersector bvh] [--frames 16] [--trace out.json]
 
 Runs the named configuration (default ``config_interactive``, 1920x1080,
-64 spp; ``scale`` and ``fuzzy`` are the multi-tile ones) for a few warm-up
+64 spp; ``scale`` and ``fuzzy`` are the multi-tile ones; ``--intersector``
+overrides its backend, as the bench's flag does) for a few warm-up
 frames, then ``--frames`` idle frames through ``make_scan_step`` under the profiler
 (every frame one replay of the step's captured CUDA graph, runtime/graph.py),
 and prints one JSON line: ms/frame on the host clock (ending in a
@@ -29,6 +30,7 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="interactive", choices=sorted(NAMED_CONFIGS))
+    ap.add_argument("--intersector", default=None, choices=("brute", "bvh", "exact", "pallas"))
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--trace", default=None, help="chrome trace output path")
@@ -48,6 +50,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     cfg = NAMED_CONFIGS[args.config]()
+    if args.intersector:
+        cfg = cfg.replace(intersector=args.intersector)
     scene = upload_scene(build_scene(cfg.maze))
     run = make_scan_step(scene, cfg)
     st, _ = run(init_state(cfg), [FrameInputs.idle()] * 4)
@@ -76,6 +80,7 @@ def main() -> None:
     print(json.dumps({
         "card": card,
         "config": args.config,
+        "intersector": cfg.intersector,
         "frames": n,
         "ms_per_frame_host": wall_ms / n,
         "device_busy_ms_per_frame": busy_us / 1e3 / n,

@@ -15,6 +15,7 @@ from .fused_tracer import tile_order, trace_paths_fused, trace_paths_plain  # no
 from .intersect import (  # noqa: F401
     nearest_hit_brute,
     nearest_hit_bvh,
+    nearest_hit_bvh_kernel,
     nearest_hit_exact,
     ray_aabb,
 )

@@ -18,11 +18,18 @@ scene-order index (``torch.argmin`` returns the first minimum, as
 inside the primitive (`shaders.metal:63`).
 
 The reference's traversal is a ``lax.while_loop`` that tests ``any(live)``
-on the device every iteration. Here the test is a host fetch, made every
-``check_every`` iterations: a ray that is no longer live keeps its state
-(every update is masked by ``live``), so iterations run past the last live
-ray change nothing and the result does not depend on ``check_every``.
-``walk_counts`` counts the walks, their iterations and the host fetches.
+on the device every iteration. On the card the walk is the hand-written
+kernel ``csrc/bvh_walk.cu`` (``nearest_hit_bvh_kernel``): one thread walks
+one ray to its end, so nothing is read on the host and the walk captures
+into a CUDA graph. It raises on a tensor that is not on a CUDA device, and
+where the tree is deeper than its stack; it never falls back to the plain
+walk. ``nearest_hit_bvh`` is the plain walk, the CPU's path and the
+kernel's twin: there the test is a host fetch, made every ``check_every``
+iterations. A ray that is no longer live keeps its state (every update is
+masked by ``live``), so iterations run past the last live ray change
+nothing, the result does not depend on ``check_every``, and one ray walked
+alone to its end gives the same result. ``walk_counts`` counts the plain
+walks, their iterations and the host fetches.
 """
 
 from __future__ import annotations
@@ -32,18 +39,23 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from ..ops.vecmath import sqrt
 from .scenebuf import ScenePrims
 
 BIG = 1e30
 
-# Iterations of the BVH walk between two host fetches of any(live). The
-# walk is bound by its launches (~100 small ops an iteration), and a fetch
-# costs less than an iteration, so 1 runs the fewest iterations. One walk of
-# config_bvh's frame-1 rays, median of three runs on an NVIDIA H100 80GB
-# HBM3 at 700 W: 40.6 ms at 1, 39.6 at 8, inside the host's noise
+# Iterations of the plain BVH walk between two host fetches of any(live).
+# The walk is bound by its launches (~100 small ops an iteration), and a
+# fetch costs less than an iteration, so 1 runs the fewest iterations. One
+# plain walk of config_bvh's frame-1 rays, median of three runs on an NVIDIA
+# H100 80GB HBM3 at 700 W: 40.6 ms at 1, 39.6 at 8, inside the host's noise
 # (chip_smoke.py [bvh]).
 CHECK_EVERY = 1
+# Stack levels of a ray in the walk kernel (MM_BVH_STACK in csrc/bvh_walk.cu):
+# a walk needs max_depth + 2, and the deepest named scene, config_scale's
+# 64x64 maze, has a tree of depth 17.
+BVH_STACK = 64
 
 walk_counts: collections.Counter = collections.Counter()
 
@@ -173,12 +185,15 @@ def bvh_tables(prims: ScenePrims, max_leaf: int) -> BVHTables:
 
 def nearest_hit_bvh(prims: ScenePrims, o: torch.Tensor, d: torch.Tensor, t_min: float,
                     max_depth: int, max_leaf: int, check_every: int = CHECK_EVERY,
-                    tables: BVHTables | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                    tables: BVHTables | None = None,
+                    stats: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Ordered stack traversal, every ray on its own path: descend the
     nearer child, push the farther one when it is also hit, test up to
     ``max_leaf`` primitives of a leaf under masks; strictly nearer hits win
     in visit order. ``tables`` are ``bvh_tables(prims, max_leaf)``, built
-    here when not given."""
+    here when not given. With ``stats``, the work of the rays' walks is
+    added to it as int64 tensors: ``interior`` visits (two slab tests each)
+    and primitive ``tests``."""
     if tables is None:
         tables = bvh_tables(prims, max_leaf)
     noderow, leafpack = tables.noderow, tables.leafpack
@@ -200,6 +215,10 @@ def nearest_hit_bvh(prims: ScenePrims, o: torch.Tensor, d: torch.Tensor, t_min: 
         lf = nr[:, 13].long()
         is_leaf = ct >= 1
         lp = leafpack[lf.clamp(0, n_slots - 1)]
+        if stats is not None:
+            stats["interior"] = stats.get("interior", 0) + (live & ~is_leaf).sum()
+            stats["tests"] = stats.get("tests", 0) + torch.where(
+                live & is_leaf, ct.clamp(max=max_leaf), 0).sum()
         for k in range(max_leaf):
             pk = lp[:, 15 * k:15 * (k + 1)]
             nrm = pk[:, 0:3]
@@ -239,4 +258,51 @@ def nearest_hit_bvh(prims: ScenePrims, o: torch.Tensor, d: torch.Tensor, t_min: 
     walk_counts["iterations"] += it
     if prims.num_spheres:
         return _merge_spheres(prims, o, d, t_min, t, idx)
+    return t, idx
+
+
+def nearest_hit_bvh_kernel(prims: ScenePrims, o: torch.Tensor, d: torch.Tensor, t_min: float,
+                           max_depth: int, max_leaf: int,
+                           tables: BVHTables | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``nearest_hit_bvh`` by the ``bvh_walk`` kernel (csrc/bvh_walk.cu), then
+    the sphere fold: bitwise the plain walk. o, d: [R, 3] float32 on a CUDA
+    device. Raises where the walk needs more than ``BVH_STACK`` levels
+    (``max_depth + 2``) or the rays are not on a CUDA device; it does not
+    fall back to the plain walk."""
+    if tables is None:
+        tables = bvh_tables(prims, max_leaf)
+    t, idx = bvh_walk(tables, o, d, t_min, max_depth, max_leaf)
+    if prims.num_spheres:
+        return _merge_spheres(prims, o, d, t_min, t, idx)
+    return t, idx
+
+
+def bvh_walk(tables: BVHTables, o: torch.Tensor, d: torch.Tensor, t_min: float,
+             max_depth: int, max_leaf: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the ``bvh_walk`` kernel: the nearest plane hit (t [R],
+    idx [R] int32) of every ray, one thread a ray."""
+    n_levels = max_depth + 2
+    if n_levels > BVH_STACK:
+        raise ValueError(f"a BVH of depth {max_depth} needs {n_levels} stack levels, the "
+                         f"bvh_walk kernel holds {BVH_STACK}")
+    if o.device.type != "cuda":
+        raise ValueError(f"the bvh_walk kernel runs on CUDA tensors, got {o.device}; "
+                         "nearest_hit_bvh is the plain walk")
+    noderow, leafpack = tables.noderow.contiguous(), tables.leafpack.contiguous()
+    if leafpack.shape[1] != 15 * max_leaf:
+        raise ValueError(f"tables of {leafpack.shape[1] // 15} slots a leaf for max_leaf "
+                         f"{max_leaf}")
+    for name, x in (("noderow", noderow), ("leafpack", leafpack), ("o", o), ("d", d)):
+        if x.device != o.device or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 on {o.device}, got {x.dtype} on {x.device}")
+    if o.ndim != 2 or o.shape[1] != 3 or d.shape != o.shape:
+        raise ValueError(f"o, d must both be [R, 3], got {tuple(o.shape)}, {tuple(d.shape)}")
+    o, d = o.contiguous(), d.contiguous()
+    n_rays = o.shape[0]
+    t = torch.empty((n_rays,), dtype=torch.float32, device=o.device)
+    idx = torch.empty((n_rays,), dtype=torch.int32, device=o.device)
+    with torch.cuda.device(o.device):
+        kernels.launch("bvh_walk", noderow.data_ptr(), leafpack.data_ptr(), noderow.shape[0],
+                       leafpack.shape[0], max_leaf, o.data_ptr(), d.data_ptr(), t.data_ptr(),
+                       idx.data_ptr(), n_rays, n_levels, float(t_min))
     return t, idx

@@ -28,7 +28,13 @@ from ..scene.bvh import traversal_bounds
 from ..utils.noise import sample_noise
 from .camera import Camera, ray_directions
 from .fused_tracer import trace_paths_fused
-from .intersect import bvh_tables, nearest_hit_brute, nearest_hit_bvh, nearest_hit_exact
+from .intersect import (
+    bvh_tables,
+    nearest_hit_brute,
+    nearest_hit_bvh,
+    nearest_hit_bvh_kernel,
+    nearest_hit_exact,
+)
 from .scenebuf import DeviceScene
 from .tracer import tone_map, trace_paths
 
@@ -122,12 +128,13 @@ def make_nearest_fn(scene: DeviceScene, cfg: EngineConfig, max_depth: int,
                     max_leaf: int) -> Callable:
     """The nearest-hit backend of ``cfg.intersector`` over the scene's
     scene-order view: ``fn(o, d) -> (t, idx)``. For ``bvh`` the packed
-    traversal tables are built here, once."""
+    traversal tables are built here, once, and the walk is the ``bvh_walk``
+    kernel where the scene is on a CUDA device, the plain walk elsewhere."""
     prims, t_min = scene.prims, cfg.tracer.t_min
     if cfg.intersector == "bvh":
         tables = bvh_tables(prims, max_leaf)
-        return lambda o, d: nearest_hit_bvh(prims, o, d, t_min, max_depth, max_leaf,
-                                            tables=tables)
+        walk = nearest_hit_bvh_kernel if prims.normal.device.type == "cuda" else nearest_hit_bvh
+        return lambda o, d: walk(prims, o, d, t_min, max_depth, max_leaf, tables=tables)
     if cfg.intersector == "exact":
         return lambda o, d: nearest_hit_exact(prims, o, d, t_min)
     return lambda o, d: nearest_hit_brute(prims, o, d, t_min)

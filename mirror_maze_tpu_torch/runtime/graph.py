@@ -190,9 +190,9 @@ class StepGraphs:
 class StepRunner:
     """A step body bound to a scene, run for a list of frames: as graph
     replays (``StepGraphs``, one per device) where the state's tensors are
-    all on one CUDA device and ``graphs`` is set (the intersector's body is
-    free of host reads), else as an eager loop of the body (the CPU, the
-    bvh walk, bands on several devices)."""
+    all on one CUDA device and ``graphs`` is set (the body is free of host
+    reads), else as an eager loop of the body (the CPU, bands on several
+    devices)."""
 
     def __init__(self, body: Callable, graphs: bool):
         self._body = body

@@ -20,12 +20,11 @@ rotates is the one thing the host decides: it picks between two bodies
 (the JAX package's ``lax.cond``), and with them between two graphs.
 
 ``make_step`` / ``make_scan_step`` are the counterparts of the JAX
-package's jitted, donated steps: on a CUDA state with the ``pallas``,
-``brute`` or ``exact`` intersector every frame is one replay of a captured
-CUDA graph (runtime/graph.py); on the CPU, and with ``bvh`` (its walk reads
-``any(live)`` on the host, intersect.py), they run the body eagerly.
-``make_step_fn`` / ``make_scan_step_fn`` are the unjitted forms, eager
-everywhere, with the scene an argument.
+package's jitted, donated steps: on a CUDA state every frame is one replay
+of a captured CUDA graph (runtime/graph.py), whatever the intersector (the
+``bvh`` walk is the ``bvh_walk`` kernel there, render/intersect.py); on the
+CPU they run the body eagerly. ``make_step_fn`` / ``make_scan_step_fn`` are
+the unjitted forms, eager everywhere, with the scene an argument.
 """
 
 from __future__ import annotations
@@ -69,7 +68,7 @@ PI_F32 = float(np.float32(np.pi))
 # A frame's input row: keys A, S, D, W as 0.0 / 1.0, then mouse_dx (float32).
 INPUT_WIDTH = 5
 # The intersectors whose step is captured into a CUDA graph on the card.
-GRAPH_INTERSECTORS = ("pallas", "brute", "exact")
+GRAPH_INTERSECTORS = ("pallas", "brute", "exact", "bvh")
 
 
 def input_stack(frames: Sequence[FrameInputs]) -> np.ndarray:
@@ -87,14 +86,20 @@ def graph_kinds(frames: Sequence[FrameInputs]) -> list:
     return [bool(f.rot_updated) for f in frames]
 
 
-def upload_inputs(frames: Sequence[FrameInputs], device) -> torch.Tensor:
-    """``input_stack`` on ``device``: to a CUDA device one pinned,
-    non-blocking copy for the whole call."""
-    rows = torch.from_numpy(input_stack(frames))
+def upload_rows(rows: np.ndarray, device) -> torch.Tensor:
+    """Input rows (float32 [n, k]) on ``device``: to a CUDA device one
+    pinned, non-blocking copy."""
+    rows = torch.from_numpy(rows)
     dev = torch.device(device)
     if dev.type == "cuda":
         return rows.pin_memory().to(dev, non_blocking=True)
     return rows.to(dev)
+
+
+def upload_inputs(frames: Sequence[FrameInputs], device) -> torch.Tensor:
+    """``input_stack`` on ``device``: to a CUDA device one pinned,
+    non-blocking copy for the whole call."""
+    return upload_rows(input_stack(frames), device)
 
 
 def integrate_movement(
@@ -194,9 +199,9 @@ def make_step(
 ) -> Callable[[EngineState, FrameInputs], tuple[EngineState, torch.Tensor]]:
     """The frame step bound to a scene: (state, inputs) -> (state, uint8
     display frame [H, W, 3] on the state's device); the JAX package's jitted
-    step with the state donated. On a CUDA state (intersector ``pallas``,
-    ``brute`` or ``exact``) the frame is one replay of a captured graph; the
-    state and frame handed back are the caller's, never written again. The
+    step with the state donated. On a CUDA state the frame is one replay of
+    a captured graph; the state and frame handed back are the caller's,
+    never written again. The
     bvh traversal bounds default to those of the scene's BVH
     (derive_traversal_bounds). ``step.runner`` is the StepRunner."""
     runner = _runner(scene, cfg, max_depth, max_leaf)
@@ -301,6 +306,16 @@ def advance_to_scatter(scene, cfg, n_chunks, state: EngineState, inp: torch.Tens
     )
 
 
+def advance(scene: DeviceScene, cfg: EngineConfig, state: EngineState, inp: torch.Tensor,
+            rotate: bool, nearest_fn=None) -> EngineState:
+    """One whole frame of the step body on ``scene``, for a body built
+    around it (parallel/multiplayer.py): ``inp`` is the frame's input row
+    (its first INPUT_WIDTH values are read) on the state's device, ``rotate``
+    its ``rot_updated``, ``nearest_fn`` the jnp backend or None."""
+    return _advance(scene, cfg, cfg.screen.effective_chunks_per_frame, state, inp, rotate,
+                    nearest_fn)
+
+
 def _advance(scene, cfg, n_chunks, state: EngineState, inp: torch.Tensor, rotate: bool,
              nearest_fn=None) -> EngineState:
     state = advance_to_scatter(scene, cfg, n_chunks, state, inp, rotate,
@@ -324,11 +339,10 @@ def make_scan_step(
     frame), where ``inputs`` is a list of FrameInputs or one stacked
     FrameInputs with an [n]-leading axis (``stack_inputs``,
     ``repeat_input``); the JAX package's jitted scan with the state donated.
-    On a CUDA state (``pallas``, ``brute`` or ``exact``) a call of n frames
-    is one upload of the inputs and n graph replays; elsewhere an eager loop
-    (the bvh walk fetches its liveness every ``intersect.CHECK_EVERY``
-    iterations). Only the final frame's display is built; the state and
-    frame handed back are the caller's. ``run.runner`` is the StepRunner."""
+    On a CUDA state a call of n frames is one upload of the inputs and n
+    graph replays; on the CPU an eager loop. Only the final frame's display
+    is built; the state and frame handed back are the caller's.
+    ``run.runner`` is the StepRunner."""
     runner = _runner(scene, cfg, max_depth, max_leaf)
 
     def run(state: EngineState, inputs):

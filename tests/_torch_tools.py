@@ -15,6 +15,9 @@ apart.
 import dataclasses
 
 import numpy as np
+import torch
+from torch.overrides import TorchFunctionMode
+
 import mirror_maze_tpu_torch as P
 from mirror_maze_tpu_torch.examples import cornell_box, mesh_gallery
 from mirror_maze_tpu_torch.scene import build_scene, mesh
@@ -254,6 +257,75 @@ def aimed_rays(scene, n, seed, extent):
     return o, d.astype(np.float32)
 
 
+def giant_leaf_scene() -> Scene:
+    """Seven coincident quads, which the SAH builder keeps in one BVH leaf
+    (the giant leaf of tests/test_intersect.py)."""
+    n = 7
+    return Scene(
+        origin=np.tile(np.float32([[-0.5, -0.5, 0.0]]), (n, 1)),
+        v=np.tile(np.float32([[1.0, 0.0, 0.0]]), (n, 1)),
+        u=np.tile(np.float32([[0.0, 1.0, 0.0]]), (n, 1)),
+        color=np.ones((n, 3), np.float32), is_mirror=np.zeros(n, bool),
+        emission=np.zeros((n, 4), np.float32), grid=np.zeros((1, 1), np.uint8))
+
+
+# The scenes of the intersector tests: a 4x4 maze, the Cornell box with an
+# opaque mirror sphere and a glass sphere, the mesh gallery (360 triangles),
+# and the giant leaf.
+INTERSECT_SCENES = ("maze", "spheres", "mesh", "leaf")
+
+
+def intersect_scene(name: str) -> Scene:
+    """One of ``INTERSECT_SCENES``."""
+    if name == "maze":
+        return build_scene(P.MazeConfig(width=4, height=4))
+    if name == "spheres":
+        return dataclasses.replace(cornell_scene("spheres"), sph_ior=np.float32([0.0, 1.5]))
+    if name == "mesh":
+        return mesh_gallery_scene()
+    return giant_leaf_scene()
+
+
+def scene_rays(scene: Scene, n: int, seed: int):
+    """Rays from points inside the scene's box, in random directions; the
+    giant leaf's come from in front of the quads, towards them."""
+    rng = np.random.default_rng(seed)
+    if scene.num_planes == 7:
+        o = rng.uniform(-0.6, 0.6, (n, 3)).astype(np.float32)
+        o[:, 2] = -3.0
+        d = np.float32([0, 0, 1]) + rng.normal(scale=0.1, size=(n, 3)).astype(np.float32)
+    else:
+        pts = np.concatenate([scene.origin, scene.origin + scene.u + scene.v])
+        lo, hi = pts.min(axis=0), pts.max(axis=0)
+        mid, half = (lo + hi) / 2, (hi - lo) / 2
+        o = (mid + rng.uniform(-0.8, 0.8, (n, 3)) * half).astype(np.float32)
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d.astype(np.float32)
+
+
+def zero_component_rays(scene: Scene, n: int, seed: int):
+    """``scene_rays`` with exact zeros in the directions: every ray has one
+    zero component, every third two (it runs along an axis), and the origin
+    lies on a face plane of a BVH node's box on each zero axis, so the slab
+    test meets (bmin - o) * (1 / 0) = 0 * inf = NaN there."""
+    from mirror_maze_tpu_torch.scene.bvh import build_bvh
+
+    rng = np.random.default_rng(seed)
+    o, d = scene_rays(scene, n, seed)
+    bvh = build_bvh(scene.origin, scene.u, scene.v)
+    faces = np.stack([bvh.aabb_min, bvh.aabb_max], axis=1)      # [M, 2, 3]
+    for i in range(n):
+        axes = rng.permutation(3)[:1 + (i % 3 == 0)]
+        for a in axes:
+            d[i, a] = 0.0
+            o[i, a] = faces[rng.integers(len(faces)), rng.integers(2), a]
+        if not d[i].any():
+            d[i, (axes[0] + 1) % 3] = 1.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d.astype(np.float32)
+
+
 def gif_frame_count(path: str) -> int:
     """The images of a GIF file, counted by walking its blocks (no
     decoding): the machine with the card may lack PIL."""
@@ -313,3 +385,43 @@ def compare_states(jst, st) -> None:
     for f in ("cam_center", "quat", "half_theta"):
         np.testing.assert_allclose(getattr(st, f).cpu().numpy(), np.asarray(getattr(jst, f)),
                                    rtol=0, atol=1e-6, err_msg=f)
+
+
+class NoHostReads(TorchFunctionMode):
+    """Raises on what a CUDA graph capture forbids: reading a tensor on the
+    host, and copying host data into a tensor."""
+
+    FORBIDDEN = {torch.Tensor.item, torch.Tensor.__bool__, torch.Tensor.__int__,
+                 torch.Tensor.__float__, torch.Tensor.__index__, torch.Tensor.tolist,
+                 torch.Tensor.cpu, torch.Tensor.numpy, torch.tensor, torch.as_tensor,
+                 torch.from_numpy}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in self.FORBIDDEN:
+            raise AssertionError(f"host read or host copy in the step body: {func.__name__}")
+        return func(*args, **(kwargs or {}))
+
+
+def eager_multiplayer_step(cfg, dev, slots, others, bounds):
+    """A player's step as it ran before the multiplayer graph, given the
+    gathered positions: ``update_avatars`` (the avatars at ``slots`` to the
+    positions of the players ``others``), ``make_sphere_refresh`` for the
+    fused kernel, then ``make_step_fn`` (eager on every device) with the bvh
+    ``bounds``. ``step(state, inputs, positions [P, 3]) -> (state, frame)``."""
+    from mirror_maze_tpu_torch.parallel.multiplayer import update_avatars
+    from mirror_maze_tpu_torch.render.scenebuf import make_sphere_refresh
+    from mirror_maze_tpu_torch.runtime.step import make_step_fn
+
+    base = make_step_fn(cfg, *bounds)
+    refresh = make_sphere_refresh(dev) if cfg.intersector == "pallas" and slots else None
+    others = list(others)
+
+    def step(state, inputs, positions):
+        scene = dev
+        if slots:
+            scene = update_avatars(scene, slots, positions[others])
+        if refresh is not None:
+            scene = refresh(scene)
+        return base(scene, state, inputs)
+
+    return step

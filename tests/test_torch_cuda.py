@@ -15,21 +15,26 @@ import torch
 
 import mirror_maze_tpu_torch as P
 from _torch_tools import (
+    INTERSECT_SCENES,
     aimed_rays,
     assert_frames_match,
     checker_floor,
     cornell_scene,
     golden_config,
     golden_script,
+    intersect_scene,
     mesh_gallery_scene,
     multi_tile_config,
     multi_tile_script,
+    eager_multiplayer_step,
     primitive_zoo,
+    scene_rays,
     scene_subset,
     soup_arrays,
     textured_cornell,
     textured_maze_scene,
     tied_floor_scene,
+    zero_component_rays,
 )
 from mirror_maze_tpu_torch import kernels
 from mirror_maze_tpu_torch.config import MazeConfig, ScreenConfig, TracerConfig, config_interactive
@@ -629,11 +634,12 @@ def _states_bitwise(a, b) -> bool:
                for x, y in zip(a, b))
 
 
-@pytest.mark.parametrize("intersector", ["pallas", "brute", "exact"])
+@pytest.mark.parametrize("intersector", ["pallas", "brute", "exact", "bvh"])
 def test_graph_step_is_bitwise_the_eager_step(cuda_device, intersector):
     """The golden script through make_scan_step (a graph per input kind, the
     first frame of each kind eager) against the eager loop: every state
-    field and the frame bitwise; one tracer and one present launch a frame."""
+    field and the frame bitwise; one tracer and one present launch a frame,
+    and with bvh one walk kernel launch a segment."""
     cfg = golden_config().replace(intersector=intersector)
     script = golden_script(FrameInputs)
     st, frame, est, eframe, graphs, counts = _graph_vs_eager(cuda_device, cfg, script)
@@ -643,6 +649,8 @@ def test_graph_step_is_bitwise_the_eager_step(cuda_device, intersector):
     want = {"present": len(script)}
     if intersector == "pallas":
         want["tracer"] = len(script)
+    if intersector == "bvh":
+        want["bvh_walk"] = len(script) * cfg.tracer.max_segments
     assert counts == want
     assert float(frame.float().mean()) > 1.0
 
@@ -781,3 +789,116 @@ def test_failed_capture_raises(cuda_device):
     torch.cuda.synchronize()
     x = torch.ones(4, device=cuda_device)               # the context still works
     assert float((x * 2).sum()) == 8.0
+
+
+# --- The BVH walk kernel (csrc/bvh_walk.cu) and the last graphed routes ------
+
+
+@pytest.mark.parametrize("rays", ["random", "zero_components"])
+@pytest.mark.parametrize("name", list(INTERSECT_SCENES))
+def test_bvh_walk_kernel_matches_plain_bitwise(cuda_device, name, rays):
+    """The walk kernel against the plain walk on the same rays on the card
+    and on the CPU: t and idx bitwise; one launch a call."""
+    from mirror_maze_tpu_torch.render import intersect
+    from mirror_maze_tpu_torch.scene.bvh import traversal_bounds
+
+    scene = intersect_scene(name)
+    make = zero_component_rays if rays == "zero_components" else scene_rays
+    o, d = make(scene, 4096, seed=7)
+    dev = upload_scene(scene, device=cuda_device)
+    p = dev.prims
+    depth, leaf = traversal_bounds(p.bvh_left_first.cpu().numpy(), p.bvh_count.cpu().numpy())
+    go, gd = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    before = kernels.launches["bvh_walk"]
+    t, i = intersect.nearest_hit_bvh_kernel(p, go, gd, 0.1, depth, leaf)
+    assert kernels.launches["bvh_walk"] == before + 1
+    pt, pi = intersect.nearest_hit_bvh(p, go, gd, 0.1, depth, leaf)
+    torch.cuda.synchronize()
+    assert torch.equal(t.view(torch.int32), pt.view(torch.int32)) and torch.equal(i, pi)
+    cpu = upload_scene(scene, device="cpu").prims
+    ct, ci = intersect.nearest_hit_bvh(cpu, torch.from_numpy(o), torch.from_numpy(d), 0.1, depth,
+                                       leaf)
+    assert torch.equal(t.cpu().view(torch.int32), ct.view(torch.int32))
+    assert torch.equal(i.cpu(), ci)
+    assert (ct < intersect.BIG).float().mean() > 0.05
+
+
+def test_bvh_walk_kernel_is_the_backend_on_the_card(cuda_device):
+    """make_nearest_fn's bvh backend on a scene on the card launches the
+    kernel and never the plain walk."""
+    from mirror_maze_tpu_torch.render import intersect
+    from mirror_maze_tpu_torch.render.pipeline import scene_nearest_fn
+
+    cfg = golden_config().replace(intersector="bvh")
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    fn = scene_nearest_fn(scene, cfg)
+    o, d = (torch.from_numpy(x).to(cuda_device) for x in scene_rays(intersect_scene("maze"),
+                                                                     256, seed=3))
+    intersect.walk_counts.clear()
+    before = kernels.launches["bvh_walk"]
+    fn(o, d)
+    assert kernels.launches["bvh_walk"] == before + 1
+    assert intersect.walk_counts["walks"] == 0
+    with pytest.raises(ValueError, match="stack levels"):
+        intersect.nearest_hit_bvh_kernel(scene.prims, o, d, 0.1, intersect.BVH_STACK, 2)
+
+
+def test_graph_band_engine_with_the_bvh_walk(cuda_device):
+    """Two bands with bvh on the one card: a graph per input kind (the walk
+    kernel inside), bitwise the band body stepped eagerly."""
+    from mirror_maze_tpu_torch.runtime.graph import StepRunner
+    from mirror_maze_tpu_torch.runtime.step import run_frames
+
+    cfg = golden_config().replace(intersector="bvh")
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    script = golden_script(FrameInputs)
+    init_fn, scan_fn = shard.make_sharded_scan_engine(cfg, [cuda_device] * 2)
+    kernels.reset_launches()
+    st, frame = scan_fn(scene, init_fn(0), script)
+    counts = dict(kernels.launches)
+    runner = scan_fn.runner_of(scene)
+    graphs = runner.graphs[st.screen[0].device]
+    eager = StepRunner(runner._body, graphs=False)
+    est = run_frames(eager, init_fn(0), script)
+    eframe = shard.assemble_frame(shard.band_frames(est, shard._band_screen_cfg(cfg, 2)))
+    assert all(_states_bitwise(a, b) for a, b in zip(zip(*st), zip(*est)))
+    assert torch.equal(frame, eframe)
+    assert graphs.kinds == (False, True) and graphs.replays == len(script) - 2
+    assert counts == {"bvh_walk": 2 * len(script) * cfg.tracer.max_segments,
+                      "present_halo": 2 * len(script)}
+
+
+@pytest.mark.parametrize("intersector", ["pallas", "bvh"])
+def test_multiplayer_graph_is_bitwise_the_eager_step(cuda_device, intersector):
+    """Player 1 of 3, both avatars moved by scripted positions: the body
+    the engine captures (one replay a frame on the card) against the eager
+    step given the same positions, states and frames bitwise."""
+    from mirror_maze_tpu_torch.parallel import multiplayer as mp
+    from mirror_maze_tpu_torch.runtime.graph import StepRunner
+    from mirror_maze_tpu_torch.runtime.state import init_state
+    from mirror_maze_tpu_torch.runtime.step import (
+        derive_traversal_bounds,
+        display,
+        input_stack,
+        upload_rows,
+    )
+
+    cfg = golden_config().replace(intersector=intersector)
+    scene, slots = mp.avatar_scene(build_scene(cfg.maze), 3, 1, glow=0.25)
+    dev = upload_scene(scene, device=cuda_device)
+    bounds = derive_traversal_bounds(dev, cfg, None, None)
+    runner = StepRunner(mp.multiplayer_body(cfg, dev, slots, [0, 2], *bounds), graphs=True)
+    eager = eager_multiplayer_step(cfg, dev, slots, [0, 2], bounds)
+    script = golden_script(FrameInputs)
+    a = b = init_state(cfg, 0, device=cuda_device)
+    kernels.reset_launches()
+    for i, inp in enumerate(script):
+        pos = np.array([[-6.0 + 0.1 * i, 0.0, -10.0], [0.0, 0.0, 0.0],
+                        [-4.0, 0.5, -9.0 + 0.2 * i]], np.float32)
+        row = np.concatenate([input_stack([inp]), pos.reshape(1, -1)], axis=1)
+        a = runner(a, upload_rows(row, cuda_device), [inp.rot_updated])
+        b, fb = eager(b, inp, torch.from_numpy(pos).to(cuda_device))
+    graphs = runner.graphs[a.screen.device]
+    assert _states_bitwise(a, b) and torch.equal(display(a, cfg), fb)
+    assert graphs.kinds == (False, True) and graphs.replays == len(script) - 2
+    assert graphs.eager_frames == 2

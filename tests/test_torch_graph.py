@@ -9,8 +9,9 @@
   ``jax.jit(make_scan_step_fn(...))`` (its Pallas tracer interpreted on the
   CPU): the queue, cursor, key and frame counter bitwise, the camera within
   atol=1e-6 (``compare_states``), the frame by the golden rule.
-- After one warm-up frame, the step body (intersector brute, exact, and
-  pallas with the fused tracer stubbed) and the band engine's body run under
+- After one warm-up frame, the step body (intersector brute, exact, bvh
+  with the plain walk stubbed, and pallas with the fused tracer stubbed)
+  and the band engine's body run under
   a TorchFunctionMode that raises on every host read and host copy: what a
   CUDA graph capture forbids.
 - The graph runner's host bookkeeping: the input rows and the graph kind
@@ -27,11 +28,11 @@ import jax
 import numpy as np
 import pytest
 import torch
-from torch.overrides import TorchFunctionMode
 
 import mirror_maze_tpu_torch as P
 from _golden_tools import golden_cfg
 from _torch_tools import (
+    NoHostReads,
     assert_frames_match,
     compare_states,
     golden_config,
@@ -49,7 +50,7 @@ from mirror_maze_tpu_torch import kernels
 from mirror_maze_tpu_torch.ops import prng
 from mirror_maze_tpu_torch.ops import quat as quat_ops
 from mirror_maze_tpu_torch.parallel import shard
-from mirror_maze_tpu_torch.render import fused_tracer, pipeline, upload_scene
+from mirror_maze_tpu_torch.render import fused_tracer, intersect, pipeline, upload_scene
 from mirror_maze_tpu_torch.render.accumulate import (
     feedback_blur_cm,
     present_stage,
@@ -66,6 +67,7 @@ from mirror_maze_tpu_torch.render.scheduler import (
 from mirror_maze_tpu_torch.runtime import graph
 from mirror_maze_tpu_torch.runtime.state import EngineState, FrameInputs, init_state
 from mirror_maze_tpu_torch.runtime.step import (
+    GRAPH_INTERSECTORS,
     PI_F32,
     _advance,
     _mod,
@@ -196,21 +198,6 @@ def test_scan_step_fn_takes_its_frame_count():
             [FrameInputs.idle()] * 2)
 
 
-class _NoHostReads(TorchFunctionMode):
-    """Raises on what a CUDA graph capture forbids: reading a tensor on the
-    host, and copying host data into a tensor."""
-
-    FORBIDDEN = {torch.Tensor.item, torch.Tensor.__bool__, torch.Tensor.__int__,
-                 torch.Tensor.__float__, torch.Tensor.__index__, torch.Tensor.tolist,
-                 torch.Tensor.cpu, torch.Tensor.numpy, torch.tensor, torch.as_tensor,
-                 torch.from_numpy}
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        if func in self.FORBIDDEN:
-            raise AssertionError(f"host read or host copy in the step body: {func.__name__}")
-        return func(*args, **(kwargs or {}))
-
-
 def _stub_fused_tracer(monkeypatch):
     """The fused tracer replaced by a tensor of its output's shape (its CUDA
     wrapper is glue the card runs; its plain version is not)."""
@@ -218,9 +205,30 @@ def _stub_fused_tracer(monkeypatch):
                         lambda scene, ori, dirs, seed, *a, **k: torch.full_like(ori, 0.25))
 
 
+def _stub_plain_walk(monkeypatch):
+    """The plain BVH walk (its host check of any(live) is what the card's
+    kernel does not do) replaced by a result of its shape: every ray
+    misses the planes; the sphere fold after it still runs."""
+    def walk(prims, o, d, t_min, *a, **k):
+        t = torch.full(o.shape[:1], 1e30)
+        idx = torch.zeros(o.shape[:1], dtype=torch.int32)
+        return intersect._merge_spheres(prims, o, d, t_min, t, idx) if prims.num_spheres \
+            else (t, idx)
+
+    monkeypatch.setattr(pipeline, "nearest_hit_bvh", walk)
+
+
+def _stub_backends(monkeypatch, cfg):
+    if cfg.intersector == "pallas":
+        _stub_fused_tracer(monkeypatch)
+    if cfg.intersector == "bvh":
+        _stub_plain_walk(monkeypatch)
+
+
 BODY_CONFIGS = {
     "brute": lambda: golden_config().replace(intersector="brute"),
     "exact": lambda: golden_config().replace(intersector="exact"),
+    "bvh": lambda: golden_config().replace(intersector="bvh"),
     "pallas": golden_config,
     "pallas_multi_tile": lambda: multi_tile_config(P),
     "pallas_adaptive_lens": lambda: dataclasses.replace(
@@ -233,8 +241,7 @@ BODY_CONFIGS = {
 @pytest.mark.parametrize("name", sorted(BODY_CONFIGS))
 def test_step_body_has_no_host_read(monkeypatch, name):
     cfg = BODY_CONFIGS[name]()
-    if cfg.intersector == "pallas":
-        _stub_fused_tracer(monkeypatch)
+    _stub_backends(monkeypatch, cfg)
     scene = upload_scene(build_scene(cfg.maze), device="cpu")
     nearest = pipeline.scene_nearest_fn(scene, cfg)
     n = cfg.screen.effective_chunks_per_frame
@@ -243,26 +250,26 @@ def test_step_body_has_no_host_read(monkeypatch, name):
     st = init_state(cfg, device="cpu")
     for i, rotate in enumerate(graph_kinds(frames)):        # the warm-up frames
         st = _advance(scene, cfg, n, st, rows[i], rotate, nearest)
-    with _NoHostReads():
+    with NoHostReads():
         for i, rotate in enumerate(graph_kinds(frames)):
             st = _advance(scene, cfg, n, st, rows[i], rotate, nearest)
     assert int(st.frame) == 4
 
 
-@pytest.mark.parametrize("intersector", ["pallas", "brute"])
+@pytest.mark.parametrize("intersector", ["pallas", "brute", "bvh"])
 def test_band_body_has_no_host_read(monkeypatch, intersector):
     """The band engine's frame on one device: every band's step, the halo
-    rows and the halo presents."""
+    rows and the halo presents (with bvh, its bounds derived at the first,
+    eager frame)."""
     cfg = golden_config().replace(intersector=intersector)
-    if intersector == "pallas":
-        _stub_fused_tracer(monkeypatch)
+    _stub_backends(monkeypatch, cfg)
     init_fn, scan_fn = shard.make_sharded_scan_engine(cfg, ["cpu"] * 2)
     scene = upload_scene(build_scene(cfg.maze), device="cpu")
     runner = scan_fn.runner_of(scene)
     frames = [FrameInputs.idle(), FrameInputs.make(mouse_dx=16.0)]
     rows = upload_inputs(frames, "cpu")
     st = runner(init_fn(0), rows, graph_kinds(frames))      # the warm-up frames
-    with _NoHostReads():
+    with NoHostReads():
         st = runner(st, rows, graph_kinds(frames))
     assert [int(f) for f in st.frame] == [4, 4]
 
@@ -324,12 +331,21 @@ def test_work_counters_nest_and_check_their_pair():
 
 
 def test_runner_is_eager_off_the_card_and_for_the_bvh_walk():
+    """Every intersector's runner captures graphs (the bvh walk is a kernel
+    on the card, so ``bvh`` is one of GRAPH_INTERSECTORS), and every one
+    runs eagerly on a CPU state."""
     cfg = golden_config()
     scene = upload_scene(build_scene(cfg.maze), device="cpu")
     st = init_state(cfg, device="cpu")
-    assert not make_scan_step(scene, cfg).runner.graphed(st)
-    assert not make_step(scene, cfg.replace(intersector="bvh")).runner.graphed(st)
-    runner = make_scan_step(scene, cfg).runner
+    assert "bvh" in GRAPH_INTERSECTORS
+    assert set(GRAPH_INTERSECTORS) == {"pallas", "brute", "exact", "bvh"}
+    for intersector in GRAPH_INTERSECTORS:
+        c = cfg.replace(intersector=intersector)
+        for make in (make_scan_step, make_step):
+            runner = make(scene, c).runner
+            assert runner._use_graphs, intersector
+            assert not runner.graphed(st), intersector
+    runner = make_scan_step(scene, cfg.replace(intersector="bvh")).runner
     runner(st, upload_inputs([FrameInputs.idle()], "cpu"), [False])
     assert runner.graphs == {}
 

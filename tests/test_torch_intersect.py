@@ -9,7 +9,13 @@ every backend against its JAX twin: t within rtol 1e-5 and idx equal on
 contracts multiply-adds, so an ulp may flip an edge test); the bitwise
 share is printed. On the port's side the bvh walk must give bitwise the
 exact backend's result, and the walk's host check every k iterations must
-not change its result (k = 1 against k = 8, bitwise)."""
+not change its result (k = 1 against k = 8, bitwise).
+
+The walk kernel (csrc/bvh_walk.cu) runs only on the card; here its
+algorithm, one ray walked alone to its end with the kernel's NaN rule and
+stack clamp, is followed in NumPy float32 (``scalar_walk``) and held
+bitwise against the plain walk on the four scenes, on rays with exact zero
+direction components, and with a stack too shallow for the tree."""
 
 import dataclasses
 
@@ -20,60 +26,31 @@ import torch
 
 from _torch_jax_tools import as_jax_scene
 from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
-from _torch_tools import cornell_scene, mesh_gallery_scene
+from _torch_tools import (
+    INTERSECT_SCENES,
+    cornell_scene,
+    giant_leaf_scene,
+    intersect_scene,
+    scene_rays,
+    zero_component_rays,
+)
 from mirror_maze_tpu.render import intersect as J
 from mirror_maze_tpu.render.scenebuf import upload_scene as j_upload
 from mirror_maze_tpu.scene.bvh import traversal_bounds as j_bounds
-from mirror_maze_tpu_torch.config import MazeConfig
 from mirror_maze_tpu_torch.render import intersect as T
 from mirror_maze_tpu_torch.render.scenebuf import make_sphere_refresh, upload_scene
-from mirror_maze_tpu_torch.scene import build_scene
 from mirror_maze_tpu_torch.scene.builder import Scene
 from mirror_maze_tpu_torch.scene.bvh import traversal_bounds
 
 T_MIN = 0.1
 
 
-def _giant_leaf() -> Scene:
-    n = 7
-    return Scene(
-        origin=np.tile(np.float32([[-0.5, -0.5, 0.0]]), (n, 1)),
-        v=np.tile(np.float32([[1.0, 0.0, 0.0]]), (n, 1)),
-        u=np.tile(np.float32([[0.0, 1.0, 0.0]]), (n, 1)),
-        color=np.ones((n, 3), np.float32), is_mirror=np.zeros(n, bool),
-        emission=np.zeros((n, 4), np.float32), grid=np.zeros((1, 1), np.uint8))
+_giant_leaf = giant_leaf_scene
+_scene = intersect_scene
+_rays = scene_rays
 
 
-def _scene(name: str) -> Scene:
-    if name == "maze":
-        return build_scene(MazeConfig(width=4, height=4))
-    if name == "spheres":
-        # A mirror sphere (opaque) and a diffuse sphere made glass.
-        return dataclasses.replace(cornell_scene("spheres"), sph_ior=np.float32([0.0, 1.5]))
-    if name == "mesh":
-        return mesh_gallery_scene()
-    return _giant_leaf()
-
-
-def _rays(scene: Scene, n: int, seed: int):
-    """Rays from points inside the scene's box, in random directions; the
-    giant leaf's come from in front of the quads, towards them."""
-    rng = np.random.default_rng(seed)
-    if scene.num_planes == 7:
-        o = rng.uniform(-0.6, 0.6, (n, 3)).astype(np.float32)
-        o[:, 2] = -3.0
-        d = np.float32([0, 0, 1]) + rng.normal(scale=0.1, size=(n, 3)).astype(np.float32)
-    else:
-        pts = np.concatenate([scene.origin, scene.origin + scene.u + scene.v])
-        lo, hi = pts.min(axis=0), pts.max(axis=0)
-        mid, half = (lo + hi) / 2, (hi - lo) / 2
-        o = (mid + rng.uniform(-0.8, 0.8, (n, 3)) * half).astype(np.float32)
-        d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    return o, d.astype(np.float32)
-
-
-@pytest.fixture(scope="module", params=["maze", "spheres", "mesh", "leaf"])
+@pytest.fixture(scope="module", params=list(INTERSECT_SCENES))
 def case(request):
     scene = _scene(request.param)
     dev = upload_scene(scene, device="cpu")
@@ -217,3 +194,151 @@ def test_sphere_refresh_moves_the_scene_order_view():
     t_fresh, i_fresh = T.nearest_hit_exact(fresh.prims, o, d, T_MIN)
     assert torch.equal(t_moved, t_fresh) and torch.equal(i_moved, i_fresh)
     assert not torch.equal(t_moved, T.nearest_hit_exact(dev.prims, o, d, T_MIN)[0])
+
+
+# --- The walk kernel's algorithm, one ray at a time ---------------------------
+
+F32_BIG = np.float32(T.BIG)
+
+
+def _scalar_slab(box, o, inv, t_cur, nans):
+    """csrc/bvh_walk.cu slab(): one NaN among the six distances is a miss
+    (counted into ``nans``), else the entry distance or BIG."""
+    ts = [(box[a] - o[a]) * inv[a] for a in range(3)] + [(box[3 + a] - o[a]) * inv[a]
+                                                        for a in range(3)]
+    if any(np.isnan(x) for x in ts):
+        nans[0] += 1
+        return F32_BIG
+    tn = max(min(ts[0], ts[3]), min(ts[1], ts[4]), min(ts[2], ts[5]))
+    tf = min(max(ts[0], ts[3]), max(ts[1], ts[4]), max(ts[2], ts[5]))
+    return tn if (tf >= tn and tn < t_cur and tf > 0) else F32_BIG
+
+
+def scalar_walk(noderow, leafpack, o, d, t_min, max_depth, max_leaf, nans):
+    """csrc/bvh_walk.cu's walk of ONE ray, statement for statement, in NumPy
+    float32 scalars: (t, idx) of the nearest plane hit."""
+    n_levels, n_slots = max_depth + 2, leafpack.shape[0]
+    inv = [np.float32(1.0) / d[a] for a in range(3)]
+    t, idx = F32_BIG, 0
+    stack, sp, cur = [0] * n_levels, 0, 0
+    for _ in range(noderow.shape[0]):
+        nr = noderow[cur]
+        ct, lf = int(nr[12]), int(nr[13])
+        if ct >= 1:
+            lp = leafpack[min(max(lf, 0), n_slots - 1)]
+            for k in range(min(ct, max_leaf)):
+                pk = lp[15 * k:15 * (k + 1)]
+                denom = (d[0] * pk[0] + d[1] * pk[1]) + d[2] * pk[2]
+                tk = (pk[3] - ((o[0] * pk[0] + o[1] * pk[1]) + o[2] * pk[2])) / denom
+                x = [o[a] + tk * d[a] for a in range(3)]
+                s1 = ((x[0] * pk[4] + x[1] * pk[5]) + x[2] * pk[6]) - pk[7]
+                s2 = ((x[0] * pk[8] + x[1] * pk[9]) + x[2] * pk[10]) - pk[11]
+                inside = s1 + s2 <= 1 if pk[14] > 0 else (s1 <= 1 and s2 <= 1)
+                if (pk[12] > 0 and denom != 0 and tk > t_min and s1 >= 0 and s2 >= 0 and inside
+                        and tk < t):
+                    t, idx = tk, int(pk[13])
+        else:
+            d1 = _scalar_slab(nr[0:6], o, inv, t, nans)
+            d2 = _scalar_slab(nr[6:12], o, inv, t, nans)
+            first = d1 <= d2
+            if min(d1, d2) < F32_BIG:
+                if max(d1, d2) < F32_BIG:
+                    stack[min(sp, n_levels - 1)] = lf + 1 if first else lf
+                    sp += 1
+                cur = lf if first else lf + 1
+                continue
+        if sp == 0:
+            break
+        sp -= 1
+        cur = stack[sp] if sp < n_levels else 0
+    return t, idx
+
+
+def _scalar_vs_plain(dev, o, d, depth, leaf):
+    """(scalar walk + the sphere fold, plain walk, slab NaNs met)."""
+    p = dev.prims
+    tables = T.bvh_tables(p, leaf)
+    noderow, leafpack = tables.noderow.numpy(), tables.leafpack.numpy()
+    nans = [0]
+    with np.errstate(all="ignore"):
+        rows = [scalar_walk(noderow, leafpack, o[i], d[i], np.float32(T_MIN), depth, leaf, nans)
+                for i in range(o.shape[0])]
+    to, td = torch.from_numpy(o), torch.from_numpy(d)
+    t = torch.from_numpy(np.array([r[0] for r in rows], np.float32))
+    i = torch.from_numpy(np.array([r[1] for r in rows], np.int32))
+    if p.num_spheres:
+        t, i = T._merge_spheres(p, to, td, T_MIN, t, i)
+    return (t, i), T.nearest_hit_bvh(p, to, td, T_MIN, depth, leaf, tables=tables), nans[0]
+
+
+SCALAR_RAYS = 200
+
+
+@pytest.mark.parametrize("rays", ["random", "zero_components", "tight_stack"])
+def test_scalar_walk_is_bitwise_the_plain_walk(case, rays):
+    """The kernel's per-ray walk against the plain vector walk: t and idx
+    bitwise on every ray. ``zero_components``: rays with exact zero
+    direction components from points on box faces, where the slab test
+    meets NaN; ``tight_stack``: max_depth - 3 levels, the fewest a walk can
+    need (a ray holds at most one pending node a level below the root)."""
+    name, dev, _, o, d = case
+    p = dev.prims
+    depth, leaf = traversal_bounds(p.bvh_left_first.numpy(), p.bvh_count.numpy())
+    if rays == "zero_components":
+        o, d = zero_component_rays(_scene(name), SCALAR_RAYS, seed=11)
+    else:
+        o, d = o[:SCALAR_RAYS], d[:SCALAR_RAYS]
+    if rays == "tight_stack":
+        depth = max(depth - 3, 0)
+    (t, i), (pt, pi), nans = _scalar_vs_plain(dev, o, d, depth, leaf)
+    assert torch.equal(t.view(torch.int32), pt.view(torch.int32))
+    assert torch.equal(i, pi)
+    assert (t < T.BIG).mean(dtype=torch.float32) > 0.05
+    if rays == "zero_components" and name != "leaf":
+        assert nans > 0
+        assert (d == 0).any(axis=1).all()
+
+
+def test_walk_kernel_raises_instead_of_falling_back(monkeypatch):
+    """The kernel wrapper raises on CPU tensors and on a tree deeper than
+    its stack; it never runs the plain walk."""
+    dev = upload_scene(intersect_scene("maze"), device="cpu")
+    o, d = (torch.from_numpy(x) for x in scene_rays(intersect_scene("maze"), 8, seed=1))
+    monkeypatch.setattr(T, "nearest_hit_bvh", lambda *a, **k: pytest.fail("fell back"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        T.nearest_hit_bvh_kernel(dev.prims, o, d, T_MIN, 7, 2)
+    with pytest.raises(ValueError, match="stack levels"):
+        T.nearest_hit_bvh_kernel(dev.prims, o, d, T_MIN, T.BVH_STACK - 1, 2)
+
+
+def test_walk_kernel_stack_and_library_match_the_source():
+    """``BVH_STACK`` is the kernel's MM_BVH_STACK, deep enough for every named
+    scene's tree; the library ``bvh_walk`` builds from csrc/bvh_walk.cu; and
+    a bvh backend made on the CPU walks with the plain version."""
+    import re
+
+    from mirror_maze_tpu_torch import config, kernels
+    from mirror_maze_tpu_torch.render.pipeline import make_nearest_fn
+    from mirror_maze_tpu_torch.scene import build_scene
+    from mirror_maze_tpu_torch.scene.bvh import build_bvh
+
+    src = (kernels.CSRC / "bvh_walk.cu").read_text()
+    assert int(re.search(r"#define MM_BVH_STACK (\d+)", src).group(1)) == T.BVH_STACK
+    assert kernels.LIBRARIES["bvh_walk"][0] == "bvh_walk.cu"
+    assert kernels.LIBRARIES["bvh_walk"][2][0] in src
+    for name, make in config.NAMED_CONFIGS.items():
+        if name == "scale":
+            continue    # its tree (depth 17) is checked in test_torch_scene.py's time budget
+        s = build_scene(make().maze)
+        bvh = build_bvh(s.origin, s.u, s.v)
+        assert traversal_bounds(bvh.left_first, bvh.count)[0] + 2 <= T.BVH_STACK, name
+    cfg = config.config_bvh().replace(intersector="bvh")
+    scene = intersect_scene("maze")
+    dev = upload_scene(scene, device="cpu")
+    o, d = (torch.from_numpy(x) for x in scene_rays(scene, 64, seed=2))
+    depth, leaf = traversal_bounds(dev.prims.bvh_left_first.numpy(), dev.prims.bvh_count.numpy())
+    T.walk_counts.clear()
+    t, i = make_nearest_fn(dev, cfg, depth, leaf)(o, d)
+    assert T.walk_counts["walks"] == 1
+    want = T.nearest_hit_bvh(dev.prims, o, d, cfg.tracer.t_min, depth, leaf)
+    assert torch.equal(t, want[0]) and torch.equal(i, want[1])

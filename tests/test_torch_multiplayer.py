@@ -8,6 +8,10 @@ initialize_multihost) against the JAX package's, on the CPU:
   ``make_sphere_refresh`` in front) against the Pallas interpreter, frames
   by the golden rule, parking it restoring the avatar-free frame bitwise;
 - the single-player engine bitwise ``make_step``;
+- the frame body the card captures into a graph (``multiplayer_body``, the
+  positions in its input row), run eagerly through a StepRunner, bitwise the
+  step as it ran before (update_avatars, the sphere refresh, make_step_fn),
+  and free of host reads after its first frame;
 - two player processes over gloo (subprocesses with their own time limit):
   the positions each gathers are the players' camera centres, and player
   0's frame with player 1's avatar equals a single-process step given the
@@ -27,7 +31,7 @@ import pytest
 import torch
 
 from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
-from _torch_tools import assert_frames_match, port_config
+from _torch_tools import NoHostReads, assert_frames_match, eager_multiplayer_step, port_config
 from mirror_maze_tpu.config import (
     CameraConfig as JCamera,
     EngineConfig as JEngine,
@@ -44,7 +48,16 @@ from mirror_maze_tpu_torch.parallel import multiplayer as mp
 from mirror_maze_tpu_torch.render import upload_scene
 from mirror_maze_tpu_torch.render.scenebuf import make_sphere_refresh
 from mirror_maze_tpu_torch.runtime.state import EngineState, FrameInputs, init_state, load_state
-from mirror_maze_tpu_torch.runtime.step import make_step, make_step_fn
+from mirror_maze_tpu_torch.render import pipeline
+from mirror_maze_tpu_torch.runtime.graph import StepRunner
+from mirror_maze_tpu_torch.runtime.step import (
+    derive_traversal_bounds,
+    display,
+    input_stack,
+    make_step,
+    make_step_fn,
+    upload_rows,
+)
 from mirror_maze_tpu_torch.scene import build_scene
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -145,6 +158,61 @@ def test_single_player_engine_is_make_step():
         assert np.array_equal(fa.numpy(), fb.numpy())
         for x, y in zip(a, b):
             assert np.array_equal(x.numpy(), y.numpy())
+
+
+@pytest.mark.parametrize("intersector", ["brute", "pallas", "bvh"])
+def test_multiplayer_body_is_bitwise_the_eager_step(monkeypatch, intersector):
+    """Player 1 of 3 with both avatars moving in view: the body with the
+    gathered positions in its input row, through a StepRunner (eager on the
+    CPU), against the eager step given the same positions; states and
+    frames bitwise over walking, turning and idle frames. Then two more
+    frames of the body under a mode that raises on host reads (the fused
+    tracer and the plain walk stubbed: their card versions are kernels)."""
+    cfg = port_config(_jcfg(intersector, size=24))
+    scene, slots = mp.avatar_scene(build_scene(cfg.maze), 3, 1, glow=0.25)
+    dev = upload_scene(scene, device="cpu")
+    bounds = derive_traversal_bounds(dev, cfg, None, None)
+    runner = StepRunner(mp.multiplayer_body(cfg, dev, slots, [0, 2], *bounds), graphs=True)
+    eager = eager_multiplayer_step(cfg, dev, slots, [0, 2], bounds)
+    script = ([FrameInputs.make(w=True)] * 2 + [FrameInputs.make(mouse_dx=9.0)]
+              + [FrameInputs.idle()] * 2)
+
+    def positions(i, st):
+        pos = np.array([[-6.0 + 0.3 * i, 0.0, -10.0], [0.0, 0.0, 0.0],
+                        [-4.0, 0.5, -9.0 + 0.4 * i]], np.float32)
+        pos[1] = st.cam_center.numpy()
+        return pos
+
+    def row(inp, pos):
+        return upload_rows(np.concatenate([input_stack([inp]), pos.reshape(1, -1)], axis=1),
+                           "cpu")
+
+    a = b = init_state(cfg, 0, device="cpu")
+    frames = []
+    for i, inp in enumerate(script):
+        pos = positions(i, a)
+        a = runner(a, row(inp, pos), [inp.rot_updated])
+        b, fb = eager(b, inp, torch.from_numpy(pos))
+        fa = display(a, cfg)
+        assert np.array_equal(fa.numpy(), fb.numpy()), i
+        for x, y in zip(a, b):
+            assert np.array_equal(x.numpy(), y.numpy()), i
+        frames.append(fa.numpy())
+    _, parked = make_step_fn(cfg, *bounds)(dev, init_state(cfg, 0, device="cpu"), script[0])
+    assert (frames[0] != parked.numpy()).any()            # the avatars show
+    assert runner.graphs == {}
+    if intersector == "pallas":
+        monkeypatch.setattr(pipeline, "trace_paths_fused",
+                            lambda scene, ori, dirs, seed, *x, **k: torch.full_like(ori, 0.25))
+    if intersector == "bvh":
+        monkeypatch.setattr(pipeline, "nearest_hit_bvh", lambda prims, o, *x, **k: (
+            torch.full(o.shape[:1], 1e30), torch.zeros(o.shape[:1], dtype=torch.int32)))
+    body = mp.multiplayer_body(cfg, dev, slots, [0, 2], *bounds)
+    rows = [row(inp, positions(i, a)) for i, inp in enumerate(script[:2])]
+    with NoHostReads():
+        for r in rows:
+            a = body(a, r[0], False)
+    assert int(a.frame) == len(script) + 2
 
 
 # The worker of one player: config as _jcfg(fps=10) (half a unit a walking
