@@ -21,9 +21,11 @@ def initialize_multihost(
     gloo backend; returns the number of processes (the world size).
 
     ``coordinator_address`` is ``host:port`` of process 0's machine
-    (``init_method="tcp://host:port"``), ``num_processes`` the world size and
-    ``process_id`` this process's rank. With no address the group comes up
-    from the environment (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
+    (``init_method="tcp://host:port"``) or a ``torch.distributed`` init
+    method URL as it stands (``file:///shared/path`` rendezvouses through a
+    file, with no port picked in advance), ``num_processes`` the world size
+    and ``process_id`` this process's rank. With no address the group comes
+    up from the environment (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
     ``RANK``). Gloo runs any number of processes on one card (NCCL refuses
     two ranks on the same GPU) and exchanges host tensors. A collective that
     waits longer than ``timeout_s`` for a peer raises instead of hanging."""
@@ -31,7 +33,12 @@ def initialize_multihost(
 
     import torch.distributed as dist
 
-    init_method = f"tcp://{coordinator_address}" if coordinator_address else "env://"
+    if not coordinator_address:
+        init_method = "env://"
+    elif "://" in coordinator_address:
+        init_method = coordinator_address
+    else:
+        init_method = f"tcp://{coordinator_address}"
     kw = {}
     if num_processes is not None:
         kw["world_size"] = int(num_processes)

@@ -20,7 +20,6 @@ initialize_multihost) against the JAX package's, on the CPU:
 
 import dataclasses
 import os
-import socket
 import subprocess
 import sys
 
@@ -224,14 +223,14 @@ import sys
 import numpy as np
 import torch
 torch.set_num_threads(1)
-pid, port, mode, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+pid, rendezvous, mode, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
 import mirror_maze_tpu_torch as P
 from mirror_maze_tpu_torch.parallel import initialize_multihost
 from mirror_maze_tpu_torch.parallel.multiplayer import (make_multiplayer_engine,
                                                          make_position_exchange)
 from mirror_maze_tpu_torch.runtime.state import FrameInputs, save_state
 
-assert initialize_multihost(f"localhost:{port}", 2, pid, timeout_s=30) == 2
+assert initialize_multihost(rendezvous, 2, pid, timeout_s=30) == 2
 cfg = P.EngineConfig(
     maze=P.MazeConfig(width=4, height=4), camera=P.CameraConfig(spawn=(-5.0, 0.0, -15.0)),
     tracer=P.TracerConfig(bounce_limit=2, mirror_limit=2),
@@ -258,16 +257,13 @@ print(f"player {pid} ok", flush=True)
 """
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _players(tmp_path, mode, timeout=120):
+    # The players meet through a file under tmp_path: a port found free and
+    # closed again before player 0's store binds it could be taken by another
+    # process in between (the other test workers start servers and groups).
     env = dict(os.environ, PYTHONPATH=REPO)
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, "-c", MP_WORKER, str(i), port, mode,
+    rendezvous = f"file://{tmp_path / 'rendezvous'}"
+    procs = [subprocess.Popen([sys.executable, "-c", MP_WORKER, str(i), rendezvous, mode,
                                str(tmp_path)], cwd=REPO, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for i in range(2)]
