@@ -5,8 +5,10 @@
 
 Builds the hand-written kernels from ``mirror_maze_tpu_torch/csrc`` (nvcc,
 sm_90a: the tracer's four libraries, with and without the texture stage and
-the diagnostics, the present and the BVH walk), holds each against its plain PyTorch
-version on the card at the shapes of every path it drives, checks the
+the diagnostics, the present, the BVH walk and the threefry draws), holds
+each against its plain PyTorch version on the card at the shapes of every
+path it drives (``[threefry]``: every draw of ops/prng.py bitwise, in every
+output, on the main path's jitter draw and the jnp tracer's), checks the
 engine's scripted run against the committed golden frame, and drives four
 configurations at full width through ``make_scan_step``:
 
@@ -147,11 +149,15 @@ phase with its seconds:
   in-process render, and the multiplayer demo (3 players, 24 frames): every
   process exits 0, the GIF has 6 frames, each walker ends past its spawn.
 
-Every phase prints one line; any failure exits non-zero. The last two lines
+Every phase prints one line; any failure exits non-zero. Every draw
+launches the threefry kernel: each phase checks the other kernels' launch
+counts as it did, and that the draws went through the kernel (the engine
+paths and ``[graph]`` their exact count, ``step_draws``). The last two lines
 are the ``{"kernels": [...]}`` summary (one row per kernel and path, every
 number measured or, for ``bound_ms``, computed in this run; the walk
-kernel's rows ``bvh_walk`` and ``bvh_walk@interactive``) and ``{"ok":
-true, "device": {...}}``.
+kernel's rows ``bvh_walk`` and ``bvh_walk@interactive``, the threefry
+kernel's ``threefry@jitter`` and ``threefry@normal``) and ``{"ok": true,
+"device": {...}}``.
 
 Needs a CUDA card: without one it exits 2 and prints no result. It uses
 the first visible card only (the multiplayer phase's two processes share
@@ -172,6 +178,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # Published H100 SXM peak (NVIDIA data sheet; dense, at the 700 W limit);
 # the memory rate is time_present.py's HBM_BYTES_PER_S.
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 33.5e12           # outside the tensor cores
+# int32 issue: an SM's 4 schedulers issue at most one warp instruction (32
+# lanes) a clock each (the Hopper architecture white paper), and integer
+# adds issue to the FMA pipe (IMAD) as well as the ALU pipe, so at most 128
+# lane operations an SM and clock: x 132 SMs x 1.98 GHz, the clock of the
+# FP32 peak (132 x 128 lanes x 2 x 1.98e9 = 67e12). The 64 INT32 lanes of
+# the ALU pipe alone would give half that, which the jitter draw beats.
+INT32_OPS_PER_S = 4 * 32 * 132 * 1.98e9
 
 # The TPU kernels these replace (file:line of the function that reaches
 # pl.pallas_call in the JAX package).
@@ -182,11 +196,18 @@ REPLACES = {
     "present": "mirror_maze_tpu/render/present.py:44",
     "bvh_walk": "mirror_maze_tpu/render/intersect.py:362 (jax.lax.while_loop of "
                 "nearest_hit_bvh; no pallas_call)",
+    # The threefry kernel's rows: jax.random's draws, which XLA fuses under
+    # jit; no pallas_call.
+    "threefry@jitter": "mirror_maze_tpu/ops/sampling.py:34 (jax.random.uniform of "
+                       "ray_jitter under jit; no pallas_call)",
+    "threefry@normal": "mirror_maze_tpu/ops/sampling.py:25 (jax.random.normal of "
+                       "unit_sphere under jit; no pallas_call)",
 }
 SOURCES = {
     "tracer": "mirror_maze_tpu_torch/csrc/tracer.cu",
     "present": "mirror_maze_tpu_torch/csrc/present.cu",
     "bvh_walk": "mirror_maze_tpu_torch/csrc/bvh_walk.cu",
+    "threefry": "mirror_maze_tpu_torch/csrc/threefry.cu",
 }
 
 # The driven paths' scripts: idle, walking, turning, idle frames.
@@ -245,6 +266,39 @@ def timed(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def others(counts: dict) -> dict:
+    """A phase's launch counts but the threefry kernel's (``threefry``,
+    ``threefry_uniform``, ``threefry_normal``): every draw of ops/prng.py
+    launches it, and the phases that can predict those counts check them
+    apart."""
+    return {k: v for k, v in counts.items() if not k.startswith("threefry")}
+
+
+def holds(counts, want: dict, draws: bool) -> bool:
+    """``counts`` (a phase's launches) are ``want`` for every kernel but the
+    threefry kernel, which was launched if and only if ``draws`` (the phase
+    ran on the card)."""
+    if counts is None:
+        return False
+    drew = any(v > 0 for k, v in counts.items() if k.startswith("threefry"))
+    return others(counts) == want and drew == draws
+
+
+def step_draws(cfg, inputs) -> dict:
+    """The threefry launches of the single engine's fused-tracer step over
+    ``inputs`` (runtime/step.py, render/pipeline.py): a frame's rotation
+    split, its fold_in, the camera split, randint's split and two bit draws,
+    and the jitter (``threefry_uniform``); the thin lens adds a fold_in and
+    a uniform, and a rotating frame the permutation's split and bit draw a
+    round."""
+    from mirror_maze_tpu_torch.ops.prng import permutation_rounds
+
+    n, lens = len(inputs), cfg.camera.aperture > 0.0
+    turns = sum(bool(inp.rot_updated) for inp in inputs)
+    return {"threefry": (6 + lens) * n + 2 * permutation_rounds(cfg.screen.total_chunks) * turns,
+            "threefry_uniform": (1 + lens) * n}
 
 
 def states_bitwise(a, b) -> bool:
@@ -347,8 +401,9 @@ def graph_phase(dev, smi: str, cfg, scene) -> None:
         torch.cuda.set_sync_debug_mode("default")
     graphs = only_graphs(run.runner)
     replays, copies = graphs.replays, graphs.copies
+    st0 = fresh()
     kernels.reset_launches()
-    (st, frame), graph_ms = timed(lambda: run(fresh(), inputs))
+    (st, frame), graph_ms = timed(lambda: run(st0, inputs))
     counts = dict(kernels.launches)
     replays, copies = (graphs.replays - replays) / n, (graphs.copies - copies) / n
     step = make_step(scene, cfg)
@@ -379,7 +434,8 @@ def graph_phase(dev, smi: str, cfg, scene) -> None:
         f"{same_eager}); launches {counts}; scan {graph_line(graphs)}; per frame graphs capture "
         f"{one.capture_s:.3f} s, pool {one.pool_bytes / 2**20:.1f} MiB; checksum "
         f"{int(frame.to(torch.int64).sum())}; {time.perf_counter() - t0:.1f} s | {smi}")
-    if not (same and same_step and same_eager and counts == {"tracer": n, "present": n}
+    if not (same and same_step and same_eager
+            and counts == {"tracer": n, "present": n, **step_draws(cfg, inputs)}
             and replays == 1.0):
         raise SystemExit("[graph] FAIL")
 
@@ -493,6 +549,192 @@ def bvh_kernel_phase(dev, smi: str) -> dict:
     return entries
 
 
+# [threefry]: the raw keys (PRNGKey(0), (1), (7), (123456), (2^31 - 1) and
+# one with both words above 2^31) and counts (around the kernel's block of
+# 256 threads, and a large odd one) the kernel is held against its plain
+# version on; the normal draw that covers the uniform's 2^23 values.
+THREEFRY_KEYS = ((0, 0), (0, 1), (0, 7), (0, 123456), (0, 2 ** 31 - 1),
+                 (0x9E3779B9, 0xDEADBEEF))
+THREEFRY_COUNTS = (1, 3, 1023, 1024, 1025, 2 ** 20 + 7)
+THREEFRY_NORMAL_COUNTS = 1 << 26
+THREEFRY_BATCH = 12288
+THREEFRY_REPS = 20
+# int32 operations a hash (csrc/threefry.cu: 20 rounds of an add, a rotate
+# and a xor; 17 adds of the key schedule; 2 xors for the third key word), and
+# float64 operations a normal (each emulated FMA a multiply and an add:
+# erf_inv's 8, log1p's rational 11 or log's 10).
+THREEFRY_INT_OPS = 79
+ERFINV_FMAS, LOG1P_FMAS, LOG_FMAS = 8, 11, 10
+
+
+def threefry_bound(n_out: int, out_bytes: int, fp64_ops: int = 0) -> tuple:
+    """(bound ms, by, the three times) of a draw of ``n_out`` hashes writing
+    ``out_bytes``: the larger of the bytes over the memory rate and each
+    operation type over its rate."""
+    from time_present import HBM_BYTES_PER_S
+
+    times = {"bytes": (out_bytes + 16) / HBM_BYTES_PER_S * 1e3,
+             "int32": n_out * THREEFRY_INT_OPS / INT32_OPS_PER_S * 1e3,
+             "fp64": fp64_ops / FP64_OPS_PER_S * 1e3}
+    top = max(times, key=times.get)
+    return times[top], "bytes" if top == "bytes" else "operations", times
+
+
+def threefry_phase(dev, smi: str, cfg) -> dict:
+    """[threefry]: the kernel bitwise its plain version in every output on
+    THREEFRY_KEYS x THREEFRY_COUNTS, on a key batch through the jnp tracer's
+    chain, on ``cfg``'s frame-1 jitter draw, on THREEFRY_NORMAL_COUNTS normal
+    counts and on erf_inv's edges; the rows ``threefry@jitter`` (that draw)
+    and ``threefry@normal`` (``[bench-bvh]``'s unit_sphere draw, the rays of a
+    frame x 3): ms a launch replayed from a graph, the plain version's ms,
+    the bound. Returns the rows' entries."""
+    import numpy as np
+    import torch
+
+    from mirror_maze_tpu_torch.ops import prng
+    from mirror_maze_tpu_torch.runtime.state import init_state
+    from time_present import time_ms
+
+    t0 = time.perf_counter()
+
+    def check(tag, kernel, plain) -> None:
+        got, want = kernel(), plain()
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if not (got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want)):
+            bad = int((got != want).sum()) if got.shape == want.shape else "shape"
+            raise SystemExit(f"[threefry] FAIL: {tag}: {bad} elements differ from the plain "
+                             "version")
+
+    checked = 0
+    for words in THREEFRY_KEYS:
+        key = torch.tensor(words, dtype=torch.int64, device=dev)
+        for n in THREEFRY_COUNTS:
+            data = torch.arange(n, dtype=torch.int32, device=dev) * 7919 - 5
+            for tag, call, kernel, plain in (
+                    ("split", lambda f: f(key, n), prng.split, prng.split_plain),
+                    ("fold_in int32", lambda f: f(key, data), prng.fold_in, prng.fold_in_plain),
+                    ("fold_in int64", lambda f: f(key, data.long() << 20), prng.fold_in,
+                     prng.fold_in_plain),
+                    ("fold_in int", lambda f: f(key, n), prng.fold_in, prng.fold_in_plain),
+                    ("random_bits", lambda f: f(key, (n,)), prng.random_bits,
+                     prng.random_bits_plain),
+                    ("uniform", lambda f: f(key, (n, 1), -1.0, 1.0), prng.uniform,
+                     prng.uniform_plain),
+                    ("normal", lambda f: f(key, (n,)), prng.normal, prng.normal_plain)):
+                check(f"{tag} key {words} n {n}", lambda: call(kernel), lambda: call(plain))
+                checked += 1
+    log(f"[threefry] split, fold_in (int32, int64, int), random_bits, uniform and normal on "
+        f"{len(THREEFRY_KEYS)} keys x counts {THREEFRY_COUNTS}: {checked} draws bitwise the plain "
+        f"version")
+
+    # The jnp tracer's per-ray keys (render/tracer.py:77, 157, 184).
+    key = torch.tensor(THREEFRY_KEYS[-1], dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    idx = torch.arange(THREEFRY_BATCH, dtype=torch.int32, device=dev)
+    seeds = (torch.rand(THREEFRY_BATCH, generator=gen, device=dev) * float(1 << 24)).int()
+    check("per-ray keys", lambda: prng.fold_in(prng.fold_in(key, idx), seeds),
+          lambda: prng.fold_in_plain(prng.fold_in_plain(key, idx), seeds))
+    keys = prng.fold_in(prng.fold_in(key, idx), seeds)
+    it_keys = prng.fold_in(keys, 3)
+    check("bounce keys", lambda: prng.fold_in(keys, 3), lambda: prng.fold_in_plain(keys, 3))
+    check("batch normal", lambda: prng.normal(it_keys, (3,)),
+          lambda: prng.normal_plain(it_keys, (3,)))
+    check("batch uniform", lambda: prng.uniform(prng.fold_in(it_keys, 1), ()),
+          lambda: prng.uniform_plain(prng.fold_in_plain(it_keys, 1), ()))
+    check("batch bits", lambda: prng.random_bits(keys[:7], (5,)),
+          lambda: prng.random_bits_plain(keys[:7], (5,)))
+    grid, words4 = keys[:3].reshape(3, 1, 2), torch.arange(4, device=dev) * 1000003
+    check("broadcast fold_in", lambda: prng.fold_in(grid, words4),
+          lambda: prng.fold_in_plain(grid, words4))
+    log(f"[threefry] a [{THREEFRY_BATCH}, 2] key batch through render/tracer.py's chain "
+        f"(fold_in of the ray ids and seeds, of the bounce; normal triples, a uniform a key), "
+        f"batched random_bits and a [3, 1] x [4] fold_in: bitwise the plain version")
+
+    # cfg's frame-1 jitter draw: the state's key, split by the rotation, the
+    # frame folded in, split by the camera (runtime/step.py, render/pipeline.py).
+    st = init_state(cfg, seed=0, device=dev)
+    _, skey = prng.split(st.key)
+    jkey, _ = prng.split(prng.fold_in(skey, st.frame + 1))
+    sc = cfg.screen
+    rays = sc.effective_chunks_per_frame * sc.pixels_per_chunk * sc.samples_per_pixel
+    jshape = (sc.effective_chunks_per_frame * sc.pixels_per_chunk, sc.samples_per_pixel, 2)
+    jitter = lambda: prng.uniform(jkey, jshape, -1.0, 1.0)                  # noqa: E731
+    jitter_plain = lambda: prng.uniform_plain(jkey, jshape, -1.0, 1.0)      # noqa: E731
+    check("jitter", jitter, jitter_plain)
+    n_jit = rays * 2
+    entries = {}
+    ms = time_ms(jitter, THREEFRY_REPS, graph=True)
+    bound_ms, by, times = threefry_bound(n_jit, 4 * n_jit)
+    entries["threefry@jitter"] = dict(kernel="threefry", lib="threefry_uniform", max_abs_err=0.0,
+                                      ms=ms, plain_ms=time_ms(jitter_plain, 3),
+                                      bound_ms=bound_ms, bound_by=by)
+    log(f"[threefry] frame 1's jitter draw of config_interactive ({n_jit} uniforms on [-1, 1), "
+        f"the state's key): bitwise the plain version; kernel {ms:.4f} ms/launch replayed from "
+        f"a graph, plain version {entries['threefry@jitter']['plain_ms']:.3f} ms; bound "
+        f"{bound_ms:.4f} ms by {by} (bytes {times['bytes']:.4f}, int32 {times['int32']:.4f} at "
+        f"{INT32_OPS_PER_S / 1e12:.2f} Tops/s), share {bound_ms / ms:.1%} | {smi}")
+
+    # normal over THREEFRY_NORMAL_COUNTS counts, and how much of the
+    # uniform's 2^23 values and erf_inv's branches it reached.
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    nkey = prng.fold_in(jkey, 5)
+    check("normal 2^26", lambda: prng.normal(nkey, (THREEFRY_NORMAL_COUNTS,)),
+          lambda: prng.normal_plain(nkey, (THREEFRY_NORMAL_COUNTS,)))
+    u = prng.uniform(nkey, (THREEFRY_NORMAL_COUNTS,), lo, 1.0)
+    covered = int(torch.unique(u).numel())
+    x = u * -u
+    w = -prng.log1p(x)
+    branches = dict(rational=int((x.abs() < prng._LOG1P_SMALL).sum()),
+                    w_ge_5=int((w >= 5.0).sum()))
+    del u, x, w
+    # erf_inv on all 2^23 uniforms and the edges no draw reaches: +-1, +-0,
+    # 64 floats each side of w = 5 and of log1p's branch, both signs.
+    m = torch.arange(2 ** 23, dtype=torch.int32, device=dev)
+    lo_t = torch.tensor(lo, device=dev)
+    every = torch.maximum(lo_t, ((m | 0x3F800000).view(torch.float32) - 1.0)
+                          * (torch.tensor(1.0, device=dev) - lo_t) + lo_t)
+    edges = [1.0, 0.0, float(np.nextafter(np.float32(1), np.float32(0)))]
+    for centre in (np.sqrt(1.0 - np.exp(-5.0)), np.sqrt(float(prng._LOG1P_SMALL))):
+        c = int(np.float32(centre).view(np.int32))
+        edges += [float(v) for v in np.arange(c - 64, c + 65, dtype=np.int32).view(np.float32)]
+    e = torch.tensor(edges, dtype=torch.float32, device=dev)
+    values = torch.cat([every, e, -e])
+    check("erf_inv", lambda: prng.erf_inv(values), lambda: prng.erf_inv_plain(values))
+    log(f"[threefry] normal over {THREEFRY_NORMAL_COUNTS} counts bitwise the plain version: it "
+        f"drew {covered} of the uniform's {2 ** 23} values ({covered / 2 ** 23:.4%}), "
+        f"{branches['rational']} through log1p's rational branch and {branches['w_ge_5']} "
+        f"through erf_inv's w >= 5 branch; erf_inv on all {2 ** 23} uniforms and {2 * len(edges)}"
+        f" edges (+-1, +-0, around w = 5 and log1p's branch): bitwise the plain version")
+    del every, values, m
+    release()
+
+    # [bench-bvh]'s unit_sphere draw: the rays of a frame x 3 normals.
+    nshape = (rays, 3)
+    normal = lambda: prng.normal(nkey, nshape)                  # noqa: E731
+    normal_plain = lambda: prng.normal_plain(nkey, nshape)      # noqa: E731
+    check("unit_sphere normal", normal, normal_plain)
+    u = prng.uniform(nkey, nshape, lo, 1.0)
+    rational = int(((u * -u).abs() < prng._LOG1P_SMALL).sum())
+    n_norm = rays * 3
+    fp64 = 2 * (ERFINV_FMAS * n_norm + LOG1P_FMAS * rational + LOG_FMAS * (n_norm - rational))
+    del u
+    ms = time_ms(normal, THREEFRY_REPS, graph=True)
+    bound_ms, by, times = threefry_bound(n_norm, 4 * n_norm, fp64)
+    entries["threefry@normal"] = dict(kernel="threefry", lib="threefry_normal", max_abs_err=0.0,
+                                      ms=ms, plain_ms=time_ms(normal_plain, 3),
+                                      bound_ms=bound_ms, bound_by=by)
+    log(f"[threefry] the unit_sphere draw of [bench-bvh] ({n_norm} normals, {rays} rays x 3): "
+        f"bitwise the plain version; kernel {ms:.4f} ms/launch replayed from a graph, plain "
+        f"version {entries['threefry@normal']['plain_ms']:.3f} ms; bound {bound_ms:.4f} ms by "
+        f"{by} (bytes {times['bytes']:.4f}, int32 {times['int32']:.4f}, fp64 "
+        f"{times['fp64']:.4f} for {fp64} float64 operations), share {bound_ms / ms:.1%}; "
+        f"library_ms null (PyTorch's generators are Philox: no torch call computes threefry); "
+        f"{time.perf_counter() - t0:.1f} s | {smi}")
+    release()
+    return entries
+
+
 def jnp_phases(dev, smi: str) -> dict:
     """The phases of the jnp tracer's backends (with the walk kernel), the
     offline path and the checkpoints; any failure ends the run with
@@ -554,7 +796,7 @@ def jnp_phases(dev, smi: str) -> dict:
         f"0.999), max diff {worst} (need <= 4); launches {counts}; "
         f"{time.perf_counter() - t0:.1f} s")
     if not (close > 0.999 and mean_diff <= 1e-4 and within > 0.999 and worst <= 4
-            and counts == {"present": 28}):
+            and holds(counts, {"present": 28}, True)):
         raise SystemExit("[golden-brute] FAIL")
 
     # [v0]: config_v0 at full size, on the card and on the CPU.
@@ -593,7 +835,8 @@ def jnp_phases(dev, smi: str) -> dict:
         f"{counts}; eager loop {eager_ms / n:.3f} ms/frame, graph == eager bitwise {same}; "
         f"{graph_line(only_graphs(run.runner))}; {time.perf_counter() - t0:.1f} s | {smi}")
     if not (within > 0.999 and worst <= 4 and same_state and cam_diff <= 1e-6 and same
-            and float(frame.float().mean()) > 0.1 and counts == {"present": n}):
+            and float(frame.float().mean()) > 0.1
+            and holds(counts, {"present": n}, True)):
         raise SystemExit("[v0] FAIL")
 
     # [bvh-kernel]: the walk kernel against the plain walk.
@@ -626,6 +869,7 @@ def jnp_phases(dev, smi: str) -> dict:
         same = states_bitwise(st, est) and torch.equal(frame, eframe)
         graphs = only_graphs(run.runner)
         want = {"present": n}
+        draws = {"threefry_normal": n * cfg.tracer.max_segments}
         walked = ""
         if backend == "bvh":
             want["bvh_walk"] = n * cfg.tracer.max_segments
@@ -640,7 +884,8 @@ def jnp_phases(dev, smi: str) -> dict:
             f"{rays / (ms / n) / 1e3:.3f} Mrays/s{walked}, checksum "
             f"{int(frame.to(torch.int64).sum())}; launches {counts}; eager loop {eager_ms / n:.1f} ms/frame, make_scan_step == eager "
             f"bitwise {same}; {graph_line(graphs)}; {time.perf_counter() - t0:.1f} s | {smi}")
-        if counts != want or float(frame.float().mean()) <= 1.0 or not same or walks:
+        if (not holds(counts, want, True) or counts.get("threefry_normal") != draws[
+                "threefry_normal"] or float(frame.float().mean()) <= 1.0 or not same or walks):
             raise SystemExit(f"[{backend}] FAIL: launches {counts} (want {want}), a blank frame, "
                              "a plain walk, or not the eager step's")
         last[backend] = frame.cpu().numpy()
@@ -675,7 +920,8 @@ def jnp_phases(dev, smi: str) -> dict:
         f"(sync debug mode 'error'); eager band loop {eager_ms / n:.1f} ms/frame, graph == eager "
         f"bitwise {same}; launches {counts}; {graph_line(graphs)}; "
         f"{time.perf_counter() - t0:.1f} s | {smi}")
-    if not (same and counts == want and replays == n and float(frame.float().mean()) > 1.0):
+    if not (same and holds(counts, want, True) and replays == n
+            and float(frame.float().mean()) > 1.0):
         raise SystemExit("[bands-bvh] FAIL")
     path_launches["bands-bvh"] = counts["bvh_walk"]
 
@@ -712,7 +958,7 @@ def jnp_phases(dev, smi: str) -> dict:
                                          64, dev)))
     walks = batches * bench.validate_config().replace(intersector="bvh").tracer.max_segments
     ok = (np.isfinite(ref).all() and ref.max() > 0.0
-          and counts == {"tracer": batches, "bvh_walk": walks})
+          and holds(counts, {"tracer": batches, "bvh_walk": walks}, True))
     for backend in ("exact", "bvh", "pallas"):
         d = np.abs(frames[backend] - ref)
         stats = dict(max=float(d.max()), mean=float(d.mean()), p999=float(np.quantile(d, 0.999)),
@@ -754,7 +1000,7 @@ def jnp_phases(dev, smi: str) -> dict:
         f"differ {differ}; launches {counts}; {time.perf_counter() - t0:.1f} s | {smi}")
     if not (host.shape == (n, osc.height, osc.width, 3) and np.array_equal(back, host[0])
             and gif_head == b"GIF89a" and differ and host.mean() > 1.0
-            and counts == {"tracer": n * batches}):
+            and holds(counts, {"tracer": n * batches}, True)):
         raise SystemExit("[offline] FAIL")
 
     # [resume]: config_interactive, 8 frames, checkpoint, load onto the card,
@@ -782,7 +1028,7 @@ def jnp_phases(dev, smi: str) -> dict:
         f"{len(inputs)} frames straight, bitwise: {same}; launches {counts}; "
         f"{time.perf_counter() - t0:.1f} s")
     total = 2 * len(inputs)
-    if not (loaded and same and counts == {"tracer": total, "present": total}):
+    if not (loaded and same and holds(counts, {"tracer": total, "present": total}, True)):
         raise SystemExit("[resume] FAIL")
     return {"walk": walk_entries, "launches": path_launches}
 
@@ -980,7 +1226,7 @@ def driver_phases(dev, smi: str) -> None:
             f"process {t_in * 1e3:.1f} ms, {rays / t_in / 1e6:.1f} Mrays/s; launches "
             f"{sub_launches} / {counts} ({batches} row blocks) | {smi}")
         if not (same and img.mean() > 1.0 and sub_launches == counts
-                == want(1, tracer=batches)):
+                and holds(counts, want(1, tracer=batches), on_card)):
             raise SystemExit("[cli-render] FAIL")
 
         # [play]: headless play through main(), bitwise run_scripted's idle
@@ -1006,7 +1252,8 @@ def driver_phases(dev, smi: str) -> None:
                     frames += int(m.group(1))
                     fps.append(m.group(3))
                 same = np.array_equal(imageio.read_png(png), want64)
-                ok = same and frames == 64 and launched == want(frames + len(argvs))
+                ok = same and frames == 64 and holds(launched, want(frames + len(argvs)),
+                                                     on_card)
                 results.append(ok)
                 log(f"[play] {name}: {frames} frames + {len(argvs)} warm-up, final frame "
                     f"bitwise run_scripted's 64 idle frames: {same}; {'/'.join(fps)} fps wall "
@@ -1081,7 +1328,8 @@ def driver_phases(dev, smi: str) -> None:
             f"{after == before}, MOUSE_OFF written {InteractiveLoop.MOUSE_OFF in text}; launches "
             f"warm-up {warm}, session {sess_launches}; {time.perf_counter() - t0:.1f} s")
         if not (rc == 0 and moved and after == before and InteractiveLoop.MOUSE_OFF in text
-                and warm == want(1) and sess_launches == want(frames)):
+                and holds(warm, want(1), on_card)
+                and holds(sess_launches, want(frames), on_card)):
             raise SystemExit(f"[play-tty] FAIL\n{err_text[-4000:]}")
 
         # [play-bands]: play with 2 row bands on the one device against the
@@ -1100,7 +1348,7 @@ def driver_phases(dev, smi: str) -> None:
         log(f"[play-bands] play --sharded-bands 2 --frames 16 (both bands on {dev}): final "
             f"frame bitwise make_sharded_engine's: {same}; launches {counts} (17 frames x 2 "
             f"bands, the warm-up included); {time.perf_counter() - t0:.1f} s")
-        if not (same and counts == want(0, tracer=34, present_halo=34)):
+        if not (same and holds(counts, want(0, tracer=34, present_halo=34), on_card)):
             raise SystemExit("[play-bands] FAIL")
 
         # [serve]: an EngineServer on port 0 driven over HTTP.
@@ -1192,7 +1440,7 @@ def driver_phases(dev, smi: str) -> None:
                 and frame_shape == (sc.height, sc.width, 3) and parts >= 3
                 and map_status == 200 and map_shape == (320, 320, 3) and ck_status == 200
                 and ck_same and info["frame"] == int(kept["state"].frame)
-                and final["error"] is None and counts == want(stepped + 1)):
+                and final["error"] is None and holds(counts, want(stepped + 1), on_card)):
             raise SystemExit("[serve] FAIL")
 
         # [multiplayer]: two player processes on the one device over gloo.
@@ -1237,7 +1485,7 @@ def driver_phases(dev, smi: str) -> None:
             f"{res[0]['launches']} / {res[1]['launches']}; after player 1 left, player 0's step: "
             f"{left[:80]!r}; {time.perf_counter() - t0:.1f} s | {smi}")
         if not (same_pos and shows > 0 and res[1]["z"] > cfg.camera.spawn[2]
-                and all(r["launches"] == want(frames) for r in res)
+                and all(holds(r["launches"], want(frames), on_card) for r in res)
                 and all(r["graph_equals_eager"] for r in res)
                 and all(r["replays"] == (frames if on_card else 0) for r in res)
                 and "a peer left the session" in left):
@@ -1254,7 +1502,7 @@ def driver_phases(dev, smi: str) -> None:
         n = len(cli.demo_script(FrameInputs))
         log(f"[demo] {text.strip().splitlines()[-1]}; {len(pngs)} PNGs {pngs[0]} .. {pngs[-1]}, "
             f"non-blank {good}; {time.perf_counter() - t0:.1f} s")
-        if not (good and counts == want(n)):
+        if not (good and holds(counts, want(n), on_card)):
             raise SystemExit("[demo] FAIL")
 
         # [animate]: the default spin path on config_bvh's scene, as a GIF.
@@ -1282,7 +1530,7 @@ def driver_phases(dev, smi: str) -> None:
                 and int.from_bytes(head[6:8], "little") == acfg.screen.width)
         log(f"[animate] {text.strip().splitlines()[-1]}; frames {fr.shape} non-blank, GIF "
             f"{os.path.getsize(out)} bytes: {good}; {time.perf_counter() - t0:.1f} s")
-        if not (good and counts == want(0, tracer=48 * a_batches)):
+        if not (good and holds(counts, want(0, tracer=48 * a_batches), on_card)):
             raise SystemExit("[animate] FAIL")
 
         # [multicam]: 4 cameras fanned around the spawn, a 2x2 grid.
@@ -1299,7 +1547,7 @@ def driver_phases(dev, smi: str) -> None:
             f"views: {good}; {time.perf_counter() - t0:.1f} s")
         # One launch a camera and row tile: the renderer traces a tile's rows
         # at once (parallel/shard.py make_sharded_renderer).
-        if not (good and counts == want(0, tracer=4)):
+        if not (good and holds(counts, want(0, tracer=4), on_card)):
             raise SystemExit("[multicam] FAIL")
 
         # [minimap]: host only, no launch.
@@ -1402,7 +1650,8 @@ def entry_phases(dev, smi: str) -> dict:
             f"{res['frame_checksum']} against {checksum} for {n} idle frames in process; "
             f"launches {sub} / {counts}; {time.perf_counter() - t0:.1f} s | {smi}")
         if not (res["backend"] == dev.type and res["frame_checksum"] == round(checksum, 1)
-                and sub == counts == want(tracer=n, present=n)
+                and holds(sub, want(tracer=n, present=n), on_card)
+                and holds(counts, want(tracer=n, present=n), on_card)
                 and len(res["launch_ms"]) == args.launches):
             raise SystemExit("[bench] FAIL")
 
@@ -1433,7 +1682,7 @@ def entry_phases(dev, smi: str) -> dict:
             f"against the band engine's {checksum} over {n} frames; launches {sub}; "
             f"{time.perf_counter() - t0:.1f} s")
         if not (res["frame_checksum"] == round(checksum, 1) and res["sharded_bands"] == bands
-                and sub == want(tracer=bands * n, present_halo=bands * n)):
+                and holds(sub, want(tracer=bands * n, present_halo=bands * n), on_card)):
             raise SystemExit("[bench-bands] FAIL")
 
         # [bench-bvh]: the bench with the BVH walk at its defaults
@@ -1475,11 +1724,12 @@ def entry_phases(dev, smi: str) -> dict:
             f"mode 'error'), launches {counts}; eager loop {eager_ms:.2f} ms/frame; graph == "
             f"eager bitwise {same}; checksum {checksum}; {time.perf_counter() - t0:.1f} s | {smi}")
         if not (res["backend"] == dev.type and same and len(res["launch_ms"]) == args.launches
-                and sub == want(present=n, bvh_walk=n * segs)
-                and counts == want(present=k, bvh_walk=k * segs)
+                and holds(sub, want(present=n, bvh_walk=n * segs), on_card)
+                and holds(counts, want(present=k, bvh_walk=k * segs), on_card)
+                and sub.get("threefry_normal", 0) == (n * segs if on_card else 0)
                 and replays == (k if on_card else 0)):
             raise SystemExit("[bench-bvh] FAIL")
-        bench_bvh_launches = sub.get("bvh_walk", 0)
+        bench_bvh_launches = {k: sub.get(k, 0) for k in ("bvh_walk", "threefry_normal")}
 
         # [soak]: the random soups, the kernel bitwise its plain version under
         # two grids and within the jnp tracer's gate.
@@ -1501,8 +1751,8 @@ def entry_phases(dev, smi: str) -> dict:
         # One launch a scene and grid, of the textured library where the scene
         # is textured.
         expected = sum(len(r["bitwise"]) for r in recs) if on_card else 0
-        if (fails or len(recs) != SOAK_SCENES or sum(counts.values()) != expected
-                or set(counts) - {"tracer", "tracer_tex"}):
+        if (fails or len(recs) != SOAK_SCENES or sum(others(counts).values()) != expected
+                or set(others(counts)) - {"tracer", "tracer_tex"}):
             raise SystemExit("[soak] FAIL")
 
         # [examples]: the Cornell box and the mesh gallery in subprocesses,
@@ -1528,7 +1778,8 @@ def entry_phases(dev, smi: str) -> dict:
             log(f"[examples] {name} {' '.join(EXAMPLE_ARGS)} in a subprocess {t_sub:.1f} s "
                 f"with start-up; PNG bitwise the in-process render_full_frame ({t_in:.2f} s): "
                 f"{same}; launches {counts}")
-            if not (same and img.mean() > 1.0 and counts == want(tracer=-(-size // 64))):
+            if not (same and img.mean() > 1.0
+                    and holds(counts, want(tracer=-(-size // 64)), on_card)):
                 raise SystemExit("[examples] FAIL")
         t1 = time.perf_counter()
         gif = os.path.join(tmp, "mp.gif")
@@ -1758,6 +2009,10 @@ def main() -> int:
 
     check_present_halo("present-halo", "present-halo", configs["main"].screen, 2)
     check_present_halo("present-halo-4k", "present-halo@4k", configs["scale"].screen, 4)
+
+    # 3b. The threefry kernel vs its plain version: bitwise in every output,
+    # on the main path's jitter draw and the jnp tracer's draws.
+    entries.update(threefry_phase(dev, smi, configs["main"]))
 
     # 4. Tracer kernel vs its plain version on frame 1's rays of each path.
     # The kernel traces the whole wavefront. The plain version traces the
@@ -2080,8 +2335,11 @@ def main() -> int:
                 and torch.isfinite(st.screen).all()):
             raise SystemExit(f"[{path}] FAIL: frame blank or malformed, or the camera "
                              "did not move")
-        if counts.get("tracer") != n_frames or counts.get("present") != n_frames:
-            raise SystemExit(f"[{path}] FAIL: launches {counts} != {n_frames} frames each")
+        if (counts.get("tracer") != n_frames or counts.get("present") != n_frames
+                or {k: counts.get(k) for k in ("threefry", "threefry_uniform")}
+                != step_draws(cfg, inputs)):
+            raise SystemExit(f"[{path}] FAIL: launches {counts} != {n_frames} frames each, or "
+                             f"the draws not {step_draws(cfg, inputs)}")
         return counts, frame
 
     launches = {path: drive(path)[0] for path in ("main", "scale", "fuzzy")}
@@ -2129,7 +2387,8 @@ def main() -> int:
         raise SystemExit("[adaptive] FAIL: the queue was not reordered at the wrap")
     if not same:
         raise SystemExit("[adaptive] FAIL: the graph's state or frame is not the eager step's")
-    if counts != {"tracer": epoch + 8, "present": epoch + 8}:
+    if counts != {"tracer": epoch + 8, "present": epoch + 8,
+                  **step_draws(acfg, [FrameInputs.idle()] * (epoch + 8))}:
         raise SystemExit(f"[adaptive] FAIL: launches {counts}")
     del ast, aframe, before, arun, est, eframe
 
@@ -2194,7 +2453,8 @@ def main() -> int:
                 and torch.equal(frame, pframe) and same):
             raise SystemExit(f"[{tag}] FAIL: frame malformed, or the camera or the present "
                              "disagrees")
-        if counts != {"tracer": n_bands * n_frames, "present_halo": n_bands * n_frames}:
+        if not holds(counts, {"tracer": n_bands * n_frames,
+                              "present_halo": n_bands * n_frames}, True):
             raise SystemExit(f"[{tag}] FAIL: launches {counts}")
         launches[tag] = counts
 
@@ -2235,7 +2495,7 @@ def main() -> int:
         if not (tuple(frame.shape) == (sc.height, sc.width, 3) and torch.isfinite(frame).all()
                 and mean > 0.02 and float(frame.std()) > 0.01):
             raise SystemExit(f"[{tag}] FAIL: frame blank or malformed")
-        if counts != {lib: sc.height // GALLERY_ROWS}:
+        if not holds(counts, {lib: sc.height // GALLERY_ROWS}, True):
             raise SystemExit(f"[{tag}] FAIL: launches {counts}")
         launches[tag] = counts
         return frame
@@ -2341,12 +2601,24 @@ def main() -> int:
     # on config_interactive's frame-1 rays with [bench-bvh]'s. No PyTorch
     # call computes a BVH walk, so library_ms is null.
     for row, walk_set, n in (("bvh_walk", "config_bvh", jnp["launches"]["bvh"]),
-                             ("bvh_walk@interactive", "interactive", entry["bench-bvh"])):
+                             ("bvh_walk@interactive", "interactive",
+                              entry["bench-bvh"]["bvh_walk"])):
         e = jnp["walk"][walk_set]
         kern.append(dict(name=row, route="cuda", source=SOURCES["bvh_walk"],
                          replaces=REPLACES["bvh_walk"], launches=n,
                          max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],
                          plain_rays=e["plain_rays"], bound_ms=e["bound_ms"],
+                         bound_by=e["bound_by"], library_ms=None))
+    # The threefry kernel's rows: [main]'s jitter draw with [main]'s uniform
+    # launches, and [bench-bvh]'s unit_sphere draw with that bench's normal
+    # launches. PyTorch's generators are Philox: no torch call computes
+    # threefry, so library_ms is null.
+    for row, n in (("threefry@jitter", launches["main"]["threefry_uniform"]),
+                   ("threefry@normal", entry["bench-bvh"]["threefry_normal"])):
+        e = entries[row]
+        kern.append(dict(name=row, route="cuda", source=SOURCES["threefry"],
+                         replaces=REPLACES[row], launches=n, max_abs_err=e["max_abs_err"],
+                         ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
                          bound_by=e["bound_by"], library_ms=None))
     log(json.dumps({"kernels": kern}))
     count = torch.cuda.device_count()

@@ -11,8 +11,9 @@ The tracer's source gives four libraries (``LIBRARIES``): ``tracer``, the
 24 instantiations an untextured scene runs, ``tracer_tex`` with the texture
 stage, and ``tracer_diag`` / ``tracer_tex_diag``, which also gather the
 per-block diagnostics. Each is a translation unit of its own, so a launch
-without textures or diagnostics compiles none of their code. ``present``
-and ``bvh_walk`` (the jnp tracer's BVH traversal) have a source each.
+without textures or diagnostics compiles none of their code. ``present``,
+``bvh_walk`` (the jnp tracer's BVH traversal) and ``threefry`` (every draw
+of ops/prng.py) have a source each.
 
 Nothing here runs at import: the CPU tests import every module and this
 machine may have no ``nvcc`` at all.
@@ -80,6 +81,13 @@ _BVH_WALK = ("mm_bvh_walk", [
     _C.c_int, _C.c_int, _C.c_float,                      # R, stack levels, t_min
     _C.c_void_p,                                         # stream
 ])
+_THREEFRY = ("mm_threefry", [
+    _C.c_void_p, _C.c_longlong, _C.c_int, _C.c_int,      # keys, key stride, source, output
+    _C.c_void_p, _C.c_longlong, _C.c_uint,               # data, data stride, data word
+    _C.c_ulonglong, _C.c_ulonglong,                      # counts a key, total
+    _C.c_float, _C.c_float, _C.c_void_p,                 # lo, hi, out
+    _C.c_void_p,                                         # stream
+])
 # name -> (source in csrc/, macros for nvcc, (C symbol, argument types))
 LIBRARIES = {
     "tracer": ("tracer.cu", (), _TRACER),
@@ -88,6 +96,7 @@ LIBRARIES = {
     "tracer_tex_diag": ("tracer.cu", ("-DMM_TEX=1", "-DMM_DIAG=1"), _TRACER),
     "present": ("present.cu", (), _PRESENT),
     "bvh_walk": ("bvh_walk.cu", (), _BVH_WALK),
+    "threefry": ("threefry.cu", (), _THREEFRY),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -2,24 +2,37 @@
 
 The engine state carries a PRNG key and the main path draws from it in
 three places (ray jitter, the chunk permutation, the tracer kernel's
-seed). A frame-level comparison with the JAX reference needs the same
-numbers, so this is JAX's threefry2x32 PRNG as JAX runs it with
-``jax_threefry_partitionable=True`` (split and random bits count with a
-64-bit iota over the output shape; 32-bit draws are ``bits1 ^ bits2``).
+seed); the jnp tracer draws per bounce (``normal`` for the diffuse
+scatter, ``uniform`` for glass). A frame-level comparison with the JAX
+reference needs the same numbers, so this is JAX's threefry2x32 PRNG as JAX
+runs it with ``jax_threefry_partitionable=True`` (split and random bits
+count with a 64-bit iota over the output shape; 32-bit draws are ``bits1 ^
+bits2``).
 
-A key is an int64 tensor whose last axis holds two uint32 words. All
-arithmetic runs in int64 with ``& 0xFFFFFFFF`` masks, so it works on any
-device and needs no unsigned tensor ops. Counts are limited to < 2^32
-words per draw (the high count word is then zero).
+A key is an int64 tensor whose last axis holds two uint32 words. Counts are
+limited to < 2^32 words per draw (the high count word is then zero).
+
+``split``, ``fold_in``, ``random_bits``, ``uniform``, ``normal`` and
+``erf_inv`` launch the hand-written CUDA kernel (csrc/threefry.cu: one
+launch a draw, one thread an output element) on a CUDA tensor, run their
+plain version (``*_plain``) on a CPU tensor and raise on any other device.
+The plain versions are int64 elementwise torch ops with ``& 0xFFFFFFFF``
+masks, which the kernel matches bit for bit. A launch counts in
+``kernels.launches`` as ``threefry`` (split, fold_in, random_bits),
+``threefry_uniform``, ``threefry_normal`` or ``threefry_erf_inv``. ``randint`` and
+``permutation`` draw through ``split`` and ``random_bits`` and keep their
+own arithmetic (the modulo fold, the stable sort) in torch.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..device import constant
 from .vecmath import sqrt
 
@@ -33,7 +46,8 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
 
 def threefry2x32(k1, k2, x0, x1):
     """The Threefry-2x32 hash (20 rounds) of count words (x0, x1) under key
-    words (k1, k2); int64 tensors (broadcastable) holding uint32 values."""
+    words (k1, k2); int64 tensors (broadcastable) holding uint32 values. The
+    plain versions' hash, on any device."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & MASK
     x1 = (x1 + ks[1]) & MASK
@@ -53,32 +67,32 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
     return torch.tensor([seed >> 32, seed & MASK], dtype=torch.int64, device=device)
 
 
-def _counts(n: int, device) -> torch.Tensor:
+def _counts_ok(n: int) -> None:
     if n > MASK:
         raise ValueError(f"at most 2^32 - 1 words per draw, got {n}")
+
+
+def _counts(n: int, device) -> torch.Tensor:
+    _counts_ok(n)
     return torch.arange(n, dtype=torch.int64, device=device)
 
 
-def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)`` -> [num, 2]."""
+def split_plain(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """The plain version of ``split``."""
     b1, b2 = threefry2x32(key[0], key[1], 0, _counts(num, key.device))
     return torch.stack([b1, b2], dim=-1)
 
 
-def fold_in(key: torch.Tensor, data) -> torch.Tensor:
-    """``jax.random.fold_in(key, data)``. ``key`` is one key [2] or a batch
-    [..., 2]; ``data`` an int or a tensor that broadcasts against the keys'
-    batch shape (the reference's ``vmap`` of fold_in over keys and data)."""
+def fold_in_plain(key: torch.Tensor, data) -> torch.Tensor:
+    """The plain version of ``fold_in``."""
     if isinstance(data, torch.Tensor):
         data = data.to(torch.int64)
     b1, b2 = threefry2x32(key[..., 0], key[..., 1], 0, data & MASK)
     return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
-    """32 random bits per element (int64 holding uint32): shape ``shape``
-    for one key [2], ``batch + shape`` for keys [*batch, 2] (each key's
-    draw, the reference's ``vmap`` over keys)."""
+def random_bits_plain(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """The plain version of ``random_bits``."""
     n = math.prod(shape)
     batch = tuple(key.shape[:-1])
     k1, k2 = key[..., 0, None], key[..., 1, None]
@@ -86,17 +100,175 @@ def random_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     return (b1 ^ b2).reshape(batch + tuple(shape))
 
 
-def uniform(key: torch.Tensor, shape: tuple, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` in float32: 23 random mantissa bits under
-    exponent 0, minus one, scaled into [minval, maxval). Keys as in
-    ``random_bits``."""
-    bits = random_bits(key, shape)
+def uniform_plain(key: torch.Tensor, shape: tuple, minval: float = 0.0,
+                  maxval: float = 1.0) -> torch.Tensor:
+    """The plain version of ``uniform``."""
+    bits = random_bits_plain(key, shape)
     fbits = (bits >> 9) | 0x3F800000
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
     lo = constant(float(minval), torch.float32, key.device)
     hi = constant(float(maxval), torch.float32, key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+# The kernel's counter sources and outputs (csrc/threefry.cu), and the
+# launch counter of each output: the key and bit draws count as "threefry".
+_IOTA, _DATA32, _DATA64, _VALUES = range(4)
+_PAIR, _XOR, _UNIFORM, _NORMAL, _ERFINV = range(5)
+_COUNT_AS = {_UNIFORM: "threefry_uniform", _NORMAL: "threefry_normal",
+             _ERFINV: "threefry_erf_inv"}
+
+
+class Draw(NamedTuple):
+    """One launch of the threefry kernel as the wrapper hands it to the C
+    entry: element e of ``total`` hashes key ``keys[m * key_stride]`` with
+    count word c, where (source IOTA) m = e // per_key, c = e % per_key, or
+    (DATA) m = e, c = ``data[e * data_stride]`` (``data_imm`` where ``data``
+    is None); source VALUES feeds ``data`` to erf_inv. The output is a new
+    ``dtype`` tensor of ``shape``."""
+    keys: torch.Tensor | None        # int64 [M, 2]
+    key_stride: int
+    source: int
+    output: int
+    data: torch.Tensor | None        # flat int32 / int64 words, or float32 values
+    data_stride: int
+    data_imm: int
+    per_key: int
+    total: int
+    lo: float
+    hi: float
+    shape: tuple
+    dtype: torch.dtype
+
+
+def _on_card(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor (the kernel), False for a CPU one (the plain
+    version); raises on any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"prng.{name} runs on cuda or cpu tensors, got {t.device}")
+    return True
+
+
+def _check_key(key: torch.Tensor) -> None:
+    if key.dtype != torch.int64 or key.ndim < 1 or key.shape[-1] != 2:
+        raise ValueError(f"prng draws take int64 keys [..., 2], got {key.dtype} "
+                         f"{tuple(key.shape)}")
+
+
+def _flat(t: torch.Tensor, shape: tuple, width: tuple = ()) -> tuple:
+    """(t as a flat contiguous operand, stride): stride 0 for one element,
+    else t broadcast to ``shape`` (+ ``width``)."""
+    n = math.prod(t.shape[:t.ndim - len(width)])
+    if n == 1:
+        return t.reshape((1,) + width), 0
+    return t.expand(tuple(shape) + width).reshape((-1,) + width), 1
+
+
+def split_draw(key: torch.Tensor, num: int) -> Draw:
+    """The launch ``split(key, num)`` makes."""
+    _check_key(key)
+    if key.shape != (2,):
+        raise ValueError(f"prng.split takes one key [2], got {tuple(key.shape)}")
+    _counts_ok(num)
+    return Draw(key.reshape(1, 2), 0, _IOTA, _PAIR, None, 0, 0, num, num, 0.0, 0.0,
+                (num, 2), torch.int64)
+
+
+def fold_in_draw(key: torch.Tensor, data) -> Draw:
+    """The launch ``fold_in(key, data)`` makes: keys and data broadcast, one
+    of them by stride 0 where it is a single key or word; an int is one word
+    for every key."""
+    _check_key(key)
+    shape = tuple(key.shape[:-1])
+    words, data_stride, word, source = None, 0, 0, _DATA32
+    if isinstance(data, torch.Tensor):
+        data = data.to(key.device)
+        if data.dtype not in (torch.int32, torch.int64):
+            data = data.to(torch.int64)
+        shape = tuple(torch.broadcast_shapes(shape, tuple(data.shape)))
+        words, data_stride = _flat(data, shape)
+        source = _DATA32 if data.dtype == torch.int32 else _DATA64
+    else:
+        word = int(data) & MASK
+    keys, key_stride = _flat(key, shape, (2,))
+    return Draw(keys, key_stride, source, _PAIR, words, data_stride, word, 1, math.prod(shape),
+                0.0, 0.0, shape + (2,), torch.int64)
+
+
+def bits_draw(key: torch.Tensor, shape: tuple, output: int = _XOR, lo: float = 0.0,
+              hi: float = 1.0) -> Draw:
+    """The launch ``random_bits`` (``output`` XOR), ``uniform`` (UNIFORM on
+    [lo, hi)) or ``normal`` (NORMAL) makes: ``per_key`` counts for each key of
+    the batch."""
+    _check_key(key)
+    n = math.prod(shape)
+    _counts_ok(n)
+    batch = tuple(key.shape[:-1])
+    return Draw(key.reshape(-1, 2), 1, _IOTA, output, None, 0, 0, n, math.prod(batch) * n,
+                float(lo), float(hi), batch + tuple(shape),
+                torch.int64 if output == _XOR else torch.float32)
+
+
+def erf_inv_draw(x: torch.Tensor) -> Draw:
+    """The launch ``erf_inv(x)`` makes (no hash: the values go in)."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"prng.erf_inv takes float32 on the card, got {x.dtype}")
+    return Draw(None, 0, _VALUES, _ERFINV, x.reshape(-1), 1, 0, 1, x.numel(), 0.0, 0.0,
+                tuple(x.shape), torch.float32)
+
+
+def launch_draw(d: Draw) -> torch.Tensor:
+    """Run one draw on the card: a new output tensor, one counted launch of
+    the threefry kernel (none for an empty draw)."""
+    operand = d.keys if d.keys is not None else d.data
+    out = torch.empty(d.shape, dtype=d.dtype, device=operand.device)
+    if d.total:
+        keys = d.keys.contiguous() if d.keys is not None else None
+        data = d.data.contiguous() if d.data is not None else None
+        with torch.cuda.device(operand.device):   # the launch goes to this device's stream
+            kernels.launch("threefry", keys.data_ptr() if keys is not None else None,
+                           d.key_stride, d.source, d.output,
+                           data.data_ptr() if data is not None else None, d.data_stride,
+                           d.data_imm, d.per_key, d.total, d.lo, d.hi, out.data_ptr(),
+                           count_as=_COUNT_AS.get(d.output))
+    return out
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` -> [num, 2]."""
+    if not _on_card(key, "split"):
+        return split_plain(key, num)
+    return launch_draw(split_draw(key, num))
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``. ``key`` is one key [2] or a batch
+    [..., 2]; ``data`` an int or a tensor that broadcasts against the keys'
+    batch shape (the reference's ``vmap`` of fold_in over keys and data)."""
+    if not _on_card(key, "fold_in"):
+        return fold_in_plain(key, data)
+    return launch_draw(fold_in_draw(key, data))
+
+
+def random_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """32 random bits per element (int64 holding uint32): shape ``shape``
+    for one key [2], ``batch + shape`` for keys [*batch, 2] (each key's
+    draw, the reference's ``vmap`` over keys)."""
+    if not _on_card(key, "random_bits"):
+        return random_bits_plain(key, shape)
+    return launch_draw(bits_draw(key, shape))
+
+
+def uniform(key: torch.Tensor, shape: tuple, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` in float32: 23 random mantissa bits under
+    exponent 0, minus one, scaled into [minval, maxval). Keys as in
+    ``random_bits``."""
+    if not _on_card(key, "uniform"):
+        return uniform_plain(key, shape, minval, maxval)
+    return launch_draw(bits_draw(key, shape, _UNIFORM, minval, maxval))
 
 
 # jax.random.normal draws u uniform on [nextafter(-1, 0), 1) and returns
@@ -169,8 +341,8 @@ def log1p(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < _LOG1P_SMALL, small, _log_f32(x + 1.0))
 
 
-def erf_inv(x: torch.Tensor) -> torch.Tensor:
-    """``jax.lax.erf_inv`` in float32 as XLA lowers it (Giles), for |x| <= 1."""
+def erf_inv_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``erf_inv``."""
     w = -log1p(x * -x)
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, sqrt(w) - 3.0)
@@ -183,11 +355,25 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 
 
+def normal_plain(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """The plain version of ``normal``."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return erf_inv_plain(uniform_plain(key, shape, lo, 1.0)) * _SQRT2
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.erf_inv`` in float32 as XLA lowers it (Giles), for |x| <= 1."""
+    if not _on_card(x, "erf_inv"):
+        return erf_inv_plain(x)
+    return launch_draw(erf_inv_draw(x))
+
+
 def normal(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     """``jax.random.normal`` in float32: sqrt(2) * erf_inv(u), u uniform on
-    [nextafter(-1, 0), 1)."""
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    return erf_inv(uniform(key, shape, lo, 1.0)) * _SQRT2
+    [nextafter(-1, 0), 1). Keys as in ``random_bits``."""
+    if not _on_card(key, "normal"):
+        return normal_plain(key, shape)
+    return launch_draw(bits_draw(key, shape, _NORMAL))
 
 
 def randint(key: torch.Tensor, shape: tuple, minval: int,
@@ -208,12 +394,17 @@ def randint(key: torch.Tensor, shape: tuple, minval: int,
     return (minval + offset).to(torch.int32)
 
 
+def permutation_rounds(n: int) -> int:
+    """The sort rounds of ``permutation(key, n)``: ceil(3 ln n / ln(2^32 - 1)),
+    each a ``split`` and a ``random_bits``."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+
+
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.random.permutation(key, n)``: ceil(3 ln n / ln(2^32 - 1))
-    rounds of a STABLE sort by fresh 32-bit keys (int64 result)."""
-    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    """``jax.random.permutation(key, n)``: ``permutation_rounds(n)`` rounds
+    of a STABLE sort by fresh 32-bit keys (int64 result)."""
     x = torch.arange(n, dtype=torch.int64, device=key.device)
-    for _ in range(rounds):
+    for _ in range(permutation_rounds(n)):
         key, subkey = split(key)
         order = torch.argsort(random_bits(subkey, (n,)), stable=True)
         x = x[order]

@@ -628,6 +628,25 @@ def _graph_vs_eager(cuda_device, cfg, script):
     return st, frame, est, eframe, run.runner.graphs[st.screen.device], counts
 
 
+def _prng_free(counts: dict) -> dict:
+    """The launch counts but the threefry kernel's: every draw of
+    ops/prng.py launches it (counted as threefry, threefry_uniform,
+    threefry_normal), and a test checks those apart."""
+    return {k: v for k, v in counts.items() if not k.startswith("threefry")}
+
+
+def _step_draws(cfg, script) -> dict:
+    """The threefry launches of the fused-tracer step over ``script``: a
+    frame's rotation split, fold_in, camera split, randint's split and two
+    bit draws, and its jitter; a rotating frame adds the permutation's split
+    and bit draw a round."""
+    from mirror_maze_tpu_torch.ops.prng import permutation_rounds
+
+    turns = sum(bool(inp.rot_updated) for inp in script)
+    return {"threefry": 6 * len(script) + 2 * permutation_rounds(cfg.screen.total_chunks) * turns,
+            "threefry_uniform": len(script)}
+
+
 def _states_bitwise(a, b) -> bool:
     return all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
                            y.view(torch.int32) if y.dtype == torch.float32 else y)
@@ -651,7 +670,12 @@ def test_graph_step_is_bitwise_the_eager_step(cuda_device, intersector):
         want["tracer"] = len(script)
     if intersector == "bvh":
         want["bvh_walk"] = len(script) * cfg.tracer.max_segments
-    assert counts == want
+    assert _prng_free(counts) == want
+    if intersector == "pallas":
+        assert counts["threefry"] == _step_draws(cfg, script)["threefry"]
+        assert counts["threefry_uniform"] == len(script)
+    else:
+        assert counts["threefry_normal"] == len(script) * cfg.tracer.max_segments
     assert float(frame.float().mean()) > 1.0
 
 
@@ -677,7 +701,8 @@ def test_graph_band_engine_is_bitwise_the_eager_bands(cuda_device):
     assert all(_states_bitwise(a, b) for a, b in zip(zip(*st), zip(*est)))
     assert torch.equal(frame, eframe)
     assert graphs.kinds == (False, True) and graphs.replays == len(script) - 2
-    assert counts == {"tracer": 2 * len(script), "present_halo": 2 * len(script)}
+    assert _prng_free(counts) == {"tracer": 2 * len(script), "present_halo": 2 * len(script)}
+    assert counts["threefry_uniform"] >= len(script)
 
 
 def test_graph_step_hands_back_states_no_later_call_writes(cuda_device):
@@ -864,8 +889,9 @@ def test_graph_band_engine_with_the_bvh_walk(cuda_device):
     assert all(_states_bitwise(a, b) for a, b in zip(zip(*st), zip(*est)))
     assert torch.equal(frame, eframe)
     assert graphs.kinds == (False, True) and graphs.replays == len(script) - 2
-    assert counts == {"bvh_walk": 2 * len(script) * cfg.tracer.max_segments,
-                      "present_halo": 2 * len(script)}
+    assert _prng_free(counts) == {"bvh_walk": 2 * len(script) * cfg.tracer.max_segments,
+                                  "present_halo": 2 * len(script)}
+    assert counts["threefry_normal"] >= len(script) * cfg.tracer.max_segments
 
 
 @pytest.mark.parametrize("intersector", ["pallas", "bvh"])
@@ -902,3 +928,133 @@ def test_multiplayer_graph_is_bitwise_the_eager_step(cuda_device, intersector):
     assert _states_bitwise(a, b) and torch.equal(display(a, cfg), fb)
     assert graphs.kinds == (False, True) and graphs.replays == len(script) - 2
     assert graphs.eager_frames == 2
+
+
+# --- The threefry kernel (csrc/threefry.cu) ----------------------------------
+
+# Raw keys: PRNGKey(0), PRNGKey(7), PRNGKey(2^31 - 1) and one with both words
+# above 2^31; counts around the kernel's 256-thread block and a large draw.
+THREEFRY_KEYS = [(0, 0), (0, 7), (0, 2 ** 31 - 1), (0x9E3779B9, 0xDEADBEEF)]
+THREEFRY_COUNTS = [1, 3, 1023, 1024, 1025, 2 ** 20 + 7]
+
+
+def _same_bits(a, b) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def _threefry_launches() -> int:
+    return sum(v for k, v in kernels.launches.items() if k.startswith("threefry"))
+
+
+@pytest.mark.parametrize("n", THREEFRY_COUNTS)
+def test_threefry_kernel_is_bitwise_the_plain_version_in_every_mode(cuda_device, n):
+    """split, fold_in (int, int32 and int64 words), random_bits, uniform on
+    two ranges and normal, each one launch, bitwise the plain version."""
+    from mirror_maze_tpu_torch.ops import prng
+
+    data = torch.arange(n, dtype=torch.int32, device=cuda_device) * 7919 - 5
+    for words in THREEFRY_KEYS:
+        key = torch.tensor(words, dtype=torch.int64, device=cuda_device)
+        draws = [
+            (lambda f: f(key, n), prng.split, prng.split_plain),
+            (lambda f: f(key, data), prng.fold_in, prng.fold_in_plain),
+            (lambda f: f(key, data.long() << 20), prng.fold_in, prng.fold_in_plain),
+            (lambda f: f(key, n), prng.fold_in, prng.fold_in_plain),
+            (lambda f: f(key, (n,)), prng.random_bits, prng.random_bits_plain),
+            (lambda f: f(key, (n,), -1.0, 1.0), prng.uniform, prng.uniform_plain),
+            (lambda f: f(key, (n, 1)), prng.uniform, prng.uniform_plain),
+            (lambda f: f(key, (n,)), prng.normal, prng.normal_plain),
+        ]
+        for call, kernel, plain in draws:
+            before = _threefry_launches()
+            got = call(kernel)
+            assert _threefry_launches() == before + 1, kernel.__name__
+            assert _same_bits(got, call(plain)), (kernel.__name__, words, n)
+
+
+def test_threefry_key_batches_as_the_jnp_tracer_draws(cuda_device):
+    """Per-ray keys (render/tracer.py: two chained fold_in over the rays, the
+    bounce folded in, normal triples and one uniform a key), a broadcast
+    fold_in and a batched random_bits: bitwise the plain version."""
+    from mirror_maze_tpu_torch.ops import prng
+
+    n = 12288
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    key = torch.tensor(THREEFRY_KEYS[3], dtype=torch.int64, device=cuda_device)
+    idx = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    seeds = (torch.rand(n, generator=gen, device=cuda_device) * float(1 << 24)).to(torch.int32)
+    keys = prng.fold_in(prng.fold_in(key, idx), seeds)
+    assert _same_bits(keys, prng.fold_in_plain(prng.fold_in_plain(key, idx), seeds))
+    it_keys = prng.fold_in(keys, 3)
+    assert _same_bits(it_keys, prng.fold_in_plain(keys, 3))
+    assert _same_bits(prng.normal(it_keys, (3,)), prng.normal_plain(it_keys, (3,)))
+    assert _same_bits(prng.uniform(prng.fold_in(it_keys, 1), ()),
+                      prng.uniform_plain(prng.fold_in_plain(it_keys, 1), ()))
+    assert _same_bits(prng.random_bits(keys[:7], (5,)), prng.random_bits_plain(keys[:7], (5,)))
+    grid, words = keys[:3].reshape(3, 1, 2), torch.arange(4, device=cuda_device) * 1000003
+    assert _same_bits(prng.fold_in(grid, words), prng.fold_in_plain(grid, words))
+    assert _same_bits(prng.split(keys[5], 3), prng.split_plain(keys[5], 3))
+
+
+def test_threefry_erf_inv_on_every_uniform_and_the_edges(cuda_device):
+    """erf_inv on all 2^23 floats that uniform gives on [nextafter(-1, 0), 1),
+    and on the edges no draw reaches or few do: +-1 (x * inf), +-0, the
+    values around w = 5 (Giles' branch) and around |x| = sqrt(2) - 1 after
+    squaring (log1p's branch), both signs; bitwise the plain version."""
+    from mirror_maze_tpu_torch.ops import prng
+
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    m = torch.arange(2 ** 23, dtype=torch.int32, device=cuda_device)
+    floats = (m | 0x3F800000).view(torch.float32) - 1.0
+    lo_t = torch.tensor(lo, device=cuda_device)
+    u = torch.maximum(lo_t, floats * (torch.tensor(1.0, device=cuda_device) - lo_t) + lo_t)
+    edges = []
+    for centre in (np.sqrt(1.0 - np.exp(-5.0)), np.sqrt(float(prng._LOG1P_SMALL))):
+        c = np.float32(centre).view(np.int32)
+        edges += list((np.arange(c - 64, c + 65, dtype=np.int32)).view(np.float32))
+    edges += [1.0, 0.0, float(np.nextafter(np.float32(1), np.float32(0))), 2.0 ** -24]
+    e = torch.tensor(edges, dtype=torch.float32, device=cuda_device)
+    x = torch.cat([u, e, -e])
+    before = kernels.launches["threefry_erf_inv"]
+    got = prng.erf_inv(x)
+    assert kernels.launches["threefry_erf_inv"] == before + 1
+    assert _same_bits(got, prng.erf_inv_plain(x))
+    w = -prng.log1p(e * -e)
+    assert bool((w < 5.0).any()) and bool((w >= 5.0).any())
+    assert int(torch.isinf(got).sum()) == 2                 # +-1 -> +-inf
+
+
+def test_threefry_in_a_graph_reads_the_key_and_data_on_every_replay(cuda_device):
+    """The main path's draws captured into a CUDA graph (under the sync debug
+    mode "error": no host read of a key): each replay draws from the key and
+    frame the static buffers hold then, as the CPU does from the same ones."""
+    from mirror_maze_tpu_torch.ops import prng
+
+    key = torch.tensor([0, 1], dtype=torch.int64, device=cuda_device)
+    frame = torch.tensor(1, dtype=torch.int32, device=cuda_device)
+
+    def body(key, frame):
+        rkey, key = prng.split(key)
+        jkey, tkey = prng.split(prng.fold_in(key, frame))
+        return (prng.uniform(jkey, (1025, 2), -1.0, 1.0), prng.randint(tkey, (), 0, 2 ** 31 - 1),
+                prng.normal(prng.fold_in(jkey, 3), (3, 5)), prng.permutation(rkey, 192))
+
+    body(key, frame)
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with kernels.counting_capture() as counted, torch.cuda.graph(graph):
+            outs = body(key, frame)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert counted == {"threefry": 9, "threefry_uniform": 1, "threefry_normal": 1}
+    for words, f in (((0x9E3779B9, 0xDEADBEEF), 2), ((0, 123456), 3), ((5, 6), -7)):
+        key.copy_(torch.tensor(words, dtype=torch.int64))
+        frame.fill_(f)
+        graph.replay()
+        want = body(key.cpu(), frame.cpu())
+        for got, w in zip(outs, want):
+            assert _same_bits(got.cpu(), w), (words, f)
