@@ -8,7 +8,8 @@ sm_90a: the tracer's four libraries, with and without the texture stage and
 the diagnostics, the present, the BVH walk and the threefry draws), holds
 each against its plain PyTorch version on the card at the shapes of every
 path it drives (``[threefry]``: every draw of ops/prng.py bitwise, in every
-output, on the main path's jitter draw and the jnp tracer's), checks the
+output, on the main path's jitter draw and the jnp tracer's, and erf_inv
+beside ``torch.special.erfinv``), checks the
 engine's scripted run against the committed golden frame, and drives four
 configurations at full width through ``make_scan_step``:
 
@@ -78,17 +79,22 @@ each phase with its seconds:
   the same script on the CPU in this process, by the golden rule; it,
   ``[bvh]`` and ``[exact]`` replay graphs and are held bitwise against the
   eager loop;
-- ``[bvh-kernel]`` the walk kernel against the plain walk, t and idx bitwise
-  on every ray of six sets: frame 1 of ``config_bvh``'s scene and of
-  ``config_interactive``'s (2,027,520 rays), the mesh gallery, the Cornell
-  box with spheres, the giant leaf, and rays with exact zero direction
-  components; ms per launch, the plain walk's ms, the bound and its share;
+- ``[bvh-kernel]`` the walk kernel (its sphere fold included, one launch)
+  against the plain walk, t and idx bitwise on every ray of eight sets:
+  frame 1 of ``config_bvh``'s scene and of ``config_interactive``'s
+  (2,027,520 rays), that frame's rays at segments 2-13 as trace_paths hands
+  them to the walk (``bounce``, with the live rays of each segment), random
+  rays in ``config_scale``'s maze, the mesh gallery, the Cornell box with
+  spheres, the giant leaf, and rays with exact zero direction components;
+  ms per launch, the plain walk's ms, the bound and its share;
 - ``[bvh]`` / ``[exact]`` ``config_bvh``'s scene (8x8 maze, 512x384, 4 spp,
   5 + 4 bounces) with the traversal and with the dense exact test, 8 frames
   each, the timed call under the sync debug mode "error" (no host sync),
   their last frames against each other; ``[bands-bvh]`` the same scene and
   walk as 2 bands on the one card, graph against the eager band loop; the
   plain walk's host check every k iterations timed on frame 1's rays;
+  ``[scale-bvh]`` ``config_scale`` (3840x2160) with the walk, two frames
+  replayed from graphs, one walk launch a segment;
 - ``[validate]`` bench.py ``--validate``'s deterministic light (16x16 maze,
   128x96, 1 spp, jitter 0, one segment) with brute, exact, bvh and the fused
   kernel, each against brute by the reference's hardware rule;
@@ -155,8 +161,10 @@ counts as it did, and that the draws went through the kernel (the engine
 paths and ``[graph]`` their exact count, ``step_draws``). The last two lines
 are the ``{"kernels": [...]}`` summary (one row per kernel and path, every
 number measured or, for ``bound_ms``, computed in this run; the walk
-kernel's rows ``bvh_walk`` and ``bvh_walk@interactive``, the threefry
-kernel's ``threefry@jitter`` and ``threefry@normal``) and ``{"ok": true,
+kernel's rows ``bvh_walk``, ``bvh_walk@interactive``, ``bvh_walk@bounce`` and
+``bvh_walk@scale``, the threefry kernel's ``threefry@jitter``,
+``threefry@normal`` and ``threefry@erfinv``, the last with
+``torch.special.erfinv``'s time as ``library_ms``) and ``{"ok": true,
 "device": {...}}``.
 
 Needs a CUDA card: without one it exits 2 and prints no result. It uses
@@ -202,6 +210,8 @@ REPLACES = {
                        "ray_jitter under jit; no pallas_call)",
     "threefry@normal": "mirror_maze_tpu/ops/sampling.py:25 (jax.random.normal of "
                        "unit_sphere under jit; no pallas_call)",
+    "threefry@erfinv": "mirror_maze_tpu/ops/sampling.py:25 (jax.lax.erf_inv inside "
+                       "jax.random.normal under jit; no pallas_call)",
 }
 SOURCES = {
     "tracer": "mirror_maze_tpu_torch/csrc/tracer.cu",
@@ -441,18 +451,25 @@ def graph_phase(dev, smi: str, cfg, scene) -> None:
 
 
 # [bvh-kernel]: the ray sets the walk kernel is held against its plain
-# version on (name -> rays; 0 = a frame's rays of the configuration).
-WALK_SETS = {"config_bvh": 0, "interactive": 0, "mesh": 1 << 20, "cornell-spheres": 1 << 20,
-             "leaf": 1 << 16, "zero-components": 1 << 16}
+# version on (name -> rays; 0 = a frame's rays of the configuration;
+# "bounce": config_interactive's frame-1 rays as trace_paths hands them to
+# the walk at segments 2 and later; "scale": config_scale's maze, its
+# largest tables, on random rays).
+WALK_SETS = {"config_bvh": 0, "interactive": 0, "bounce": 0, "scale": 1 << 21,
+             "mesh": 1 << 20, "cornell-spheres": 1 << 20, "leaf": 1 << 16,
+             "zero-components": 1 << 16}
 WALK_REPS = 10
 # f32 operations counted for the walk's bound: a slab test (two an interior
-# visit; the tracer counts a walked slab so) and a primitive test.
-SLAB_OPS, PRIM_TEST_OPS = 30, 16
+# visit; the tracer counts a walked slab so) and a primitive test; and a
+# sphere test (sphere_ts: the three dots, b, q, disc, the root, both roots
+# and their tests) for every ray and sphere.
+SLAB_OPS, PRIM_TEST_OPS, SPHERE_OPS = 30, 16, 30
 
 
-def frame1_rays(cfg, scene):
+def frame1_rays(cfg, scene, with_key: bool = False):
     """(ori, dirs) of frame 1 of an idle start: the step's window (Morton
-    sorted where the configuration sorts it), camera and key."""
+    sorted where the configuration sorts it), camera and key; with
+    ``with_key`` also the key the frame's tracer draws from."""
     from mirror_maze_tpu_torch.ops import prng
     from mirror_maze_tpu_torch.render.pipeline import camera_rays
     from mirror_maze_tpu_torch.render.scheduler import (
@@ -470,16 +487,36 @@ def frame1_rays(cfg, scene):
         ids = sort_window_morton(ids, sc)
     pixels = chunk_pixels(chunk_origin_xy(ids, sc), sc.chunk_width)
     _, key = prng.split(st.key)
-    ori, dirs, _, _ = camera_rays(st.camera(cfg), pixels, prng.fold_in(key, 1), cfg)
-    return ori, dirs
+    ori, dirs, tkey, _ = camera_rays(st.camera(cfg), pixels, prng.fold_in(key, 1), cfg)
+    return (ori, dirs, tkey) if with_key else (ori, dirs)
+
+
+def segment_rays(cfg, scene, live: list | None = None) -> list:
+    """The (o, d) that trace_paths hands the nearest-hit backend at each
+    segment of frame 1 of an idle start (``cfg``'s backend on ``scene``);
+    with ``live`` (a list) also the live rays of each segment."""
+    from mirror_maze_tpu_torch.render.pipeline import scene_nearest_fn
+    from mirror_maze_tpu_torch.render.tracer import trace_paths
+
+    ori, dirs, key = frame1_rays(cfg, scene, with_key=True)
+    nearest = scene_nearest_fn(scene, cfg)
+    seen = []
+
+    def record(o, d):
+        seen.append((o.clone(), d.clone()))
+        return nearest(o, d)
+
+    trace_paths(scene.prims, ori, dirs, key, cfg.tracer, record,
+                **({} if live is None else {"live": live}))
+    return seen
 
 
 def bvh_kernel_phase(dev, smi: str) -> dict:
-    """[bvh-kernel]: the walk kernel against the plain walk on six ray sets,
-    t and idx bitwise on every ray; ms per launch (CUDA events over
-    WALK_REPS launches replayed from a graph), the plain walk's ms beside
-    it, and the bound from the plain walk's visits. Returns the kernel
-    rows' entries by set."""
+    """[bvh-kernel]: the walk kernel against the plain walk on eight ray
+    sets, t and idx bitwise on every ray; ms per launch (CUDA events over
+    WALK_REPS launches replayed from a graph; the mean over the bounce set's
+    segments), the plain walk's ms beside it, and the bound from the plain
+    walk's visits. Returns the kernel rows' entries by set."""
     import torch
 
     import mirror_maze_tpu_torch as P
@@ -495,55 +532,67 @@ def bvh_kernel_phase(dev, smi: str) -> dict:
     t_min = bvh_cfg.tracer.t_min
     entries = {}
     for name, n in WALK_SETS.items():
-        if name in ("config_bvh", "interactive"):
-            cfg = bvh_cfg if name == "config_bvh" else P.NAMED_CONFIGS[name]()
+        live = []
+        if name in ("config_bvh", "interactive", "bounce"):
+            cfg = (bvh_cfg if name == "config_bvh" else
+                   P.NAMED_CONFIGS["interactive"]().replace(intersector="bvh"))
             host = build_scene(cfg.maze)
             scene = upload_scene(host, device=dev)
-            ori, dirs = frame1_rays(cfg, scene)
+            batches = (segment_rays(cfg, scene, live)[1:] if name == "bounce"
+                       else [frame1_rays(cfg, scene)])
         else:
             host = (build_scene(bvh_cfg.maze) if name == "zero-components" else
+                    build_scene(P.NAMED_CONFIGS["scale"]().maze) if name == "scale" else
                     intersect_scene({"cornell-spheres": "spheres"}.get(name, name)))
             scene = upload_scene(host, device=dev)
             make = zero_component_rays if name == "zero-components" else scene_rays
-            ori, dirs = (torch.from_numpy(x).to(dev) for x in make(host, n, seed=7))
+            batches = [tuple(torch.from_numpy(x).to(dev) for x in make(host, n, seed=7))]
         p = scene.prims
         depth, leaf = traversal_bounds(p.bvh_left_first.cpu().numpy(),
                                        p.bvh_count.cpu().numpy())
         tables = intersect.bvh_tables(p, leaf)
-        before = kernels.launches["bvh_walk"]
-        t, idx = intersect.nearest_hit_bvh_kernel(p, ori, dirs, t_min, depth, leaf,
-                                                  tables=tables)
-        launched = kernels.launches["bvh_walk"] - before
-        stats = {}
-        (pt, pi), plain_ms = timed(lambda: intersect.nearest_hit_bvh(
-            p, ori, dirs, t_min, depth, leaf, tables=tables, stats=stats))
-        same = (torch.equal(t.view(torch.int32), pt.view(torch.int32))
-                and torch.equal(idx, pi))
-        hit = float((pt < intersect.BIG).float().mean())
-        zeros = int((dirs == 0).any(dim=1).sum())
-        del t, idx, pt, pi
-        ms = time_ms(lambda: intersect.bvh_walk(tables, ori, dirs, t_min, depth, leaf),
-                     WALK_REPS, graph=True)
-        interior, tests = int(stats["interior"]), int(stats["tests"])
-        n_rays = ori.shape[0]
-        ops = SLAB_OPS * 2 * interior + PRIM_TEST_OPS * tests
-        n_bytes = (tables.noderow.numel() + tables.leafpack.numel()) * 4 + n_rays * (24 + 8)
+        walk = lambda o, d: intersect.nearest_hit_bvh_kernel(   # noqa: E731
+            p, o, d, t_min, depth, leaf, tables=tables)
+        same, launched, hits, zeros, n_rays = True, 0, 0, 0, 0
+        ms = plain_ms = ops = 0.0
+        for ori, dirs in batches:
+            before = dict(kernels.launches)
+            t, idx = walk(ori, dirs)
+            launched += sum(v - before.get(k, 0) for k, v in kernels.launches.items())
+            stats = {}
+            (pt, pi), walk_ms = timed(lambda: intersect.nearest_hit_bvh(
+                p, ori, dirs, t_min, depth, leaf, tables=tables, stats=stats))
+            plain_ms += walk_ms
+            same &= torch.equal(t.view(torch.int32), pt.view(torch.int32)) and torch.equal(idx, pi)
+            hits += int((pt < intersect.BIG).sum())
+            zeros += int((dirs == 0).any(dim=1).sum())
+            n_rays += ori.shape[0]
+            del t, idx, pt, pi
+            ms += time_ms(lambda: walk(ori, dirs), WALK_REPS, graph=True)
+            ops += (SLAB_OPS * 2 * int(stats["interior"]) + PRIM_TEST_OPS * int(stats["tests"])
+                    + SPHERE_OPS * p.num_spheres * ori.shape[0])
+        k = len(batches)
+        ms, plain_ms, ops = ms / k, plain_ms / k, ops / k
+        per_launch = n_rays // k
+        n_bytes = (tables.noderow.numel() + tables.leafpack.numel()) * 4 + per_launch * (24 + 8)
         ops_ms, bytes_ms = ops / FP32_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
         bound_ms, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-        log(f"[bvh-kernel] {name}: {n_rays} rays ({zeros} with a zero direction component), "
-            f"{p.num_planes} planes, {p.num_spheres} spheres, tree depth {depth}, leaves of "
-            f"<= {leaf}; kernel bitwise the plain walk (t and idx): {same}; {hit:.4f} hit; "
-            f"kernel {ms:.4f} ms/launch ({launched} launch a call), plain walk {plain_ms:.2f} ms; "
-            f"{interior / n_rays:.2f} interior visits and {tests / n_rays:.2f} primitive tests a "
-            f"ray: bound {bound_ms:.6f} ms by {by} (operations {ops_ms:.6f}, bytes "
-            f"{bytes_ms:.6f}), share {bound_ms / ms:.1%} (at most 50% under -fmad=false) | {smi}")
-        if not (same and launched == 1 and hit > 0.05):
+        segs = (f"; live rays at segments 1-{len(live)} of the frame (the walk runs on all "
+                f"{per_launch} each segment): {[int(x) for x in live]}" if live else "")
+        log(f"[bvh-kernel] {name}: {n_rays} rays in {k} launch(es) ({zeros} with a zero "
+            f"direction component), {p.num_planes} planes, {p.num_spheres} spheres, tree depth "
+            f"{depth}, leaves of <= {leaf}; kernel bitwise the plain walk and its sphere fold "
+            f"(t and idx): {same}; {hits / n_rays:.4f} hit; kernel {ms:.4f} ms/launch "
+            f"({launched} launch(es), the fold inside); plain walk {plain_ms:.2f} ms; bound "
+            f"{bound_ms:.6f} ms by {by} (operations {ops_ms:.6f}, bytes {bytes_ms:.6f}), share "
+            f"{bound_ms / ms:.1%} (at most 50% under -fmad=false){segs} | {smi}")
+        if not (same and launched == k and hits > 0.05 * n_rays):
             raise SystemExit(f"[bvh-kernel] FAIL: {name}")
         if name == "zero-components" and zeros != n_rays:
             raise SystemExit("[bvh-kernel] FAIL: the zero-component set lost its zeros")
         entries[name] = dict(kernel="bvh_walk", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                             plain_rays=n_rays, bound_ms=bound_ms, bound_by=by)
-        del scene, tables, ori, dirs
+                             plain_rays=per_launch, bound_ms=bound_ms, bound_by=by)
+        del scene, tables, batches
         release()
     log(f"[bvh-kernel] {len(WALK_SETS)} ray sets in {time.perf_counter() - t0:.1f} s")
     return entries
@@ -561,13 +610,14 @@ THREEFRY_BATCH = 12288
 THREEFRY_REPS = 20
 # int32 operations a hash (csrc/threefry.cu: 20 rounds of an add, a rotate
 # and a xor; 17 adds of the key schedule; 2 xors for the third key word), and
-# float64 operations a normal (each emulated FMA a multiply and an add:
-# erf_inv's 8, log1p's rational 11 or log's 10).
+# the FMAs of an erf_inv (erf_inv's 8, log1p's rational 11 or log's 10), two
+# operations each: float32 in a normal draw (native FMAs), float64 in
+# erf_inv's own output.
 THREEFRY_INT_OPS = 79
 ERFINV_FMAS, LOG1P_FMAS, LOG_FMAS = 8, 11, 10
 
 
-def threefry_bound(n_out: int, out_bytes: int, fp64_ops: int = 0) -> tuple:
+def threefry_bound(n_out: int, out_bytes: int, fp32_ops: int = 0) -> tuple:
     """(bound ms, by, the three times) of a draw of ``n_out`` hashes writing
     ``out_bytes``: the larger of the bytes over the memory rate and each
     operation type over its rate."""
@@ -575,7 +625,7 @@ def threefry_bound(n_out: int, out_bytes: int, fp64_ops: int = 0) -> tuple:
 
     times = {"bytes": (out_bytes + 16) / HBM_BYTES_PER_S * 1e3,
              "int32": n_out * THREEFRY_INT_OPS / INT32_OPS_PER_S * 1e3,
-             "fp64": fp64_ops / FP64_OPS_PER_S * 1e3}
+             "fp32": fp32_ops / FP32_OPS_PER_S * 1e3}
     top = max(times, key=times.get)
     return times[top], "bytes" if top == "bytes" else "operations", times
 
@@ -593,7 +643,7 @@ def threefry_phase(dev, smi: str, cfg) -> dict:
 
     from mirror_maze_tpu_torch.ops import prng
     from mirror_maze_tpu_torch.runtime.state import init_state
-    from time_present import time_ms
+    from time_present import HBM_BYTES_PER_S, time_ms
 
     t0 = time.perf_counter()
 
@@ -717,20 +767,51 @@ def threefry_phase(dev, smi: str, cfg) -> dict:
     u = prng.uniform(nkey, nshape, lo, 1.0)
     rational = int(((u * -u).abs() < prng._LOG1P_SMALL).sum())
     n_norm = rays * 3
-    fp64 = 2 * (ERFINV_FMAS * n_norm + LOG1P_FMAS * rational + LOG_FMAS * (n_norm - rational))
-    del u
+    fma_ops = 2 * (ERFINV_FMAS * n_norm + LOG1P_FMAS * rational
+                   + LOG_FMAS * (n_norm - rational))
     ms = time_ms(normal, THREEFRY_REPS, graph=True)
-    bound_ms, by, times = threefry_bound(n_norm, 4 * n_norm, fp64)
+    bound_ms, by, times = threefry_bound(n_norm, 4 * n_norm, fma_ops)
     entries["threefry@normal"] = dict(kernel="threefry", lib="threefry_normal", max_abs_err=0.0,
                                       ms=ms, plain_ms=time_ms(normal_plain, 3),
                                       bound_ms=bound_ms, bound_by=by)
     log(f"[threefry] the unit_sphere draw of [bench-bvh] ({n_norm} normals, {rays} rays x 3): "
         f"bitwise the plain version; kernel {ms:.4f} ms/launch replayed from a graph, plain "
         f"version {entries['threefry@normal']['plain_ms']:.3f} ms; bound {bound_ms:.4f} ms by "
-        f"{by} (bytes {times['bytes']:.4f}, int32 {times['int32']:.4f}, fp64 "
-        f"{times['fp64']:.4f} for {fp64} float64 operations), share {bound_ms / ms:.1%}; "
-        f"library_ms null (PyTorch's generators are Philox: no torch call computes threefry); "
-        f"{time.perf_counter() - t0:.1f} s | {smi}")
+        f"{by} (bytes {times['bytes']:.4f}, int32 {times['int32']:.4f}, fp32 "
+        f"{times['fp32']:.4f} for {fma_ops} float32 operations), share {bound_ms / ms:.1%}; "
+        f"library_ms null (PyTorch's generators are Philox: no torch call computes threefry) "
+        f"| {smi}")
+
+    # erf_inv (the ERFINV output) on that draw's uniforms, beside
+    # torch.special.erfinv: the same function, not XLA's polynomial bit for
+    # bit. Bound: one read and one write of each value, or the float64
+    # operations the emulated FMAs count (as the normal row's).
+    check("erf_inv of the unit_sphere draw's uniforms", lambda: prng.erf_inv(u),
+          lambda: prng.erf_inv_plain(u))
+    lib, ours = torch.special.erfinv(u), prng.erf_inv(u)
+    lib_same = float((lib.view(torch.int32) == ours.view(torch.int32)).float().mean())
+    lib_ulps = int((lib.view(torch.int32).long() - ours.view(torch.int32).long()).abs().max())
+    del lib, ours
+    ms = time_ms(lambda: prng.erf_inv(u), THREEFRY_REPS, graph=True)
+    lib_ms = time_ms(lambda: torch.special.erfinv(u), THREEFRY_REPS, graph=True)
+    times = {"bytes": 8 * n_norm / HBM_BYTES_PER_S * 1e3,
+             "fp64": fma_ops / FP64_OPS_PER_S * 1e3}
+    by = max(times, key=times.get)
+    bound_ms = times[by]
+    entries["threefry@erfinv"] = dict(kernel="threefry", lib="threefry_erf_inv",
+                                      max_abs_err=0.0, ms=ms,
+                                      plain_ms=time_ms(lambda: prng.erf_inv_plain(u), 3),
+                                      bound_ms=bound_ms,
+                                      bound_by="bytes" if by == "bytes" else "operations",
+                                      library_ms=lib_ms)
+    log(f"[threefry] erf_inv on the unit_sphere draw's {n_norm} uniforms: bitwise the plain "
+        f"version; kernel {ms:.4f} ms/launch replayed from a graph, plain version "
+        f"{entries['threefry@erfinv']['plain_ms']:.3f} ms, torch.special.erfinv {lib_ms:.4f} ms "
+        f"(bitwise XLA's polynomial on {lib_same:.4%} of the values, at most {lib_ulps} ulp "
+        f"apart); bound {bound_ms:.4f} ms by {by} (bytes {times['bytes']:.4f}, fp64 "
+        f"{times['fp64']:.4f}), share {bound_ms / ms:.1%}; {time.perf_counter() - t0:.1f} s "
+        f"| {smi}")
+    del u
     release()
     return entries
 
@@ -924,6 +1005,37 @@ def jnp_phases(dev, smi: str) -> dict:
             and float(frame.float().mean()) > 1.0):
         raise SystemExit("[bands-bvh] FAIL")
     path_launches["bands-bvh"] = counts["bvh_walk"]
+
+    # [scale-bvh]: config_scale (64x64 maze, 3840x2160) with the walk, its
+    # largest tables: an idle and a turning frame replayed from graphs, one
+    # walk launch a segment, no host sync.
+    t0 = time.perf_counter()
+    cfg = P.NAMED_CONFIGS["scale"]().replace(intersector="bvh")
+    release()
+    sscene = upload_scene(build_scene(cfg.maze), device=dev)
+    frames = [FrameInputs.idle(), turning]
+    run = make_scan_step(sscene, cfg)
+    run(init_state(cfg, device=dev), frames)                    # first-call costs, captures
+    torch.cuda.synchronize()
+    st0 = init_state(cfg, seed=0, device=dev)
+    kernels.reset_launches()
+    (st, frame), ms = timed(lambda: no_sync(lambda: run(st0, frames)))
+    counts = dict(kernels.launches)
+    sc = cfg.screen
+    rays = sc.effective_chunks_per_frame * sc.pixels_per_chunk * sc.samples_per_pixel
+    want = {"present": len(frames), "bvh_walk": len(frames) * cfg.tracer.max_segments}
+    log(f"[scale-bvh] config_scale {sc.width}x{sc.height} {sc.samples_per_pixel} spp, intersector "
+        f"bvh, {len(frames)} frames, {rays} rays/frame: "
+        f"{ms / len(frames):.1f} ms/frame, {rays / (ms / len(frames)) / 1e3:.3f} Mrays/s, bounds "
+        f"{derive_traversal_bounds(sscene, cfg, None, None)}, checksum "
+        f"{int(frame.to(torch.int64).sum())}; launches {counts}; "
+        f"{graph_line(only_graphs(run.runner))}; {time.perf_counter() - t0:.1f} s | {smi}")
+    # Two frames light 2/64 of the 4K screen: the frame must not be blank.
+    if not (holds(counts, want, True) and int(frame.to(torch.int64).sum()) > 0):
+        raise SystemExit("[scale-bvh] FAIL")
+    path_launches["scale-bvh"] = counts["bvh_walk"]
+    del sscene, run, st, st0, frame
+    release()
 
     # The plain walk's host check interval on frame 1's rays (the CPU's path
     # and the kernel's twin): the result is the same for every interval, the
@@ -2597,12 +2709,17 @@ def main() -> int:
                          ms=e["ms"], plain_ms=e["plain_ms"],
                          plain_rays=e.get("plain_rays"), bound_ms=e["bound_ms"],
                          bound_by=e["bound_by"], library_ms=None))
-    # The walk kernel's rows: on [bvh]'s frame-1 rays with [bvh]'s launches,
-    # on config_interactive's frame-1 rays with [bench-bvh]'s. No PyTorch
-    # call computes a BVH walk, so library_ms is null.
+    # The walk kernel's rows: on [bvh]'s frame-1 rays with [bvh]'s launches;
+    # on config_interactive's frame-1 rays with [bench-bvh]'s first-segment
+    # launches and on its later segments with the others; on config_scale's
+    # maze with [scale-bvh]'s. No PyTorch call
+    # computes a BVH walk, so library_ms is null.
+    bench_walks = entry["bench-bvh"]["bvh_walk"]
+    first_walks = bench_walks // P.NAMED_CONFIGS["interactive"]().tracer.max_segments
     for row, walk_set, n in (("bvh_walk", "config_bvh", jnp["launches"]["bvh"]),
-                             ("bvh_walk@interactive", "interactive",
-                              entry["bench-bvh"]["bvh_walk"])):
+                             ("bvh_walk@interactive", "interactive", first_walks),
+                             ("bvh_walk@bounce", "bounce", bench_walks - first_walks),
+                             ("bvh_walk@scale", "scale", jnp["launches"]["scale-bvh"])):
         e = jnp["walk"][walk_set]
         kern.append(dict(name=row, route="cuda", source=SOURCES["bvh_walk"],
                          replaces=REPLACES["bvh_walk"], launches=n,
@@ -2610,16 +2727,19 @@ def main() -> int:
                          plain_rays=e["plain_rays"], bound_ms=e["bound_ms"],
                          bound_by=e["bound_by"], library_ms=None))
     # The threefry kernel's rows: [main]'s jitter draw with [main]'s uniform
-    # launches, and [bench-bvh]'s unit_sphere draw with that bench's normal
-    # launches. PyTorch's generators are Philox: no torch call computes
-    # threefry, so library_ms is null.
+    # launches, [bench-bvh]'s unit_sphere draw with that bench's normal
+    # launches (PyTorch's generators are Philox: no torch call computes
+    # threefry, so library_ms is null), and erf_inv on that draw's uniforms,
+    # which no driven path launches alone (a normal runs it inside its own
+    # launch), beside torch.special.erfinv as library_ms.
     for row, n in (("threefry@jitter", launches["main"]["threefry_uniform"]),
-                   ("threefry@normal", entry["bench-bvh"]["threefry_normal"])):
+                   ("threefry@normal", entry["bench-bvh"]["threefry_normal"]),
+                   ("threefry@erfinv", 0)):
         e = entries[row]
         kern.append(dict(name=row, route="cuda", source=SOURCES["threefry"],
                          replaces=REPLACES[row], launches=n, max_abs_err=e["max_abs_err"],
                          ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
-                         bound_by=e["bound_by"], library_ms=None))
+                         bound_by=e["bound_by"], library_ms=e.get("library_ms")))
     log(json.dumps({"kernels": kern}))
     count = torch.cuda.device_count()
     if count != 1:

@@ -1,5 +1,6 @@
-// BVH walk: the nearest plane hit of every ray by the ordered stack
-// traversal of the jnp tracer's bvh backend, one thread a ray.
+// BVH walk: the nearest hit of every ray by the ordered stack traversal of
+// the jnp tracer's bvh backend, one thread a ray, then the fold of the
+// scene's spheres.
 //
 // Replaces the `jax.lax.while_loop` of the JAX package's
 // mirror_maze_tpu/render/intersect.py::nearest_hit_bvh (a loop over every
@@ -7,7 +8,8 @@
 // render/intersect.py nearest_hit_bvh, a masked vector loop in which every
 // update is gated by the ray's own `live`: rays are independent, so walking
 // one ray until it is no longer live gives that loop's result bit for bit.
-// Spheres are not in the BVH; the wrapper folds them in after the walk.
+// Spheres are not in the BVH; the kernel folds them in after the walk, as
+// the plain version's _merge_spheres does.
 //
 // Inputs, float32 (render/intersect.py bvh_tables):
 //   noderow  [M, 14]: per node both children's boxes (bmin, bmax of the left
@@ -15,8 +17,10 @@
 //   leafpack [N, L*15]: per primitive slot the whole leaf run that starts
 //            there, 15 floats a slot (normal, d, w1, b1, w2, b2, valid,
 //            scene id, triangle flag);
+//   spheres: centre [S, 3], c2r2 [S], ior [S] or null (no glass);
 //   ori, dirs [R, 3].
-// Outputs: t [R] float32 (1e30 = miss), idx [R] int32 (scene-order id).
+// Outputs: t [R] float32 (1e30 = miss), idx [R] int32 (scene-order id;
+// sphere i is n_planes + i).
 //
 // Exactness against the plain version (built with -fmad=false and IEEE
 // division, as every kernel of the port):
@@ -31,7 +35,13 @@
 //   one pushed when it is hit too; a leaf's slots k < min(count, L) in
 //   order; a hit replaces the current one only when strictly nearer;
 // - the stack: a push writes slot min(sp, levels - 1), a pop reads
-//   stack[sp - 1] (0 past the levels), as the plain version clamps.
+//   stack[sp - 1] (0 past the levels), as the plain version clamps;
+// - the sphere fold is intersect.py sphere_ts and _merge_spheres: b = d.o -
+//   d.c, q = o.o + (o.(-2c) + c2r2), disc = b*b - q, root = sqrt(disc) (a
+//   correctly rounded __fsqrt_rn), the near root -b - root past t_min, else
+//   for a glass sphere (ior > 0) the far root -b + root; the first least
+//   sphere distance wins, and it replaces the plane hit only when strictly
+//   nearer.
 //
 // A ray holds at most one pending node a level below the root, so a stack
 // of max_depth + 2 levels never fills; one too shallow would send the plain
@@ -40,9 +50,16 @@
 // that bound is never reached where the stack holds, and it keeps a wrong
 // max_depth from hanging the card.
 //
-// Design (right and simple): one thread walks its ray to the end with its
-// stack in a per-thread array; the tables are read through the L1. Walks of
-// one warp diverge, and nothing is staged in shared memory.
+// Design: one thread walks its ray to the end with its stack in a
+// per-thread array (local memory, cached in the L1), the tables read
+// through the L1, a block per 128 rays, 32 registers. Measured against it on
+// the H100 (PERF.md, PR 12): tables staged in shared memory, rows of 16
+// floats read as float4, the stack in shared memory as [level][thread] and
+// a persistent grid were each slower on the main path's frame-1 rays or on
+// their bounces (more registers, fewer warps an SM, the staging repeated by
+// every block), so the walk stays this one, with the sphere fold added in
+// an instance of its own (SPHERES): the fold's code alone, never run, made
+// the planes-only walk 2% slower on the H100.
 
 #include <cuda_runtime.h>
 
@@ -69,9 +86,12 @@ __device__ __forceinline__ float slab(const float* __restrict__ box, float ox, f
   return (tf >= tn && tn < t_cur && tf > 0.0f) ? tn : BIG;
 }
 
+template <bool SPHERES>
 __global__ void __launch_bounds__(THREADS)
     bvh_walk(const float* __restrict__ noderow, const float* __restrict__ leafpack,
-             int n_nodes, int n_slots, int max_leaf, const float* __restrict__ ori,
+             int n_nodes, int n_slots, int max_leaf, const float* __restrict__ sph_center,
+             const float* __restrict__ sph_c2r2, const float* __restrict__ sph_ior,
+             int n_spheres, int n_planes, const float* __restrict__ ori,
              const float* __restrict__ dirs, float* __restrict__ t_out,
              int* __restrict__ idx_out, int n_rays, int n_levels, float t_min) {
   const int r = blockIdx.x * THREADS + threadIdx.x;
@@ -125,21 +145,59 @@ __global__ void __launch_bounds__(THREADS)
     --sp;
     cur = sp < n_levels ? stack[sp] : 0;
   }
+  if (SPHERES) {
+    // The sphere fold: the least sphere distance (the first on a tie), taken
+    // where strictly nearer than the plane hit.
+    const float sdo = (ox * dx + oy * dy) + oz * dz;
+    const float soo = (ox * ox + oy * oy) + oz * oz;
+    float ts_min = BIG;
+    int s_idx = 0;
+    for (int s = 0; s < n_spheres; ++s) {
+      const float cx = sph_center[3 * s], cy = sph_center[3 * s + 1], cz = sph_center[3 * s + 2];
+      const float b = sdo - ((dx * cx + dy * cy) + dz * cz);
+      const float q =
+          soo + (((ox * (-2.0f * cx) + oy * (-2.0f * cy)) + oz * (-2.0f * cz)) + sph_c2r2[s]);
+      const float disc = b * b - q;
+      const float root = __fsqrt_rn(fmaxf(disc, 0.0f));
+      float ts = -b - root;
+      bool ok = disc > 0.0f && ts > t_min;
+      if (!ok && sph_ior != nullptr) {
+        const float tf = -b + root;
+        if (disc > 0.0f && tf > t_min && sph_ior[s] > 0.0f) {
+          ts = tf;
+          ok = true;
+        }
+      }
+      if (ok && ts < ts_min) {
+        ts_min = ts;
+        s_idx = s;
+      }
+    }
+    if (ts_min < t) {
+      t = ts_min;
+      idx = n_planes + s_idx;
+    }
+  }
   t_out[r] = t;
   idx_out[r] = idx;
 }
 
 }  // namespace
 
+// spheres: n_spheres of them (0: no fold); sph_ior null where no sphere is glass.
 extern "C" int mm_bvh_walk(const float* noderow, const float* leafpack, int n_nodes,
-                           int n_slots, int max_leaf, const float* ori, const float* dirs,
-                           float* t, int* idx, int n_rays, int n_levels, float t_min,
-                           void* stream) {
-  if (n_levels < 1 || n_levels > MM_BVH_STACK || n_nodes < 1 || n_slots < 1 || max_leaf < 1)
+                           int n_slots, int max_leaf, const float* sph_center,
+                           const float* sph_c2r2, const float* sph_ior, int n_spheres,
+                           int n_planes, const float* ori, const float* dirs, float* t, int* idx,
+                           int n_rays, int n_levels, float t_min, void* stream) {
+  if (n_levels < 1 || n_levels > MM_BVH_STACK || n_nodes < 1 || n_slots < 1 || max_leaf < 1 ||
+      n_spheres < 0 || (n_spheres > 0 && (sph_center == nullptr || sph_c2r2 == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return (int)cudaGetLastError();
   const int blocks = (n_rays + THREADS - 1) / THREADS;
-  bvh_walk<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      noderow, leafpack, n_nodes, n_slots, max_leaf, ori, dirs, t, idx, n_rays, n_levels, t_min);
+  auto kernel = n_spheres > 0 ? bvh_walk<true> : bvh_walk<false>;
+  kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      noderow, leafpack, n_nodes, n_slots, max_leaf, sph_center, sph_c2r2, sph_ior, n_spheres,
+      n_planes, ori, dirs, t, idx, n_rays, n_levels, t_min);
   return (int)cudaGetLastError();
 }

@@ -29,15 +29,25 @@
 // Exactness (built with -fmad=false, IEEE division and square root, no flush
 // of denormals, as every kernel of the port): every float32 step of
 // prng.py's uniform, log1p, _log_f32 and erf_inv is its own __f*_rn
-// operation in the same order, and each prng.fma is a float64 product of two
-// float32 values (exact) plus a float64 add, rounded once to float32, as the
-// plain version does it: never a native fmaf.
+// operation in the same order, and each prng.fma is the plain version's
+// double rounding z = RN32(RN64(a * b + c)) (the product of two float32 is
+// exact in float64). ERFINV takes any input, so its fma64 rounds the sum of
+// one float64 FMA. NORMAL's erf_inv sees only the 2^23 floats uniform gives
+// on [nextafter(-1, 0), 1), and its fma64 is a native single-rounded fmaf,
+// r = RN32(a * b + c): rounding is monotone and every float32 midpoint is a
+// float64 value, so r == z unless the float64 sum is a float32 midpoint the
+// exact sum missed (r odd) or a subnormal, and no step of erf_inv on any of
+// those 2^23 values is (tests/test_torch_prng_kernel.py checks every step
+// of every one of them against prng.fma).
 //
 // Bound on the card: int32 issue, not bytes. A hash is 79 int32 operations
 // (20 rounds of an add, a rotate and a xor; 17 adds of the key schedule, 2
 // xors for the third key word) for 4 or 16 bytes written; a normal adds 36-38
-// float64 operations. Design (right and simple): a grid-stride loop, keys and
-// data read through the L1, no shared memory.
+// emulated FMAs. Rounded through float64, each converted its running value
+// float -> double -> float (~77 conversions a normal at 16 a clock and SM),
+// which set the time of a normal and of an erf_inv; a native fmaf is one
+// float32 instruction. Design: a grid-stride loop, keys and data read
+// through the L1, no shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,10 +84,17 @@ __device__ __forceinline__ void threefry(uint32_t k1, uint32_t k2, uint32_t& x0,
 #undef MM_ROUND
 }
 
-// prng.fma: a * b + c, the product exact in float64, rounded once.
+// prng.fma: RN32(RN64(a * b + c)), the product exact in float64 (see
+// "Exactness" above). EXACT rounds the float64 sum, for any input; the
+// native form is a single-rounded fmaf, which equals it wherever the float64
+// sum is not a float32 midpoint the exact sum missed (nor subnormal): on
+// every value a normal draw gives, but not on every input.
+template <bool EXACT>
 __device__ __forceinline__ float fma64(float a, float b, float c) {
-  return __double2float_rn(__dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
+  if (EXACT) return __double2float_rn(__fma_rn((double)a, (double)b, (double)c));
+  return __fmaf_rn(a, b, c);
 }
+#define MM_FMA(a, b, c) fma64<EXACT>((a), (b), (c))
 
 // prng.uniform's arithmetic on one 32-bit word.
 __device__ __forceinline__ float to_uniform(uint32_t bits, float lo, float hi) {
@@ -87,6 +104,7 @@ __device__ __forceinline__ float to_uniform(uint32_t bits, float lo, float hi) {
 }
 
 // prng._log_f32: XLA-CPU's float32 log for x > 0.
+template <bool EXACT>
 __device__ __forceinline__ float log_f32(float x) {
   x = x < 0x1p-126f ? 0x1p-126f : x;  // clamp_min to the smallest normal (NaN passes)
   const int bits = __float_as_int(x);
@@ -97,65 +115,69 @@ __device__ __forceinline__ float log_f32(float x) {
   m = __fadd_rn(__fsub_rn(m, 1.0f), low ? m : 0.0f);
   const float z = __fmul_rn(m, m);
   const float x3 = __fmul_rn(z, m);
-  const float y1 = fma64(fma64(m, 0x1.204376p-4f, -0x1.d7a370p-4f), m, 0x1.de4a34p-4f);
-  const float y2 = fma64(fma64(m, -0x1.fcba9ep-4f, 0x1.23d37ep-3f), m, -0x1.555ca0p-3f);
-  const float y3 = fma64(fma64(m, 0x1.999d58p-3f, -0x1.fffff8p-3f), m, 0x1.555554p-2f);
-  float y = fma64(fma64(y1, x3, y2), x3, y3);
-  y = fma64(y, x3, __fmul_rn(e, -0x1.bd0106p-13f));
-  return fma64(e, 0x1.63p-1f, __fadd_rn(__fsub_rn(m, __fmul_rn(z, 0.5f)), y));
+  const float y1 = MM_FMA(MM_FMA(m, 0x1.204376p-4f, -0x1.d7a370p-4f), m, 0x1.de4a34p-4f);
+  const float y2 = MM_FMA(MM_FMA(m, -0x1.fcba9ep-4f, 0x1.23d37ep-3f), m, -0x1.555ca0p-3f);
+  const float y3 = MM_FMA(MM_FMA(m, 0x1.999d58p-3f, -0x1.fffff8p-3f), m, 0x1.555554p-2f);
+  float y = MM_FMA(MM_FMA(y1, x3, y2), x3, y3);
+  y = MM_FMA(y, x3, __fmul_rn(e, -0x1.bd0106p-13f));
+  return MM_FMA(e, 0x1.63p-1f, __fadd_rn(__fsub_rn(m, __fmul_rn(z, 0.5f)), y));
 }
 
 // prng.log1p: XLA-CPU's float32 log1p, a rational function for
 // |x| < sqrt(2) - 1, else log(1 + x).
+template <bool EXACT>
 __device__ __forceinline__ float log1p_xla(float x) {
-  if (!(fabsf(x) < 0x1.a8279ap-2f)) return log_f32(__fadd_rn(x, 1.0f));
+  if (!(fabsf(x) < 0x1.a8279ap-2f)) return log_f32<EXACT>(__fadd_rn(x, 1.0f));
   const float x2 = __fmul_rn(x, x);
   float den = __fadd_rn(x, 0x1.e2035ap+3f);
-  den = fma64(den, x, 0x1.4c30b6p+6f);
-  den = fma64(den, x, 0x1.bb865ap+7f);
-  den = fma64(den, x, 0x1.351946p+8f);
-  den = fma64(den, x, 0x1.b0db14p+7f);
-  den = fma64(den, x, 0x1.e0f304p+5f);
+  den = MM_FMA(den, x, 0x1.4c30b6p+6f);
+  den = MM_FMA(den, x, 0x1.bb865ap+7f);
+  den = MM_FMA(den, x, 0x1.351946p+8f);
+  den = MM_FMA(den, x, 0x1.b0db14p+7f);
+  den = MM_FMA(den, x, 0x1.e0f304p+5f);
   float num = 0x1.7bc096p-15f;
-  num = fma64(num, x, 0x1.fe818ap-2f);
-  num = fma64(num, x, 0x1.a509f4p+2f);
-  num = fma64(num, x, 0x1.de9738p+4f);
-  num = fma64(num, x, 0x1.e798ecp+5f);
-  num = fma64(num, x, 0x1.c8e75ap+5f);
-  num = fma64(num, x, 0x1.40a202p+4f);
+  num = MM_FMA(num, x, 0x1.fe818ap-2f);
+  num = MM_FMA(num, x, 0x1.a509f4p+2f);
+  num = MM_FMA(num, x, 0x1.de9738p+4f);
+  num = MM_FMA(num, x, 0x1.e798ecp+5f);
+  num = MM_FMA(num, x, 0x1.c8e75ap+5f);
+  num = MM_FMA(num, x, 0x1.40a202p+4f);
   const float tail = __fmul_rn(__fmul_rn(x, x2), __fdiv_rn(num, den));
   return __fadd_rn(x, __fadd_rn(__fmul_rn(x2, -0.5f), tail));
 }
 
-// prng.erf_inv: XLA's float32 erf_inv (Giles), for |x| <= 1.
+// prng.erf_inv: XLA's float32 erf_inv (Giles), for |x| <= 1; EXACT for
+// any input, native on the uniforms of a normal draw.
+template <bool EXACT>
 __device__ __forceinline__ float erf_inv(float x) {
-  float w = -log1p_xla(__fmul_rn(x, -x));
+  float w = -log1p_xla<EXACT>(__fmul_rn(x, -x));
   const bool lt = w < 5.0f;
   w = lt ? __fsub_rn(w, 2.5f) : __fsub_rn(__fsqrt_rn(w), 3.0f);
   float p;
   if (lt) {
     p = 0x1.e2cb10p-26f;
-    p = fma64(p, w, 0x1.70966cp-22f);
-    p = fma64(p, w, -0x1.d8e6aep-19f);
-    p = fma64(p, w, -0x1.26b582p-18f);
-    p = fma64(p, w, 0x1.ca65b6p-13f);
-    p = fma64(p, w, -0x1.48a810p-10f);
-    p = fma64(p, w, -0x1.11c9dep-8f);
-    p = fma64(p, w, 0x1.f91ec6p-3f);
-    p = fma64(p, w, 0x1.805c5ep+0f);
+    p = MM_FMA(p, w, 0x1.70966cp-22f);
+    p = MM_FMA(p, w, -0x1.d8e6aep-19f);
+    p = MM_FMA(p, w, -0x1.26b582p-18f);
+    p = MM_FMA(p, w, 0x1.ca65b6p-13f);
+    p = MM_FMA(p, w, -0x1.48a810p-10f);
+    p = MM_FMA(p, w, -0x1.11c9dep-8f);
+    p = MM_FMA(p, w, 0x1.f91ec6p-3f);
+    p = MM_FMA(p, w, 0x1.805c5ep+0f);
   } else {
     p = -0x1.a3e136p-13f;
-    p = fma64(p, w, 0x1.a76ad6p-14f);
-    p = fma64(p, w, 0x1.61b8e4p-10f);
-    p = fma64(p, w, -0x1.e17bcep-9f);
-    p = fma64(p, w, 0x1.7824f6p-8f);
-    p = fma64(p, w, -0x1.f38baep-8f);
-    p = fma64(p, w, 0x1.354afcp-7f);
-    p = fma64(p, w, 0x1.006db6p+0f);
-    p = fma64(p, w, 0x1.6a9efcp+1f);
+    p = MM_FMA(p, w, 0x1.a76ad6p-14f);
+    p = MM_FMA(p, w, 0x1.61b8e4p-10f);
+    p = MM_FMA(p, w, -0x1.e17bcep-9f);
+    p = MM_FMA(p, w, 0x1.7824f6p-8f);
+    p = MM_FMA(p, w, -0x1.f38baep-8f);
+    p = MM_FMA(p, w, 0x1.354afcp-7f);
+    p = MM_FMA(p, w, 0x1.006db6p+0f);
+    p = MM_FMA(p, w, 0x1.6a9efcp+1f);
   }
   return fabsf(x) == 1.0f ? __fmul_rn(x, __int_as_float(0x7F800000)) : __fmul_rn(p, x);
 }
+#undef MM_FMA
 
 struct Args {
   const long long* keys;
@@ -176,7 +198,7 @@ __global__ void __launch_bounds__(THREADS) threefry_kernel(Args a) {
   for (unsigned long long e = (unsigned long long)blockIdx.x * THREADS + threadIdx.x;
        e < a.total; e += step) {
     if (SRC == VALUES) {
-      ((float*)a.out)[e] = erf_inv(((const float*)a.data)[e * a.data_stride]);
+      ((float*)a.out)[e] = erf_inv<true>(((const float*)a.data)[e * a.data_stride]);
       continue;
     }
     unsigned long long m;
@@ -214,7 +236,7 @@ __global__ void __launch_bounds__(THREADS) threefry_kernel(Args a) {
     } else if (OUT == NORMAL) {
       // nextafter(-1, 0) and sqrt(2) in float32
       const float u = to_uniform(x0 ^ x1, -0x1.fffffep-1f, 1.0f);
-      ((float*)a.out)[e] = __fmul_rn(erf_inv(u), 0x1.6a09e6p+0f);
+      ((float*)a.out)[e] = __fmul_rn(erf_inv<false>(u), 0x1.6a09e6p+0f);
     }
   }
 }

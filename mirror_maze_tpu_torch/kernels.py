@@ -77,6 +77,8 @@ _PRESENT = ("mm_present", [
 _BVH_WALK = ("mm_bvh_walk", [
     _C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int,        # noderow, leafpack, nodes, slots
     _C.c_int,                                            # max leaf
+    _C.c_void_p, _C.c_void_p, _C.c_void_p,               # sphere centres, c2r2, ior
+    _C.c_int, _C.c_int,                                  # spheres, planes
     _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,  # ori, dirs, t out, idx out
     _C.c_int, _C.c_int, _C.c_float,                      # R, stack levels, t_min
     _C.c_void_p,                                         # stream

@@ -20,15 +20,15 @@ inside the primitive (`shaders.metal:63`).
 The reference's traversal is a ``lax.while_loop`` that tests ``any(live)``
 on the device every iteration. On the card the walk is the hand-written
 kernel ``csrc/bvh_walk.cu`` (``nearest_hit_bvh_kernel``): one thread walks
-one ray to its end, so nothing is read on the host and the walk captures
-into a CUDA graph. It raises on a tensor that is not on a CUDA device, and
-where the tree is deeper than its stack; it never falls back to the plain
-walk. ``nearest_hit_bvh`` is the plain walk, the CPU's path and the
-kernel's twin: there the test is a host fetch, made every ``check_every``
-iterations. A ray that is no longer live keeps its state (every update is
-masked by ``live``), so iterations run past the last live ray change
-nothing, the result does not depend on ``check_every``, and one ray walked
-alone to its end gives the same result. ``walk_counts`` counts the plain
+one ray to its end and folds in the spheres, one launch a call, so nothing
+is read on the host and the walk captures into a CUDA graph. It raises on a
+tensor that is not on a CUDA device, and where the tree is deeper than its
+stack; it never falls back to the plain walk. ``nearest_hit_bvh`` is the
+plain walk, the CPU's path and the kernel's twin: there the test is a host
+fetch, made every ``check_every`` iterations. A ray that is no longer live
+keeps its state (every update is masked by ``live``), so iterations run
+past the last live ray change nothing, the result does not depend on
+``check_every``, and one ray walked alone to its end gives the same result. ``walk_counts`` counts the plain
 walks, their iterations and the host fetches.
 """
 
@@ -264,23 +264,11 @@ def nearest_hit_bvh(prims: ScenePrims, o: torch.Tensor, d: torch.Tensor, t_min: 
 def nearest_hit_bvh_kernel(prims: ScenePrims, o: torch.Tensor, d: torch.Tensor, t_min: float,
                            max_depth: int, max_leaf: int,
                            tables: BVHTables | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """``nearest_hit_bvh`` by the ``bvh_walk`` kernel (csrc/bvh_walk.cu), then
-    the sphere fold: bitwise the plain walk. o, d: [R, 3] float32 on a CUDA
-    device. Raises where the walk needs more than ``BVH_STACK`` levels
-    (``max_depth + 2``) or the rays are not on a CUDA device; it does not
-    fall back to the plain walk."""
-    if tables is None:
-        tables = bvh_tables(prims, max_leaf)
-    t, idx = bvh_walk(tables, o, d, t_min, max_depth, max_leaf)
-    if prims.num_spheres:
-        return _merge_spheres(prims, o, d, t_min, t, idx)
-    return t, idx
-
-
-def bvh_walk(tables: BVHTables, o: torch.Tensor, d: torch.Tensor, t_min: float,
-             max_depth: int, max_leaf: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the ``bvh_walk`` kernel: the nearest plane hit (t [R],
-    idx [R] int32) of every ray, one thread a ray."""
+    """``nearest_hit_bvh`` in one launch of the ``bvh_walk`` kernel
+    (csrc/bvh_walk.cu), the sphere fold included: bitwise the plain walk.
+    o, d: [R, 3] float32 on a CUDA device. Raises where the walk needs more
+    than ``BVH_STACK`` levels (``max_depth + 2``) or the rays are not on a
+    CUDA device; it does not fall back to the plain walk."""
     n_levels = max_depth + 2
     if n_levels > BVH_STACK:
         raise ValueError(f"a BVH of depth {max_depth} needs {n_levels} stack levels, the "
@@ -288,11 +276,18 @@ def bvh_walk(tables: BVHTables, o: torch.Tensor, d: torch.Tensor, t_min: float,
     if o.device.type != "cuda":
         raise ValueError(f"the bvh_walk kernel runs on CUDA tensors, got {o.device}; "
                          "nearest_hit_bvh is the plain walk")
+    if tables is None:
+        tables = bvh_tables(prims, max_leaf)
     noderow, leafpack = tables.noderow.contiguous(), tables.leafpack.contiguous()
     if leafpack.shape[1] != 15 * max_leaf:
         raise ValueError(f"tables of {leafpack.shape[1] // 15} slots a leaf for max_leaf "
                          f"{max_leaf}")
-    for name, x in (("noderow", noderow), ("leafpack", leafpack), ("o", o), ("d", d)):
+    sph = [prims.sph_center, prims.sph_c2r2] if prims.num_spheres else []
+    if sph and prims.sph_ior is not None:
+        sph.append(prims.sph_ior)
+    sph = [x.contiguous() for x in sph]
+    for name, x in (("noderow", noderow), ("leafpack", leafpack), ("o", o), ("d", d),
+                    *(("spheres", x) for x in sph)):
         if x.device != o.device or x.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 on {o.device}, got {x.dtype} on {x.device}")
     if o.ndim != 2 or o.shape[1] != 3 or d.shape != o.shape:
@@ -301,8 +296,10 @@ def bvh_walk(tables: BVHTables, o: torch.Tensor, d: torch.Tensor, t_min: float,
     n_rays = o.shape[0]
     t = torch.empty((n_rays,), dtype=torch.float32, device=o.device)
     idx = torch.empty((n_rays,), dtype=torch.int32, device=o.device)
+    ptr = lambda i: sph[i].data_ptr() if i < len(sph) else None   # noqa: E731
     with torch.cuda.device(o.device):
         kernels.launch("bvh_walk", noderow.data_ptr(), leafpack.data_ptr(), noderow.shape[0],
-                       leafpack.shape[0], max_leaf, o.data_ptr(), d.data_ptr(), t.data_ptr(),
+                       leafpack.shape[0], max_leaf, ptr(0), ptr(1), ptr(2), prims.num_spheres,
+                       prims.num_planes, o.data_ptr(), d.data_ptr(), t.data_ptr(),
                        idx.data_ptr(), n_rays, n_levels, float(t_min))
     return t, idx

@@ -848,6 +848,50 @@ def test_bvh_walk_kernel_matches_plain_bitwise(cuda_device, name, rays):
     assert (ct < intersect.BIG).float().mean() > 0.05
 
 
+def test_bvh_walk_kernel_folds_the_spheres_in_one_launch(cuda_device):
+    """The Cornell box with a mirror and a glass sphere, rays from inside
+    each sphere among random ones (the glass sphere's far root, the mirror
+    sphere's none): one launch, bitwise the plain walk and its
+    _merge_spheres, the spheres hit."""
+    from mirror_maze_tpu_torch.render import intersect
+    from mirror_maze_tpu_torch.scene.bvh import traversal_bounds
+
+    scene = intersect_scene("spheres")
+    o, d = scene_rays(scene, 8192, seed=19)
+    o[:1024] = np.repeat(scene.sph_center, 512, axis=0)
+    p = upload_scene(scene, device=cuda_device).prims
+    depth, leaf = traversal_bounds(p.bvh_left_first.cpu().numpy(), p.bvh_count.cpu().numpy())
+    go, gd = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    before = dict(kernels.launches)
+    t, i = intersect.nearest_hit_bvh_kernel(p, go, gd, 0.1, depth, leaf)
+    torch.cuda.synchronize()
+    launched = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                if v != before.get(k, 0)}
+    assert launched == {"bvh_walk": 1}
+    pt, pi = intersect.nearest_hit_bvh(p, go, gd, 0.1, depth, leaf)
+    assert torch.equal(t.view(torch.int32), pt.view(torch.int32)) and torch.equal(i, pi)
+    assert not bool((pi[:512] == p.num_planes).any())           # no root from inside
+    assert bool((pi[512:1024] == p.num_planes + 1).any())       # the far root
+    assert float((pi >= p.num_planes).float().mean()) > 0.05
+
+
+def test_bvh_walk_kernel_with_the_stack_at_its_limit(cuda_device):
+    """A walk told the tree is BVH_STACK - 2 deep (the stack's 64 levels,
+    the most the kernel takes) gives the plain walk's result."""
+    from mirror_maze_tpu_torch.render import intersect
+    from mirror_maze_tpu_torch.scene.bvh import traversal_bounds
+
+    scene = intersect_scene("maze")
+    o, d = scene_rays(scene, 4096, seed=29)
+    p = upload_scene(scene, device=cuda_device).prims
+    _, leaf = traversal_bounds(p.bvh_left_first.cpu().numpy(), p.bvh_count.cpu().numpy())
+    go, gd = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    depth = intersect.BVH_STACK - 2
+    pt, pi = intersect.nearest_hit_bvh(p, go, gd, 0.1, depth, leaf)
+    t, i = intersect.nearest_hit_bvh_kernel(p, go, gd, 0.1, depth, leaf)
+    assert torch.equal(t.view(torch.int32), pt.view(torch.int32)) and torch.equal(i, pi)
+
+
 def test_bvh_walk_kernel_is_the_backend_on_the_card(cuda_device):
     """make_nearest_fn's bvh backend on a scene on the card launches the
     kernel and never the plain walk."""
@@ -1024,6 +1068,19 @@ def test_threefry_erf_inv_on_every_uniform_and_the_edges(cuda_device):
     w = -prng.log1p(e * -e)
     assert bool((w < 5.0).any()) and bool((w >= 5.0).any())
     assert int(torch.isinf(got).sum()) == 2                 # +-1 -> +-inf
+
+
+def test_threefry_normal_on_2_26_counts(cuda_device):
+    """normal over 2^26 counts (nearly all of the uniform's 2^23 values, both
+    of Giles' branches and both of log1p's), one launch: bitwise the plain
+    version."""
+    from mirror_maze_tpu_torch.ops import prng
+
+    key = torch.tensor(THREEFRY_KEYS[1], dtype=torch.int64, device=cuda_device)
+    before = kernels.launches["threefry_normal"]
+    got = prng.normal(key, (2 ** 26,))
+    assert kernels.launches["threefry_normal"] == before + 1
+    assert _same_bits(got, prng.normal_plain(key, (2 ** 26,)))
 
 
 def test_threefry_in_a_graph_reads_the_key_and_data_on_every_replay(cuda_device):

@@ -13,9 +13,12 @@ not change its result (k = 1 against k = 8, bitwise).
 
 The walk kernel (csrc/bvh_walk.cu) runs only on the card; here its
 algorithm, one ray walked alone to its end with the kernel's NaN rule and
-stack clamp, is followed in NumPy float32 (``scalar_walk``) and held
-bitwise against the plain walk on the four scenes, on rays with exact zero
-direction components, and with a stack too shallow for the tree."""
+stack clamp, then the kernel's sphere fold, is followed in NumPy float32
+(``scalar_walk``, ``scalar_sphere_fold``) and held bitwise against the
+plain walk on the four scenes, on rays with exact zero direction
+components, and with a stack too shallow for the tree; the fold alone
+against ``_merge_spheres`` with the glass sphere's far root; and
+``bvh_tables``' rows read by the plain walk against the JAX walk."""
 
 import dataclasses
 
@@ -254,8 +257,48 @@ def scalar_walk(noderow, leafpack, o, d, t_min, max_depth, max_leaf, nans):
     return t, idx
 
 
+def scalar_sphere_fold(centre, c2r2, ior, n_planes, o, d, t_min, t, idx, far):
+    """csrc/bvh_walk.cu's sphere fold after the walk of ONE ray, in NumPy
+    float32 scalars: the first least sphere distance replaces (t, idx) where
+    strictly nearer; ``far[0]`` counts the glass far roots taken."""
+    f32 = np.float32
+    sdo = (o[0] * d[0] + o[1] * d[1]) + o[2] * d[2]
+    soo = (o[0] * o[0] + o[1] * o[1]) + o[2] * o[2]
+    ts_min, s_idx = F32_BIG, 0
+    for s in range(centre.shape[0]):
+        c = centre[s]
+        b = sdo - ((d[0] * c[0] + d[1] * c[1]) + d[2] * c[2])
+        q = soo + (((o[0] * (f32(-2) * c[0]) + o[1] * (f32(-2) * c[1])) + o[2] * (f32(-2) * c[2]))
+                   + c2r2[s])
+        disc = b * b - q
+        root = f32(np.sqrt(np.float64(max(disc, f32(0)))))     # correctly rounded
+        ts = -b - root
+        ok = disc > 0 and ts > t_min
+        if not ok and ior is not None:
+            tf = -b + root
+            if disc > 0 and tf > t_min and ior[s] > 0:
+                ts, ok = tf, True
+                far[0] += 1
+        if ok and ts < ts_min:
+            ts_min, s_idx = ts, s
+    if ts_min < t:
+        return ts_min, n_planes + s_idx
+    return t, idx
+
+
+def _scalar_fold_all(p, o, d, t, idx, far):
+    """``scalar_sphere_fold`` over rays [R, 3] and plane hits (t, idx)."""
+    centre, c2r2 = p.sph_center.numpy(), p.sph_c2r2.numpy()
+    ior = p.sph_ior.numpy() if p.sph_ior is not None else None
+    rows = [scalar_sphere_fold(centre, c2r2, ior, p.num_planes, o[i], d[i], np.float32(T_MIN),
+                               np.float32(t[i]), int(idx[i]), far)
+            for i in range(o.shape[0])]
+    return (torch.from_numpy(np.array([r[0] for r in rows], np.float32)),
+            torch.from_numpy(np.array([r[1] for r in rows], np.int32)))
+
+
 def _scalar_vs_plain(dev, o, d, depth, leaf):
-    """(scalar walk + the sphere fold, plain walk, slab NaNs met)."""
+    """(scalar walk + the kernel's sphere fold, plain walk, slab NaNs met)."""
     p = dev.prims
     tables = T.bvh_tables(p, leaf)
     noderow, leafpack = tables.noderow.numpy(), tables.leafpack.numpy()
@@ -264,10 +307,13 @@ def _scalar_vs_plain(dev, o, d, depth, leaf):
         rows = [scalar_walk(noderow, leafpack, o[i], d[i], np.float32(T_MIN), depth, leaf, nans)
                 for i in range(o.shape[0])]
     to, td = torch.from_numpy(o), torch.from_numpy(d)
-    t = torch.from_numpy(np.array([r[0] for r in rows], np.float32))
-    i = torch.from_numpy(np.array([r[1] for r in rows], np.int32))
+    t = np.array([r[0] for r in rows], np.float32)
+    i = np.array([r[1] for r in rows], np.int32)
     if p.num_spheres:
-        t, i = T._merge_spheres(p, to, td, T_MIN, t, i)
+        with np.errstate(all="ignore"):
+            t, i = _scalar_fold_all(p, o, d, t, i, [0])
+    else:
+        t, i = torch.from_numpy(t), torch.from_numpy(i)
     return (t, i), T.nearest_hit_bvh(p, to, td, T_MIN, depth, leaf, tables=tables), nans[0]
 
 
@@ -297,6 +343,66 @@ def test_scalar_walk_is_bitwise_the_plain_walk(case, rays):
     if rays == "zero_components" and name != "leaf":
         assert nans > 0
         assert (d == 0).any(axis=1).all()
+
+
+def test_sphere_fold_in_the_kernel_is_bitwise_merge_spheres():
+    """The kernel's sphere fold, ray by ray, against ``_merge_spheres`` on
+    the Cornell box with a mirror and a glass sphere: random rays, rays
+    from inside the glass sphere (its far root) and from inside the mirror
+    one (no root), over plane hits that are nearer, farther and tied."""
+    scene = _scene("spheres")
+    p = upload_scene(scene, device="cpu").prims
+    rng = np.random.default_rng(13)
+    o, d = _rays(scene, 600, seed=17)
+    n_in = 150
+    for s, rows in ((1, slice(0, n_in)), (0, slice(n_in, 2 * n_in))):
+        r = scene.sph_radius[s]
+        o[rows] = (scene.sph_center[s]
+                   + rng.uniform(-0.5, 0.5, (n_in, 3)) * r).astype(np.float32)
+    t, idx = T.nearest_hit_exact(p._replace(sph_center=p.sph_center[:0],
+                                            sph_c2r2=p.sph_c2r2[:0]), *map(torch.from_numpy,
+                                                                            (o, d)), T_MIN)
+    t, idx = t.numpy().copy(), idx.numpy().copy()
+    t[::5] = rng.uniform(0.0, 2.0, t[::5].shape).astype(np.float32)   # planes nearer
+    far = [0]
+    got = _scalar_fold_all(p, o, d, t, idx, far)
+    want = T._merge_spheres(p, torch.from_numpy(o), torch.from_numpy(d), T_MIN,
+                            torch.from_numpy(t), torch.from_numpy(idx))
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    assert far[0] >= n_in // 2                          # the glass sphere's far root
+    spheres = (want[1] >= p.num_planes).numpy()
+    assert spheres.mean() > 0.2 and (~spheres).mean() > 0.2
+    inside_glass = (want[1] == p.num_planes + 1).numpy()[:n_in]
+    assert inside_glass[np.arange(n_in) % 5 != 0].all()   # but where a plane was set nearer
+
+
+@pytest.mark.parametrize("name", list(INTERSECT_SCENES))
+def test_plain_walk_on_the_tables_is_the_jax_walk(name):
+    """``bvh_tables``' rows read by the plain walk against the JAX package's
+    ``nearest_hit_bvh`` on the same rays: bitwise on the planes-only scenes
+    (the maze, the giant leaf), by the module's rule where triangles or
+    spheres round otherwise; and the tables hold the tree's counts, links
+    and slots as exact floats, a leaf's run of slots in one row."""
+    scene = _scene(name)
+    dev = upload_scene(scene, device="cpu")
+    p = dev.prims
+    depth, leaf = traversal_bounds(p.bvh_left_first.numpy(), p.bvh_count.numpy())
+    tables = T.bvh_tables(p, leaf)
+    assert tables.noderow.shape == (p.bvh_min.shape[0], 14)
+    assert tables.leafpack.shape == (p.num_planes, 15 * leaf)
+    assert torch.equal(tables.noderow[:, 12].long(), p.bvh_count)
+    assert torch.equal(tables.noderow[:, 13].long(), p.bvh_left_first)
+    assert torch.equal(tables.leafpack[:, 13].long(), p.bvh_prim)
+    o, d = _rays(scene, 3000, seed=23)
+    got = T.nearest_hit_bvh(p, torch.from_numpy(o), torch.from_numpy(d), T_MIN, depth, leaf,
+                            tables=tables)
+    want = J.nearest_hit_bvh(j_upload(as_jax_scene(scene)), jnp.asarray(o), jnp.asarray(d),
+                             T_MIN, depth, leaf)
+    if name in ("maze", "leaf"):
+        assert np.array_equal(got[0].numpy().view(np.int32), np.asarray(want[0]).view(np.int32))
+        assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
+    _assert_rule(f"{name} bvh tables", got, want)
 
 
 def test_walk_kernel_raises_instead_of_falling_back(monkeypatch):

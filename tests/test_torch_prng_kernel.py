@@ -5,8 +5,13 @@ a device that is neither CPU nor CUDA it raises. Each launch a wrapper would
 make (``prng.Draw``), read here element by element as the kernel reads it,
 gives the plain version's result; and the plain versions are jax.random's,
 bit for bit, on key batches, broadcast fold_in data and counts around the
-kernel's block edges. The kernel itself is held against the plain versions
-on the card (tests/test_torch_cuda.py, chip_smoke.py ``[threefry]``).
+kernel's block edges. The kernel's two FMA routes (the float64 sum rounded;
+a native fmaf, which the normal draw takes) are modelled in NumPy and held
+against ``prng.fma``: the native one bitwise on every step of erf_inv for
+all 2^23 uniforms a normal draw gives, both on random triples, triples
+built onto float32 midpoints and the subnormal edge, where the native one
+parts only where the rule for it says. The kernel itself is held against the plain versions on the
+card (tests/test_torch_cuda.py, chip_smoke.py ``[threefry]``).
 """
 
 import jax
@@ -123,7 +128,16 @@ def test_the_threefry_library_is_built_like_the_others():
         kernels.NVCC_FLAGS
     text = (kernels.CSRC / source).read_text()
     assert 'extern "C" int mm_threefry(' in text
-    assert "fmaf" not in text.replace("never a native fmaf", "")
+    # The one native fmaf is fma64's native route, which only the NORMAL
+    # output takes (its domain is checked below); the ERFINV output takes
+    # the exact route. Every other float32 step is its own operation.
+    assert text.count("__fmaf_rn(") == 1 and text.count("fmaf(") == 0
+    fma64 = text[text.index("float fma64("):]
+    fma64 = fma64[:fma64.index("\n}\n")]
+    assert "if (EXACT) return __double2float_rn(__fma_rn((double)a, (double)b, (double)c));" \
+        in fma64 and "return __fmaf_rn(a, b, c);" in fma64
+    assert text.count("erf_inv<false>(") == 1 and "__fmul_rn(erf_inv<false>(u)" in text
+    assert text.count("erf_inv<true>(") == 1 and "= erf_inv<true>(((const float*)a.data)" in text
     assert kernels._lib_path("threefry").name.startswith("libthreefry-")
 
 
@@ -260,3 +274,215 @@ def test_plain_erf_inv_is_jax_on_every_uniform_the_draw_can_make():
     want = jax.jit(lambda x: jax.lax.erf_inv(x) * jnp.float32(np.sqrt(2.0)))(jnp.asarray(u))
     got = prng.erf_inv_plain(torch.from_numpy(u)) * prng._SQRT2
     _eq(want, got)
+
+
+# --- The kernel's FMA routes (csrc/threefry.cu fma64), modelled in NumPy ----
+#
+# prng.fma is RN32(RN64(a * b + c)): the product of two float32 is exact in
+# float64, the float64 sum is rounded, then the float32. The kernel's exact
+# route (the ERFINV output, any input) rounds the float64 sum of one float64
+# FMA, which is that by construction. Its native route (the NORMAL output)
+# is a single-rounded fmaf, RN32(a * b + c): rounding is monotone and every
+# float32 midpoint is a float64 value, so the two part only where the
+# float64 sum is a float32 midpoint the exact sum missed (the fmaf then odd)
+# or in float32's subnormal range. The model below computes the fmaf exactly
+# (the float64 sum and its error by TwoSum); the native route is held
+# bitwise against prng.fma on every step of erf_inv for every value a normal
+# draw gives it (all 2^23 uniforms: the whole of its domain), and on random,
+# midpoint and subnormal triples it parts only where that rule says.
+
+F32_TINY = np.float32(2.0 ** -126)
+
+
+def _round_once(s, e):
+    """RN32(s + e) for float64 s and its exact error e: RN32(s) except where
+    s is a float32 midpoint, which e's sign breaks (e == 0 is a tie, to even,
+    as RN32(s) already is)."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        r = s.astype(np.float32)
+        r64 = np.where(np.isinf(r), np.copysign(2.0 ** 128, s), r.astype(np.float64))
+        lo = np.where(r64 > s, np.nextafter(r, np.float32(-np.inf)), r)   # float32 <= s
+        hi = np.nextafter(lo, np.float32(np.inf))
+        lo64 = np.where(np.isinf(lo), np.copysign(2.0 ** 128, lo), lo.astype(np.float64))
+        hi64 = np.where(np.isinf(hi), np.copysign(2.0 ** 128, hi), hi.astype(np.float64))
+        mid = s == (lo64 + hi64) / 2
+    return np.where(mid & (e > 0), hi, np.where(mid & (e < 0), lo, r)).astype(np.float32)
+
+
+def exact_fmaf(a, b, c):
+    """RN32(a * b + c), rounded once (finite float32 arrays): s + e is the
+    exact sum (TwoSum on the exact product) and ``_round_once`` rounds it.
+    Only where s may be a float32 midpoint (its low 29 bits 0x10000000, or
+    outside float32's normal range) does e matter, so only there is the
+    general rule run."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c64 = c.astype(np.float64)
+    with np.errstate(over="ignore", invalid="ignore"):
+        s = p + c64
+        r = s.astype(np.float32)
+    mag = np.abs(s)
+    maybe = (((s.view(np.uint64) & np.uint64(0x1FFFFFFF)) == np.uint64(0x10000000))
+             | (mag < 2.0 ** -125) | (mag >= 2.0 ** 127))
+    if maybe.any():
+        ps, cs, ss = p[maybe], c64[maybe], s[maybe]
+        bb = ss - ps
+        e = (ps - (ss - bb)) + (cs - bb)
+        r[maybe] = _round_once(ss, e)
+    return r
+
+
+def kernel_fma(a, b, c, exact: bool):
+    """csrc/threefry.cu fma64 in NumPy: the exact route rounds the float64
+    sum; the native one is the fmaf. Returns (value, where the native fmaf
+    may part from prng.fma: the float64 sum a float32 midpoint with the
+    fmaf odd, or a nonzero subnormal fmaf)."""
+    r = exact_fmaf(a, b, c)
+    with np.errstate(over="ignore"):
+        y = a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64)
+        marked = ((((y.view(np.uint64) & np.uint64(0x1FFFFFFF)) == np.uint64(0x10000000))
+                   & (_bits(r) & 1 == 1))
+                  | ((np.abs(r) <= F32_TINY) & (r != 0)))
+        return (y.astype(np.float32) if exact else r), marked
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+def _plain_fma(a, b, c):
+    return prng.fma(torch.from_numpy(a), torch.from_numpy(b).double(),
+                    torch.from_numpy(c).double()).numpy()
+
+
+def _check_route(a, b, c):
+    """The exact route bitwise prng.fma on float32 arrays, and the native one
+    wherever it is not marked; returns (where the native one parts, where it
+    is marked)."""
+    want = _plain_fma(a, b, c)
+    got, _ = kernel_fma(a, b, c, exact=True)
+    assert np.array_equal(_bits(got), _bits(want))
+    native, marked = kernel_fma(a, b, c, exact=False)
+    differs = _bits(native) != _bits(want)
+    assert marked[differs].all()
+    return int(differs.sum()), int(marked.sum())
+
+
+def _random_floats(rng, n, lo_exp, hi_exp):
+    m = rng.uniform(1.0, 2.0, n)
+    e = rng.integers(lo_exp, hi_exp, n)
+    return (np.where(rng.random(n) < 0.5, -1.0, 1.0) * np.ldexp(m, e)).astype(np.float32)
+
+
+def _midpoint_triples(rng, n, lo_exp=-100, hi_exp=100):
+    """(a, b, c) whose float64 sum is a float32 midpoint that the exact sum
+    misses by a hair: c a float32, m the midpoint between c and a
+    neighbour, h = m - c, and a * b = h (1 - u^2) = h (1 + u)(1 - u) for u
+    a small multiple of 2^-23, so a * b + c = m - h u^2 rounds to m in
+    float64. Half of them end an odd c, where the two roundings part."""
+    c = _random_floats(rng, n, lo_exp, hi_exp)
+    up = rng.random(n) < 0.5
+    nb = np.nextafter(c, np.where(up, np.float32(np.inf), np.float32(-np.inf)))
+    h = (nb.astype(np.float64) - c.astype(np.float64)) / 2            # a power of two
+    k = rng.integers(1, 300, n)
+    u = k * 2.0 ** -23
+    e = np.log2(np.abs(h)).astype(np.int64)
+    e1 = e // 2
+    a = (np.sign(h) * np.ldexp(1.0 + u, e1)).astype(np.float32)
+    b = np.ldexp(1.0 - u, e - e1).astype(np.float32)
+    return a, b, c
+
+
+def test_the_exact_fmaf_model_is_rounded_once():
+    """``exact_fmaf`` against exact rational arithmetic on random,
+    midpoint and subnormal triples."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(0)
+    sets = [tuple(_random_floats(rng, 400, -40, 40) for _ in range(3)),
+            _midpoint_triples(rng, 400),
+            _midpoint_triples(rng, 400, -149, -120),
+            tuple(_random_floats(rng, 400, -80, -60) for _ in range(2))
+            + (_random_floats(rng, 400, -150, -124),)]
+    for a, b, c in sets:
+        got = exact_fmaf(a, b, c)
+        for i in range(a.shape[0]):
+            x = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(float(c[i]))
+            # RN32 of the rational: the nearest float32, ties to the even one.
+            r = np.float32(float(x))
+            cands = [np.nextafter(r, np.float32(-np.inf)), r, np.nextafter(r, np.float32(np.inf))]
+            dist = [abs(Fraction(float(v)) - x) for v in cands]
+            best = min(dist)
+            near = [v for v, dv in zip(cands, dist) if dv == best]
+            want = near[0] if len(near) == 1 else next(v for v in near
+                                                       if _bits(v) % 2 == 0)
+            assert _bits(got[i]) == _bits(want), (a[i], b[i], c[i])
+
+
+def test_kernel_fma_route_on_every_step_of_erf_inv():
+    """Every prng.fma that erf_inv_plain makes on all 2^23 uniforms the
+    normal draw can give (both log1p branches, both of Giles' branches): the
+    native route bitwise prng.fma at every step, none of them marked. That
+    is the whole domain of the NORMAL output, which takes the native route."""
+    floats = (np.arange(2 ** 23, dtype=np.uint32) | np.uint32(0x3F800000)).view(
+        np.float32) - np.float32(1.0)
+    lo = np.float32(LO)
+    u = np.maximum(lo, floats * (np.float32(1.0) - lo) + lo)
+    calls, marked_total = [], 0
+    real = prng.fma
+
+    def recording(a, b, c):
+        nonlocal marked_total
+        out = real(a, b, c)
+        n = a.numel()
+        arr = lambda x: (x.float().numpy() if isinstance(x, torch.Tensor)    # noqa: E731
+                         else np.full(n, x, np.float32))
+        got, marked = kernel_fma(arr(a), np.broadcast_to(arr(b), (n,)),
+                                 np.broadcast_to(arr(c), (n,)), exact=False)
+        assert np.array_equal(_bits(got), _bits(out.numpy()))
+        calls.append(n)
+        marked_total += int(marked.sum())
+        return out
+
+    prng.fma = recording
+    try:
+        prng.erf_inv_plain(torch.from_numpy(u))
+    finally:
+        prng.fma = real
+    assert len(calls) == 29 and all(n == 2 ** 23 for n in calls)   # log1p 11, log 10, Giles 8
+    assert marked_total == 0
+
+
+def test_kernel_fma_route_on_random_triples():
+    rng = np.random.default_rng(1)
+    n = 1 << 20
+    narrow = tuple(_random_floats(rng, n, -30, 30) for _ in range(3))
+    bits = rng.integers(0, 2 ** 32, (3, n), dtype=np.uint64).astype(np.uint32).view(np.float32)
+    bits = np.where(np.isfinite(bits), bits, np.float32(1.5))
+    for a, b, c in (narrow, tuple(bits)):
+        _check_route(a, b, c)
+
+
+def test_kernel_fma_route_where_the_float64_sum_is_a_midpoint():
+    """Triples built so that RN64(a * b + c) is a float32 midpoint the exact
+    sum misses: the exact route is prng.fma, the native fmaf parts from it
+    on about half of them (where the fmaf is odd), exactly those marked. So
+    the native route serves only a domain shown free of them."""
+    rng = np.random.default_rng(2)
+    a, b, c = _midpoint_triples(rng, 1 << 16)
+    differs, marked = _check_route(a, b, c)
+    assert marked == differs and differs > a.shape[0] // 4
+
+
+def test_kernel_fma_route_at_the_subnormal_edge():
+    """Results in and around float32's subnormal range (|x| <= 2^-126 and a
+    few binades above), midpoints among them."""
+    rng = np.random.default_rng(3)
+    n = 1 << 16
+    a = _random_floats(rng, n, -70, -55)
+    b = _random_floats(rng, n, -70, -55)
+    c = _random_floats(rng, n, -152, -122)
+    c[: n // 4] = 0.0
+    differs, slow = _check_route(a, b, c)
+    ma, mb, mc = _midpoint_triples(rng, n, -149, -124)
+    differs_mid, _ = _check_route(ma, mb, mc)
+    assert slow > n // 4 and differs_mid > 0
