@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-of DIR]
 
 Builds the hand-written kernels from ``mirror_maze_tpu_torch/csrc`` (nvcc,
 sm_90a: the tracer's four libraries, with and without the texture stage and
@@ -83,10 +83,11 @@ each phase with its seconds:
   against the plain walk, t and idx bitwise on every ray of eight sets:
   frame 1 of ``config_bvh``'s scene and of ``config_interactive``'s
   (2,027,520 rays), that frame's rays at segments 2-13 as trace_paths hands
-  them to the walk (``bounce``, with the live rays of each segment), random
-  rays in ``config_scale``'s maze, the mesh gallery, the Cornell box with
-  spheres, the giant leaf, and rays with exact zero direction components;
-  ms per launch, the plain walk's ms, the bound and its share;
+  them to the walk (``bounce``), frame 1 of ``config_scale`` at all 21
+  segments (8,232,960 rays each; both with the live rays of each segment),
+  random rays in the mesh gallery, the Cornell box with spheres, the giant
+  leaf, and rays with exact zero direction components; ms per launch, the
+  plain walk's ms, the bound and its share;
 - ``[bvh]`` / ``[exact]`` ``config_bvh``'s scene (8x8 maze, 512x384, 4 spp,
   5 + 4 bounces) with the traversal and with the dense exact test, 8 frames
   each, the timed call under the sync debug mode "error" (no host sync),
@@ -94,7 +95,7 @@ each phase with its seconds:
   walk as 2 bands on the one card, graph against the eager band loop; the
   plain walk's host check every k iterations timed on frame 1's rays;
   ``[scale-bvh]`` ``config_scale`` (3840x2160) with the walk, two frames
-  replayed from graphs, one walk launch a segment;
+  replayed from graphs, one walk launch a segment, bitwise the eager loop;
 - ``[validate]`` bench.py ``--validate``'s deterministic light (16x16 maze,
   128x96, 1 spp, jitter 0, one segment) with brute, exact, bvh and the fused
   kernel, each against brute by the reference's hardware rule;
@@ -167,6 +168,12 @@ kernel's rows ``bvh_walk``, ``bvh_walk@interactive``, ``bvh_walk@bounce`` and
 ``torch.special.erfinv``'s time as ``library_ms``) and ``{"ok": true,
 "device": {...}}``.
 
+``python3 chip_smoke.py --kernels-of DIR`` runs only ``[bvh-kernel]`` and
+``[threefry]`` (their checks included), on the port in DIR: a ``git
+archive`` of another commit unpacked there is timed on the same inputs by
+the same method, so two commits compare within one call. It prints one
+JSON line of the rows (ms, plain ms, bound) and the card's line.
+
 Needs a CUDA card: without one it exits 2 and prints no result. It uses
 the first visible card only (the multiplayer phase's two processes share
 it). Imports torch and numpy, the port and the port's JAX-free test helpers
@@ -175,8 +182,11 @@ it). Imports torch and numpy, the port and the port's JAX-free test helpers
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -451,13 +461,15 @@ def graph_phase(dev, smi: str, cfg, scene) -> None:
 
 
 # [bvh-kernel]: the ray sets the walk kernel is held against its plain
-# version on (name -> rays; 0 = a frame's rays of the configuration;
-# "bounce": config_interactive's frame-1 rays as trace_paths hands them to
-# the walk at segments 2 and later; "scale": config_scale's maze, its
-# largest tables, on random rays).
-WALK_SETS = {"config_bvh": 0, "interactive": 0, "bounce": 0, "scale": 1 << 21,
+# version on (name -> random rays; 0 = rays of frame 1 of a configuration:
+# config_bvh's and config_interactive's first segment, "bounce" the latter's
+# later segments and "scale" every segment of config_scale's, its largest
+# tables, as trace_paths hands them to the walk).
+WALK_SETS = {"config_bvh": 0, "interactive": 0, "bounce": 0, "scale": 0,
              "mesh": 1 << 20, "cornell-spheres": 1 << 20, "leaf": 1 << 16,
              "zero-components": 1 << 16}
+WALK_CONFIGS = {"config_bvh": "bvh", "interactive": "interactive", "bounce": "interactive",
+                "scale": "scale"}
 WALK_REPS = 10
 # f32 operations counted for the walk's bound: a slab test (two an interior
 # visit; the tracer counts a walked slab so) and a primitive test; and a
@@ -491,32 +503,89 @@ def frame1_rays(cfg, scene, with_key: bool = False):
     return (ori, dirs, tkey) if with_key else (ori, dirs)
 
 
-def segment_rays(cfg, scene, live: list | None = None) -> list:
-    """The (o, d) that trace_paths hands the nearest-hit backend at each
-    segment of frame 1 of an idle start (``cfg``'s backend on ``scene``);
-    with ``live`` (a list) also the live rays of each segment."""
+def segment_rays(cfg, scene) -> tuple:
+    """(segments, live) of frame 1 of an idle start (``cfg``'s backend on
+    ``scene``, a scene of planes without glass): the (o, d) that
+    trace_paths hands the nearest-hit backend at each segment, and the rays
+    still live there, rebuilt from what the backend returns by trace_paths'
+    own rule (render/tracer.py: a hit lives on unless it is the
+    mirror_limit-th specular one or the bounce_limit-th diffuse one). A ray
+    kept live past a segment must have moved in it, and a ray that moved
+    must have been live: else SystemExit."""
+    import torch
+
+    from mirror_maze_tpu_torch.ops.vecmath import dot
+    from mirror_maze_tpu_torch.render.intersect import BIG
     from mirror_maze_tpu_torch.render.pipeline import scene_nearest_fn
     from mirror_maze_tpu_torch.render.tracer import trace_paths
 
+    p, tc = scene.prims, cfg.tracer
+    if p.num_spheres or p.ior is not None:
+        raise ValueError("segment_rays rebuilds liveness for planes without glass only")
     ori, dirs, key = frame1_rays(cfg, scene, with_key=True)
     nearest = scene_nearest_fn(scene, cfg)
-    seen = []
+    seen, live, state = [], [], {}
 
     def record(o, d):
+        if seen:
+            moved = (o != seen[-1][0]).any(dim=1)
+            if not torch.equal(moved, state["was"] & moved) or not torch.equal(
+                    state["alive"], state["alive"] & moved):
+                raise SystemExit("segment_rays: the rebuilt liveness disagrees with the rays")
+        t, idx = nearest(o, d)
+        alive = state.get("alive", torch.ones_like(t, dtype=torch.bool))
+        live.append(int(alive.sum()))
+        hit = alive & (t < BIG)
+        ix = idx.long()
+        mir, side = p.is_mirror[ix], -torch.sign(dot(d, p.normal[ix]))
+        spec = hit & mir & (side != -1.0)
+        mh = state.get("mh", 0) + spec.to(torch.int32)
+        dc = state.get("dc", 0) + (hit & (~mir | (side == -1.0))).to(torch.int32)
+        state.update(mh=mh, dc=dc, was=alive,
+                     alive=hit & ~(spec & (mh >= tc.mirror_limit)) & (dc < tc.bounce_limit))
         seen.append((o.clone(), d.clone()))
-        return nearest(o, d)
+        return t, idx
 
-    trace_paths(scene.prims, ori, dirs, key, cfg.tracer, record,
-                **({} if live is None else {"live": live}))
-    return seen
+    trace_paths(p, ori, dirs, key, tc, record)
+    return seen, live
+
+
+@contextlib.contextmanager
+def walks_by_segment(tally):
+    """Within the block, the bvh_walk launches that each pipeline
+    trace_paths call's backend makes (the wrapper's own count, read around
+    each call) are added to ``tally``: under "first" at the first segment,
+    under "later" at the others."""
+    from mirror_maze_tpu_torch import kernels
+    from mirror_maze_tpu_torch.render import pipeline
+
+    traced = pipeline.trace_paths
+
+    def trace(prims, ori, dirs, key, tcfg, nearest_fn, *args, **kwargs):
+        segment = iter(range(tcfg.max_segments))
+
+        def nearest(o, d):
+            before = kernels.launches["bvh_walk"]
+            hit = nearest_fn(o, d)
+            tally["first" if next(segment) == 0 else "later"] += (
+                kernels.launches["bvh_walk"] - before)
+            return hit
+
+        return traced(prims, ori, dirs, key, tcfg, nearest, *args, **kwargs)
+
+    pipeline.trace_paths = trace
+    try:
+        yield tally
+    finally:
+        pipeline.trace_paths = traced
 
 
 def bvh_kernel_phase(dev, smi: str) -> dict:
     """[bvh-kernel]: the walk kernel against the plain walk on eight ray
     sets, t and idx bitwise on every ray; ms per launch (CUDA events over
-    WALK_REPS launches replayed from a graph; the mean over the bounce set's
-    segments), the plain walk's ms beside it, and the bound from the plain
-    walk's visits. Returns the kernel rows' entries by set."""
+    WALK_REPS launches replayed from a graph; the mean over the segments of
+    the bounce and scale sets), the plain walk's ms beside it, and the bound
+    from the plain walk's visits. Returns the kernel rows' entries by set."""
     import torch
 
     import mirror_maze_tpu_torch as P
@@ -528,21 +597,20 @@ def bvh_kernel_phase(dev, smi: str) -> dict:
     from time_present import HBM_BYTES_PER_S, time_ms
 
     t0 = time.perf_counter()
-    bvh_cfg = P.NAMED_CONFIGS["bvh"]().replace(intersector="bvh")
-    t_min = bvh_cfg.tracer.t_min
     entries = {}
     for name, n in WALK_SETS.items():
         live = []
-        if name in ("config_bvh", "interactive", "bounce"):
-            cfg = (bvh_cfg if name == "config_bvh" else
-                   P.NAMED_CONFIGS["interactive"]().replace(intersector="bvh"))
-            host = build_scene(cfg.maze)
-            scene = upload_scene(host, device=dev)
-            batches = (segment_rays(cfg, scene, live)[1:] if name == "bounce"
-                       else [frame1_rays(cfg, scene)])
+        cfg = P.NAMED_CONFIGS[WALK_CONFIGS.get(name, "bvh")]().replace(intersector="bvh")
+        t_min = cfg.tracer.t_min
+        if name in WALK_CONFIGS:
+            scene = upload_scene(build_scene(cfg.maze), device=dev)
+            if name in ("bounce", "scale"):
+                batches, live = segment_rays(cfg, scene)
+                batches = batches[1:] if name == "bounce" else batches
+            else:
+                batches = [frame1_rays(cfg, scene)]
         else:
-            host = (build_scene(bvh_cfg.maze) if name == "zero-components" else
-                    build_scene(P.NAMED_CONFIGS["scale"]().maze) if name == "scale" else
+            host = (build_scene(cfg.maze) if name == "zero-components" else
                     intersect_scene({"cornell-spheres": "spheres"}.get(name, name)))
             scene = upload_scene(host, device=dev)
             make = zero_component_rays if name == "zero-components" else scene_rays
@@ -578,7 +646,7 @@ def bvh_kernel_phase(dev, smi: str) -> dict:
         ops_ms, bytes_ms = ops / FP32_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
         bound_ms, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
         segs = (f"; live rays at segments 1-{len(live)} of the frame (the walk runs on all "
-                f"{per_launch} each segment): {[int(x) for x in live]}" if live else "")
+                f"{per_launch} each segment): {live}" if live else "")
         log(f"[bvh-kernel] {name}: {n_rays} rays in {k} launch(es) ({zeros} with a zero "
             f"direction component), {p.num_planes} planes, {p.num_spheres} spheres, tree depth "
             f"{depth}, leaves of <= {leaf}; kernel bitwise the plain walk and its sphere fold "
@@ -615,6 +683,10 @@ THREEFRY_REPS = 20
 # erf_inv's own output.
 THREEFRY_INT_OPS = 79
 ERFINV_FMAS, LOG1P_FMAS, LOG_FMAS = 8, 11, 10
+# The normal draw's instantiation (source IOTA, output NORMAL) and the
+# instructions counted in its SASS: float64 conversions and arithmetic, FMAs.
+THREEFRY_NORMAL_KERNEL = "threefry_kernelILi0ELi3E"
+THREEFRY_SASS_OPS = ("F2F.F64.F32", "F2F.F32.F64", "DFMA", "DMUL", "DADD", "FFMA", "BRA")
 
 
 def threefry_bound(n_out: int, out_bytes: int, fp32_ops: int = 0) -> tuple:
@@ -641,11 +713,21 @@ def threefry_phase(dev, smi: str, cfg) -> dict:
     import numpy as np
     import torch
 
+    from mirror_maze_tpu_torch import kernels
     from mirror_maze_tpu_torch.ops import prng
     from mirror_maze_tpu_torch.runtime.state import init_state
     from time_present import HBM_BYTES_PER_S, time_ms
 
     t0 = time.perf_counter()
+    text = kernels.sass("threefry")
+    if text is None:
+        log("[sass] no cuobjdump in this toolkit")
+    else:
+        body = next((part for part in re.split(r"\n\s*Function : ", text)
+                     if re.match(r"\S*" + THREEFRY_NORMAL_KERNEL, part)), "")
+        ops = {op: len(re.findall(r"\s" + re.escape(op) + r"\b", body))
+               for op in THREEFRY_SASS_OPS}
+        log(f"[sass] threefry's normal instantiation ({THREEFRY_NORMAL_KERNEL}): {ops}")
 
     def check(tag, kernel, plain) -> None:
         got, want = kernel(), plain()
@@ -1008,7 +1090,7 @@ def jnp_phases(dev, smi: str) -> dict:
 
     # [scale-bvh]: config_scale (64x64 maze, 3840x2160) with the walk, its
     # largest tables: an idle and a turning frame replayed from graphs, one
-    # walk launch a segment, no host sync.
+    # walk launch a segment, no host sync, against the eager loop.
     t0 = time.perf_counter()
     cfg = P.NAMED_CONFIGS["scale"]().replace(intersector="bvh")
     release()
@@ -1021,6 +1103,10 @@ def jnp_phases(dev, smi: str) -> dict:
     kernels.reset_launches()
     (st, frame), ms = timed(lambda: no_sync(lambda: run(st0, frames)))
     counts = dict(kernels.launches)
+    graphs = graph_line(only_graphs(run.runner))
+    (est, eframe), eager_ms = timed(lambda: make_scan_step_fn(cfg, len(frames))(
+        sscene, init_state(cfg, seed=0, device=dev), frames))
+    same = states_bitwise(st, est) and torch.equal(frame, eframe)
     sc = cfg.screen
     rays = sc.effective_chunks_per_frame * sc.pixels_per_chunk * sc.samples_per_pixel
     want = {"present": len(frames), "bvh_walk": len(frames) * cfg.tracer.max_segments}
@@ -1028,13 +1114,14 @@ def jnp_phases(dev, smi: str) -> dict:
         f"bvh, {len(frames)} frames, {rays} rays/frame: "
         f"{ms / len(frames):.1f} ms/frame, {rays / (ms / len(frames)) / 1e3:.3f} Mrays/s, bounds "
         f"{derive_traversal_bounds(sscene, cfg, None, None)}, checksum "
-        f"{int(frame.to(torch.int64).sum())}; launches {counts}; "
-        f"{graph_line(only_graphs(run.runner))}; {time.perf_counter() - t0:.1f} s | {smi}")
+        f"{int(frame.to(torch.int64).sum())}; launches {counts}; eager loop "
+        f"{eager_ms / len(frames):.1f} ms/frame, make_scan_step == eager bitwise {same}; "
+        f"{graphs}; {time.perf_counter() - t0:.1f} s | {smi}")
     # Two frames light 2/64 of the 4K screen: the frame must not be blank.
-    if not (holds(counts, want, True) and int(frame.to(torch.int64).sum()) > 0):
+    if not (same and holds(counts, want, True) and int(frame.to(torch.int64).sum()) > 0):
         raise SystemExit("[scale-bvh] FAIL")
     path_launches["scale-bvh"] = counts["bvh_walk"]
-    del sscene, run, st, st0, frame
+    del sscene, run, st, st0, frame, est, eframe
     release()
 
     # The plain walk's host check interval on frame 1's rays (the CPU's path
@@ -1237,10 +1324,8 @@ def driver_phases(dev, smi: str) -> None:
     tracer and one present a frame stepped (none where ``dev`` is the CPU, the
     rehearsal); any failure ends the run with SystemExit."""
     import ast
-    import contextlib
     import io
     import pty
-    import re
     import select
     import shutil
     import socket
@@ -1697,9 +1782,10 @@ def entry_phases(dev, smi: str) -> dict:
     and the three examples. The bench and the examples run in subprocesses
     with no ``--device`` (the card; ``--device cpu`` where ``dev`` is the
     CPU, the rehearsal). Each phase prints its seconds; any failure ends the
-    run with SystemExit. Returns the walk launches of ``[bench-bvh]``."""
+    run with SystemExit. Returns ``[bench-bvh]``'s launches: the bench's
+    normal and erf_inv draws, and the in-process eager loop's walks at a
+    frame's first segment and at the others."""
     import ast
-    import re
     import shutil
     import tempfile
 
@@ -1820,8 +1906,13 @@ def entry_phases(dev, smi: str) -> dict:
         graph_ms = (time.perf_counter() - t1) * 1e3 / k
         counts = dict(kernels.launches)
         replays = (graphs.replays - replays) if graphs else 0
+        # The eager loop counts its walks by segment: the camera rays' at a
+        # frame's first (bvh_walk@interactive), the bounced rays' at the
+        # others (bvh_walk@bounce).
         t1 = time.perf_counter()
-        est, eframe = make_scan_step_fn(cfg, k)(scene, init_state(cfg, seed=0, device=dev), frames)
+        with walks_by_segment(collections.Counter()) as walks:
+            est, eframe = make_scan_step_fn(cfg, k)(scene, init_state(cfg, seed=0, device=dev),
+                                                     frames)
         eager_ms = (time.perf_counter() - t1) * 1e3 / k
         same = states_bitwise(st, est) and torch.equal(frame, eframe)
         del scene, scan, st, est, frame, eframe
@@ -1833,15 +1924,21 @@ def entry_phases(dev, smi: str) -> dict:
             f"({res['rays_per_frame']} rays a frame, {n} frames); launches {sub}; in process "
             f"{k} frames (idle, then walking and turning): graph {graph_ms:.2f} ms/frame (host "
             f"clock, synchronized), {replays / k:g} replays a frame, 0 host syncs (sync debug "
-            f"mode 'error'), launches {counts}; eager loop {eager_ms:.2f} ms/frame; graph == "
-            f"eager bitwise {same}; checksum {checksum}; {time.perf_counter() - t0:.1f} s | {smi}")
+            f"mode 'error'), launches {counts}; eager loop {eager_ms:.2f} ms/frame, walk "
+            f"launches at a frame's first segment {walks['first']}, at the others "
+            f"{walks['later']}; graph == eager bitwise {same}; checksum {checksum}; "
+            f"{time.perf_counter() - t0:.1f} s | {smi}")
         if not (res["backend"] == dev.type and same and len(res["launch_ms"]) == args.launches
                 and holds(sub, want(present=n, bvh_walk=n * segs), on_card)
                 and holds(counts, want(present=k, bvh_walk=k * segs), on_card)
                 and sub.get("threefry_normal", 0) == (n * segs if on_card else 0)
-                and replays == (k if on_card else 0)):
+                and replays == (k if on_card else 0)
+                and (walks["first"], walks["later"]) == ((k, k * (segs - 1)) if on_card
+                                                         else (0, 0))):
             raise SystemExit("[bench-bvh] FAIL")
-        bench_bvh_launches = {k: sub.get(k, 0) for k in ("bvh_walk", "threefry_normal")}
+        bench_bvh_launches = dict(
+            {name: sub.get(name, 0) for name in ("threefry_normal", "threefry_erf_inv")},
+            walk_first=walks["first"], walk_later=walks["later"])
 
         # [soak]: the random soups, the kernel bitwise its plain version under
         # two grids and within the jnp tracer's gate.
@@ -1917,7 +2014,49 @@ def entry_phases(dev, smi: str) -> dict:
     return {"bench-bvh": bench_bvh_launches}
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def kernel_rows(port: str) -> int:
+    """``--kernels-of DIR``: the ``[bvh-kernel]`` and ``[threefry]`` phases
+    alone on the port in ``port`` (with this checkout's phases and test
+    helpers), then one JSON line of their rows (ms, plain ms, bound) and the
+    card's line."""
+    import torch
+
+    import mirror_maze_tpu_torch as P
+    from mirror_maze_tpu_torch import kernels
+
+    if os.path.dirname(os.path.abspath(P.__file__)) != os.path.join(port,
+                                                                     "mirror_maze_tpu_torch"):
+        raise SystemExit(f"chip_smoke: the port imported is not {port}'s")
+    smi = card_line()
+    log(smi)
+    kernels.build(("bvh_walk", "threefry"), verbose=True)
+    dev = torch.device("cuda")
+    rows = bvh_kernel_phase(dev, smi)
+    rows.update(threefry_phase(dev, smi, P.NAMED_CONFIGS["interactive"]()))
+    print(json.dumps({"port": port, "rows": {
+        row: {k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        for row, e in rows.items()}}))
+    print(smi)
+    return 0
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-of", metavar="DIR",
+                    help="run only [bvh-kernel] and [threefry] on the port in DIR (a git "
+                         "archive of another commit unpacked there is timed by the same "
+                         "method) and print their rows")
+    args = ap.parse_args()
     # The smoke drives one card: show it only the first one, so that the
     # device count it reports is the count it used.
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0] or "0"
@@ -1932,6 +2071,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
+    if args.kernels_of:
+        sys.path.insert(0, os.path.abspath(args.kernels_of))
+        return kernel_rows(os.path.abspath(args.kernels_of))
     try:
         import mirror_maze_tpu_torch as P
         from _torch_tools import (
@@ -1993,10 +2135,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. Device.
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     name = torch.cuda.get_device_name(0)
     log(smi)
     log(f"[device] {name}, {torch.cuda.device_count()} visible | torch {torch.__version__} "
@@ -2710,15 +2849,15 @@ def main() -> int:
                          plain_rays=e.get("plain_rays"), bound_ms=e["bound_ms"],
                          bound_by=e["bound_by"], library_ms=None))
     # The walk kernel's rows: on [bvh]'s frame-1 rays with [bvh]'s launches;
-    # on config_interactive's frame-1 rays with [bench-bvh]'s first-segment
-    # launches and on its later segments with the others; on config_scale's
-    # maze with [scale-bvh]'s. No PyTorch call
-    # computes a BVH walk, so library_ms is null.
-    bench_walks = entry["bench-bvh"]["bvh_walk"]
-    first_walks = bench_walks // P.NAMED_CONFIGS["interactive"]().tracer.max_segments
+    # on config_interactive's frame-1 rays with the launches [bench-bvh]'s
+    # eager loop made at a frame's first segment, and on that frame's later
+    # segments with those it made at the others; on config_scale's frame-1
+    # rays at every segment with [scale-bvh]'s. No PyTorch call computes a
+    # BVH walk, so library_ms is null.
+    bench_bvh = entry["bench-bvh"]
     for row, walk_set, n in (("bvh_walk", "config_bvh", jnp["launches"]["bvh"]),
-                             ("bvh_walk@interactive", "interactive", first_walks),
-                             ("bvh_walk@bounce", "bounce", bench_walks - first_walks),
+                             ("bvh_walk@interactive", "interactive", bench_bvh["walk_first"]),
+                             ("bvh_walk@bounce", "bounce", bench_bvh["walk_later"]),
                              ("bvh_walk@scale", "scale", jnp["launches"]["scale-bvh"])):
         e = jnp["walk"][walk_set]
         kern.append(dict(name=row, route="cuda", source=SOURCES["bvh_walk"],
@@ -2729,12 +2868,12 @@ def main() -> int:
     # The threefry kernel's rows: [main]'s jitter draw with [main]'s uniform
     # launches, [bench-bvh]'s unit_sphere draw with that bench's normal
     # launches (PyTorch's generators are Philox: no torch call computes
-    # threefry, so library_ms is null), and erf_inv on that draw's uniforms,
-    # which no driven path launches alone (a normal runs it inside its own
-    # launch), beside torch.special.erfinv as library_ms.
+    # threefry, so library_ms is null), and erf_inv on that draw's uniforms
+    # with that bench's erf_inv launches (a normal runs erf_inv inside its
+    # own launch), beside torch.special.erfinv as library_ms.
     for row, n in (("threefry@jitter", launches["main"]["threefry_uniform"]),
-                   ("threefry@normal", entry["bench-bvh"]["threefry_normal"]),
-                   ("threefry@erfinv", 0)):
+                   ("threefry@normal", bench_bvh["threefry_normal"]),
+                   ("threefry@erfinv", bench_bvh["threefry_erf_inv"])):
         e = entries[row]
         kern.append(dict(name=row, route="cuda", source=SOURCES["threefry"],
                          replaces=REPLACES[row], launches=n, max_abs_err=e["max_abs_err"],

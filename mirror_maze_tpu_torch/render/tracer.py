@@ -59,13 +59,10 @@ def trace_paths(
     cfg: TracerConfig,
     nearest_fn: NearestFn | None = None,
     seed_row: torch.Tensor | None = None,   # [R] float32 in [0, 1)
-    live: list | None = None,
 ) -> torch.Tensor:
     """Trace one wavefront of rays through the scene-order view ``prims``;
     returns the gathered light [R, 3]. ``nearest_fn(o, d) -> (t, idx)`` is
-    the backend (``nearest_hit_brute`` when None); it is called on every
-    ray each segment, the dead ones too. ``live`` (when given) gets the
-    number of rays still live at each segment, int64 device tensors."""
+    the backend (``nearest_hit_brute`` when None)."""
     if nearest_fn is None:
         nearest_fn = lambda o, d: nearest_hit_brute(prims, o, d, cfg.t_min)
     n_rays = ori.shape[0]
@@ -104,8 +101,6 @@ def trace_paths(
     dc = torch.zeros((n_rays,), dtype=torch.int32, device=dev)
     alive = torch.ones((n_rays,), dtype=torch.bool, device=dev)
     for it in range(cfg.max_segments):
-        if live is not None:
-            live.append(alive.sum())
         t, idx = nearest_fn(o, d)
         hit = alive & (t < BIG)
         ix = idx.long()
