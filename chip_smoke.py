@@ -5,7 +5,8 @@
 
 Builds the hand-written kernels from ``mirror_maze_tpu_torch/csrc`` (nvcc,
 sm_90a: the tracer's four libraries, with and without the texture stage and
-the diagnostics, the present, the BVH walk and the threefry draws), holds
+the diagnostics, the present, the BVH walk, the threefry draws and the jnp
+tracer's segment, ``shade``), holds
 each against its plain PyTorch version on the card at the shapes of every
 path it drives (``[threefry]``: every draw of ops/prng.py bitwise, in every
 output, on the main path's jitter draw and the jnp tracer's, and erf_inv
@@ -87,7 +88,18 @@ each phase with its seconds:
   segments (8,232,960 rays each; both with the live rays of each segment),
   random rays in the mesh gallery, the Cornell box with spheres, the giant
   leaf, and rays with exact zero direction components; ms per launch, the
-  plain walk's ms, the bound and its share;
+  plain walk's ms, the bound and its share; and the bounce set again with
+  the live-id list of each segment (``bvh_walk@live``), against the plain
+  walk on the live rays gathered;
+- ``[shade]`` the shade kernel (csrc/shade.cu) bitwise ``shade_segment_plain``
+  at every segment (o, d, thr, light, mh, dc, alive, the live count and the
+  live-id list) at full width: ``[bench-bvh]``'s frame-1 rays (13 segments,
+  the planes-only instance, timed: row ``shade@interactive``), the Cornell
+  box with two spheres, with a glass sphere under ``fresnel`` on and off,
+  the checker box (a 64-row block of the 1024x1024, 64 spp frame each),
+  ``[sky]``'s frame-1 rays with ``sky_strength`` 0.7 and ``config_fuzzy``'s
+  with its seed row, all through the bvh backend; and rays at the sign's
+  and clamp's edges (d.n = +0, -0, NaN);
 - ``[bvh]`` / ``[exact]`` ``config_bvh``'s scene (8x8 maze, 512x384, 4 spp,
   5 + 4 bounces) with the traversal and with the dense exact test, 8 frames
   each, the timed call under the sync debug mode "error" (no host sync),
@@ -144,9 +156,10 @@ phase with its seconds:
 - ``[bench-bands]`` ``--sharded-bands 2 --frames 8 --launches 1``: the
   checksum of the band engine in process, halo present launches counted;
 - ``[bench-bvh]`` ``--intersector bvh`` at the defaults (2,027,520 rays a
-  frame): Mrays/s, ``launch_ms`` and the checksum, one walk launch a
-  segment; in process 4 frames of it as graph replays (no host sync) and as
-  the eager loop, bitwise;
+  frame): Mrays/s, ``launch_ms`` and the checksum, one walk and one shade
+  launch a segment; in process 4 frames of it as graph replays (no host
+  sync) and as the eager loop, bitwise, every walk after a frame's first
+  segment on the live-id list;
 - ``[soak]`` the kernel exactness soak (``tools/soak_kernel.py``): 40 random
   soups of 65,536 rays, the kernel bitwise its plain version under the
   default grid and one of 1 or 7 blocks, and within 1e-4 of the jnp tracer
@@ -162,11 +175,13 @@ counts as it did, and that the draws went through the kernel (the engine
 paths and ``[graph]`` their exact count, ``step_draws``). The last two lines
 are the ``{"kernels": [...]}`` summary (one row per kernel and path, every
 number measured or, for ``bound_ms``, computed in this run; the walk
-kernel's rows ``bvh_walk``, ``bvh_walk@interactive``, ``bvh_walk@bounce`` and
-``bvh_walk@scale``, the threefry kernel's ``threefry@jitter``,
-``threefry@normal`` and ``threefry@erfinv``, the last with
-``torch.special.erfinv``'s time as ``library_ms``) and ``{"ok": true,
-"device": {...}}``.
+kernel's rows ``bvh_walk``, ``bvh_walk@interactive``, ``bvh_walk@bounce``,
+``bvh_walk@live`` and ``bvh_walk@scale``, the threefry kernel's
+``threefry@jitter``, ``threefry@normal`` and ``threefry@erfinv``, the last
+with ``torch.special.erfinv``'s time as ``library_ms``, and
+``shade@interactive``) and ``{"ok": true, "device": {...}}``. Every jnp
+path on the card launches the shade kernel once a segment, and each
+phase checks that count.
 
 ``python3 chip_smoke.py --kernels-of DIR`` runs only ``[bvh-kernel]`` and
 ``[threefry]`` (their checks included), on the port in DIR: a ``git
@@ -222,12 +237,17 @@ REPLACES = {
                        "unit_sphere under jit; no pallas_call)",
     "threefry@erfinv": "mirror_maze_tpu/ops/sampling.py:25 (jax.lax.erf_inv inside "
                        "jax.random.normal under jit; no pallas_call)",
+    # The shade kernel: the segment body of the jnp tracer's bounce loop,
+    # which XLA fuses under jit; no pallas_call.
+    "shade": "mirror_maze_tpu/render/tracer.py:115 (body of trace_paths' "
+             "jax.lax.fori_loop; no pallas_call)",
 }
 SOURCES = {
     "tracer": "mirror_maze_tpu_torch/csrc/tracer.cu",
     "present": "mirror_maze_tpu_torch/csrc/present.cu",
     "bvh_walk": "mirror_maze_tpu_torch/csrc/bvh_walk.cu",
     "threefry": "mirror_maze_tpu_torch/csrc/threefry.cu",
+    "shade": "mirror_maze_tpu_torch/csrc/shade.cu",
 }
 
 # The driven paths' scripts: idle, walking, turning, idle frames.
@@ -478,42 +498,19 @@ WALK_REPS = 10
 SLAB_OPS, PRIM_TEST_OPS, SPHERE_OPS = 30, 16, 30
 
 
-def frame1_rays(cfg, scene, with_key: bool = False):
-    """(ori, dirs) of frame 1 of an idle start: the step's window (Morton
-    sorted where the configuration sorts it), camera and key; with
-    ``with_key`` also the key the frame's tracer draws from."""
-    from mirror_maze_tpu_torch.ops import prng
-    from mirror_maze_tpu_torch.render.pipeline import camera_rays
-    from mirror_maze_tpu_torch.render.scheduler import (
-        chunk_origin_xy,
-        chunk_pixels,
-        sort_window_morton,
-        take_chunks,
-    )
-    from mirror_maze_tpu_torch.runtime.state import init_state
-
-    sc = cfg.screen
-    st = init_state(cfg, device=scene.planes.device)
-    ids, _ = take_chunks(st.perm, st.cursor, sc.effective_chunks_per_frame)
-    if sc.sort_chunk_window:
-        ids = sort_window_morton(ids, sc)
-    pixels = chunk_pixels(chunk_origin_xy(ids, sc), sc.chunk_width)
-    _, key = prng.split(st.key)
-    ori, dirs, tkey, _ = camera_rays(st.camera(cfg), pixels, prng.fold_in(key, 1), cfg)
-    return (ori, dirs, tkey) if with_key else (ori, dirs)
-
-
 def segment_rays(cfg, scene) -> tuple:
-    """(segments, live) of frame 1 of an idle start (``cfg``'s backend on
-    ``scene``, a scene of planes without glass): the (o, d) that
-    trace_paths hands the nearest-hit backend at each segment, and the rays
-    still live there, rebuilt from what the backend returns by trace_paths'
-    own rule (render/tracer.py: a hit lives on unless it is the
-    mirror_limit-th specular one or the bounce_limit-th diffuse one). A ray
-    kept live past a segment must have moved in it, and a ray that moved
-    must have been live: else SystemExit."""
+    """(segments, live, masks) of frame 1 of an idle start (``cfg``'s
+    backend on ``scene``, a scene of planes without glass): the (o, d) that
+    trace_paths hands the nearest-hit backend at each segment, the count of
+    rays still live there and their mask, rebuilt from what the backend
+    returns for every ray by trace_paths' own rule (render/tracer.py: a hit
+    lives on unless it is the mirror_limit-th specular one or the
+    bounce_limit-th diffuse one). A ray kept live past a segment must have
+    moved in it, and a ray that moved must have been live: else
+    SystemExit."""
     import torch
 
+    from _torch_tools import frame1_rays
     from mirror_maze_tpu_torch.ops.vecmath import dot
     from mirror_maze_tpu_torch.render.intersect import BIG
     from mirror_maze_tpu_torch.render.pipeline import scene_nearest_fn
@@ -524,9 +521,9 @@ def segment_rays(cfg, scene) -> tuple:
         raise ValueError("segment_rays rebuilds liveness for planes without glass only")
     ori, dirs, key = frame1_rays(cfg, scene, with_key=True)
     nearest = scene_nearest_fn(scene, cfg)
-    seen, live, state = [], [], {}
+    seen, live_counts, masks, state = [], [], [], {}
 
-    def record(o, d):
+    def record(o, d, live=None):        # the list trace_paths passes: every ray is walked
         if seen:
             moved = (o != seen[-1][0]).any(dim=1)
             if not torch.equal(moved, state["was"] & moved) or not torch.equal(
@@ -534,7 +531,8 @@ def segment_rays(cfg, scene) -> tuple:
                 raise SystemExit("segment_rays: the rebuilt liveness disagrees with the rays")
         t, idx = nearest(o, d)
         alive = state.get("alive", torch.ones_like(t, dtype=torch.bool))
-        live.append(int(alive.sum()))
+        live_counts.append(int(alive.sum()))
+        masks.append(alive)
         hit = alive & (t < BIG)
         ix = idx.long()
         mir, side = p.is_mirror[ix], -torch.sign(dot(d, p.normal[ix]))
@@ -547,7 +545,7 @@ def segment_rays(cfg, scene) -> tuple:
         return t, idx
 
     trace_paths(p, ori, dirs, key, tc, record)
-    return seen, live
+    return seen, live_counts, masks
 
 
 @contextlib.contextmanager
@@ -555,7 +553,8 @@ def walks_by_segment(tally):
     """Within the block, the bvh_walk launches that each pipeline
     trace_paths call's backend makes (the wrapper's own count, read around
     each call) are added to ``tally``: under "first" at the first segment,
-    under "later" at the others."""
+    under "later" at the others, and also under "listed" where trace_paths
+    handed the backend a live-id list."""
     from mirror_maze_tpu_torch import kernels
     from mirror_maze_tpu_torch.render import pipeline
 
@@ -564,11 +563,12 @@ def walks_by_segment(tally):
     def trace(prims, ori, dirs, key, tcfg, nearest_fn, *args, **kwargs):
         segment = iter(range(tcfg.max_segments))
 
-        def nearest(o, d):
+        def nearest(o, d, live=None):
             before = kernels.launches["bvh_walk"]
-            hit = nearest_fn(o, d)
-            tally["first" if next(segment) == 0 else "later"] += (
-                kernels.launches["bvh_walk"] - before)
+            hit = nearest_fn(o, d) if live is None else nearest_fn(o, d, live=live)
+            walked = kernels.launches["bvh_walk"] - before
+            tally["first" if next(segment) == 0 else "later"] += walked
+            tally["listed"] += walked if live is not None else 0
             return hit
 
         return traced(prims, ori, dirs, key, tcfg, nearest, *args, **kwargs)
@@ -585,11 +585,14 @@ def bvh_kernel_phase(dev, smi: str) -> dict:
     sets, t and idx bitwise on every ray; ms per launch (CUDA events over
     WALK_REPS launches replayed from a graph; the mean over the segments of
     the bounce and scale sets), the plain walk's ms beside it, and the bound
-    from the plain walk's visits. Returns the kernel rows' entries by set."""
+    from the plain walk's visits; on the bounce set also with the live-id
+    list (``live_walks``). Returns the kernel rows' entries by set."""
+    import inspect
+
     import torch
 
     import mirror_maze_tpu_torch as P
-    from _torch_tools import intersect_scene, scene_rays, zero_component_rays
+    from _torch_tools import frame1_rays, intersect_scene, scene_rays, zero_component_rays
     from mirror_maze_tpu_torch import kernels
     from mirror_maze_tpu_torch.render import intersect, upload_scene
     from mirror_maze_tpu_torch.scene import build_scene
@@ -605,8 +608,9 @@ def bvh_kernel_phase(dev, smi: str) -> dict:
         if name in WALK_CONFIGS:
             scene = upload_scene(build_scene(cfg.maze), device=dev)
             if name in ("bounce", "scale"):
-                batches, live = segment_rays(cfg, scene)
-                batches = batches[1:] if name == "bounce" else batches
+                batches, live, masks = segment_rays(cfg, scene)
+                if name == "bounce":
+                    batches, masks = batches[1:], masks[1:]
             else:
                 batches = [frame1_rays(cfg, scene)]
         else:
@@ -660,10 +664,67 @@ def bvh_kernel_phase(dev, smi: str) -> dict:
             raise SystemExit("[bvh-kernel] FAIL: the zero-component set lost its zeros")
         entries[name] = dict(kernel="bvh_walk", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                              plain_rays=per_launch, bound_ms=bound_ms, bound_by=by)
+        if name == "bounce" and "live" in inspect.signature(
+                intersect.nearest_hit_bvh_kernel).parameters:   # not in a port before the list
+            entries["live"] = live_walks(p, tables, t_min, depth, leaf, batches, masks, smi)
         del scene, tables, batches
         release()
     log(f"[bvh-kernel] {len(WALK_SETS)} ray sets in {time.perf_counter() - t0:.1f} s")
     return entries
+
+
+def live_walks(p, tables, t_min, depth, leaf, batches, masks, smi: str) -> dict:
+    """bvh_walk@live: at each segment of ``batches`` (rays) and ``masks``
+    (the rays alive there), the walk kernel with the live-id list of those
+    rays (in a shuffled order, as the shade kernel appends them in no fixed
+    one) against the plain walk on the rays gathered: t and idx bitwise on
+    every listed ray; ms a launch (graph replay), the plain walk's ms on the
+    gathered rays, the bound from its visits and the listed rays' bytes.
+    Returns the row's entry (means over the segments)."""
+    import torch
+
+    from mirror_maze_tpu_torch.render import intersect
+    from time_present import HBM_BYTES_PER_S, time_ms
+
+    gen = torch.Generator().manual_seed(0)
+    same, listed = True, []
+    ms = plain_ms = ops = n_bytes = 0.0
+    table_bytes = (tables.noderow.numel() + tables.leafpack.numel()) * 4
+    for (ori, dirs), mask in zip(batches, masks):
+        sel = torch.nonzero(mask)[:, 0]
+        sel = sel[torch.randperm(sel.numel(), generator=gen).to(sel.device)]
+        ids = torch.zeros((ori.shape[0],), dtype=torch.int32, device=ori.device)
+        ids[:sel.numel()] = sel.int()
+        count = torch.tensor([sel.numel()], dtype=torch.int32, device=ori.device)
+        walk = lambda: intersect.nearest_hit_bvh_kernel(   # noqa: E731
+            p, ori, dirs, t_min, depth, leaf, tables=tables, live=(ids, count))
+        t, idx = walk()
+        stats = {}
+        (pt, pi), walk_ms = timed(lambda: intersect.nearest_hit_bvh(
+            p, ori[sel], dirs[sel], t_min, depth, leaf, tables=tables, stats=stats))
+        same &= (torch.equal(t[sel].view(torch.int32), pt.view(torch.int32))
+                 and torch.equal(idx[sel], pi))
+        del t, idx, pt, pi
+        ms += time_ms(walk, WALK_REPS, graph=True)
+        plain_ms += walk_ms
+        ops += (SLAB_OPS * 2 * int(stats["interior"]) + PRIM_TEST_OPS * int(stats["tests"])
+                + SPHERE_OPS * p.num_spheres * sel.numel())
+        n_bytes += table_bytes + sel.numel() * (24 + 8 + 4) + 4
+        listed.append(sel.numel())
+    k = len(batches)
+    ms, plain_ms, ops, n_bytes = ms / k, plain_ms / k, ops / k, n_bytes / k
+    ops_ms, bytes_ms = ops / FP32_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    log(f"[bvh-kernel] live: the same {k} segments with the live-id list ({listed} rays "
+        f"listed of {batches[0][0].shape[0]}, shuffled): kernel bitwise the plain walk on the "
+        f"listed rays gathered (t and idx): {same}; kernel {ms:.4f} ms/launch (grid sized for "
+        f"every ray); plain walk on the gathered rays {plain_ms:.2f} ms; bound {bound_ms:.6f} "
+        f"ms by {by} (operations {ops_ms:.6f}, bytes {bytes_ms:.6f}), share "
+        f"{bound_ms / ms:.1%} | {smi}")
+    if not same:
+        raise SystemExit("[bvh-kernel] FAIL: live")
+    return dict(kernel="bvh_walk", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                plain_rays=sum(listed) // k, bound_ms=bound_ms, bound_by=by)
 
 
 # [threefry]: the raw keys (PRNGKey(0), (1), (7), (123456), (2^31 - 1) and
@@ -898,6 +959,184 @@ def threefry_phase(dev, smi: str, cfg) -> dict:
     return entries
 
 
+# [shade]: the sets the shade kernel is held against shade_segment_plain on,
+# at every segment: name -> (configuration or Cornell box variant, tracer
+# changes). A configuration's set is its frame-1 rays (config_interactive's
+# is [bench-bvh]'s frame); a Cornell box's the GALLERY_BATCH-th block of
+# GALLERY_ROWS pixel rows of the 1024x1024, 64 spp gallery frame. Every set
+# runs the bvh backend.
+SHADE_SETS = {
+    "bench-bvh": ("interactive", {}),
+    "cornell-spheres": ("spheres", {}),
+    "cornell-glass": ("glass", dict(fresnel=True)),
+    "cornell-glass-no-fresnel": ("glass", dict(fresnel=False)),
+    "cornell-checker": ("checker", {}),
+    "sky": ("interactive", dict(sky_strength=0.7)),
+    "fuzzy": ("fuzzy", {}),
+}
+SHADE_REPS = 10
+# f32 operations of shade_segment_plain a ray in the planes-only instance
+# (the row's; the plain version computes every stage for every ray): the
+# side's dot and sign (7), the unit vector from the draw (x * x, the root,
+# its clamp, three divisions: 6; the two float64 FMAs not counted), the
+# scatter (n * side, the add, normalize: 15), the emission (9) and albedo
+# (3), the mirror tint (6), the reflection (12) and its normalize (9), the
+# sky term (pow, 9), the advance (6).
+SHADE_PLAIN_OPS = 83
+# Bytes of a ray's path state (o, d, thr, light, mh, dc, alive), which an
+# alive ray reads and the kernel writes back.
+SHADE_STATE_BYTES = 4 * 3 * 4 + 2 * 4 + 1
+
+
+def shade_phase(dev, smi: str) -> dict:
+    """[shade]: the shade kernel bitwise shade_segment_plain at every
+    segment of each of SHADE_SETS, at full width (o, d, thr, light, mh, dc,
+    alive; the live count and the live-id list), and on directions at the
+    sign's and clamp's edges; the row ``shade@interactive`` from the
+    bench-bvh set: ms a launch replayed from a graph (out of place, the
+    count reset before each launch, the reset's own time taken off), the
+    plain version's ms and the bound, means over the 13 segments. Returns
+    the row's entry."""
+    import dataclasses
+
+    import torch
+
+    import mirror_maze_tpu_torch as P
+    from _torch_tools import (
+        bits,
+        cornell_scene,
+        edge_segment,
+        frame1_inputs,
+        gallery_config,
+        shade_records_ok,
+        shade_segments,
+        textured_cornell,
+    )
+    from mirror_maze_tpu_torch.ops import prng
+    from mirror_maze_tpu_torch.render import make_camera, upload_scene
+    from mirror_maze_tpu_torch.render.intersect import BIG
+    from mirror_maze_tpu_torch.render.pipeline import (
+        camera_rays,
+        frame_row_batches,
+        scene_nearest_fn,
+    )
+    from mirror_maze_tpu_torch.render.tracer import (
+        PathState,
+        shade_segment_kernel,
+        shade_segment_plain,
+    )
+    from mirror_maze_tpu_torch.scene import build_scene
+    from time_present import HBM_BYTES_PER_S, time_ms
+
+    t0 = time.perf_counter()
+    failed, per_segment = [], []
+
+    def timer(prims, tc):
+        n_table = sum(x.numel() * x.element_size() for x in (
+            prims.normal, prims.color, prims.emission, prims.is_mirror))
+
+        def before(it, st, t, idx, g, u3):
+            n_rays = st.o.shape[0]
+            out = PathState(*(x.clone() for x in st))
+            ids = torch.empty((n_rays,), dtype=torch.int32, device=dev)
+            count = torch.zeros((1,), dtype=torch.int32, device=dev)
+
+            def launch():
+                count.zero_()
+                shade_segment_kernel(prims, tc, st, t, idx, g, u3, it, live_out=(ids, count),
+                                     out=out)
+
+            both = time_ms(launch, SHADE_REPS, graph=True)
+            reset = time_ms(count.zero_, SHADE_REPS, graph=True)
+            want, plain = timed(lambda: shade_segment_plain(prims, tc, st, t, idx, g, u3, it))
+            live = int(st.alive.sum())
+            hit = int((st.alive & (t < BIG)).sum())
+            diffuse, kept = int((want.dc - st.dc).sum()), int(want.alive.sum())
+            n_bytes = (n_table + live * (2 * SHADE_STATE_BYTES + 4) + hit * 4 + diffuse * 12
+                       + kept * 4 + (n_rays - live))
+            per_segment.append(dict(ms=both - reset, both=both, reset=reset, plain=plain,
+                                    bytes=n_bytes, ops=n_rays * SHADE_PLAIN_OPS))
+            del out, want
+
+        return before
+
+    for name, (kind, extra) in SHADE_SETS.items():
+        t1 = time.perf_counter()
+        if kind in P.NAMED_CONFIGS:
+            cfg = P.NAMED_CONFIGS[kind]()
+            scene = upload_scene(build_scene(cfg.maze), device=dev)
+        else:
+            cfg = gallery_config(GALLERY_SIZE, GALLERY_SPP)
+            host = textured_cornell("blocks") if kind == "checker" else cornell_scene(kind)
+            scene = upload_scene(host, device=dev)
+        cfg = dataclasses.replace(cfg, tracer=dataclasses.replace(cfg.tracer, **extra))
+        cfg = cfg.replace(intersector="bvh")
+        if kind in P.NAMED_CONFIGS:
+            ori, dirs, key, seed_row = frame1_inputs(cfg, scene)
+        else:
+            cam = make_camera(cfg.camera, 1.0, dev)
+            pix, bkey = list(frame_row_batches(cfg, prng.PRNGKey(0, device=dev), GALLERY_ROWS,
+                                               dev))[GALLERY_BATCH]
+            ori, dirs, key, seed_row = camera_rays(cam, pix, bkey, cfg, scene.noise)
+        p, tc = scene.prims, cfg.tracer
+        records, st = shade_segments(p, tc, ori, dirs, key, scene_nearest_fn(scene, cfg),
+                                     seed_row=seed_row,
+                                     before=timer(p, tc) if name == "bench-bvh" else None)
+        ok = shade_records_ok(records)
+        stages = [k for k, on in (("spheres", p.num_spheres), ("textures", p.tex is not None),
+                                  ("glass", p.ior is not None or p.sph_ior is not None),
+                                  ("fresnel", tc.fresnel and (p.ior is not None
+                                                              or p.sph_ior is not None)),
+                                  ("seed row", seed_row is not None),
+                                  ("sky", tc.sky_strength > 0)) if on]
+        bad = [r for r in records if r["diff"] or r["count"] != r["live_out"] or not r["ids"]]
+        log(f"[shade] {name}: {ori.shape[0]} rays, {tc.max_segments} segments, stages "
+            f"{stages or ['planes only']}; alive at each segment "
+            f"{[r['live_in'] for r in records]}; the kernel bitwise shade_segment_plain (o, d, "
+            f"thr, light, mh, dc, alive) with its live count and id list right at every "
+            f"segment: {ok}{'' if ok else f' (segments at fault: {bad[:4]})'}; light mean "
+            f"{float(st.light.mean()):.6f}; {time.perf_counter() - t1:.1f} s | {smi}")
+        if not ok or float(st.light.mean()) <= 0.0:
+            failed.append(name)
+        del scene, ori, dirs, st, records
+        release()
+
+    # The sign's and clamp's edges: directions along the hit plane (d.n = +0
+    # and -0) and NaN ones, in the glass instance with Fresnel and the sky.
+    prims = upload_scene(cornell_scene("glass"), device=dev).prims
+    tc = P.TracerConfig(bounce_limit=3, mirror_limit=3, fresnel=True, sky_strength=0.5)
+    st, t, idx, g = edge_segment(prims, 1 << 16, dev)
+    u3 = prng.uniform(prng.PRNGKey(2, device=dev), (1 << 16,))
+    want = shade_segment_plain(prims, tc, st, t, idx, g, u3, 1)
+    got = shade_segment_kernel(prims, tc, st, t, idx, g, u3, 1)
+    differ = {f: int((bits(getattr(got, f)) != bits(getattr(want, f))).sum())
+              for f in PathState._fields}
+    edges = not any(differ.values())
+    log(f"[shade] edges: 65,536 rays hitting plane 0 at t = 1, a quarter along it (d.n = +0), "
+        f"a quarter along it with -0 products (d.n = -0), a quarter with a NaN direction: "
+        f"bitwise the plain version {edges} (values differing by field: {differ})")
+    if not edges:
+        failed.append("edges")
+    if failed:
+        raise SystemExit(f"[shade] FAIL: {failed}")
+
+    k = len(per_segment)
+    mean = {f: sum(r[f] for r in per_segment) / k for f in per_segment[0]}
+    ops_ms = mean["ops"] / FP32_OPS_PER_S * 1e3
+    bytes_ms = mean["bytes"] / HBM_BYTES_PER_S * 1e3
+    bound_ms, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    log(f"[shade] shade@interactive ([bench-bvh]'s frame-1 rays at its {k} segments): kernel "
+        f"{mean['ms']:.5f} ms/launch (mean; graph replay of {SHADE_REPS} launches out of place, "
+        f"each after a 4-byte count reset: {mean['both']:.5f}, less the resets alone "
+        f"{mean['reset']:.5f}; by segment {[round(r['ms'], 5) for r in per_segment]}); plain "
+        f"version {mean['plain']:.3f} ms; bound {bound_ms:.6f} ms by {by} (bytes "
+        f"{bytes_ms:.6f} for {mean['bytes']:.0f} B, operations {ops_ms:.6f} for the plain "
+        f"version's {SHADE_PLAIN_OPS} a ray), share {bound_ms / mean['ms']:.1%}; library_ms "
+        f"null (no torch call computes a segment); {time.perf_counter() - t0:.1f} s | {smi}")
+    return {"shade@interactive": dict(kernel="shade", max_abs_err=0.0, ms=mean["ms"],
+                                      plain_ms=mean["plain"], bound_ms=bound_ms, bound_by=by)}
+
+
 def jnp_phases(dev, smi: str) -> dict:
     """The phases of the jnp tracer's backends (with the walk kernel), the
     offline path and the checkpoints; any failure ends the run with
@@ -911,7 +1150,7 @@ def jnp_phases(dev, smi: str) -> dict:
     import torch
 
     import mirror_maze_tpu_torch as P
-    from _torch_tools import golden_config, golden_script
+    from _torch_tools import frame1_rays, golden_config, golden_script
     from mirror_maze_tpu_torch import bench, kernels
     from mirror_maze_tpu_torch.ops import prng
     from mirror_maze_tpu_torch.render import campath, intersect, make_camera, upload_scene
@@ -943,6 +1182,7 @@ def jnp_phases(dev, smi: str) -> dict:
     gcfg = golden_config().replace(intersector="brute")
     gscene = upload_scene(build_scene(gcfg.maze), device=dev)
     gcam = make_camera(gcfg.camera, gcfg.screen.width / gcfg.screen.height, dev)
+    g_batches = len(list(frame_row_batches(gcfg, prng.PRNGKey(0, device=dev), 64, dev)))
     kernels.reset_launches()
     img = render_full_frame(gscene, gcam, prng.PRNGKey(0, device=dev), gcfg)
     img = img.clamp(0, 1).cpu().numpy()
@@ -959,7 +1199,8 @@ def jnp_phases(dev, smi: str) -> dict:
         f"0.999), max diff {worst} (need <= 4); launches {counts}; "
         f"{time.perf_counter() - t0:.1f} s")
     if not (close > 0.999 and mean_diff <= 1e-4 and within > 0.999 and worst <= 4
-            and holds(counts, {"present": 28}, True)):
+            and holds(counts, {"present": 28,
+                               "shade": (g_batches + 28) * gcfg.tracer.max_segments}, True)):
         raise SystemExit("[golden-brute] FAIL")
 
     # [v0]: config_v0 at full size, on the card and on the CPU.
@@ -999,11 +1240,14 @@ def jnp_phases(dev, smi: str) -> dict:
         f"{graph_line(only_graphs(run.runner))}; {time.perf_counter() - t0:.1f} s | {smi}")
     if not (within > 0.999 and worst <= 4 and same_state and cam_diff <= 1e-6 and same
             and float(frame.float().mean()) > 0.1
-            and holds(counts, {"present": n}, True)):
+            and holds(counts, {"present": n, "shade": n * cfg.tracer.max_segments}, True)):
         raise SystemExit("[v0] FAIL")
 
     # [bvh-kernel]: the walk kernel against the plain walk.
     walk_entries = bvh_kernel_phase(dev, smi)
+
+    # [shade]: the shade kernel against its plain version.
+    shade_entries = shade_phase(dev, smi)
 
     # [bvh] and [exact]: config_bvh's scene (8x8 maze, 512x384, 4 spp, 5 + 4
     # bounces) with the traversal (the walk kernel) and with the dense exact
@@ -1031,7 +1275,7 @@ def jnp_phases(dev, smi: str) -> dict:
             bscene, init_state(cfg, seed=0, device=dev), inputs))
         same = states_bitwise(st, est) and torch.equal(frame, eframe)
         graphs = only_graphs(run.runner)
-        want = {"present": n}
+        want = {"present": n, "shade": n * cfg.tracer.max_segments}
         draws = {"threefry_normal": n * cfg.tracer.max_segments}
         walked = ""
         if backend == "bvh":
@@ -1077,7 +1321,8 @@ def jnp_phases(dev, smi: str) -> dict:
     est, eager_ms = timed(lambda: run_frames(eager, init_fn(0), inputs))
     eframe = shard.assemble_frame(shard.band_frames(est, shard._band_screen_cfg(cfg, 2)))
     same = states_bitwise(st, est) and torch.equal(frame, eframe)
-    want = {"bvh_walk": 2 * n * cfg.tracer.max_segments, "present_halo": 2 * n}
+    want = {"bvh_walk": 2 * n * cfg.tracer.max_segments, "present_halo": 2 * n,
+            "shade": 2 * n * cfg.tracer.max_segments}
     log(f"[bands-bvh] config_bvh scene as 2 bands on the one card, intersector bvh, {n} "
         f"frames: {ms / n:.1f} ms/frame, {replays / n:g} replays a frame, 0 host syncs a frame "
         f"(sync debug mode 'error'); eager band loop {eager_ms / n:.1f} ms/frame, graph == eager "
@@ -1109,7 +1354,8 @@ def jnp_phases(dev, smi: str) -> dict:
     same = states_bitwise(st, est) and torch.equal(frame, eframe)
     sc = cfg.screen
     rays = sc.effective_chunks_per_frame * sc.pixels_per_chunk * sc.samples_per_pixel
-    want = {"present": len(frames), "bvh_walk": len(frames) * cfg.tracer.max_segments}
+    want = {"present": len(frames), "bvh_walk": len(frames) * cfg.tracer.max_segments,
+            "shade": len(frames) * cfg.tracer.max_segments}
     log(f"[scale-bvh] config_scale {sc.width}x{sc.height} {sc.samples_per_pixel} spp, intersector "
         f"bvh, {len(frames)} frames, {rays} rays/frame: "
         f"{ms / len(frames):.1f} ms/frame, {rays / (ms / len(frames)) / 1e3:.3f} Mrays/s, bounds "
@@ -1157,7 +1403,7 @@ def jnp_phases(dev, smi: str) -> dict:
                                          64, dev)))
     walks = batches * bench.validate_config().replace(intersector="bvh").tracer.max_segments
     ok = (np.isfinite(ref).all() and ref.max() > 0.0
-          and holds(counts, {"tracer": batches, "bvh_walk": walks}, True))
+          and holds(counts, {"tracer": batches, "bvh_walk": walks, "shade": 3 * walks}, True))
     for backend in ("exact", "bvh", "pallas"):
         d = np.abs(frames[backend] - ref)
         stats = dict(max=float(d.max()), mean=float(d.mean()), p999=float(np.quantile(d, 0.999)),
@@ -1229,7 +1475,7 @@ def jnp_phases(dev, smi: str) -> dict:
     total = 2 * len(inputs)
     if not (loaded and same and holds(counts, {"tracer": total, "present": total}, True)):
         raise SystemExit("[resume] FAIL")
-    return {"walk": walk_entries, "launches": path_launches}
+    return {"walk": walk_entries, "shade": shade_entries, "launches": path_launches}
 
 
 # The drivers' phases run the CLI with these arguments: config_interactive
@@ -1783,8 +2029,9 @@ def entry_phases(dev, smi: str) -> dict:
     with no ``--device`` (the card; ``--device cpu`` where ``dev`` is the
     CPU, the rehearsal). Each phase prints its seconds; any failure ends the
     run with SystemExit. Returns ``[bench-bvh]``'s launches: the bench's
-    normal and erf_inv draws, and the in-process eager loop's walks at a
-    frame's first segment and at the others."""
+    normal and erf_inv draws and shade launches, and the in-process eager
+    loop's walks at a frame's first segment and at the others (and of those
+    the walks given a live-id list)."""
     import ast
     import shutil
     import tempfile
@@ -1926,19 +2173,20 @@ def entry_phases(dev, smi: str) -> dict:
             f"clock, synchronized), {replays / k:g} replays a frame, 0 host syncs (sync debug "
             f"mode 'error'), launches {counts}; eager loop {eager_ms:.2f} ms/frame, walk "
             f"launches at a frame's first segment {walks['first']}, at the others "
-            f"{walks['later']}; graph == eager bitwise {same}; checksum {checksum}; "
+            f"{walks['later']} ({walks['listed']} of them on the live-id list); graph == eager "
+            f"bitwise {same}; checksum {checksum}; "
             f"{time.perf_counter() - t0:.1f} s | {smi}")
         if not (res["backend"] == dev.type and same and len(res["launch_ms"]) == args.launches
-                and holds(sub, want(present=n, bvh_walk=n * segs), on_card)
-                and holds(counts, want(present=k, bvh_walk=k * segs), on_card)
+                and holds(sub, want(present=n, bvh_walk=n * segs, shade=n * segs), on_card)
+                and holds(counts, want(present=k, bvh_walk=k * segs, shade=k * segs), on_card)
                 and sub.get("threefry_normal", 0) == (n * segs if on_card else 0)
                 and replays == (k if on_card else 0)
-                and (walks["first"], walks["later"]) == ((k, k * (segs - 1)) if on_card
-                                                         else (0, 0))):
+                and (walks["first"], walks["later"], walks["listed"]) == (
+                    (k, k * (segs - 1), k * (segs - 1)) if on_card else (0, 0, 0))):
             raise SystemExit("[bench-bvh] FAIL")
         bench_bvh_launches = dict(
-            {name: sub.get(name, 0) for name in ("threefry_normal", "threefry_erf_inv")},
-            walk_first=walks["first"], walk_later=walks["later"])
+            {name: sub.get(name, 0) for name in ("threefry_normal", "threefry_erf_inv", "shade")},
+            walk_first=walks["first"], walk_later=walks["later"], walk_listed=walks["listed"])
 
         # [soak]: the random soups, the kernel bitwise its plain version under
         # two grids and within the jnp tracer's gate.
@@ -1958,10 +2206,13 @@ def entry_phases(dev, smi: str) -> dict:
             f"{min(r['agree'] for r in recs):.4f}; launches {counts}; "
             f"{time.perf_counter() - t0:.1f} s | {smi}")
         # One launch a scene and grid, of the textured library where the scene
-        # is textured.
+        # is textured; the jnp tracer's reference light one shade launch a
+        # segment.
         expected = sum(len(r["bitwise"]) for r in recs) if on_card else 0
-        if (fails or len(recs) != SOAK_SCENES or sum(others(counts).values()) != expected
-                or set(others(counts)) - {"tracer", "tracer_tex"}):
+        shades = sum(r["segments"] for r in recs) if on_card else 0
+        fused = {k: v for k, v in others(counts).items() if k != "shade"}
+        if (fails or len(recs) != SOAK_SCENES or sum(fused.values()) != expected
+                or set(fused) - {"tracer", "tracer_tex"} or counts.get("shade", 0) != shades):
             raise SystemExit("[soak] FAIL")
 
         # [examples]: the Cornell box and the mesh gallery in subprocesses,
@@ -2850,14 +3101,18 @@ def main() -> int:
                          bound_by=e["bound_by"], library_ms=None))
     # The walk kernel's rows: on [bvh]'s frame-1 rays with [bvh]'s launches;
     # on config_interactive's frame-1 rays with the launches [bench-bvh]'s
-    # eager loop made at a frame's first segment, and on that frame's later
-    # segments with those it made at the others; on config_scale's frame-1
-    # rays at every segment with [scale-bvh]'s. No PyTorch call computes a
-    # BVH walk, so library_ms is null.
+    # eager loop made at a frame's first segment; on that frame's later
+    # segments, every ray walked, with those it made at the others without
+    # a live-id list (none since the walk reads the list), and the live rays
+    # only with those it made with the list; on config_scale's frame-1 rays
+    # at every segment with [scale-bvh]'s. No PyTorch call computes a BVH
+    # walk, so library_ms is null.
     bench_bvh = entry["bench-bvh"]
     for row, walk_set, n in (("bvh_walk", "config_bvh", jnp["launches"]["bvh"]),
                              ("bvh_walk@interactive", "interactive", bench_bvh["walk_first"]),
-                             ("bvh_walk@bounce", "bounce", bench_bvh["walk_later"]),
+                             ("bvh_walk@bounce", "bounce",
+                              bench_bvh["walk_later"] - bench_bvh["walk_listed"]),
+                             ("bvh_walk@live", "live", bench_bvh["walk_listed"]),
                              ("bvh_walk@scale", "scale", jnp["launches"]["scale-bvh"])):
         e = jnp["walk"][walk_set]
         kern.append(dict(name=row, route="cuda", source=SOURCES["bvh_walk"],
@@ -2879,6 +3134,14 @@ def main() -> int:
                          replaces=REPLACES[row], launches=n, max_abs_err=e["max_abs_err"],
                          ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
                          bound_by=e["bound_by"], library_ms=e.get("library_ms")))
+    # The shade kernel's row: [bench-bvh]'s frame-1 rays at its 13 segments,
+    # with that bench's shade launches. No PyTorch call computes a segment,
+    # so library_ms is null.
+    e = jnp["shade"]["shade@interactive"]
+    kern.append(dict(name="shade@interactive", route="cuda", source=SOURCES["shade"],
+                     replaces=REPLACES["shade"], launches=bench_bvh["shade"],
+                     max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],
+                     bound_ms=e["bound_ms"], bound_by=e["bound_by"], library_ms=None))
     log(json.dumps({"kernels": kern}))
     count = torch.cuda.device_count()
     if count != 1:

@@ -18,9 +18,15 @@
 //            there, 15 floats a slot (normal, d, w1, b1, w2, b2, valid,
 //            scene id, triangle flag);
 //   spheres: centre [S, 3], c2r2 [S], ior [S] or null (no glass);
-//   ori, dirs [R, 3].
+//   ori, dirs [R, 3];
+//   ids [R] int32 and count [1] int32 on the device, or both null: the list
+//   of the rays to walk (render/tracer.py: the rays alive at this segment,
+//   appended by the shade kernel), of which the first *count are read.
 // Outputs: t [R] float32 (1e30 = miss), idx [R] int32 (scene-order id;
-// sphere i is n_planes + i).
+// sphere i is n_planes + i); with a list, only the listed rays' entries are
+// written. The grid is sized for R either way, so a segment's walk is one
+// launch whose count a CUDA graph holds on the device; threads past the
+// count exit.
 //
 // Exactness against the plain version (built with -fmad=false and IEEE
 // division, as every kernel of the port):
@@ -93,9 +99,15 @@ __global__ void __launch_bounds__(THREADS)
              const float* __restrict__ sph_c2r2, const float* __restrict__ sph_ior,
              int n_spheres, int n_planes, const float* __restrict__ ori,
              const float* __restrict__ dirs, float* __restrict__ t_out,
-             int* __restrict__ idx_out, int n_rays, int n_levels, float t_min) {
-  const int r = blockIdx.x * THREADS + threadIdx.x;
-  if (r >= n_rays) return;
+             int* __restrict__ idx_out, const int* __restrict__ ids,
+             const int* __restrict__ count, int n_rays, int n_levels, float t_min) {
+  int r = blockIdx.x * THREADS + threadIdx.x;
+  if (ids != nullptr) {
+    if (r >= min(*count, n_rays)) return;
+    r = ids[r];
+  } else if (r >= n_rays) {
+    return;
+  }
   const float ox = ori[3 * r], oy = ori[3 * r + 1], oz = ori[3 * r + 2];
   const float dx = dirs[3 * r], dy = dirs[3 * r + 1], dz = dirs[3 * r + 2];
   const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
@@ -185,19 +197,22 @@ __global__ void __launch_bounds__(THREADS)
 }  // namespace
 
 // spheres: n_spheres of them (0: no fold); sph_ior null where no sphere is glass.
+// ids, count: the rays to walk, or both null for every ray.
 extern "C" int mm_bvh_walk(const float* noderow, const float* leafpack, int n_nodes,
                            int n_slots, int max_leaf, const float* sph_center,
                            const float* sph_c2r2, const float* sph_ior, int n_spheres,
                            int n_planes, const float* ori, const float* dirs, float* t, int* idx,
-                           int n_rays, int n_levels, float t_min, void* stream) {
+                           const int* ids, const int* count, int n_rays, int n_levels,
+                           float t_min, void* stream) {
   if (n_levels < 1 || n_levels > MM_BVH_STACK || n_nodes < 1 || n_slots < 1 || max_leaf < 1 ||
-      n_spheres < 0 || (n_spheres > 0 && (sph_center == nullptr || sph_c2r2 == nullptr)))
+      n_spheres < 0 || (n_spheres > 0 && (sph_center == nullptr || sph_c2r2 == nullptr)) ||
+      (ids == nullptr) != (count == nullptr))
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return (int)cudaGetLastError();
   const int blocks = (n_rays + THREADS - 1) / THREADS;
   auto kernel = n_spheres > 0 ? bvh_walk<true> : bvh_walk<false>;
   kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       noderow, leafpack, n_nodes, n_slots, max_leaf, sph_center, sph_c2r2, sph_ior, n_spheres,
-      n_planes, ori, dirs, t, idx, n_rays, n_levels, t_min);
+      n_planes, ori, dirs, t, idx, ids, count, n_rays, n_levels, t_min);
   return (int)cudaGetLastError();
 }

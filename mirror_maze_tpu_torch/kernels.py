@@ -12,8 +12,9 @@ The tracer's source gives four libraries (``LIBRARIES``): ``tracer``, the
 stage, and ``tracer_diag`` / ``tracer_tex_diag``, which also gather the
 per-block diagnostics. Each is a translation unit of its own, so a launch
 without textures or diagnostics compiles none of their code. ``present``,
-``bvh_walk`` (the jnp tracer's BVH traversal) and ``threefry`` (every draw
-of ops/prng.py) have a source each.
+``bvh_walk`` (the jnp tracer's BVH traversal), ``threefry`` (every draw
+of ops/prng.py) and ``shade`` (one segment of the jnp tracer's bounce loop,
+render/tracer.py) have a source each.
 
 Nothing here runs at import: the CPU tests import every module and this
 machine may have no ``nvcc`` at all.
@@ -80,6 +81,7 @@ _BVH_WALK = ("mm_bvh_walk", [
     _C.c_void_p, _C.c_void_p, _C.c_void_p,               # sphere centres, c2r2, ior
     _C.c_int, _C.c_int,                                  # spheres, planes
     _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,  # ori, dirs, t out, idx out
+    _C.c_void_p, _C.c_void_p,                            # live ids, their count (or null)
     _C.c_int, _C.c_int, _C.c_float,                      # R, stack levels, t_min
     _C.c_void_p,                                         # stream
 ])
@@ -88,6 +90,10 @@ _THREEFRY = ("mm_threefry", [
     _C.c_void_p, _C.c_longlong, _C.c_uint,               # data, data stride, data word
     _C.c_ulonglong, _C.c_ulonglong,                      # counts a key, total
     _C.c_float, _C.c_float, _C.c_void_p,                 # lo, hi, out
+    _C.c_void_p,                                         # stream
+])
+_SHADE = ("mm_shade", [
+    _C.c_void_p, _C.c_int, _C.c_int,                     # params (render/tracer.py), glass, fresnel
     _C.c_void_p,                                         # stream
 ])
 # name -> (source in csrc/, macros for nvcc, (C symbol, argument types))
@@ -99,6 +105,7 @@ LIBRARIES = {
     "present": ("present.cu", (), _PRESENT),
     "bvh_walk": ("bvh_walk.cu", (), _BVH_WALK),
     "threefry": ("threefry.cu", (), _THREEFRY),
+    "shade": ("shade.cu", (), _SHADE),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -24,7 +24,14 @@ def unit_sphere(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     rejection-samples the cube instead). The squared length is summed as
     XLA-CPU contracts it, fma(z, z, fma(y, y, x * x)), each FMA rounded
     once from float64."""
-    g = prng.normal(key, shape + (3,))
+    return unit_from_normals(prng.normal(key, shape + (3,)))
+
+
+def unit_from_normals(g: torch.Tensor) -> torch.Tensor:
+    """``unit_sphere`` from its Gaussian triples g [..., 3] (the draw made):
+    g over its length, the squared length summed as fma(z, z, fma(y, y,
+    x * x)). The shade kernel (csrc/shade.cu) does the same for the rays it
+    scatters."""
     x, y, z = g[..., 0], g[..., 1], g[..., 2]
     sq = prng.fma(z, z, prng.fma(y, y, x * x))
     return g / torch.clamp_min(sqrt(sq), 1e-12)[..., None]

@@ -21,9 +21,11 @@ The reference's traversal is a ``lax.while_loop`` that tests ``any(live)``
 on the device every iteration. On the card the walk is the hand-written
 kernel ``csrc/bvh_walk.cu`` (``nearest_hit_bvh_kernel``): one thread walks
 one ray to its end and folds in the spheres, one launch a call, so nothing
-is read on the host and the walk captures into a CUDA graph. It raises on a
-tensor that is not on a CUDA device, and where the tree is deeper than its
-stack; it never falls back to the plain walk. ``nearest_hit_bvh`` is the
+is read on the host and the walk captures into a CUDA graph. Given the
+live-id list of a segment (``live=(ids, count)``, the shade kernel's output),
+it walks only those rays. It raises on a tensor that is not on a CUDA
+device, and where the tree is deeper than its stack; it never falls back to
+the plain walk. ``nearest_hit_bvh`` is the
 plain walk, the CPU's path and the kernel's twin: there the test is a host
 fetch, made every ``check_every`` iterations. A ray that is no longer live
 keeps its state (every update is masked by ``live``), so iterations run
@@ -262,17 +264,25 @@ def nearest_hit_bvh(prims: ScenePrims, o: torch.Tensor, d: torch.Tensor, t_min: 
 
 
 def nearest_hit_bvh_kernel(prims: ScenePrims, o: torch.Tensor, d: torch.Tensor, t_min: float,
-                           max_depth: int, max_leaf: int,
-                           tables: BVHTables | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                           max_depth: int, max_leaf: int, tables: BVHTables | None = None,
+                           live: tuple | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """``nearest_hit_bvh`` in one launch of the ``bvh_walk`` kernel
     (csrc/bvh_walk.cu), the sphere fold included: bitwise the plain walk.
-    o, d: [R, 3] float32 on a CUDA device. Raises where the walk needs more
-    than ``BVH_STACK`` levels (``max_depth + 2``) or the rays are not on a
-    CUDA device; it does not fall back to the plain walk."""
+    o, d: [R, 3] float32 on a CUDA device. ``live = (ids, count)`` walks only
+    the rays ``ids[:count]`` (ids int32 [R], count int32 [1], both on the
+    rays' device; render/tracer.py trace_paths makes them): their t and idx
+    are the plain walk's, the other rays' entries are left unwritten. Raises
+    where the walk needs more than ``BVH_STACK`` levels (``max_depth + 2``),
+    the rays are not on a CUDA device or the list is malformed; it does not
+    fall back to the plain walk."""
     n_levels = max_depth + 2
     if n_levels > BVH_STACK:
         raise ValueError(f"a BVH of depth {max_depth} needs {n_levels} stack levels, the "
                          f"bvh_walk kernel holds {BVH_STACK}")
+    ids = count = None
+    if live is not None:
+        ids, count = live
+        check_live_list(ids, count, o.shape[0], o.device)
     if o.device.type != "cuda":
         raise ValueError(f"the bvh_walk kernel runs on CUDA tensors, got {o.device}; "
                          "nearest_hit_bvh is the plain walk")
@@ -301,5 +311,19 @@ def nearest_hit_bvh_kernel(prims: ScenePrims, o: torch.Tensor, d: torch.Tensor, 
         kernels.launch("bvh_walk", noderow.data_ptr(), leafpack.data_ptr(), noderow.shape[0],
                        leafpack.shape[0], max_leaf, ptr(0), ptr(1), ptr(2), prims.num_spheres,
                        prims.num_planes, o.data_ptr(), d.data_ptr(), t.data_ptr(),
-                       idx.data_ptr(), n_rays, n_levels, float(t_min))
+                       idx.data_ptr(), None if ids is None else ids.data_ptr(),
+                       None if count is None else count.data_ptr(), n_rays, n_levels,
+                       float(t_min))
     return t, idx
+
+
+def check_live_list(ids: torch.Tensor, count: torch.Tensor, n_rays: int, device) -> None:
+    """Raise unless (ids, count) is a live-id list for ``n_rays`` rays on
+    ``device``: ids contiguous int32 [n_rays], count int32 [1]."""
+    for name, x, shape in (("ids", ids, (n_rays,)), ("count", count, (1,))):
+        if (not isinstance(x, torch.Tensor) or x.dtype != torch.int32 or x.device != device
+                or tuple(x.shape) != shape or not x.is_contiguous()):
+            got = (f"{x.dtype} {tuple(x.shape)} on {x.device}" if isinstance(x, torch.Tensor)
+                   else type(x).__name__)
+            raise ValueError(f"a live-id list's {name} must be contiguous int32 {shape} on "
+                             f"{device}, got {got}")

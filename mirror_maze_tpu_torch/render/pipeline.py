@@ -127,17 +127,24 @@ def scene_nearest_fn(scene: DeviceScene, cfg: EngineConfig, max_depth: int | Non
 def make_nearest_fn(scene: DeviceScene, cfg: EngineConfig, max_depth: int,
                     max_leaf: int) -> Callable:
     """The nearest-hit backend of ``cfg.intersector`` over the scene's
-    scene-order view: ``fn(o, d) -> (t, idx)``. For ``bvh`` the packed
-    traversal tables are built here, once, and the walk is the ``bvh_walk``
-    kernel where the scene is on a CUDA device, the plain walk elsewhere."""
+    scene-order view: ``fn(o, d, live=None) -> (t, idx)``. For ``bvh`` the
+    packed traversal tables are built here, once, and the walk is the
+    ``bvh_walk`` kernel where the scene is on a CUDA device, which walks only
+    the rays of ``live = (ids, count)`` when trace_paths passes that list;
+    elsewhere it is the plain walk. The dense backends, and the plain walk,
+    test every ray whatever ``live`` says (the rays not listed are never
+    read)."""
     prims, t_min = scene.prims, cfg.tracer.t_min
     if cfg.intersector == "bvh":
         tables = bvh_tables(prims, max_leaf)
-        walk = nearest_hit_bvh_kernel if prims.normal.device.type == "cuda" else nearest_hit_bvh
-        return lambda o, d: walk(prims, o, d, t_min, max_depth, max_leaf, tables=tables)
+        if prims.normal.device.type == "cuda":
+            return lambda o, d, live=None: nearest_hit_bvh_kernel(
+                prims, o, d, t_min, max_depth, max_leaf, tables=tables, live=live)
+        return lambda o, d, live=None: nearest_hit_bvh(prims, o, d, t_min, max_depth, max_leaf,
+                                                       tables=tables)
     if cfg.intersector == "exact":
-        return lambda o, d: nearest_hit_exact(prims, o, d, t_min)
-    return lambda o, d: nearest_hit_brute(prims, o, d, t_min)
+        return lambda o, d, live=None: nearest_hit_exact(prims, o, d, t_min)
+    return lambda o, d, live=None: nearest_hit_brute(prims, o, d, t_min)
 
 
 def render_pixels(

@@ -166,7 +166,8 @@ def check_case(case: SoakCase, device) -> dict:
     ok = all(b == 1.0 for b in bitwise.values()) and agree >= GATE
     return dict(seed=case.seed, n=case.n, s=case.s, rows=case.rows, geometry=geometry,
                 walked_tiles=sum(t for _, _, t in scene.group_meta if t > 1),
-                bitwise=bitwise, agree=agree, max=float(per_ray.max()), ok=ok)
+                segments=case.cfg.max_segments, bitwise=bitwise, agree=agree,
+                max=float(per_ray.max()), ok=ok)
 
 
 def format_record(rec: dict) -> str:

@@ -425,3 +425,275 @@ def eager_multiplayer_step(cfg, dev, slots, others, bounds):
         return base(scene, state, inputs)
 
     return step
+
+
+# The jnp tracer's segment (render/tracer.py): the loop as it was before its
+# body became shade_segment_plain, and the shade kernel held against that
+# plain version segment by segment.
+
+
+def _pow5(x):
+    x2 = x * x
+    return x * (x2 * x2)
+
+
+def parent_trace_paths(prims, ori, dirs, key, cfg, nearest_fn=None, seed_row=None):
+    """render/tracer.py trace_paths as it was before its segment body became
+    shade_segment_plain (every ray walked and shaded in torch ops each
+    segment), kept verbatim: the reference of the CPU loop and, on the card,
+    of the kernel route."""
+    from mirror_maze_tpu_torch.device import constant
+    from mirror_maze_tpu_torch.ops import prng
+    from mirror_maze_tpu_torch.ops.sampling import unit_sphere
+    from mirror_maze_tpu_torch.ops.vecmath import dot, normalize, reflect, sqrt
+    from mirror_maze_tpu_torch.render.intersect import BIG, nearest_hit_brute
+
+    if nearest_fn is None:
+        nearest_fn = lambda o, d: nearest_hit_brute(prims, o, d, cfg.t_min)  # noqa: E731
+    n_rays = ori.shape[0]
+    dev = ori.device
+    sky = constant(tuple(cfg.sky_color), torch.float32, dev)
+    ray_keys = None
+    if seed_row is not None:
+        seed_ints = (seed_row * float(1 << 24)).to(torch.int32)
+        idx_ints = torch.arange(n_rays, dtype=torch.int32, device=dev)
+        ray_keys = prng.fold_in(prng.fold_in(key, idx_ints), seed_ints)
+
+    n_planes, n_sph = prims.num_planes, prims.num_spheres
+    if n_sph:
+        albedo_all = torch.cat([prims.color, prims.sph_color])
+        em_all = torch.cat([prims.emission, prims.sph_emission])
+        mir_all = torch.cat([prims.is_mirror, prims.sph_is_mirror])
+    has_tex = prims.tex is not None
+    if has_tex:
+        tex_all = torch.cat([prims.tex, prims.sph_tex]) if n_sph else prims.tex
+    has_glass = prims.ior is not None or prims.sph_ior is not None
+    if has_glass:
+        ior_p = prims.ior if prims.ior is not None else torch.zeros(
+            n_planes, dtype=torch.float32, device=dev)
+        ior_all = ior_p
+        if n_sph:
+            ior_s = prims.sph_ior if prims.sph_ior is not None else torch.zeros(
+                n_sph, dtype=torch.float32, device=dev)
+            ior_all = torch.cat([ior_p, ior_s])
+
+    o, d = ori, dirs
+    thr = torch.ones((n_rays, 3), dtype=torch.float32, device=dev)
+    light = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
+    mh = torch.zeros((n_rays,), dtype=torch.int32, device=dev)
+    dc = torch.zeros((n_rays,), dtype=torch.int32, device=dev)
+    alive = torch.ones((n_rays,), dtype=torch.bool, device=dev)
+    for it in range(cfg.max_segments):
+        t, idx = nearest_fn(o, d)
+        hit = alive & (t < BIG)
+        ix = idx.long()
+        if n_sph:
+            albedo, em, mir = albedo_all[ix], em_all[ix], mir_all[ix]
+            si = ix - n_planes
+            is_s = si >= 0
+            sc = prims.sph_center[si.clamp(0, n_sph - 1)]
+            inv_r = prims.sph_inv_r[si.clamp(0, n_sph - 1)]
+            hit_p = o + d * t[:, None]
+            n = torch.where(is_s[:, None], (hit_p - sc) * inv_r[:, None],
+                            prims.normal[ix.clamp(max=n_planes - 1)])
+        else:
+            n, albedo = prims.normal[ix], prims.color[ix]
+            em, mir = prims.emission[ix], prims.is_mirror[ix]
+        if has_tex:
+            tx = tex_all[ix]
+            tk, tsc, c2 = tx[:, 0], tx[:, 1], tx[:, 2:5]
+            hit_t = o + d * t[:, None]
+            pidx = ix.clamp(max=n_planes - 1)
+            s1t = dot(hit_t, prims.w1[pidx]) - prims.b1[pidx]
+            s2t = dot(hit_t, prims.w2[pidx]) - prims.b2[pidx]
+            f1 = torch.floor(s1t * tsc) + torch.floor(s2t * tsc)
+            f2 = ((torch.floor(hit_t[:, 0] / tsc) + torch.floor(hit_t[:, 1] / tsc))
+                  + torch.floor(hit_t[:, 2] / tsc))
+            f = torch.where(tk > 1.5, f2, f1)
+            odd = (f - 2.0 * torch.floor(f * 0.5)) > 0.5
+            albedo = torch.where(((tk > 0.0) & odd)[:, None], c2, albedo)
+
+        side = -torch.sign(dot(d, n))
+        diffuse = hit & (~mir | (side == -1.0))
+        mirror = hit & mir & (side != -1.0)
+        if has_glass:
+            glass = hit & (ior_all[ix] > 0.0)
+            diffuse = diffuse & ~glass
+            mirror = mirror & ~glass
+            spec = mirror | glass
+        else:
+            spec = mirror
+        mh_new = mh + spec.to(torch.int32)
+        mirror_live = mirror & (mh_new < cfg.mirror_limit)
+        advance = diffuse | mirror_live
+        if has_glass:
+            glass_live = glass & (mh_new < cfg.mirror_limit)
+            advance = advance | glass_live
+
+        if ray_keys is None:
+            rnd = unit_sphere(prng.fold_in(key, it), (n_rays,))
+        else:
+            it_keys = prng.fold_in(ray_keys, it)
+            rnd = unit_sphere(it_keys, ())
+        scat = normalize(rnd + n * side[:, None])
+        light = torch.where(diffuse[:, None], light + em[:, :3] * em[:, 3:4] * thr, light)
+        thr = torch.where(diffuse[:, None], thr * albedo, thr)
+
+        light = torch.where(mirror_live[:, None], light + albedo * cfg.mirror_tint, light)
+        refl = normalize(reflect(d, n))
+
+        if has_glass:
+            ior_r = ior_all[ix]
+            dhat = normalize(d)
+            n_eff = n * side[:, None]
+            cos_i = torch.clamp(-dot(dhat, n_eff), 0.0, 1.0)
+            eta = torch.where(side > 0.0, 1.0 / torch.clamp_min(ior_r, 1e-6), ior_r)
+            sin2t = eta * eta * (1.0 - cos_i * cos_i)
+            tir = sin2t > 1.0
+            if cfg.fresnel:
+                q = (1.0 - eta) / (1.0 + eta)
+                r0 = q * q
+                reflect_p = torch.where(tir, 1.0, r0 + (1.0 - r0) * _pow5(1.0 - cos_i))
+                if ray_keys is None:
+                    u3 = prng.uniform(prng.fold_in(prng.fold_in(key, it), 1), (n_rays,))
+                else:
+                    u3 = prng.uniform(prng.fold_in(it_keys, 1), ())
+                do_refl = u3 < reflect_p
+            else:
+                do_refl = tir
+            refr = (eta[:, None] * dhat
+                    + (eta * cos_i - sqrt(torch.clamp_min(1.0 - sin2t, 0.0)))[:, None]
+                    * n_eff)
+            gdir = normalize(torch.where(do_refl[:, None], reflect(dhat, n), refr))
+            thr = torch.where(glass_live[:, None], thr * albedo, thr)
+
+        miss = alive & ~hit
+        fall = torch.pow(cfg.lighting_factor, (it - mh).to(torch.float32))
+        sky_term = sky * fall[:, None] * cfg.sky_strength
+        light = torch.where(miss[:, None], light + sky_term, light)
+
+        o = torch.where(advance[:, None], o + d * t[:, None], o)
+        d = torch.where(diffuse[:, None], scat, torch.where(mirror_live[:, None], refl, d))
+        if has_glass:
+            d = torch.where(glass_live[:, None], gdir, d)
+        dc = dc + diffuse.to(torch.int32)
+        mh = mh_new
+        alive = (alive & ~miss & ~(spec & (mh_new >= cfg.mirror_limit))
+                 & (dc < cfg.bounce_limit))
+    return light
+
+
+def bits(x: torch.Tensor) -> torch.Tensor:
+    """x as comparable bits: float32 viewed as int32, anything else as is."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def shade_segments(prims, cfg, ori, dirs, key, nearest_fn, seed_row=None, before=None):
+    """The bounce loop on the card with the shade kernel, each segment also
+    through ``shade_segment_plain`` on the same inputs (the nearest hits of
+    every ray, ``nearest_fn(o, d)``; the segment's draws): per segment a dict
+    of the rays alive before and after, the kernel's live count, the rays
+    whose ``PathState`` fields differ from the plain version's (by field),
+    and whether the kernel's live-id list holds exactly the live rays.
+    ``before(it, state, t, idx, g, u3)`` is called ahead of each launch
+    (which then updates the state in place). Returns (records, state)."""
+    from mirror_maze_tpu_torch.render.tracer import (
+        PathState,
+        has_glass,
+        path_start,
+        seed_row_keys,
+        segment_draws,
+        shade_segment_kernel,
+        shade_segment_plain,
+    )
+
+    n_rays, dev = ori.shape[0], ori.device
+    ray_keys = None if seed_row is None else seed_row_keys(key, seed_row)
+    fresnel = has_glass(prims) and cfg.fresnel
+    st = path_start(ori, dirs)
+    ids = torch.empty((n_rays,), dtype=torch.int32, device=dev)
+    records = []
+    for it in range(cfg.max_segments):
+        t, idx = nearest_fn(st.o, st.d)
+        g, u3 = segment_draws(key, ray_keys, it, n_rays, fresnel)
+        want = shade_segment_plain(prims, cfg, st, t, idx, g, u3, it)
+        live_in = int(st.alive.sum())
+        if before is not None:
+            before(it, st, t, idx, g, u3)
+        count = torch.zeros((1,), dtype=torch.int32, device=dev)
+        st = shade_segment_kernel(prims, cfg, st, t, idx, g, u3, it, live_out=(ids, count))
+        n_live = int(count)
+        listed = torch.sort(ids[:min(n_live, n_rays)]).values
+        diff = {f: int((bits(getattr(st, f)) != bits(getattr(want, f))).reshape(n_rays, -1)
+                       .any(dim=1).sum()) for f in PathState._fields}
+        records.append(dict(segment=it, live_in=live_in, live_out=int(want.alive.sum()),
+                            count=n_live, diff={f: v for f, v in diff.items() if v},
+                            ids=torch.equal(listed, torch.nonzero(want.alive)[:, 0].int())))
+    return records, st
+
+
+def shade_records_ok(records) -> bool:
+    """Every segment bitwise the plain version, its live count and list
+    right."""
+    return all(not r["diff"] and r["count"] == r["live_out"] and r["ids"] for r in records)
+
+
+def edge_segment(prims, n_rays: int, device):
+    """A segment's inputs whose dots meet torch.sign's and torch.clamp's
+    edges, beside random rays: (state, t, idx, g) with every ray alive and a
+    hit on plane 0 (axis-aligned) at t = 1, the directions along plane 0
+    (d.n = +0), along it with every product -0 (d.n = -0), NaN, and random;
+    g random normals."""
+    from mirror_maze_tpu_torch.render.tracer import path_start
+
+    gen = torch.Generator().manual_seed(13)
+    normal = prims.normal[0].cpu()
+    axis = int(normal.abs().argmax())
+    if float(normal.abs().max()) != 1.0 or int((normal != 0).sum()) != 1:
+        raise ValueError("edge_segment needs an axis-aligned plane 0")
+    d = torch.randn((n_rays, 3), generator=gen)
+    d = d / d.norm(dim=1, keepdim=True)
+    along = torch.ones(3)
+    along[axis] = 0.0
+    d[0::4] = along / along.norm()
+    neg = -along / along.norm()
+    neg[axis] = -0.0 if float(normal[axis]) > 0 else 0.0
+    d[1::4] = neg
+    d[2::4, 0] = float("nan")
+    o = torch.rand((n_rays, 3), generator=gen)
+    st = path_start(o.to(device), d.to(device))
+    t = torch.ones((n_rays,), device=device)
+    idx = torch.zeros((n_rays,), dtype=torch.int32, device=device)
+    g = torch.randn((n_rays, 3), generator=gen).to(device)
+    return st, t, idx, g
+
+
+def frame1_rays(cfg, scene, with_key: bool = False):
+    """(ori, dirs) of frame 1 of an idle start: the step's window (Morton
+    sorted where the configuration sorts it), camera and key; with
+    ``with_key`` also the key the frame's tracer draws from."""
+    ori, dirs, tkey, _ = frame1_inputs(cfg, scene)
+    return (ori, dirs, tkey) if with_key else (ori, dirs)
+
+
+def frame1_inputs(cfg, scene):
+    """``frame1_rays``' rays and key, and the seed row of a configuration
+    with ``noise_rng`` (else None): (ori, dirs, key, seed_row)."""
+    from mirror_maze_tpu_torch.ops import prng
+    from mirror_maze_tpu_torch.render.pipeline import camera_rays
+    from mirror_maze_tpu_torch.render.scheduler import (
+        chunk_origin_xy,
+        chunk_pixels,
+        sort_window_morton,
+        take_chunks,
+    )
+    from mirror_maze_tpu_torch.runtime.state import init_state
+
+    sc = cfg.screen
+    st = init_state(cfg, device=scene.planes.device)
+    ids, _ = take_chunks(st.perm, st.cursor, sc.effective_chunks_per_frame)
+    if sc.sort_chunk_window:
+        ids = sort_window_morton(ids, sc)
+    pixels = chunk_pixels(chunk_origin_xy(ids, sc), sc.chunk_width)
+    _, key = prng.split(st.key)
+    return camera_rays(st.camera(cfg), pixels, prng.fold_in(key, 1), cfg, scene.noise)

@@ -658,7 +658,8 @@ def test_graph_step_is_bitwise_the_eager_step(cuda_device, intersector):
     """The golden script through make_scan_step (a graph per input kind, the
     first frame of each kind eager) against the eager loop: every state
     field and the frame bitwise; one tracer and one present launch a frame,
-    and with bvh one walk kernel launch a segment."""
+    with a jnp backend one shade launch a segment, and with bvh one walk
+    kernel launch a segment."""
     cfg = golden_config().replace(intersector=intersector)
     script = golden_script(FrameInputs)
     st, frame, est, eframe, graphs, counts = _graph_vs_eager(cuda_device, cfg, script)
@@ -668,6 +669,8 @@ def test_graph_step_is_bitwise_the_eager_step(cuda_device, intersector):
     want = {"present": len(script)}
     if intersector == "pallas":
         want["tracer"] = len(script)
+    else:
+        want["shade"] = len(script) * cfg.tracer.max_segments
     if intersector == "bvh":
         want["bvh_walk"] = len(script) * cfg.tracer.max_segments
     assert _prng_free(counts) == want
@@ -934,6 +937,7 @@ def test_graph_band_engine_with_the_bvh_walk(cuda_device):
     assert torch.equal(frame, eframe)
     assert graphs.kinds == (False, True) and graphs.replays == len(script) - 2
     assert _prng_free(counts) == {"bvh_walk": 2 * len(script) * cfg.tracer.max_segments,
+                                  "shade": 2 * len(script) * cfg.tracer.max_segments,
                                   "present_halo": 2 * len(script)}
     assert counts["threefry_normal"] >= len(script) * cfg.tracer.max_segments
 
@@ -1115,3 +1119,122 @@ def test_threefry_in_a_graph_reads_the_key_and_data_on_every_replay(cuda_device)
         want = body(key.cpu(), frame.cpu())
         for got, w in zip(outs, want):
             assert _same_bits(got.cpu(), w), (words, f)
+
+
+# The shade kernel (csrc/shade.cu): name -> (scene, tracer settings, seed
+# row), each stage of the kernel on rays from inside the scene.
+SHADE_SETS = {
+    "maze": ("maze", {}, False),
+    "spheres": ("cornell-spheres", {}, False),
+    "glass": ("spheres", dict(fresnel=True), False),
+    "glass-no-fresnel": ("spheres", dict(fresnel=False), False),
+    "textured": ("textured", {}, False),
+    "seed_row": ("maze", {}, True),
+    "sky": ("maze", dict(sky_strength=0.7), False),
+}
+
+
+def _shade_case(name, device):
+    """(prims, tracer config, o, d, seed row or None, backend) of a set."""
+    from mirror_maze_tpu_torch.render.pipeline import scene_nearest_fn
+
+    kind, extra, use_row = SHADE_SETS[name]
+    scene = {"cornell-spheres": lambda: cornell_scene("spheres"),
+             "textured": lambda: textured_cornell("blocks")}.get(kind, lambda: intersect_scene(kind))()
+    o, d = (torch.from_numpy(x).to(device) for x in scene_rays(scene, 4096, seed=4))
+    row = torch.rand(4096, generator=torch.Generator().manual_seed(4)).to(device)
+    cfg = P.EngineConfig(tracer=TracerConfig(bounce_limit=3, mirror_limit=3, **extra)).replace(
+        intersector="bvh")
+    dev = upload_scene(scene, device=device)
+    return dev.prims, cfg.tracer, o, d, (row if use_row else None), scene_nearest_fn(dev, cfg)
+
+
+@pytest.mark.parametrize("name", list(SHADE_SETS))
+def test_shade_kernel_matches_plain_bitwise(cuda_device, name):
+    """Every segment of the loop: the kernel's state (o, d, thr, light, mh,
+    dc, alive) bitwise shade_segment_plain's on the same inputs, its live
+    count and id list the live rays; one launch a segment."""
+    from _torch_tools import shade_records_ok, shade_segments
+    from mirror_maze_tpu_torch.ops import prng
+
+    prims, tc, o, d, row, nearest = _shade_case(name, cuda_device)
+    before = kernels.launches["shade"]
+    records, st = shade_segments(prims, tc, o, d, prng.PRNGKey(11, device=cuda_device), nearest,
+                                 seed_row=row)
+    assert kernels.launches["shade"] == before + tc.max_segments
+    assert shade_records_ok(records), records
+    assert records[-1]["live_out"] < records[0]["live_in"] and float(st.light.mean()) > 0
+
+
+def test_shade_kernel_on_the_sign_and_clamp_edges(cuda_device):
+    """Directions along the hit plane (d.n = +0 and -0) and NaN ones, in the
+    glass instance with Fresnel: bitwise the plain version on the card (side
+    is -sign(d.n), 0 for +-0 and NaN as torch.sign has it)."""
+    from _torch_tools import bits, edge_segment
+    from mirror_maze_tpu_torch.ops import prng
+    from mirror_maze_tpu_torch.render.tracer import (
+        PathState,
+        shade_segment_kernel,
+        shade_segment_plain,
+    )
+
+    prims = upload_scene(intersect_scene("spheres"), device=cuda_device).prims
+    tc = TracerConfig(bounce_limit=3, mirror_limit=3, fresnel=True, sky_strength=0.5)
+    st, t, idx, g = edge_segment(prims, 4096, cuda_device)
+    u3 = prng.uniform(prng.PRNGKey(2, device=cuda_device), (4096,))
+    want = shade_segment_plain(prims, tc, st, t, idx, g, u3, 1)
+    got = shade_segment_kernel(prims, tc, st, t, idx, g, u3, 1)
+    for f in PathState._fields:
+        assert torch.equal(bits(getattr(got, f)), bits(getattr(want, f))), f
+
+
+@pytest.mark.parametrize("name", ["maze", "spheres"])
+def test_bvh_walk_kernel_walks_only_the_listed_rays(cuda_device, name):
+    """With a live-id list the walk's t and idx on the listed rays are those
+    of the walk of every ray, whatever their order; an empty list walks
+    nothing; one launch a call either way."""
+    from mirror_maze_tpu_torch.render import intersect
+    from mirror_maze_tpu_torch.scene.bvh import traversal_bounds
+
+    scene = intersect_scene(name)
+    o, d = (torch.from_numpy(x).to(cuda_device) for x in scene_rays(scene, 8192, seed=23))
+    p = upload_scene(scene, device=cuda_device).prims
+    depth, leaf = traversal_bounds(p.bvh_left_first.cpu().numpy(), p.bvh_count.cpu().numpy())
+    full_t, full_i = intersect.nearest_hit_bvh_kernel(p, o, d, 0.1, depth, leaf)
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randperm(8192, generator=gen).int().to(cuda_device)
+    for n in (0, 1, 1000, 8192):
+        count = torch.tensor([n], dtype=torch.int32, device=cuda_device)
+        before = kernels.launches["bvh_walk"]
+        t, i = intersect.nearest_hit_bvh_kernel(p, o, d, 0.1, depth, leaf, live=(ids, count))
+        assert kernels.launches["bvh_walk"] == before + 1
+        sel = ids[:n].long()
+        assert torch.equal(t[sel].view(torch.int32), full_t[sel].view(torch.int32))
+        assert torch.equal(i[sel], full_i[sel])
+
+
+def test_trace_paths_on_the_card_is_the_parents(cuda_device):
+    """config_bvh's frame 1 through trace_paths on the card (the shade
+    kernel, the walk of the live rays from the second segment on): bitwise
+    the loop that walks and shades every ray in torch ops, and the CPU's
+    trace_paths; one walk, one shade and one normal draw a segment."""
+    from _torch_tools import frame1_rays, parent_trace_paths
+    from mirror_maze_tpu_torch.render.pipeline import scene_nearest_fn
+    from mirror_maze_tpu_torch.render.tracer import trace_paths
+
+    cfg = P.NAMED_CONFIGS["bvh"]().replace(intersector="bvh")
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    ori, dirs, key = frame1_rays(cfg, scene, with_key=True)
+    nearest = scene_nearest_fn(scene, cfg)
+    kernels.reset_launches()
+    got = trace_paths(scene.prims, ori, dirs, key, cfg.tracer, nearest)
+    counts = dict(kernels.launches)
+    segs = cfg.tracer.max_segments
+    assert {k: counts.get(k) for k in ("shade", "bvh_walk", "threefry_normal")} == dict(
+        shade=segs, bvh_walk=segs, threefry_normal=segs)
+    want = parent_trace_paths(scene.prims, ori, dirs, key, cfg.tracer, nearest)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    cpu = upload_scene(build_scene(cfg.maze), device="cpu")
+    on_cpu = trace_paths(cpu.prims, ori.cpu(), dirs.cpu(), key.cpu(), cfg.tracer,
+                         scene_nearest_fn(cpu, cfg))
+    assert torch.equal(got.cpu().view(torch.int32), on_cpu.view(torch.int32))
