@@ -5,12 +5,17 @@
 
 Builds the hand-written kernels from ``mirror_maze_tpu_torch/csrc`` (nvcc,
 sm_90a: the tracer's four libraries, with and without the texture stage and
-the diagnostics, the present, the BVH walk, the threefry draws and the jnp
-tracer's segment, ``shade``), holds
+the diagnostics, the present, the BVH walk, the threefry draws, the jnp
+tracer's segment, ``shade``, and the step's glue, ``frame_setup``,
+``camera_rays`` and ``resolve``), holds
 each against its plain PyTorch version on the card at the shapes of every
 path it drives (``[threefry]``: every draw of ops/prng.py bitwise, in every
 output, on the main path's jitter draw and the jnp tracer's, and erf_inv
-beside ``torch.special.erfinv``), checks the
+beside ``torch.special.erfinv``; ``[frame-glue]``: the three glue kernels
+bitwise on every buffer they write, on [main]'s frame 1, a walk into a wall
+and a free one, a turning frame, config_scale's frame 1 (a window of 8,040
+ids), [bands]' second band (row0 540), config_fuzzy's frame 1 (the seed
+row), config_v0 and config_bvh through the jnp tracer), checks the
 engine's scripted run against the committed golden frame, and drives four
 configurations at full width through ``make_scan_step``:
 
@@ -169,22 +174,29 @@ phase with its seconds:
   in-process render, and the multiplayer demo (3 players, 24 frames): every
   process exits 0, the GIF has 6 frames, each walker ends past its spawn.
 
-Every phase prints one line; any failure exits non-zero. Every draw
-launches the threefry kernel: each phase checks the other kernels' launch
-counts as it did, and that the draws went through the kernel (the engine
-paths and ``[graph]`` their exact count, ``step_draws``). The last two lines
+Every phase prints one line; any failure exits non-zero. Every phase checks
+its kernels' launch counts: a frame stepped launches one ``frame_setup``,
+one ``camera_rays`` and one ``resolve`` (a block of rows of an offline
+render one ``camera_rays`` and one ``resolve``). A draw of ops/prng.py
+launches the threefry kernel; the frame's keys and the jitter are drawn
+inside the two glue launches, so a phase that ran on the card launched a
+drawing kernel, and the engine paths and ``[graph]`` check the threefry
+kernel's exact count (``step_draws``: the thin lens and the turning
+frames). The last two lines
 are the ``{"kernels": [...]}`` summary (one row per kernel and path, every
 number measured or, for ``bound_ms``, computed in this run; the walk
 kernel's rows ``bvh_walk``, ``bvh_walk@interactive``, ``bvh_walk@bounce``,
 ``bvh_walk@live`` and ``bvh_walk@scale``, the threefry kernel's
 ``threefry@jitter``, ``threefry@normal`` and ``threefry@erfinv``, the last
-with ``torch.special.erfinv``'s time as ``library_ms``, and
-``shade@interactive``) and ``{"ok": true, "device": {...}}``. Every jnp
+with ``torch.special.erfinv``'s time as ``library_ms``,
+``shade@interactive``, and the glue's ``frame_setup``, ``camera_rays``,
+``camera_rays@scale``, ``resolve`` and ``resolve@scale``) and ``{"ok": true, "device": {...}}``. Every jnp
 path on the card launches the shade kernel once a segment, and each
 phase checks that count.
 
-``python3 chip_smoke.py --kernels-of DIR`` runs only ``[bvh-kernel]`` and
-``[threefry]`` (their checks included), on the port in DIR: a ``git
+``python3 chip_smoke.py --kernels-of DIR`` runs only ``[bvh-kernel]``,
+``[threefry]`` and, where the port has the glue kernels, ``[frame-glue]``
+(their checks included), on the port in DIR: a ``git
 archive`` of another commit unpacked there is timed on the same inputs by
 the same method, so two commits compare within one call. It prints one
 JSON line of the rows (ms, plain ms, bound) and the card's line.
@@ -241,6 +253,14 @@ REPLACES = {
     # which XLA fuses under jit; no pallas_call.
     "shade": "mirror_maze_tpu/render/tracer.py:115 (body of trace_paths' "
              "jax.lax.fori_loop; no pallas_call)",
+    # The step's glue around the two pallas_calls, which XLA fuses under jit.
+    "frame_setup": "mirror_maze_tpu/runtime/step.py:159-182 (take_chunks, sort_window_morton, "
+                   "integrate_movement, resolve_collision and the key chain of the jitted "
+                   "step; no pallas_call)",
+    "camera_rays": "mirror_maze_tpu/render/pipeline.py:70-75 (ray_directions, ray_jitter and "
+                   "the ori broadcast under jit; no pallas_call)",
+    "resolve": "mirror_maze_tpu/render/pipeline.py:128-129 + runtime/step.py:188 (tone_map, "
+               "jnp.mean and scatter_chunk_rows under jit; no pallas_call)",
 }
 SOURCES = {
     "tracer": "mirror_maze_tpu_torch/csrc/tracer.cu",
@@ -248,6 +268,9 @@ SOURCES = {
     "bvh_walk": "mirror_maze_tpu_torch/csrc/bvh_walk.cu",
     "threefry": "mirror_maze_tpu_torch/csrc/threefry.cu",
     "shade": "mirror_maze_tpu_torch/csrc/shade.cu",
+    "frame_setup": "mirror_maze_tpu_torch/csrc/frame_setup.cu",
+    "camera_rays": "mirror_maze_tpu_torch/csrc/camera_rays.cu",
+    "resolve": "mirror_maze_tpu_torch/csrc/resolve.cu",
 }
 
 # The driven paths' scripts: idle, walking, turning, idle frames.
@@ -316,29 +339,50 @@ def others(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if not k.startswith("threefry")}
 
 
+# The kernels that draw jax.random's numbers: the threefry kernel, and since
+# the glue kernels the frame's keys (frame_setup) and the jitter
+# (camera_rays), each hashed inside its own launch.
+DRAWING = ("threefry", "frame_setup", "camera_rays")
+
+
 def holds(counts, want: dict, draws: bool) -> bool:
     """``counts`` (a phase's launches) are ``want`` for every kernel but the
-    threefry kernel, which was launched if and only if ``draws`` (the phase
-    ran on the card)."""
+    threefry kernel, and a kernel that draws (``DRAWING``) was launched if
+    and only if ``draws`` (the phase ran on the card)."""
     if counts is None:
         return False
-    drew = any(v > 0 for k, v in counts.items() if k.startswith("threefry"))
+    drew = any(v > 0 for k, v in counts.items() if k.startswith(DRAWING))
     return others(counts) == want and drew == draws
+
+
+def glue(frames: int = 0, renders: int = 0) -> dict:
+    """The glue kernels' launches (runtime/step.py frame_setup,
+    render/frame_glue.py camera_rays and resolve): one of each a frame
+    stepped (a band's frame counts as one), and one camera_rays and one
+    resolve a render_pixels call (a block of rows of render_full_frame, a
+    tile of the sharded renderer); the kernels with no launch left out."""
+    counts = {"frame_setup": frames, "camera_rays": frames + renders,
+              "resolve": frames + renders}
+    return {k: v for k, v in counts.items() if v}
 
 
 def step_draws(cfg, inputs) -> dict:
     """The threefry launches of the single engine's fused-tracer step over
-    ``inputs`` (runtime/step.py, render/pipeline.py): a frame's rotation
-    split, its fold_in, the camera split, randint's split and two bit draws,
-    and the jitter (``threefry_uniform``); the thin lens adds a fold_in and
-    a uniform, and a rotating frame the permutation's split and bit draw a
-    round."""
+    ``inputs`` (runtime/step.py, render/pipeline.py): the frame's keys and
+    seed are drawn inside the frame_setup launch and the jitter inside the
+    camera_rays launch, so only the thin lens (a fold_in and a uniform a
+    frame) and a rotating frame (the permutation's split and bit draw a
+    round) launch it."""
     from mirror_maze_tpu_torch.ops.prng import permutation_rounds
 
     n, lens = len(inputs), cfg.camera.aperture > 0.0
     turns = sum(bool(inp.rot_updated) for inp in inputs)
-    return {"threefry": (6 + lens) * n + 2 * permutation_rounds(cfg.screen.total_chunks) * turns,
-            "threefry_uniform": (1 + lens) * n}
+    return {"threefry": lens * n + 2 * permutation_rounds(cfg.screen.total_chunks) * turns,
+            "threefry_uniform": lens * n}
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
 
 
 def states_bitwise(a, b) -> bool:
@@ -475,7 +519,8 @@ def graph_phase(dev, smi: str, cfg, scene) -> None:
         f"{one.capture_s:.3f} s, pool {one.pool_bytes / 2**20:.1f} MiB; checksum "
         f"{int(frame.to(torch.int64).sum())}; {time.perf_counter() - t0:.1f} s | {smi}")
     if not (same and same_step and same_eager
-            and counts == {"tracer": n, "present": n, **step_draws(cfg, inputs)}
+            and counts == {"tracer": n, "present": n, **glue(n),
+                           **nonzero(step_draws(cfg, inputs))}
             and replays == 1.0):
         raise SystemExit("[graph] FAIL")
 
@@ -959,6 +1004,112 @@ def threefry_phase(dev, smi: str, cfg) -> dict:
     return entries
 
 
+# [frame-glue]: the inputs the glue kernels are held on (tests/_torch_tools.py
+# glue_inputs): [main]'s frame 1, a W move into a wall and a free one, a
+# turning frame, config_scale's frame 1 (a window of 8,040 ids), [bands]'
+# second band (row0 540), config_fuzzy's frame 1 (the seed row), config_v0
+# (1 spp) and config_bvh (4 spp) through the jnp tracer.
+GLUE_INPUTS = ("interactive:frame1", "interactive:collide", "interactive:walk",
+               "interactive:turn", "scale:frame1", "bands:frame1", "fuzzy:frame1", "v0:frame1",
+               "bvh:frame1")
+GLUE_REPS = 20
+# frame_setup's integer operations for its bound: an id's Morton code and its
+# decode (two spreads, two compacts, the modulo and the division), a
+# compare-exchange of the sort (the compare and two selects), a leaf box's
+# test (six compares, five ands).
+SETUP_ID_OPS, SETUP_SORT_OPS, SETUP_LEAF_OPS = 40, 3, 11
+
+
+def frame_glue_phase(dev, smi: str) -> dict:
+    """[frame-glue]: frame_setup, camera_rays and resolve each bitwise its
+    plain version on every buffer it writes, on every input of GLUE_INPUTS;
+    then the rows ``frame_setup``, ``camera_rays``, ``camera_rays@scale``,
+    ``resolve`` and ``resolve@scale`` on [main]'s and config_scale's frame
+    1: ms a launch from CUDA events over graph-replayed launches, the plain
+    version's ms, the bound. Returns the rows' entries."""
+    import math
+
+    import torch
+
+    from _torch_tools import frame_light, glue_check, glue_inputs
+    from mirror_maze_tpu_torch.render import frame_glue
+    from mirror_maze_tpu_torch.runtime import step
+    from time_present import HBM_BYTES_PER_S, time_ms
+
+    for name in GLUE_INPUTS:
+        t0 = time.perf_counter()
+        cfg, scene, state, row, grid, row0, nearest = glue_inputs(name, dev)
+        out = glue_check(cfg, scene, state, row, grid, row0, nearest)
+        sc = cfg.screen
+        rays = grid.effective_chunks_per_frame * sc.pixels_per_chunk * sc.samples_per_pixel
+        bad = {k: v for k, v in out.items() if v}
+        log(f"[frame-glue] {name}: {sc.width}x{sc.height} {sc.samples_per_pixel} spp, "
+            f"intersector {cfg.intersector}, window of {grid.effective_chunks_per_frame} ids "
+            f"(sorted {sc.sort_chunk_window}, grid {grid.chunks_x}x{grid.chunks_y}, row0 {row0}), "
+            f"{rays} rays, input row {row.tolist()}: frame_setup, camera_rays and resolve "
+            f"bitwise their plain versions on {len(out)} buffers: {not bad}"
+            f"{'' if not bad else f' (elements differing {bad})'}; "
+            f"{time.perf_counter() - t0:.1f} s | {smi}")
+        if bad:
+            raise SystemExit(f"[frame-glue] FAIL: {name}: {bad}")
+        del cfg, scene, state, out
+        release()
+
+    entries = {}
+    for tag, name in (("", "interactive:frame1"), ("@scale", "scale:frame1")):
+        cfg, scene, state, row, grid, row0, nearest = glue_inputs(name, dev)
+        sc, spp = cfg.screen, cfg.screen.samples_per_pixel
+        n = grid.effective_chunks_per_frame
+        k = n * sc.pixels_per_chunk
+        r = k * spp
+        setup = step.frame_setup_plain(scene, cfg, state, row, n, grid)
+        cam = state._replace(cam_center=setup.center).camera(cfg)
+        win = frame_glue.Window(setup.ids, grid, row0)
+        rays = frame_glue.pinhole_rays_plain(cam, win, setup.jkey, cfg, scene.noise)
+        light = frame_light(cfg, scene, cam, rays, setup, nearest)
+        del rays
+        screen = state.screen.clone()
+        timed_fns = {
+            "camera_rays": (lambda: frame_glue.pinhole_rays_kernel(cam, win, setup.jkey, cfg,
+                                                                   scene.noise),
+                            lambda: frame_glue.pinhole_rays_plain(cam, win, setup.jkey, cfg,
+                                                                  scene.noise)),
+            "resolve": (lambda: frame_glue.resolve_kernel(light, spp, screen, setup.ids),
+                        lambda: frame_glue.resolve_plain(light, spp, state.screen, setup.ids)),
+        }
+        ids_bytes = 4 * n
+        bytes_of = {"camera_rays": 24 * r + ids_bytes + (4 * r if cfg.tracer.noise_rng else 0),
+                    "resolve": 12 * r + 12 * k + ids_bytes}
+        ops_of = {"camera_rays": 2 * r * THREEFRY_INT_OPS, "resolve": 0}
+        if not tag:
+            timed_fns["frame_setup"] = (
+                lambda: step.frame_setup_kernel(scene, cfg, state, row, n, grid),
+                lambda: step.frame_setup_plain(scene, cfg, state, row, n, grid))
+            width = 1 << max(0, (n - 1).bit_length())
+            levels = int(math.log2(width)) if width > 1 else 0
+            leaves = scene.leaf_min.shape[0]
+            bytes_of["frame_setup"] = 2 * ids_bytes + 24 * leaves + 96
+            ops_of["frame_setup"] = (9 * THREEFRY_INT_OPS + SETUP_ID_OPS * n
+                                     + SETUP_SORT_OPS * width * levels * (levels + 1) // 4
+                                     + SETUP_LEAF_OPS * leaves)
+        for kernel, (fn, plain) in timed_fns.items():
+            ms = time_ms(fn, GLUE_REPS, graph=True)
+            plain_ms = time_ms(plain, 3)
+            by_bytes = bytes_of[kernel] / HBM_BYTES_PER_S * 1e3
+            by_ops = ops_of[kernel] / INT32_OPS_PER_S * 1e3
+            bound_ms, by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+            entries[kernel + tag] = dict(kernel=kernel, lib=kernel, max_abs_err=0.0, ms=ms,
+                                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+            latency = " (latency-bound: one block)" if kernel == "frame_setup" else ""
+            log(f"[frame-glue] {kernel + tag} on {name} ({r} rays, {n} ids): kernel {ms:.5f} "
+                f"ms/launch replayed from a graph, plain version {plain_ms:.3f} ms; bound "
+                f"{bound_ms:.5f} ms by {by} (bytes {by_bytes:.5f}, int32 {by_ops:.5f}), share "
+                f"{bound_ms / ms:.1%}{latency} | {smi}")
+        del cfg, scene, state, setup, light, screen, timed_fns
+        release()
+    return entries
+
+
 # [shade]: the sets the shade kernel is held against shade_segment_plain on,
 # at every segment: name -> (configuration or Cornell box variant, tracer
 # changes). A configuration's set is its frame-1 rays (config_interactive's
@@ -1199,7 +1350,7 @@ def jnp_phases(dev, smi: str) -> dict:
         f"0.999), max diff {worst} (need <= 4); launches {counts}; "
         f"{time.perf_counter() - t0:.1f} s")
     if not (close > 0.999 and mean_diff <= 1e-4 and within > 0.999 and worst <= 4
-            and holds(counts, {"present": 28,
+            and holds(counts, {"present": 28, **glue(28, g_batches),
                                "shade": (g_batches + 28) * gcfg.tracer.max_segments}, True)):
         raise SystemExit("[golden-brute] FAIL")
 
@@ -1240,7 +1391,8 @@ def jnp_phases(dev, smi: str) -> dict:
         f"{graph_line(only_graphs(run.runner))}; {time.perf_counter() - t0:.1f} s | {smi}")
     if not (within > 0.999 and worst <= 4 and same_state and cam_diff <= 1e-6 and same
             and float(frame.float().mean()) > 0.1
-            and holds(counts, {"present": n, "shade": n * cfg.tracer.max_segments}, True)):
+            and holds(counts, {"present": n, "shade": n * cfg.tracer.max_segments, **glue(n)},
+                      True)):
         raise SystemExit("[v0] FAIL")
 
     # [bvh-kernel]: the walk kernel against the plain walk.
@@ -1275,7 +1427,7 @@ def jnp_phases(dev, smi: str) -> dict:
             bscene, init_state(cfg, seed=0, device=dev), inputs))
         same = states_bitwise(st, est) and torch.equal(frame, eframe)
         graphs = only_graphs(run.runner)
-        want = {"present": n, "shade": n * cfg.tracer.max_segments}
+        want = {"present": n, "shade": n * cfg.tracer.max_segments, **glue(n)}
         draws = {"threefry_normal": n * cfg.tracer.max_segments}
         walked = ""
         if backend == "bvh":
@@ -1322,7 +1474,7 @@ def jnp_phases(dev, smi: str) -> dict:
     eframe = shard.assemble_frame(shard.band_frames(est, shard._band_screen_cfg(cfg, 2)))
     same = states_bitwise(st, est) and torch.equal(frame, eframe)
     want = {"bvh_walk": 2 * n * cfg.tracer.max_segments, "present_halo": 2 * n,
-            "shade": 2 * n * cfg.tracer.max_segments}
+            "shade": 2 * n * cfg.tracer.max_segments, **glue(2 * n)}
     log(f"[bands-bvh] config_bvh scene as 2 bands on the one card, intersector bvh, {n} "
         f"frames: {ms / n:.1f} ms/frame, {replays / n:g} replays a frame, 0 host syncs a frame "
         f"(sync debug mode 'error'); eager band loop {eager_ms / n:.1f} ms/frame, graph == eager "
@@ -1355,7 +1507,7 @@ def jnp_phases(dev, smi: str) -> dict:
     sc = cfg.screen
     rays = sc.effective_chunks_per_frame * sc.pixels_per_chunk * sc.samples_per_pixel
     want = {"present": len(frames), "bvh_walk": len(frames) * cfg.tracer.max_segments,
-            "shade": len(frames) * cfg.tracer.max_segments}
+            "shade": len(frames) * cfg.tracer.max_segments, **glue(len(frames))}
     log(f"[scale-bvh] config_scale {sc.width}x{sc.height} {sc.samples_per_pixel} spp, intersector "
         f"bvh, {len(frames)} frames, {rays} rays/frame: "
         f"{ms / len(frames):.1f} ms/frame, {rays / (ms / len(frames)) / 1e3:.3f} Mrays/s, bounds "
@@ -1403,7 +1555,8 @@ def jnp_phases(dev, smi: str) -> dict:
                                          64, dev)))
     walks = batches * bench.validate_config().replace(intersector="bvh").tracer.max_segments
     ok = (np.isfinite(ref).all() and ref.max() > 0.0
-          and holds(counts, {"tracer": batches, "bvh_walk": walks, "shade": 3 * walks}, True))
+          and holds(counts, {"tracer": batches, "bvh_walk": walks, "shade": 3 * walks,
+                             **glue(renders=4 * batches)}, True))
     for backend in ("exact", "bvh", "pallas"):
         d = np.abs(frames[backend] - ref)
         stats = dict(max=float(d.max()), mean=float(d.mean()), p999=float(np.quantile(d, 0.999)),
@@ -1445,7 +1598,7 @@ def jnp_phases(dev, smi: str) -> dict:
         f"differ {differ}; launches {counts}; {time.perf_counter() - t0:.1f} s | {smi}")
     if not (host.shape == (n, osc.height, osc.width, 3) and np.array_equal(back, host[0])
             and gif_head == b"GIF89a" and differ and host.mean() > 1.0
-            and holds(counts, {"tracer": n * batches}, True)):
+            and holds(counts, {"tracer": n * batches, **glue(renders=n * batches)}, True)):
         raise SystemExit("[offline] FAIL")
 
     # [resume]: config_interactive, 8 frames, checkpoint, load onto the card,
@@ -1473,7 +1626,8 @@ def jnp_phases(dev, smi: str) -> dict:
         f"{len(inputs)} frames straight, bitwise: {same}; launches {counts}; "
         f"{time.perf_counter() - t0:.1f} s")
     total = 2 * len(inputs)
-    if not (loaded and same and holds(counts, {"tracer": total, "present": total}, True)):
+    if not (loaded and same
+            and holds(counts, {"tracer": total, "present": total, **glue(total)}, True)):
         raise SystemExit("[resume] FAIL")
     return {"walk": walk_entries, "shade": shade_entries, "launches": path_launches}
 
@@ -1606,10 +1760,11 @@ def driver_phases(dev, smi: str) -> None:
     tmp = tempfile.mkdtemp(prefix="mm_drivers_")
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
 
-    def want(n, **kw) -> dict:
+    def want(n, renders=0, **kw) -> dict:
         """The launches of n frames stepped: one tracer and one present each
-        (or the counts given), none on the CPU."""
-        counts = kw or {"tracer": n, "present": n}
+        (or the counts given) and the glue kernels' (``glue``, with
+        ``renders`` render_pixels calls), none on the CPU."""
+        counts = {**(kw or {"tracer": n, "present": n}), **glue(n, renders)}
         return {k: v for k, v in counts.items() if v} if on_card else {}
 
     def sync():
@@ -1669,7 +1824,7 @@ def driver_phases(dev, smi: str) -> None:
             f"process {t_in * 1e3:.1f} ms, {rays / t_in / 1e6:.1f} Mrays/s; launches "
             f"{sub_launches} / {counts} ({batches} row blocks) | {smi}")
         if not (same and img.mean() > 1.0 and sub_launches == counts
-                and holds(counts, want(1, tracer=batches), on_card)):
+                and holds(counts, want(0, renders=batches, tracer=batches), on_card)):
             raise SystemExit("[cli-render] FAIL")
 
         # [play]: headless play through main(), bitwise run_scripted's idle
@@ -1791,7 +1946,7 @@ def driver_phases(dev, smi: str) -> None:
         log(f"[play-bands] play --sharded-bands 2 --frames 16 (both bands on {dev}): final "
             f"frame bitwise make_sharded_engine's: {same}; launches {counts} (17 frames x 2 "
             f"bands, the warm-up included); {time.perf_counter() - t0:.1f} s")
-        if not (same and holds(counts, want(0, tracer=34, present_halo=34), on_card)):
+        if not (same and holds(counts, want(34, tracer=34, present_halo=34), on_card)):
             raise SystemExit("[play-bands] FAIL")
 
         # [serve]: an EngineServer on port 0 driven over HTTP.
@@ -1973,7 +2128,8 @@ def driver_phases(dev, smi: str) -> None:
                 and int.from_bytes(head[6:8], "little") == acfg.screen.width)
         log(f"[animate] {text.strip().splitlines()[-1]}; frames {fr.shape} non-blank, GIF "
             f"{os.path.getsize(out)} bytes: {good}; {time.perf_counter() - t0:.1f} s")
-        if not (good and holds(counts, want(0, tracer=48 * a_batches), on_card)):
+        if not (good and holds(counts, want(0, renders=48 * a_batches, tracer=48 * a_batches),
+                               on_card)):
             raise SystemExit("[animate] FAIL")
 
         # [multicam]: 4 cameras fanned around the spawn, a 2x2 grid.
@@ -1990,7 +2146,7 @@ def driver_phases(dev, smi: str) -> None:
             f"views: {good}; {time.perf_counter() - t0:.1f} s")
         # One launch a camera and row tile: the renderer traces a tile's rows
         # at once (parallel/shard.py make_sharded_renderer).
-        if not (good and holds(counts, want(0, tracer=4), on_card)):
+        if not (good and holds(counts, want(0, renders=4, tracer=4), on_card)):
             raise SystemExit("[multicam] FAIL")
 
         # [minimap]: host only, no launch.
@@ -2054,7 +2210,10 @@ def entry_phases(dev, smi: str) -> dict:
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t_all = time.perf_counter()
 
-    def want(**counts) -> dict:
+    def want(frames=0, renders=0, **counts) -> dict:
+        """The launches given, with the glue kernels' of ``frames`` frames
+        stepped and ``renders`` render_pixels calls; none on the CPU."""
+        counts = {**counts, **glue(frames, renders)}
         return {k: v for k, v in counts.items() if v} if on_card else {}
 
     def run(tag, module, argv, timeout=600):
@@ -2095,8 +2254,8 @@ def entry_phases(dev, smi: str) -> dict:
             f"{res['frame_checksum']} against {checksum} for {n} idle frames in process; "
             f"launches {sub} / {counts}; {time.perf_counter() - t0:.1f} s | {smi}")
         if not (res["backend"] == dev.type and res["frame_checksum"] == round(checksum, 1)
-                and holds(sub, want(tracer=n, present=n), on_card)
-                and holds(counts, want(tracer=n, present=n), on_card)
+                and holds(sub, want(n, tracer=n, present=n), on_card)
+                and holds(counts, want(n, tracer=n, present=n), on_card)
                 and len(res["launch_ms"]) == args.launches):
             raise SystemExit("[bench] FAIL")
 
@@ -2127,7 +2286,8 @@ def entry_phases(dev, smi: str) -> dict:
             f"against the band engine's {checksum} over {n} frames; launches {sub}; "
             f"{time.perf_counter() - t0:.1f} s")
         if not (res["frame_checksum"] == round(checksum, 1) and res["sharded_bands"] == bands
-                and holds(sub, want(tracer=bands * n, present_halo=bands * n), on_card)):
+                and holds(sub, want(bands * n, tracer=bands * n, present_halo=bands * n),
+                          on_card)):
             raise SystemExit("[bench-bands] FAIL")
 
         # [bench-bvh]: the bench with the BVH walk at its defaults
@@ -2177,8 +2337,9 @@ def entry_phases(dev, smi: str) -> dict:
             f"bitwise {same}; checksum {checksum}; "
             f"{time.perf_counter() - t0:.1f} s | {smi}")
         if not (res["backend"] == dev.type and same and len(res["launch_ms"]) == args.launches
-                and holds(sub, want(present=n, bvh_walk=n * segs, shade=n * segs), on_card)
-                and holds(counts, want(present=k, bvh_walk=k * segs, shade=k * segs), on_card)
+                and holds(sub, want(n, present=n, bvh_walk=n * segs, shade=n * segs), on_card)
+                and holds(counts, want(k, present=k, bvh_walk=k * segs, shade=k * segs),
+                          on_card)
                 and sub.get("threefry_normal", 0) == (n * segs if on_card else 0)
                 and replays == (k if on_card else 0)
                 and (walks["first"], walks["later"], walks["listed"]) == (
@@ -2239,7 +2400,8 @@ def entry_phases(dev, smi: str) -> dict:
                 f"with start-up; PNG bitwise the in-process render_full_frame ({t_in:.2f} s): "
                 f"{same}; launches {counts}")
             if not (same and img.mean() > 1.0
-                    and holds(counts, want(tracer=-(-size // 64)), on_card)):
+                    and holds(counts, want(renders=-(-size // 64), tracer=-(-size // 64)),
+                              on_card)):
                 raise SystemExit("[examples] FAIL")
         t1 = time.perf_counter()
         gif = os.path.join(tmp, "mp.gif")
@@ -2276,8 +2438,8 @@ def card_line() -> str:
 def kernel_rows(port: str) -> int:
     """``--kernels-of DIR``: the ``[bvh-kernel]`` and ``[threefry]`` phases
     alone on the port in ``port`` (with this checkout's phases and test
-    helpers), then one JSON line of their rows (ms, plain ms, bound) and the
-    card's line."""
+    helpers), and ``[frame-glue]`` where that port has the glue kernels, then
+    one JSON line of their rows (ms, plain ms, bound) and the card's line."""
     import torch
 
     import mirror_maze_tpu_torch as P
@@ -2288,10 +2450,14 @@ def kernel_rows(port: str) -> int:
         raise SystemExit(f"chip_smoke: the port imported is not {port}'s")
     smi = card_line()
     log(smi)
-    kernels.build(("bvh_walk", "threefry"), verbose=True)
+    glue = "frame_setup" in kernels.LIBRARIES
+    kernels.build(("bvh_walk", "threefry") + (("frame_setup", "camera_rays", "resolve")
+                                              if glue else ()), verbose=True)
     dev = torch.device("cuda")
     rows = bvh_kernel_phase(dev, smi)
     rows.update(threefry_phase(dev, smi, P.NAMED_CONFIGS["interactive"]()))
+    if glue:
+        rows.update(frame_glue_phase(dev, smi))
     print(json.dumps({"port": port, "rows": {
         row: {k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
         for row, e in rows.items()}}))
@@ -2304,9 +2470,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-of", metavar="DIR",
-                    help="run only [bvh-kernel] and [threefry] on the port in DIR (a git "
-                         "archive of another commit unpacked there is timed by the same "
-                         "method) and print their rows")
+                    help="run only [bvh-kernel], [threefry] and [frame-glue] on the port in "
+                         "DIR (a git archive of another commit unpacked there is timed by the "
+                         "same method) and print their rows")
     args = ap.parse_args()
     # The smoke drives one card: show it only the first one, so that the
     # device count it reports is the count it used.
@@ -2515,6 +2681,7 @@ def main() -> int:
     # 3b. The threefry kernel vs its plain version: bitwise in every output,
     # on the main path's jitter draw and the jnp tracer's draws.
     entries.update(threefry_phase(dev, smi, configs["main"]))
+    entries.update(frame_glue_phase(dev, smi))
 
     # 4. Tracer kernel vs its plain version on frame 1's rays of each path.
     # The kernel traces the whole wavefront. The plain version traces the
@@ -2837,8 +3004,8 @@ def main() -> int:
                 and torch.isfinite(st.screen).all()):
             raise SystemExit(f"[{path}] FAIL: frame blank or malformed, or the camera "
                              "did not move")
-        if (counts.get("tracer") != n_frames or counts.get("present") != n_frames
-                or {k: counts.get(k) for k in ("threefry", "threefry_uniform")}
+        if (others(counts) != {"tracer": n_frames, "present": n_frames, **glue(n_frames)}
+                or {k: counts.get(k, 0) for k in ("threefry", "threefry_uniform")}
                 != step_draws(cfg, inputs)):
             raise SystemExit(f"[{path}] FAIL: launches {counts} != {n_frames} frames each, or "
                              f"the draws not {step_draws(cfg, inputs)}")
@@ -2889,8 +3056,8 @@ def main() -> int:
         raise SystemExit("[adaptive] FAIL: the queue was not reordered at the wrap")
     if not same:
         raise SystemExit("[adaptive] FAIL: the graph's state or frame is not the eager step's")
-    if counts != {"tracer": epoch + 8, "present": epoch + 8,
-                  **step_draws(acfg, [FrameInputs.idle()] * (epoch + 8))}:
+    if counts != {"tracer": epoch + 8, "present": epoch + 8, **glue(epoch + 8),
+                  **nonzero(step_draws(acfg, [FrameInputs.idle()] * (epoch + 8)))}:
         raise SystemExit(f"[adaptive] FAIL: launches {counts}")
     del ast, aframe, before, arun, est, eframe
 
@@ -2955,8 +3122,8 @@ def main() -> int:
                 and torch.equal(frame, pframe) and same):
             raise SystemExit(f"[{tag}] FAIL: frame malformed, or the camera or the present "
                              "disagrees")
-        if not holds(counts, {"tracer": n_bands * n_frames,
-                              "present_halo": n_bands * n_frames}, True):
+        if not holds(counts, {"tracer": n_bands * n_frames, "present_halo": n_bands * n_frames,
+                              **glue(n_bands * n_frames)}, True):
             raise SystemExit(f"[{tag}] FAIL: launches {counts}")
         launches[tag] = counts
 
@@ -2997,7 +3164,8 @@ def main() -> int:
         if not (tuple(frame.shape) == (sc.height, sc.width, 3) and torch.isfinite(frame).all()
                 and mean > 0.02 and float(frame.std()) > 0.01):
             raise SystemExit(f"[{tag}] FAIL: frame blank or malformed")
-        if not holds(counts, {lib: sc.height // GALLERY_ROWS}, True):
+        batches = sc.height // GALLERY_ROWS
+        if not holds(counts, {lib: batches, **glue(renders=batches)}, True):
             raise SystemExit(f"[{tag}] FAIL: launches {counts}")
         launches[tag] = counts
         return frame
@@ -3126,7 +3294,7 @@ def main() -> int:
     # threefry, so library_ms is null), and erf_inv on that draw's uniforms
     # with that bench's erf_inv launches (a normal runs erf_inv inside its
     # own launch), beside torch.special.erfinv as library_ms.
-    for row, n in (("threefry@jitter", launches["main"]["threefry_uniform"]),
+    for row, n in (("threefry@jitter", launches["main"].get("threefry_uniform", 0)),
                    ("threefry@normal", bench_bvh["threefry_normal"]),
                    ("threefry@erfinv", bench_bvh["threefry_erf_inv"])):
         e = entries[row]
@@ -3142,6 +3310,20 @@ def main() -> int:
                      replaces=REPLACES["shade"], launches=bench_bvh["shade"],
                      max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],
                      bound_ms=e["bound_ms"], bound_by=e["bound_by"], library_ms=None))
+    # The glue kernels' rows: [main]'s and config_scale's frame 1, with their
+    # paths' launches. No single PyTorch call computes a frame's setup (a
+    # gather, a sort, a move, a box test and a key chain), its camera rays
+    # (a rotation and a threefry draw) or the resolve (a root, a mean and a
+    # row scatter), so library_ms is null.
+    for row, path in (("frame_setup", "main"), ("camera_rays", "main"),
+                      ("camera_rays@scale", "scale"), ("resolve", "main"),
+                      ("resolve@scale", "scale")):
+        e = entries[row]
+        k = e["kernel"]
+        kern.append(dict(name=row, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
+                         launches=launches[path].get(k, 0), max_abs_err=e["max_abs_err"],
+                         ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
+                         bound_by=e["bound_by"], library_ms=None))
     log(json.dumps({"kernels": kern}))
     count = torch.cuda.device_count()
     if count != 1:

@@ -52,37 +52,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
+
+// The hash and the uniform's arithmetic: threefry.cuh, shared with the
+// frame setup and the camera rays.
+using mm::threefry;
+using mm::to_uniform;
 
 constexpr int THREADS = 256;
 enum Source { IOTA = 0, DATA32 = 1, DATA64 = 2, VALUES = 3 };
 enum Output { PAIR = 0, XOR = 1, UNIFORM = 2, NORMAL = 3, ERFINV = 4 };
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-// prng.py threefry2x32: rotations (13, 15, 26, 6) / (17, 29, 16, 24), key
-// injections ks[(i + 1) % 3] and ks[(i + 2) % 3] + (i + 1) after round group i.
-__device__ __forceinline__ void threefry(uint32_t k1, uint32_t k2, uint32_t& x0,
-                                         uint32_t& x1) {
-  const uint32_t ks0 = k1, ks1 = k2, ks2 = k1 ^ k2 ^ 0x1BD11BDAu;
-  x0 += ks0;
-  x1 += ks1;
-#define MM_ROUND(r) \
-  x0 += x1;         \
-  x1 = rotl(x1, r) ^ x0;
-#define MM_EVEN MM_ROUND(13) MM_ROUND(15) MM_ROUND(26) MM_ROUND(6)
-#define MM_ODD MM_ROUND(17) MM_ROUND(29) MM_ROUND(16) MM_ROUND(24)
-  MM_EVEN x0 += ks1; x1 += ks2 + 1u;
-  MM_ODD  x0 += ks2; x1 += ks0 + 2u;
-  MM_EVEN x0 += ks0; x1 += ks1 + 3u;
-  MM_ODD  x0 += ks1; x1 += ks2 + 4u;
-  MM_EVEN x0 += ks2; x1 += ks0 + 5u;
-#undef MM_EVEN
-#undef MM_ODD
-#undef MM_ROUND
-}
 
 // prng.fma: RN32(RN64(a * b + c)), the product exact in float64 (see
 // "Exactness" above). EXACT rounds the float64 sum, for any input; the
@@ -95,13 +76,6 @@ __device__ __forceinline__ float fma64(float a, float b, float c) {
   return __fmaf_rn(a, b, c);
 }
 #define MM_FMA(a, b, c) fma64<EXACT>((a), (b), (c))
-
-// prng.uniform's arithmetic on one 32-bit word.
-__device__ __forceinline__ float to_uniform(uint32_t bits, float lo, float hi) {
-  const float f = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
-  const float v = __fadd_rn(__fmul_rn(f, __fsub_rn(hi, lo)), lo);
-  return (v > lo || isnan(v)) ? v : lo;  // torch.maximum(lo, v): NaN propagates
-}
 
 // prng._log_f32: XLA-CPU's float32 log for x > 0.
 template <bool EXACT>

@@ -1,5 +1,6 @@
 """Device resolution: the CUDA card by default, the CPU only on request;
-and the step's device constants (``constant``).
+the kernel wrappers' dispatch (``on_card``); and the step's device
+constants (``constant``).
 
 There is no silent fallback. ``device=None`` means ``cuda`` and raises when
 no card is present, so a run that was meant for the GPU can never quietly
@@ -23,6 +24,17 @@ def resolve_device(device=None) -> torch.device:
             "card by default — pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def on_card(t: torch.Tensor, name: str) -> bool:
+    """Where a kernel wrapper dispatches: True for a CUDA tensor (the
+    kernel), False for a CPU one (the plain version); raises on any other
+    device, so that nothing runs a plain version in a kernel's place."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {t.device}")
+    return True
 
 
 _constants: dict = {}

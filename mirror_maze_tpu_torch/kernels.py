@@ -13,8 +13,11 @@ stage, and ``tracer_diag`` / ``tracer_tex_diag``, which also gather the
 per-block diagnostics. Each is a translation unit of its own, so a launch
 without textures or diagnostics compiles none of their code. ``present``,
 ``bvh_walk`` (the jnp tracer's BVH traversal), ``threefry`` (every draw
-of ops/prng.py) and ``shade`` (one segment of the jnp tracer's bounce loop,
-render/tracer.py) have a source each.
+of ops/prng.py), ``shade`` (one segment of the jnp tracer's bounce loop,
+render/tracer.py) and the step's glue, ``frame_setup``, ``camera_rays`` and
+``resolve`` (render/frame_glue.py), have a source each. The headers a
+source includes (``#include "..."``: ``threefry.cuh``, ``quat.cuh``) are
+hashed into its library's name with it.
 
 Nothing here runs at import: the CPU tests import every module and this
 machine may have no ``nvcc`` at all.
@@ -96,6 +99,8 @@ _SHADE = ("mm_shade", [
     _C.c_void_p, _C.c_int, _C.c_int,                     # params (render/tracer.py), glass, fresnel
     _C.c_void_p,                                         # stream
 ])
+# The step's glue: the address of a ctypes Structure (render/frame_glue.py), the stream.
+_GLUE = [_C.c_void_p, _C.c_void_p]
 # name -> (source in csrc/, macros for nvcc, (C symbol, argument types))
 LIBRARIES = {
     "tracer": ("tracer.cu", (), _TRACER),
@@ -106,6 +111,9 @@ LIBRARIES = {
     "bvh_walk": ("bvh_walk.cu", (), _BVH_WALK),
     "threefry": ("threefry.cu", (), _THREEFRY),
     "shade": ("shade.cu", (), _SHADE),
+    "frame_setup": ("frame_setup.cu", (), ("mm_frame_setup", _GLUE)),
+    "camera_rays": ("camera_rays.cu", (), ("mm_camera_rays", _GLUE)),
+    "resolve": ("resolve.cu", (), ("mm_resolve", _GLUE)),
 }
 
 launches: collections.Counter = collections.Counter()
@@ -158,11 +166,30 @@ def sass(name: str) -> str | None:
                           text=True, check=True).stdout
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(source: str) -> list:
+    """The files of ``csrc/`` that build ``source``: the source, then every
+    header it includes with ``#include "..."``, and theirs, each once, in the
+    order first included."""
+    seen, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.append(name)
+        todo += [m.decode() for m in _INCLUDE.findall((CSRC / name).read_bytes())]
+    return seen
+
+
 def _lib_path(name: str) -> Path:
     source, macros, _ = LIBRARIES[name]
-    src = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS + macros).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for f in sources(source):
+        h.update(f.encode() + b"\0" + (CSRC / f).read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS + macros).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def ptxas_summary(out: str) -> str:

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..device import constant
+from ..device import constant, on_card
 from .vecmath import sqrt
 
 MASK = 0xFFFFFFFF
@@ -141,16 +141,6 @@ class Draw(NamedTuple):
     dtype: torch.dtype
 
 
-def _on_card(t: torch.Tensor, name: str) -> bool:
-    """True for a CUDA tensor (the kernel), False for a CPU one (the plain
-    version); raises on any other device."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"prng.{name} runs on cuda or cpu tensors, got {t.device}")
-    return True
-
-
 def _check_key(key: torch.Tensor) -> None:
     if key.dtype != torch.int64 or key.ndim < 1 or key.shape[-1] != 2:
         raise ValueError(f"prng draws take int64 keys [..., 2], got {key.dtype} "
@@ -238,7 +228,7 @@ def launch_draw(d: Draw) -> torch.Tensor:
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)`` -> [num, 2]."""
-    if not _on_card(key, "split"):
+    if not on_card(key, "prng.split"):
         return split_plain(key, num)
     return launch_draw(split_draw(key, num))
 
@@ -247,7 +237,7 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)``. ``key`` is one key [2] or a batch
     [..., 2]; ``data`` an int or a tensor that broadcasts against the keys'
     batch shape (the reference's ``vmap`` of fold_in over keys and data)."""
-    if not _on_card(key, "fold_in"):
+    if not on_card(key, "prng.fold_in"):
         return fold_in_plain(key, data)
     return launch_draw(fold_in_draw(key, data))
 
@@ -256,7 +246,7 @@ def random_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     """32 random bits per element (int64 holding uint32): shape ``shape``
     for one key [2], ``batch + shape`` for keys [*batch, 2] (each key's
     draw, the reference's ``vmap`` over keys)."""
-    if not _on_card(key, "random_bits"):
+    if not on_card(key, "prng.random_bits"):
         return random_bits_plain(key, shape)
     return launch_draw(bits_draw(key, shape))
 
@@ -266,7 +256,7 @@ def uniform(key: torch.Tensor, shape: tuple, minval: float = 0.0,
     """``jax.random.uniform`` in float32: 23 random mantissa bits under
     exponent 0, minus one, scaled into [minval, maxval). Keys as in
     ``random_bits``."""
-    if not _on_card(key, "uniform"):
+    if not on_card(key, "prng.uniform"):
         return uniform_plain(key, shape, minval, maxval)
     return launch_draw(bits_draw(key, shape, _UNIFORM, minval, maxval))
 
@@ -363,7 +353,7 @@ def normal_plain(key: torch.Tensor, shape: tuple) -> torch.Tensor:
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
     """``jax.lax.erf_inv`` in float32 as XLA lowers it (Giles), for |x| <= 1."""
-    if not _on_card(x, "erf_inv"):
+    if not on_card(x, "prng.erf_inv"):
         return erf_inv_plain(x)
     return launch_draw(erf_inv_draw(x))
 
@@ -371,9 +361,20 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
 def normal(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     """``jax.random.normal`` in float32: sqrt(2) * erf_inv(u), u uniform on
     [nextafter(-1, 0), 1). Keys as in ``random_bits``."""
-    if not _on_card(key, "normal"):
+    if not on_card(key, "prng.normal"):
         return normal_plain(key, shape)
     return launch_draw(bits_draw(key, shape, _NORMAL))
+
+
+def randint_fold(minval: int, maxval: int) -> tuple:
+    """``randint``'s (span, multiplier) for static bounds inside the int32
+    range: the draw is (minval + ((higher % span) * multiplier mod 2^32 +
+    lower % span) mod 2^32 % span)."""
+    if not -(2 ** 31) <= minval <= maxval <= 2 ** 31 - 1:
+        raise ValueError("randint bounds must lie within int32")
+    span = (maxval - minval) & MASK if maxval > minval else 1
+    multiplier = (2 ** 16) % span
+    return span, ((multiplier * multiplier) & MASK) % span
 
 
 def randint(key: torch.Tensor, shape: tuple, minval: int,
@@ -381,14 +382,10 @@ def randint(key: torch.Tensor, shape: tuple, minval: int,
     """``jax.random.randint`` to int32 for static bounds inside the int32
     range: two 32-bit draws folded modulo the span, with every uint32
     product wrapping as JAX's does."""
-    if not -(2 ** 31) <= minval <= maxval <= 2 ** 31 - 1:
-        raise ValueError("randint bounds must lie within int32")
+    span, multiplier = randint_fold(minval, maxval)
     k1, k2 = split(key)
     higher = random_bits(k1, shape)
     lower = random_bits(k2, shape)
-    span = (maxval - minval) & MASK if maxval > minval else 1
-    multiplier = (2 ** 16) % span
-    multiplier = ((multiplier * multiplier) & MASK) % span
     offset = (((higher % span) * multiplier) & MASK) + (lower % span)
     offset = (offset & MASK) % span
     return (minval + offset).to(torch.int32)

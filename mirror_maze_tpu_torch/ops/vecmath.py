@@ -7,7 +7,15 @@ the results agree bitwise where the elementwise rounding does.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def reciprocal(x: float) -> float:
+    """The float32 reciprocal of x, correctly rounded: what torch on the card
+    and XLA under jit multiply by where a float32 tensor is divided by the
+    constant x (torch on the CPU divides)."""
+    return float(np.float32(1.0) / np.float32(x))
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:

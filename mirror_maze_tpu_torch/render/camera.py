@@ -11,7 +11,7 @@ import torch
 
 from ..config import CameraConfig
 from ..ops import quat as quat_ops
-from ..ops.vecmath import normalize
+from ..ops.vecmath import normalize, reciprocal
 
 
 class Camera(NamedTuple):
@@ -39,11 +39,14 @@ def ray_directions(
 ) -> torch.Tensor:
     """Primary ray directions [..., 3] for pixel coordinates [..., 2]:
     normalize((px/W*vw - vw/2, py/H*vh - vh/2, focal)), then rotated by
-    the camera quaternion (`shaders.metal:281-284`)."""
+    the camera quaternion (`shaders.metal:281-284`). The divisions by W and
+    H are multiplies by their float32 reciprocals, as XLA computes them
+    under jit and torch on the card (the CPU would divide), so the
+    directions are the same bits on every device; halving is exact."""
     p = pixels_xy.to(torch.float32)
     vw, vh = cam.viewport[0], cam.viewport[1]
-    x = p[..., 0] / width * vw - vw / 2.0
-    y = p[..., 1] / height * vh - vh / 2.0
+    x = p[..., 0] * reciprocal(width) * vw - vw / 2.0
+    y = p[..., 1] * reciprocal(height) * vh - vh / 2.0
     z = cam.focal.expand(x.shape)
     d = normalize(torch.stack([x, y, z], dim=-1))
     return quat_ops.rotate(d, cam.rotation.expand(d.shape[:-1] + (4,)))

@@ -6,10 +6,11 @@ backend otherwise — and the offline full-frame render).
 
 Per sample, as the compute kernel (`shaders.metal:281-303`): one camera ray
 per pixel, an unnormalized direction jitter of scale ``cfg.tracer.jitter``
-per sample, then the per-sample tone map and a mean over the samples. With
-``cfg.camera.aperture`` > 0 each sample's origin moves on a lens disk in the
-camera plane and its direction is aimed again at the ray's point at
-``focus_dist``, so what lies there stays sharp.
+per sample, then the per-sample tone map and a mean over the samples (on
+the card the ``camera_rays`` and ``resolve`` kernels around the tracer,
+render/frame_glue.py). With ``cfg.camera.aperture`` > 0 each sample's origin
+moves on a lens disk in the camera plane and its direction is aimed again
+at the ray's point at ``focus_dist``, so what lies there stays sharp.
 """
 
 from __future__ import annotations
@@ -22,11 +23,10 @@ import torch
 from ..config import EngineConfig
 from ..ops import prng
 from ..ops import quat as quat_ops
-from ..ops.sampling import ray_jitter
 from ..ops.vecmath import normalize, sqrt
 from ..scene.bvh import traversal_bounds
-from ..utils.noise import sample_noise
-from .camera import Camera, ray_directions
+from .camera import Camera
+from .frame_glue import pinhole_rays, resolve
 from .fused_tracer import trace_paths_fused
 from .intersect import (
     bvh_tables,
@@ -36,56 +36,70 @@ from .intersect import (
     nearest_hit_exact,
 )
 from .scenebuf import DeviceScene
-from .tracer import tone_map, trace_paths
+from .tracer import trace_paths
 
 INT32_MAX = 2 ** 31 - 1
 
 
+def thin_lens(cam: Camera, ori: torch.Tensor, dirs: torch.Tensor, jkey: torch.Tensor,
+              cfg: EngineConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The thin lens (``cfg.camera.aperture`` > 0) on pinhole rays: each
+    sample's origin moves to a uniform point of the lens disk (radius
+    sqrt(u1) * aperture, angle 2 pi u2) in the camera plane and its
+    direction aims again at its point at ``focus_dist``. sin and cos are
+    evaluated in float64 and rounded once, the same on every device. Torch
+    ops on every device (the lens has no kernel)."""
+    n = ori.shape[0]
+    u = prng.uniform(prng.fold_in(jkey, 1), (2, n))
+    r = sqrt(u[0]) * cfg.camera.aperture
+    phi = (u[1] * (2.0 * math.pi)).double()
+    off_cam = torch.stack([r * torch.cos(phi).float(), r * torch.sin(phi).float(),
+                           torch.zeros_like(r)], dim=-1)
+    off = quat_ops.rotate(off_cam, cam.rotation.expand(off_cam.shape[:-1] + (4,)))
+    focus_p = ori + dirs * cfg.camera.focus_dist
+    ori = ori + off
+    # Normalized: t, and with it t_min, is measured in units of |d|.
+    return ori, normalize(focus_p - ori)
+
+
+def sample_rays(cam: Camera, pixels, jkey: torch.Tensor, cfg: EngineConfig,
+                noise: torch.Tensor | None = None) -> tuple:
+    """The rays of spp samples of each pixel, (ori [K*spp, 3], dirs [K*spp,
+    3], seed row [K*spp] or None): the pinhole's (render/frame_glue.py
+    ``pinhole_rays``, the ``camera_rays`` kernel on the card), through the
+    thin lens where ``cfg.camera.aperture`` > 0. ``pixels`` is a chunk
+    ``Window`` or a [K, 2] int32 (x, y) tensor, ``jkey`` the jitter's key."""
+    ori, dirs, seed_row = pinhole_rays(cam, pixels, jkey, cfg, noise)
+    if cfg.camera.aperture > 0.0:
+        ori, dirs = thin_lens(cam, ori, dirs, jkey, cfg)
+    return ori, dirs, seed_row
+
+
 def camera_rays(
     cam: Camera,
-    pixels_xy: torch.Tensor,   # [K, 2] int (x, y)
+    pixels_xy: torch.Tensor,   # [K, 2] int32 (x, y)
     key: torch.Tensor,
     cfg: EngineConfig,
     noise: torch.Tensor | None = None,   # the scene's noise texture (noise_rng)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """The rays of spp samples of each pixel and the tracer's key: (ori
-    [K*spp, 3], dirs [K*spp, 3], tkey [2], seed row [K*spp] or None). With
-    ``cfg.tracer.noise_rng`` the seed row is the pixel's sample of ``noise``,
-    shared by the pixel's samples (`shaders.metal:288-300`)."""
-    spp = cfg.screen.samples_per_pixel
-    k = pixels_xy.shape[0]
+    [K*spp, 3], dirs [K*spp, 3], tkey [2], seed row [K*spp] or None), the
+    key split into the jitter's and the tracer's. With
+    ``cfg.tracer.noise_rng`` the seed row is the pixel's sample of
+    ``noise``, shared by the pixel's samples (`shaders.metal:288-300`)."""
     jkey, tkey = prng.split(key)
-    base_dir = ray_directions(
-        cam, pixels_xy, float(cfg.screen.width), float(cfg.screen.height)
-    )                                                        # [K, 3]
-    jit = ray_jitter(jkey, (k, spp), cfg.tracer.jitter)      # [K, spp, 3]
-    dirs = (base_dir[:, None, :] + jit).reshape(k * spp, 3)
-    ori = cam.center.expand(k * spp, 3).contiguous()
-    if cfg.camera.aperture > 0.0:
-        # Thin lens: a uniform point of the lens disk (radius sqrt(u1) *
-        # aperture, angle 2 pi u2) in the camera plane. sin and cos are
-        # evaluated in float64 and rounded once, the same on every device.
-        u = prng.uniform(prng.fold_in(jkey, 1), (2, k * spp))
-        r = sqrt(u[0]) * cfg.camera.aperture
-        phi = (u[1] * (2.0 * math.pi)).double()
-        off_cam = torch.stack([r * torch.cos(phi).float(), r * torch.sin(phi).float(),
-                               torch.zeros_like(r)], dim=-1)
-        off = quat_ops.rotate(off_cam, cam.rotation.expand(off_cam.shape[:-1] + (4,)))
-        focus_p = ori + dirs * cfg.camera.focus_dist
-        ori = ori + off
-        # Normalized: t, and with it t_min, is measured in units of |d|.
-        dirs = normalize(focus_p - ori)
-    seed_row = None
-    if cfg.tracer.noise_rng:
-        if noise is None:
-            raise ValueError("noise_rng needs the scene's noise texture")
-        seed_row = torch.repeat_interleave(sample_noise(noise, pixels_xy), spp)
+    ori, dirs, seed_row = sample_rays(cam, pixels_xy, jkey, cfg, noise)
     return ori, dirs, tkey, seed_row
+
+
+def tracer_seed(tkey: torch.Tensor) -> torch.Tensor:
+    """The fused tracer's seed int32 [1] drawn from the tracer's key."""
+    return prng.randint(tkey, (), 0, INT32_MAX).reshape(1)
 
 
 def frame_rays(
     cam: Camera,
-    pixels_xy: torch.Tensor,   # [K, 2] int (x, y)
+    pixels_xy: torch.Tensor,   # [K, 2] int32 (x, y)
     key: torch.Tensor,
     cfg: EngineConfig,
     noise: torch.Tensor | None = None,
@@ -93,8 +107,7 @@ def frame_rays(
     """The fused tracer's inputs: ``camera_rays`` with the tracer key drawn
     into the kernel seed, (ori, dirs, seed int32 [1], seed row or None)."""
     ori, dirs, tkey, seed_row = camera_rays(cam, pixels_xy, key, cfg, noise)
-    seed = prng.randint(tkey, (), 0, INT32_MAX).reshape(1)
-    return ori, dirs, seed, seed_row
+    return ori, dirs, tracer_seed(tkey), seed_row
 
 
 def derive_traversal_bounds(scene: DeviceScene, cfg: EngineConfig, max_depth: int | None,
@@ -147,10 +160,34 @@ def make_nearest_fn(scene: DeviceScene, cfg: EngineConfig, max_depth: int,
     return lambda o, d, live=None: nearest_hit_brute(prims, o, d, t_min)
 
 
+def fused(cfg: EngineConfig, nearest_fn: Callable | None) -> bool:
+    """Whether a frame goes through the fused tracer kernel: ``pallas``
+    with no jnp backend handed in."""
+    return cfg.intersector == "pallas" and nearest_fn is None
+
+
+def trace_samples(scene: DeviceScene, cam: Camera, pixels, jkey: torch.Tensor,
+                  tkey: torch.Tensor | None, seed: torch.Tensor | None, cfg: EngineConfig,
+                  nearest_fn: Callable | None = None) -> torch.Tensor:
+    """The light [K*spp, 3] of spp samples of each pixel (a chunk ``Window``
+    or [K, 2] int32 pixels): ``sample_rays`` with the jitter's key ``jkey``,
+    then the fused tracer kernel with ``seed`` (``fused``), or the jnp tracer
+    with the tracer's key ``tkey`` and ``nearest_fn`` (made here from the
+    configured backend where None: for ``bvh`` a host fetch)."""
+    ori, dirs, seed_row = sample_rays(cam, pixels, jkey, cfg, scene.noise)
+    if fused(cfg, nearest_fn):
+        return trace_paths_fused(scene, ori, dirs, seed, cfg.tracer,
+                                 rows_per_block=cfg.tracer.block_rows, anchor=cam.center,
+                                 seed_row=seed_row)
+    if nearest_fn is None:
+        nearest_fn = scene_nearest_fn(scene, cfg)
+    return trace_paths(scene.prims, ori, dirs, tkey, cfg.tracer, nearest_fn, seed_row=seed_row)
+
+
 def render_pixels(
     scene: DeviceScene,
     cam: Camera,
-    pixels_xy: torch.Tensor,   # [K, 2] int (x, y)
+    pixels_xy: torch.Tensor,   # [K, 2] int32 (x, y)
     key: torch.Tensor,
     cfg: EngineConfig,
     nearest_fn: Callable | None = None,
@@ -161,21 +198,12 @@ def render_pixels(
     tracer kernel; otherwise the jnp tracer runs with ``nearest_fn``, or
     with the configured backend built here (the bvh bounds then come from
     the scene's BVH, a host fetch: callers that render many times pass a
-    ``nearest_fn`` made once with ``make_nearest_fn``)."""
-    spp = cfg.screen.samples_per_pixel
-    if cfg.intersector == "pallas" and nearest_fn is None:
-        ori, dirs, seed, seed_row = frame_rays(cam, pixels_xy, key, cfg, scene.noise)
-        light = trace_paths_fused(
-            scene, ori, dirs, seed, cfg.tracer, rows_per_block=cfg.tracer.block_rows,
-            anchor=cam.center, seed_row=seed_row,
-        )
-    else:
-        if nearest_fn is None:
-            nearest_fn = scene_nearest_fn(scene, cfg)
-        ori, dirs, tkey, seed_row = camera_rays(cam, pixels_xy, key, cfg, scene.noise)
-        light = trace_paths(scene.prims, ori, dirs, tkey, cfg.tracer, nearest_fn,
-                            seed_row=seed_row)
-    return tone_map(light).reshape(-1, spp, 3).mean(dim=1)
+    ``nearest_fn`` made once with ``make_nearest_fn``). The colours are the
+    samples' tone maps and mean (render/frame_glue.py ``resolve``)."""
+    jkey, tkey = prng.split(key)
+    seed = tracer_seed(tkey) if fused(cfg, nearest_fn) else None
+    light = trace_samples(scene, cam, pixels_xy, jkey, tkey, seed, cfg, nearest_fn)
+    return resolve(light, cfg.screen.samples_per_pixel)
 
 
 def frame_row_batches(cfg: EngineConfig, key: torch.Tensor, rows_per_batch: int, device):

@@ -21,7 +21,10 @@ that kind is ONE replay:
   into the static buffers), so either may follow the other;
 - each runner brings its own pair of tracer work counters
   (render/fused_tracer.py ``work_counters``), and the counts of the launches
-  a capture recorded are added to ``kernels.launches`` on every replay.
+  a capture recorded are added to ``kernels.launches`` on every replay;
+- a captured body is told that it runs on the runner's own buffers
+  (``state_owned``), so it writes the frame's rows into the screen buffer in
+  place where an eager frame writes them into a copy.
 
 The functional contract of the eager step holds: a state passed in is
 copied into the static buffers (unless it is the one the last call handed
@@ -33,6 +36,8 @@ itself (``make_step_fn`` / ``make_scan_step_fn``).
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 import weakref
 from typing import Callable
@@ -41,6 +46,28 @@ import torch
 
 from .. import kernels
 from ..render import fused_tracer
+
+
+_owner = threading.local()
+
+
+def state_owned() -> bool:
+    """Whether the step body running on this thread was handed a graph
+    runner's static buffers (it is being captured): the body may then write
+    the screen's new rows into the state's screen itself, since nothing
+    reads the old one after the frame (its new state is copied back into the
+    buffers at the graph's end). Anywhere else the state is the caller's and
+    is never written."""
+    return getattr(_owner, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _owning():
+    _owner.depth = getattr(_owner, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _owner.depth -= 1
 
 
 def _flatten(state) -> list:
@@ -135,7 +162,8 @@ class StepGraphs:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with kernels.counting_capture() as counted, fused_tracer.work_counters(self._work):
+        with (kernels.counting_capture() as counted, fused_tracer.work_counters(self._work),
+              _owning()):
             with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
                 reserved = torch.cuda.memory_reserved(dev)
                 new = _flatten(self._body(_unflatten(template, self._static), self._static_in,

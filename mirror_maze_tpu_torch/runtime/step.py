@@ -13,6 +13,11 @@ One frame, in the reference's order (`main.rs:767-894`):
    by the screen's detail whenever the pop wrapped it;
 5. feedback blur + 8-bit quantization (the present kernel).
 
+On the card the glue around the tracer is three hand-written kernels:
+``frame_setup`` (steps 1-2 and the frame's keys, csrc/frame_setup.cu),
+``camera_rays`` and ``resolve`` (render/frame_glue.py). The rest of step 3
+(the yaw, the queue's draw) runs as torch ops on the frames that rotate.
+
 The step body reads a frame's input from a device tensor, one row of
 ``upload_inputs`` (keys A, S, D, W as 0/1 and the mouse delta), and holds
 no host value, so it can be captured into a CUDA graph. Whether the frame
@@ -29,39 +34,37 @@ the unjitted forms, eager everywhere, with the scene an argument.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+import ctypes
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
-from ..config import EngineConfig
-from ..device import constant
+from .. import kernels
+from ..config import EngineConfig, ScreenConfig
+from ..device import constant, on_card
 from ..ops import prng
 from ..ops import quat as quat_ops
 from ..render.accumulate import (
     cm_to_spatial,
     feedback_blur_cm,
     present_stage,
-    scatter_chunk_rows,
     to_display,
 )
+from ..render.frame_glue import Window, need_card, operand, params_type, resolve
 # derive_traversal_bounds is re-exported, where the JAX package has it.
 from ..render.pipeline import (  # noqa: F401
+    INT32_MAX,
     derive_traversal_bounds,
-    render_pixels,
     scene_nearest_fn,
+    trace_samples,
+    tracer_seed,
 )
 from ..render.present import present
 from ..render.scenebuf import DeviceScene
-from ..render.scheduler import (
-    adaptive_reorder,
-    chunk_origin_xy,
-    chunk_pixels,
-    sort_window_morton,
-    take_chunks,
-)
+from ..render.scheduler import adaptive_reorder, sort_window_morton, take_chunks
 from ..scene.collision import collides
-from .graph import StepRunner
+from .graph import StepRunner, state_owned
 from .state import EngineState, FrameInputs
 
 PI_F32 = float(np.float32(np.pi))
@@ -136,6 +139,28 @@ def _mod(x: torch.Tensor, y: float) -> torch.Tensor:
     return torch.where(shift, r + y, r)
 
 
+def turn(quat: torch.Tensor, half_theta: torch.Tensor, perm: torch.Tensor,
+         cursor: torch.Tensor, rkey: torch.Tensor, mouse_dx: torch.Tensor,
+         cfg: EngineConfig):
+    """The mouse yaw of a frame that rotates (`main.rs:828-842`,
+    `main.rs:922-925`): half_theta -= dx * sensitivity, wrapped into [0, pi);
+    the quaternion is re-aimed, keeping the old one if the update is not
+    finite; on a successful rotation the chunk queue is drawn afresh from
+    ``rkey`` and the cursor reset. ``mouse_dx`` is a float32 scalar on the
+    state's device. Torch ops on every device.
+
+    Returns (quat, half_theta, perm, cursor)."""
+    dx = mouse_dx * float(np.float32(cfg.camera.mouse_sensitivity))
+    new_half = _mod(half_theta - dx, PI_F32)
+    candidate = quat_ops.update_angle(quat, new_half)
+    ok = torch.isfinite(candidate).all()
+    quat_out = torch.where(ok, candidate, quat)
+    fresh = prng.permutation(rkey, perm.shape[0]).to(torch.int32)
+    perm_out = torch.where(ok, fresh, perm)
+    cursor_out = torch.where(ok, torch.zeros_like(cursor), cursor)
+    return quat_out, new_half, perm_out, cursor_out
+
+
 def rotation_update(
     quat: torch.Tensor,
     half_theta: torch.Tensor,
@@ -146,27 +171,138 @@ def rotation_update(
     rotate: bool,
     cfg: EngineConfig,
 ):
-    """Mouse yaw update (`main.rs:828-842`, `main.rs:922-925`):
-    half_theta -= dx * sensitivity, wrapped into [0, pi); the quaternion is
-    re-aimed, keeping the old one if the update is not finite. On a
-    successful rotation the chunk queue is regenerated and the cursor reset.
-    The key is split every frame, rotation or not. ``mouse_dx`` is a
-    float32 scalar on the state's device; ``rotate`` (the frame's
-    ``rot_updated``) picks the body, as the reference's ``lax.cond``.
+    """Mouse yaw update (`main.rs:828-842`, `main.rs:922-925`): the key is
+    split every frame, rotation or not, and a frame that rotates
+    (``rotate``, its ``rot_updated``; the reference's ``lax.cond``) takes
+    ``turn`` with the first half. The step draws the split in
+    ``frame_setup``.
 
     Returns (quat, half_theta, perm, cursor, key)."""
     rkey, key = prng.split(key)
     if not rotate:
         return quat, half_theta, perm, cursor, key
-    dx = mouse_dx * float(np.float32(cfg.camera.mouse_sensitivity))
-    new_half = _mod(half_theta - dx, PI_F32)
-    candidate = quat_ops.update_angle(quat, new_half)
-    ok = torch.isfinite(candidate).all()
-    quat_out = torch.where(ok, candidate, quat)
-    fresh = prng.permutation(rkey, perm.shape[0]).to(torch.int32)
-    perm_out = torch.where(ok, fresh, perm)
-    cursor_out = torch.where(ok, torch.zeros_like(cursor), cursor)
-    return quat_out, new_half, perm_out, cursor_out, key
+    return (*turn(quat, half_theta, perm, cursor, rkey, mouse_dx, cfg), key)
+
+
+class FrameSetup(NamedTuple):
+    """A frame's scalar work (``frame_setup``), device tensors: the window
+    ``ids`` [n] int32 (Morton-sorted with ``sort_chunk_window``), the
+    ``cursor`` after the pop and the ``frame`` number (int32 []), the camera
+    ``center`` [3] after the move and its collision test, the state's next
+    ``key`` [2], and the frame's keys [2]: ``rkey`` (the rotation's),
+    ``jkey`` (the jitter's) and ``tkey`` (the jnp tracer's), with ``seed``
+    int32 [1] the fused tracer's."""
+    ids: torch.Tensor
+    cursor: torch.Tensor
+    frame: torch.Tensor
+    center: torch.Tensor
+    key: torch.Tensor
+    rkey: torch.Tensor
+    jkey: torch.Tensor
+    tkey: torch.Tensor
+    seed: torch.Tensor
+
+
+def frame_setup_plain(scene: DeviceScene, cfg: EngineConfig, state: EngineState,
+                      inp: torch.Tensor, n_chunks: int, grid: ScreenConfig) -> FrameSetup:
+    """The plain version of ``frame_setup``: the torch ops of take_chunks,
+    sort_window_morton, integrate_movement, resolve_collision and the key
+    chain."""
+    ids, cursor = take_chunks(state.perm, state.cursor, n_chunks)
+    if cfg.screen.sort_chunk_window:
+        ids = sort_window_morton(ids, grid)
+    moved = integrate_movement(cfg, state.cam_center, state.quat, inp[:4])
+    center = resolve_collision(cfg, scene, moved, state.cam_center)
+    rkey, key = prng.split(state.key)
+    frame = state.frame + 1
+    jkey, tkey = prng.split(prng.fold_in(key, frame))
+    return FrameSetup(ids=ids, cursor=cursor, frame=frame, center=center, key=key, rkey=rkey,
+                      jkey=jkey, tkey=tkey, seed=tracer_seed(tkey))
+
+
+_SetupParams = params_type(
+    ("perm", "cursor", "key", "frame", "center", "quat", "input", "leaf_min", "leaf_max", "ids",
+     "cursor_out", "frame_out", "center_out", "key_out", "keys_out", "seed_out"),
+    ("total", "n", "sort", "chunks_x", "leaves", "seed_min", "seed_span", "seed_mult"),
+    ("step", "half_x", "half_y", "half_z"))
+# Windows the kernel sorts in one block's shared memory (csrc/frame_setup.cu).
+MAX_SORT = 16384
+
+
+def frame_setup_kernel(scene: DeviceScene, cfg: EngineConfig, state: EngineState,
+                       inp: torch.Tensor, n_chunks: int, grid: ScreenConfig) -> FrameSetup:
+    """``frame_setup`` in one launch of the ``frame_setup`` kernel
+    (csrc/frame_setup.cu), bitwise its plain version on every tensor it
+    writes. Raises on tensors that are not on a CUDA device, on malformed
+    operands and, before the launch, on a window the kernel cannot sort;
+    there is no fallback."""
+    total = state.perm.shape[0]
+    sort = cfg.screen.sort_chunk_window
+    if not 1 <= n_chunks <= total:
+        raise ValueError(f"a window of {n_chunks} chunks from a queue of {total}")
+    if sort and (n_chunks > MAX_SORT or grid.chunks_x > 1 << 16 or grid.chunks_y > 1 << 16):
+        raise ValueError(f"the frame_setup kernel sorts windows of at most {MAX_SORT} chunks "
+                         f"of a grid under 2^16 x 2^16, got {n_chunks} of "
+                         f"{grid.chunks_x} x {grid.chunks_y}")
+    dev = state.cam_center.device
+    need_card(dev, "frame_setup")
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    leaf_min, leaf_max = scene.leaf_min, scene.leaf_max
+    leaves = leaf_min.shape[0]
+    p = _SetupParams()
+    p.perm = operand("frame_setup", "perm", state.perm, i32, (total,), dev)
+    p.cursor = operand("frame_setup", "cursor", state.cursor, i32, (), dev)
+    p.key = operand("frame_setup", "key", state.key, i64, (2,), dev)
+    p.frame = operand("frame_setup", "frame", state.frame, i32, (), dev)
+    p.center = operand("frame_setup", "cam_center", state.cam_center, f32, (3,), dev)
+    p.quat = operand("frame_setup", "quat", state.quat, f32, (4,), dev)
+    if inp.dtype != f32 or inp.device != dev or inp.ndim != 1 or inp.shape[0] < 4:
+        raise ValueError(f"the frame_setup kernel reads an input row of float32 [>= 4] on {dev}, "
+                         f"got {inp.dtype} {tuple(inp.shape)} on {inp.device}")
+    inp = inp.contiguous()                  # held until the launch
+    p.input = inp.data_ptr()
+    p.leaf_min = operand("frame_setup", "leaf_min", leaf_min, f32, (leaves, 3), dev)
+    p.leaf_max = operand("frame_setup", "leaf_max", leaf_max, f32, (leaves, 3), dev)
+    out = FrameSetup(
+        ids=torch.empty(n_chunks, dtype=i32, device=dev),
+        cursor=torch.empty((), dtype=i32, device=dev),
+        frame=torch.empty((), dtype=i32, device=dev),
+        center=torch.empty(3, dtype=f32, device=dev),
+        key=torch.empty(2, dtype=i64, device=dev),
+        rkey=None, jkey=None, tkey=None,
+        seed=torch.empty(1, dtype=i32, device=dev))
+    keys = torch.empty((3, 2), dtype=i64, device=dev)   # rkey, jkey, tkey
+    p.ids, p.cursor_out, p.frame_out, p.center_out, p.key_out, p.seed_out = (
+        t.data_ptr() for t in (out.ids, out.cursor, out.frame, out.center, out.key, out.seed))
+    p.keys_out = keys.data_ptr()
+    p.total, p.n, p.sort, p.leaves = total, n_chunks, int(sort), leaves
+    p.chunks_x = grid.chunks_x
+    p.seed_min, p.seed_span, p.seed_mult = SEED_RANGE
+    p.step = float(np.float32(cfg.camera.move_speed / cfg.screen.fps))
+    p.half_x, p.half_y, p.half_z = (float(np.float32(h)) for h in cfg.camera.player_half_extent)
+    with torch.cuda.device(dev):            # the launch goes to this device's stream
+        kernels.launch("frame_setup", ctypes.addressof(p))
+    return out._replace(rkey=keys[0], jkey=keys[1], tkey=keys[2])
+
+
+# tracer_seed's randint bounds and fold, as the kernel takes them (the span
+# and multiplier are uint32 values in int32 fields; both are < 2^31 here).
+SEED_RANGE = (0, *prng.randint_fold(0, INT32_MAX))
+
+
+def frame_setup(scene: DeviceScene, cfg: EngineConfig, state: EngineState, inp: torch.Tensor,
+                n_chunks: int, grid: ScreenConfig) -> FrameSetup:
+    """Steps 1 and 2 of a frame and its keys: pop the window of ``n_chunks``
+    ids of ``grid`` (Morton-sorted with ``sort_chunk_window``), move the
+    camera by the input row's WASD keys and revert the move where the
+    player's box hits one of ``scene``'s leaf boxes, and draw the frame's
+    keys (rotation_update's split, fold_in of the frame number, the camera's
+    split, the fused tracer's seed). On a CUDA state one launch of the
+    ``frame_setup`` kernel; on the CPU the plain version; any other device
+    raises."""
+    if not on_card(state.cam_center, "frame_setup"):
+        return frame_setup_plain(scene, cfg, state, inp, n_chunks, grid)
+    return frame_setup_kernel(scene, cfg, state, inp, n_chunks, grid)
 
 
 def display(state: EngineState, cfg: EngineConfig) -> torch.Tensor:
@@ -268,41 +404,40 @@ def advance_to_scatter(scene, cfg, n_chunks, state: EngineState, inp: torch.Tens
     which that grid starts: the row-band engine (parallel/shard.py) steps
     each band with its own grid and offset, while the rays are made against
     the whole screen, ``cfg.screen``. ``nearest_fn`` is the jnp backend
-    (``scene_nearest_fn``), None for the fused kernel."""
-    grid = cfg.screen if grid is None else grid
-    frame = state.frame + 1
+    (``scene_nearest_fn``), None for the fused kernel.
 
-    # 1. This frame's chunk window (the pre-rotation queue).
-    ids, cursor_next = take_chunks(state.perm, state.cursor, n_chunks)
-    if cfg.screen.sort_chunk_window:
-        ids = sort_window_morton(ids, grid)
-    perm_in = state.perm
+    On the card the glue is three kernel launches: ``frame_setup`` (steps 1
+    and 2 and the keys), ``camera_rays`` (the rays) and ``resolve`` (tone
+    map, mean, the screen's rows). A frame that rotates adds the yaw and the
+    queue's permutation draw (``turn``), ``adaptive_refresh`` its reorder,
+    the thin lens its torch ops. The rows land in the state's own screen
+    only where the state is a graph runner's static buffers
+    (``graph.state_owned``), else in a copy."""
+    grid = cfg.screen if grid is None else grid
+
+    # 1-2. This frame's chunk window (the pre-rotation queue), movement +
+    # collision, the frame's keys.
+    setup = frame_setup(scene, cfg, state, inp, n_chunks, grid)
+    perm = state.perm
     if cfg.screen.adaptive_refresh:
         # Detail-first epoch order: reorders only when this pop wrapped.
-        perm_in = adaptive_reorder(state.perm, state.cursor, cursor_next, state.screen)
-
-    # 2. Movement + collision.
-    moved = integrate_movement(cfg, state.cam_center, state.quat, inp[:4])
-    center = resolve_collision(cfg, scene, moved, state.cam_center)
+        perm = adaptive_reorder(state.perm, state.cursor, setup.cursor, state.screen)
 
     # 3. Rotation (+ queue regeneration for the NEXT frame).
-    quat, half_theta, perm, cursor, key = rotation_update(
-        state.quat, state.half_theta, perm_in, cursor_next, state.key,
-        inp[4], rotate, cfg,
-    )
+    quat, half_theta, cursor = state.quat, state.half_theta, setup.cursor
+    if rotate:
+        quat, half_theta, perm, cursor = turn(quat, half_theta, perm, cursor, setup.rkey,
+                                              inp[4], cfg)
 
     # 4. Trace the popped chunks and write them as chunk-major rows.
-    fkey = prng.fold_in(key, frame)
-    origins = chunk_origin_xy(ids, grid)
-    if row0:
-        origins = origins + constant((0, row0), torch.int32, origins.device)
-    pixels = chunk_pixels(origins, grid.chunk_width)
-    cam = state._replace(cam_center=center, quat=quat).camera(cfg)
-    colors = render_pixels(scene, cam, pixels, fkey, cfg, nearest_fn)
-    screen = scatter_chunk_rows(state.screen, ids, colors)
+    cam = state._replace(cam_center=setup.center, quat=quat).camera(cfg)
+    light = trace_samples(scene, cam, Window(setup.ids, grid, row0), setup.jkey, setup.tkey,
+                          setup.seed, cfg, nearest_fn)
+    screen = resolve(light, cfg.screen.samples_per_pixel, state.screen, setup.ids,
+                     in_place=state_owned())
     return EngineState(
-        cam_center=center, quat=quat, half_theta=half_theta, screen=screen,
-        perm=perm, cursor=cursor, key=key, frame=frame,
+        cam_center=setup.center, quat=quat, half_theta=half_theta, screen=screen,
+        perm=perm, cursor=cursor, key=setup.key, frame=setup.frame,
     )
 
 

@@ -697,3 +697,131 @@ def frame1_inputs(cfg, scene):
     pixels = chunk_pixels(chunk_origin_xy(ids, sc), sc.chunk_width)
     _, key = prng.split(st.key)
     return camera_rays(st.camera(cfg), pixels, prng.fold_in(key, 1), cfg, scene.noise)
+
+
+# --- The step's glue kernels (runtime/step.py frame_setup, render/frame_glue.py) ---
+
+
+def ndiff(a, b) -> int:
+    """Elements of ``a`` and ``b`` whose bits differ (NaN where both are NaN
+    counts as equal); -1 where dtype or shape differ."""
+    if a is None or b is None:
+        return 0 if a is None and b is None else -1
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return -1
+    if a.dtype.is_floating_point:
+        both_nan = torch.isnan(a) & torch.isnan(b)
+        return int(((bits(a) != bits(b)) & ~both_nan).sum())
+    return int((a != b).sum())
+
+
+def walk_into_wall(scene, cfg, state, most: int = 2000):
+    """The state a W walk from ``state`` reaches just before its move first
+    collides (the plain move and collision test, frame by frame), and the
+    frames walked; the state as given where no move within ``most`` frames
+    collides."""
+    from mirror_maze_tpu_torch.runtime.step import integrate_movement, resolve_collision
+
+    keys = torch.tensor([0.0, 0.0, 0.0, 1.0], device=state.cam_center.device)
+    center = state.cam_center
+    for i in range(most):
+        moved = integrate_movement(cfg, center, state.quat, keys)
+        after = resolve_collision(cfg, scene, moved, center)
+        if torch.equal(after, center):
+            return state._replace(cam_center=center), i
+        center = after
+    return state, most
+
+
+def glue_inputs(name: str, device):
+    """(cfg, scene, state, input row, grid, row0, nearest_fn) of one input of
+    the glue kernels: the frames ``chip_smoke.py``'s ``[frame-glue]`` and
+    tests/test_torch_cuda.py hold the kernels on. ``name`` is
+    ``config:frame``: the configuration (a key of ``P.NAMED_CONFIGS``, with
+    ``bvh`` through the bvh backend; ``golden``; or ``bands`` =
+    config_interactive's second band of two) and
+    the frame: ``frame1`` (idle, from the initial state), ``collide`` (a W
+    move into a wall), ``walk`` (a free W move), ``turn`` (a turn while
+    walking)."""
+    from mirror_maze_tpu_torch.parallel import shard
+    from mirror_maze_tpu_torch.render.pipeline import scene_nearest_fn
+    from mirror_maze_tpu_torch.render.scenebuf import upload_scene
+    from mirror_maze_tpu_torch.runtime.state import FrameInputs, init_state
+    from mirror_maze_tpu_torch.runtime.step import input_stack
+
+    config, frame = name.split(":")
+    cfg = (golden_config() if config == "golden"
+           else P.NAMED_CONFIGS["interactive" if config == "bands" else config]())
+    if config == "bvh":
+        cfg = cfg.replace(intersector="bvh")    # config_bvh's scene through the walk
+    scene = upload_scene(build_scene(cfg.maze), device=device)
+    grid, row0 = cfg.screen, 0
+    if config == "bands":
+        init_fn, _ = shard.make_sharded_engine(cfg, [device] * 2)
+        grid, row0 = shard._band_screen_cfg(cfg, 2), cfg.screen.height // 2
+        state = init_fn(0).band(1)
+    else:
+        state = init_state(cfg, device=device)
+    walk = FrameInputs.make(w=True)
+    inp = {"frame1": FrameInputs.idle(), "collide": walk, "walk": walk,
+           "turn": FrameInputs.make(w=True, mouse_dx=-27.0)}[frame]
+    if frame == "collide":
+        state, walked = walk_into_wall(scene, cfg, state)
+        if walked == 2000:
+            raise ValueError(f"{name}: no wall within 2000 frames of walking")
+    row = torch.from_numpy(input_stack([inp])[0]).to(device)
+    return cfg, scene, state, row, grid, row0, scene_nearest_fn(scene, cfg)
+
+
+def frame_light(cfg, scene, cam, rays, setup, nearest_fn=None):
+    """The light [K*spp, 3] of a frame's pinhole rays ``(ori, dirs, seed
+    row)`` (through the thin lens where the configuration has one), traced
+    by the configuration's tracer with the keys of ``setup`` (a
+    runtime/step.py FrameSetup)."""
+    from mirror_maze_tpu_torch.render.fused_tracer import trace_paths_fused
+    from mirror_maze_tpu_torch.render.pipeline import fused, thin_lens
+    from mirror_maze_tpu_torch.render.tracer import trace_paths
+
+    ori, dirs, seed_row = rays
+    if cfg.camera.aperture > 0.0:
+        ori, dirs = thin_lens(cam, ori, dirs, setup.jkey, cfg)
+    if fused(cfg, nearest_fn):
+        return trace_paths_fused(scene, ori, dirs, setup.seed, cfg.tracer,
+                                 rows_per_block=cfg.tracer.block_rows, anchor=cam.center,
+                                 seed_row=seed_row)
+    return trace_paths(scene.prims, ori, dirs, setup.tkey, cfg.tracer, nearest_fn,
+                       seed_row=seed_row)
+
+
+def glue_check(cfg, scene, state, row, grid, row0, nearest_fn=None) -> dict:
+    """Each glue kernel and its plain version on the same inputs of one
+    frame, on the state's device: {buffer: elements whose bits differ}
+    (``ndiff``) for every buffer a kernel writes: the setup's window, cursor,
+    frame, centre, keys and seed; the camera rays' ori, dirs and seed row;
+    the screen rows the resolve writes the frame's traced light into (the
+    rays traced by the configuration's tracer), and the colours it writes
+    without a screen. The rays and the resolve take the plain setup's
+    outputs, so each kernel is held on the same inputs."""
+    from mirror_maze_tpu_torch.render import frame_glue
+    from mirror_maze_tpu_torch.runtime import step
+
+    n = grid.effective_chunks_per_frame
+    want = step.frame_setup_plain(scene, cfg, state, row, n, grid)
+    got = step.frame_setup_kernel(scene, cfg, state, row, n, grid)
+    out = {f"setup.{f}": ndiff(getattr(got, f), getattr(want, f)) for f in want._fields}
+    cam = state._replace(cam_center=want.center).camera(cfg)
+    win = frame_glue.Window(want.ids, grid, row0)
+    rays = frame_glue.pinhole_rays_plain(cam, win, want.jkey, cfg, scene.noise)
+    krays = frame_glue.pinhole_rays_kernel(cam, win, want.jkey, cfg, scene.noise)
+    for name, a, b in zip(("ori", "dirs", "seed_row"), krays, rays):
+        out[f"rays.{name}"] = ndiff(a, b)
+    del krays
+    light = frame_light(cfg, scene, cam, rays, want, nearest_fn)
+    spp = cfg.screen.samples_per_pixel
+    screen = state.screen
+    out["resolve.screen"] = ndiff(frame_glue.resolve_kernel(light, spp, screen.clone(), want.ids),
+                                  frame_glue.resolve_plain(light, spp, screen, want.ids))
+    out["resolve.colours"] = ndiff(
+        frame_glue.resolve_kernel(light, spp, torch.empty_like(light[::spp])),
+        frame_glue.resolve_plain(light, spp))
+    return out

@@ -27,6 +27,9 @@ from _torch_tools import (
     multi_tile_config,
     multi_tile_script,
     eager_multiplayer_step,
+    glue_check,
+    glue_inputs,
+    ndiff as glue_ndiff,
     primitive_zoo,
     scene_rays,
     scene_subset,
@@ -636,15 +639,20 @@ def _prng_free(counts: dict) -> dict:
 
 
 def _step_draws(cfg, script) -> dict:
-    """The threefry launches of the fused-tracer step over ``script``: a
-    frame's rotation split, fold_in, camera split, randint's split and two
-    bit draws, and its jitter; a rotating frame adds the permutation's split
-    and bit draw a round."""
+    """The threefry launches of the step over ``script``: the frame's keys
+    and seed are drawn inside the frame_setup launch and the jitter inside
+    the camera_rays launch, so only a rotating frame launches the threefry
+    kernel, for the permutation's split and bit draw a round."""
     from mirror_maze_tpu_torch.ops.prng import permutation_rounds
 
     turns = sum(bool(inp.rot_updated) for inp in script)
-    return {"threefry": 6 * len(script) + 2 * permutation_rounds(cfg.screen.total_chunks) * turns,
-            "threefry_uniform": len(script)}
+    return {"threefry": 2 * permutation_rounds(cfg.screen.total_chunks) * turns,
+            "threefry_uniform": 0}
+
+
+def _glue(n: int) -> dict:
+    """The glue kernels' launches of n frames (or band frames): one each."""
+    return {"frame_setup": n, "camera_rays": n, "resolve": n}
 
 
 def _states_bitwise(a, b) -> bool:
@@ -666,7 +674,7 @@ def test_graph_step_is_bitwise_the_eager_step(cuda_device, intersector):
     assert _states_bitwise(st, est) and torch.equal(frame, eframe)
     assert graphs.kinds == (False, True)
     assert graphs.eager_frames == 2 and graphs.replays == len(script) - 2
-    want = {"present": len(script)}
+    want = {"present": len(script), **_glue(len(script))}
     if intersector == "pallas":
         want["tracer"] = len(script)
     else:
@@ -675,8 +683,8 @@ def test_graph_step_is_bitwise_the_eager_step(cuda_device, intersector):
         want["bvh_walk"] = len(script) * cfg.tracer.max_segments
     assert _prng_free(counts) == want
     if intersector == "pallas":
-        assert counts["threefry"] == _step_draws(cfg, script)["threefry"]
-        assert counts["threefry_uniform"] == len(script)
+        assert counts.get("threefry", 0) == _step_draws(cfg, script)["threefry"]
+        assert counts.get("threefry_uniform", 0) == 0
     else:
         assert counts["threefry_normal"] == len(script) * cfg.tracer.max_segments
     assert float(frame.float().mean()) > 1.0
@@ -704,8 +712,12 @@ def test_graph_band_engine_is_bitwise_the_eager_bands(cuda_device):
     assert all(_states_bitwise(a, b) for a, b in zip(zip(*st), zip(*est)))
     assert torch.equal(frame, eframe)
     assert graphs.kinds == (False, True) and graphs.replays == len(script) - 2
-    assert _prng_free(counts) == {"tracer": 2 * len(script), "present_halo": 2 * len(script)}
-    assert counts["threefry_uniform"] >= len(script)
+    assert _prng_free(counts) == {"tracer": 2 * len(script), "present_halo": 2 * len(script),
+                                  **_glue(2 * len(script))}
+    # init_fn's draws are counted too: at least the turning frames' draws.
+    band = cfg.replace(screen=shard._band_screen_cfg(cfg, 2))
+    assert counts.get("threefry", 0) >= 2 * _step_draws(band, script)["threefry"]
+    assert counts.get("threefry_uniform", 0) == 0
 
 
 def test_graph_step_hands_back_states_no_later_call_writes(cuda_device):
@@ -938,7 +950,7 @@ def test_graph_band_engine_with_the_bvh_walk(cuda_device):
     assert graphs.kinds == (False, True) and graphs.replays == len(script) - 2
     assert _prng_free(counts) == {"bvh_walk": 2 * len(script) * cfg.tracer.max_segments,
                                   "shade": 2 * len(script) * cfg.tracer.max_segments,
-                                  "present_halo": 2 * len(script)}
+                                  "present_halo": 2 * len(script), **_glue(2 * len(script))}
     assert counts["threefry_normal"] >= len(script) * cfg.tracer.max_segments
 
 
@@ -1238,3 +1250,74 @@ def test_trace_paths_on_the_card_is_the_parents(cuda_device):
     on_cpu = trace_paths(cpu.prims, ori.cpu(), dirs.cpu(), key.cpu(), cfg.tracer,
                          scene_nearest_fn(cpu, cfg))
     assert torch.equal(got.cpu().view(torch.int32), on_cpu.view(torch.int32))
+
+
+# --- The step's glue kernels (runtime/step.py frame_setup, render/frame_glue.py) ----
+
+
+GLUE_CASES = ["golden:frame1", "golden:collide", "golden:walk", "golden:turn", "v0:frame1",
+              "bvh:walk", "bands:frame1", "fuzzy:frame1", "scale:frame1"]
+
+
+@pytest.mark.parametrize("name", GLUE_CASES)
+def test_glue_kernels_match_plain_bitwise(cuda_device, name):
+    """frame_setup, camera_rays and resolve each bitwise their plain versions
+    on every buffer they write: the golden configuration's frame 1, a W move
+    into a wall and a free one, a turn; config_v0 (1 spp) and config_bvh
+    (4 spp) through the jnp tracer; config_interactive's second band (row0
+    540); config_fuzzy's seed row; config_scale's window of 8,040 ids."""
+    inputs = glue_inputs(name, cuda_device)
+    before = {k: kernels.launches[k] for k in ("frame_setup", "camera_rays", "resolve")}
+    out = glue_check(*inputs)
+    assert all(v == 0 for v in out.values()), out
+    assert {k: kernels.launches[k] - v for k, v in before.items()} == {
+        "frame_setup": 1, "camera_rays": 1, "resolve": 2}
+
+
+def test_frame_setup_collides_as_the_plain_version(cuda_device):
+    """The colliding input's move is reverted by both, the free one is not."""
+    from mirror_maze_tpu_torch.runtime import step
+
+    for name, reverted in (("golden:collide", True), ("golden:walk", False)):
+        cfg, scene, state, row, grid, _, _ = glue_inputs(name, cuda_device)
+        got = step.frame_setup_kernel(scene, cfg, state, row, grid.effective_chunks_per_frame, grid)
+        assert torch.equal(got.center, state.cam_center) == reverted, name
+
+
+def test_frame_setup_raises_on_a_window_it_cannot_sort(cuda_device):
+    """The guard runs before the launch: no launch is counted."""
+    from mirror_maze_tpu_torch.runtime import step
+    from mirror_maze_tpu_torch.runtime.state import init_state
+
+    cfg = golden_config()
+    cfg = cfg.replace(screen=dataclasses.replace(cfg.screen, width=1024, height=512,
+                                                 sort_chunk_window=True))
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    state = init_state(cfg, device=cuda_device)
+    row = torch.zeros(5, device=cuda_device)
+    before = kernels.launches["frame_setup"]
+    with pytest.raises(ValueError, match="at most 16384"):
+        step.frame_setup_kernel(scene, cfg, state, row, step.MAX_SORT + 1, cfg.screen)
+    step.frame_setup_kernel(scene, cfg, state, row, step.MAX_SORT, cfg.screen)
+    assert kernels.launches["frame_setup"] == before + 1
+
+
+@pytest.mark.parametrize("spp", [1, 3, 8, 33, 64, 96])
+def test_resolve_kernel_sums_in_the_plain_order(cuda_device, spp):
+    """Light with negatives, -0 and NaN: NaN where the plain version has
+    NaN, every other value bitwise; the rows of a screen, and in place."""
+    from mirror_maze_tpu_torch.render import frame_glue
+
+    rng = np.random.default_rng(spp)
+    light = rng.random((16 * 24 * spp, 3)).astype(np.float32) * 3 - 0.5
+    light[::97] = -0.0
+    light[5::1013, 1] = np.nan
+    light = torch.from_numpy(light).to(cuda_device)
+    screen = torch.from_numpy(rng.random((100, 48)).astype(np.float32)).to(cuda_device)
+    ids = torch.from_numpy(rng.permutation(100)[:24].astype(np.int32)).to(cuda_device)
+    want = frame_glue.resolve_plain(light, spp, screen, ids)
+    assert glue_ndiff(frame_glue.resolve(light, spp, screen, ids), want) == 0
+    same = screen.clone()
+    assert frame_glue.resolve(light, spp, same, ids, in_place=True) is same
+    assert glue_ndiff(same, want) == 0
+    assert glue_ndiff(frame_glue.resolve(light, spp), frame_glue.resolve_plain(light, spp)) == 0
