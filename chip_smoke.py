@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels-of DIR]
+    python3 chip_smoke.py [--kernels-of DIR [--only PHASE]...]
 
 Builds the hand-written kernels from ``mirror_maze_tpu_torch/csrc`` (nvcc,
 sm_90a: the tracer's four libraries, with and without the texture stage and
@@ -189,8 +189,9 @@ kernel's rows ``bvh_walk``, ``bvh_walk@interactive``, ``bvh_walk@bounce``,
 ``bvh_walk@live`` and ``bvh_walk@scale``, the threefry kernel's
 ``threefry@jitter``, ``threefry@normal`` and ``threefry@erfinv``, the last
 with ``torch.special.erfinv``'s time as ``library_ms``,
-``shade@interactive``, and the glue's ``frame_setup``, ``camera_rays``,
-``camera_rays@scale``, ``resolve`` and ``resolve@scale``) and ``{"ok": true, "device": {...}}``. Every jnp
+``shade@interactive``, and the glue's ``frame_setup``, ``frame_setup@scale``,
+``camera_rays``, ``camera_rays@scale``, ``resolve`` and ``resolve@scale``)
+and ``{"ok": true, "device": {...}}``. Every jnp
 path on the card launches the shade kernel once a segment, and each
 phase checks that count.
 
@@ -199,7 +200,9 @@ phase checks that count.
 (their checks included), on the port in DIR: a ``git
 archive`` of another commit unpacked there is timed on the same inputs by
 the same method, so two commits compare within one call. It prints one
-JSON line of the rows (ms, plain ms, bound) and the card's line.
+JSON line of the rows (ms, plain ms, bound; frame_setup's launch floor) and
+the card's line. ``--only frame-glue`` (or ``bvh-kernel``, ``threefry``;
+repeatable) runs only the phases named.
 
 Needs a CUDA card: without one it exits 2 and prints no result. It uses
 the first visible card only (the multiplayer phase's two processes share
@@ -1023,10 +1026,15 @@ SETUP_ID_OPS, SETUP_SORT_OPS, SETUP_LEAF_OPS = 40, 3, 11
 def frame_glue_phase(dev, smi: str) -> dict:
     """[frame-glue]: frame_setup, camera_rays and resolve each bitwise its
     plain version on every buffer it writes, on every input of GLUE_INPUTS;
-    then the rows ``frame_setup``, ``camera_rays``, ``camera_rays@scale``,
-    ``resolve`` and ``resolve@scale`` on [main]'s and config_scale's frame
-    1: ms a launch from CUDA events over graph-replayed launches, the plain
-    version's ms, the bound. Returns the rows' entries."""
+    then the rows ``frame_setup``, ``frame_setup@scale``, ``camera_rays``,
+    ``camera_rays@scale``, ``resolve`` and ``resolve@scale`` on [main]'s and
+    config_scale's frame 1: ms a launch from CUDA events over graph-replayed
+    launches, the plain version's ms, the bound. frame_setup's rows also
+    give the floor of a one-block launch replayed from a graph (a
+    one-element in-place add, timed alone the same way): its share is
+    against that floor plus its operations bound. Returns the rows'
+    entries."""
+    import dataclasses
     import math
 
     import torch
@@ -1055,6 +1063,14 @@ def frame_glue_phase(dev, smi: str) -> dict:
         del cfg, scene, state, out
         release()
 
+    # The launch floor, timed as the rows are: the least of three graph
+    # replays of GLUE_REPS one-element adds (a single reading caught a 5x
+    # outlier once).
+    one = torch.zeros(1, device=dev)
+    floors = [time_ms(lambda: one.add_(1), GLUE_REPS, graph=True) for _ in range(3)]
+    floor_ms = min(floors)
+    log(f"[frame-glue] launch floor: a one-element in-place add {floor_ms:.5f} ms/launch "
+        f"replayed from a graph (least of {', '.join(f'{f:.5f}' for f in floors)}) | {smi}")
     entries = {}
     for tag, name in (("", "interactive:frame1"), ("@scale", "scale:frame1")):
         cfg, scene, state, row, grid, row0, nearest = glue_inputs(name, dev)
@@ -1081,17 +1097,16 @@ def frame_glue_phase(dev, smi: str) -> dict:
         bytes_of = {"camera_rays": 24 * r + ids_bytes + (4 * r if cfg.tracer.noise_rng else 0),
                     "resolve": 12 * r + 12 * k + ids_bytes}
         ops_of = {"camera_rays": 2 * r * THREEFRY_INT_OPS, "resolve": 0}
-        if not tag:
-            timed_fns["frame_setup"] = (
-                lambda: step.frame_setup_kernel(scene, cfg, state, row, n, grid),
-                lambda: step.frame_setup_plain(scene, cfg, state, row, n, grid))
-            width = 1 << max(0, (n - 1).bit_length())
-            levels = int(math.log2(width)) if width > 1 else 0
-            leaves = scene.leaf_min.shape[0]
-            bytes_of["frame_setup"] = 2 * ids_bytes + 24 * leaves + 96
-            ops_of["frame_setup"] = (9 * THREEFRY_INT_OPS + SETUP_ID_OPS * n
-                                     + SETUP_SORT_OPS * width * levels * (levels + 1) // 4
-                                     + SETUP_LEAF_OPS * leaves)
+        timed_fns["frame_setup"] = (
+            lambda: step.frame_setup_kernel(scene, cfg, state, row, n, grid),
+            lambda: step.frame_setup_plain(scene, cfg, state, row, n, grid))
+        width = 1 << max(0, (n - 1).bit_length())
+        levels = int(math.log2(width)) if width > 1 else 0
+        leaves = scene.leaf_min.shape[0]
+        bytes_of["frame_setup"] = 2 * ids_bytes + 24 * leaves + 96
+        ops_of["frame_setup"] = (9 * THREEFRY_INT_OPS + SETUP_ID_OPS * n
+                                 + SETUP_SORT_OPS * width * levels * (levels + 1) // 4
+                                 + SETUP_LEAF_OPS * leaves)
         for kernel, (fn, plain) in timed_fns.items():
             ms = time_ms(fn, GLUE_REPS, graph=True)
             plain_ms = time_ms(plain, 3)
@@ -1100,13 +1115,24 @@ def frame_glue_phase(dev, smi: str) -> dict:
             bound_ms, by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
             entries[kernel + tag] = dict(kernel=kernel, lib=kernel, max_abs_err=0.0, ms=ms,
                                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
-            latency = " (latency-bound: one block)" if kernel == "frame_setup" else ""
+            latency = ""
+            if kernel == "frame_setup":
+                # The same launch without the sort flag: the window copied.
+                unsorted = cfg.replace(screen=dataclasses.replace(sc, sort_chunk_window=False))
+                unsorted_ms = time_ms(
+                    lambda: step.frame_setup_kernel(scene, unsorted, state, row, n, grid),
+                    GLUE_REPS, graph=True)
+                entries[kernel + tag]["floor_ms"] = floor_ms
+                latency = (f" (latency-bound: {(floor_ms + bound_ms) / ms:.1%} against the "
+                           f"launch floor {floor_ms:.5f} ms plus the bound; without the sort "
+                           f"{unsorted_ms:.5f} ms)")
             log(f"[frame-glue] {kernel + tag} on {name} ({r} rays, {n} ids): kernel {ms:.5f} "
                 f"ms/launch replayed from a graph, plain version {plain_ms:.3f} ms; bound "
                 f"{bound_ms:.5f} ms by {by} (bytes {by_bytes:.5f}, int32 {by_ops:.5f}), share "
                 f"{bound_ms / ms:.1%}{latency} | {smi}")
         del cfg, scene, state, setup, light, screen, timed_fns
         release()
+    del one
     return entries
 
 
@@ -2435,11 +2461,15 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def kernel_rows(port: str) -> int:
+KERNEL_PHASES = ("bvh-kernel", "threefry", "frame-glue")
+
+
+def kernel_rows(port: str, only=KERNEL_PHASES) -> int:
     """``--kernels-of DIR``: the ``[bvh-kernel]`` and ``[threefry]`` phases
     alone on the port in ``port`` (with this checkout's phases and test
-    helpers), and ``[frame-glue]`` where that port has the glue kernels, then
-    one JSON line of their rows (ms, plain ms, bound) and the card's line."""
+    helpers), and ``[frame-glue]`` where that port has the glue kernels (of
+    those, the phases in ``only``), then one JSON line of their rows (ms,
+    plain ms, bound, and frame_setup's launch floor) and the card's line."""
     import torch
 
     import mirror_maze_tpu_torch as P
@@ -2450,16 +2480,17 @@ def kernel_rows(port: str) -> int:
         raise SystemExit(f"chip_smoke: the port imported is not {port}'s")
     smi = card_line()
     log(smi)
-    glue = "frame_setup" in kernels.LIBRARIES
+    glue = "frame_setup" in kernels.LIBRARIES and "frame-glue" in only
     kernels.build(("bvh_walk", "threefry") + (("frame_setup", "camera_rays", "resolve")
                                               if glue else ()), verbose=True)
     dev = torch.device("cuda")
-    rows = bvh_kernel_phase(dev, smi)
-    rows.update(threefry_phase(dev, smi, P.NAMED_CONFIGS["interactive"]()))
+    rows = bvh_kernel_phase(dev, smi) if "bvh-kernel" in only else {}
+    if "threefry" in only:
+        rows.update(threefry_phase(dev, smi, P.NAMED_CONFIGS["interactive"]()))
     if glue:
         rows.update(frame_glue_phase(dev, smi))
     print(json.dumps({"port": port, "rows": {
-        row: {k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        row: {k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "floor_ms") if k in e}
         for row, e in rows.items()}}))
     print(smi)
     return 0
@@ -2473,6 +2504,8 @@ def main() -> int:
                     help="run only [bvh-kernel], [threefry] and [frame-glue] on the port in "
                          "DIR (a git archive of another commit unpacked there is timed by the "
                          "same method) and print their rows")
+    ap.add_argument("--only", action="append", choices=KERNEL_PHASES,
+                    help="with --kernels-of: run only this phase (may be repeated)")
     args = ap.parse_args()
     # The smoke drives one card: show it only the first one, so that the
     # device count it reports is the count it used.
@@ -2490,7 +2523,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     if args.kernels_of:
         sys.path.insert(0, os.path.abspath(args.kernels_of))
-        return kernel_rows(os.path.abspath(args.kernels_of))
+        return kernel_rows(os.path.abspath(args.kernels_of), args.only or KERNEL_PHASES)
     try:
         import mirror_maze_tpu_torch as P
         from _torch_tools import (
@@ -3315,9 +3348,9 @@ def main() -> int:
     # gather, a sort, a move, a box test and a key chain), its camera rays
     # (a rotation and a threefry draw) or the resolve (a root, a mean and a
     # row scatter), so library_ms is null.
-    for row, path in (("frame_setup", "main"), ("camera_rays", "main"),
-                      ("camera_rays@scale", "scale"), ("resolve", "main"),
-                      ("resolve@scale", "scale")):
+    for row, path in (("frame_setup", "main"), ("frame_setup@scale", "scale"),
+                      ("camera_rays", "main"), ("camera_rays@scale", "scale"),
+                      ("resolve", "main"), ("resolve@scale", "scale")):
         e = entries[row]
         k = e["kernel"]
         kern.append(dict(name=row, route="cuda", source=SOURCES[k], replaces=REPLACES[k],

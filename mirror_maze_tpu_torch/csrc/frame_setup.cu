@@ -1,5 +1,6 @@
-// Frame setup: the scalar work of one frame of the engine step, in one
-// block.
+// Frame setup: the scalar work of one frame of the engine step, in two
+// blocks: block 0 pops and sorts the window, block 1 draws the frame's keys
+// and moves the camera.
 //
 // Replaces the glue that XLA fuses under jit around the JAX package's two
 // Pallas calls (mirror_maze_tpu/runtime/step.py:155-183; no Pallas kernel):
@@ -24,10 +25,10 @@
 //
 // The window's ids are distinct (a window never exceeds the queue), so are
 // their Morton codes, and any correct sort gives the stable argsort's order.
-// The codes are sorted in shared memory by a bitonic network, padded with
-// 0xFFFFFFFF to a power of two, and decoded back into ids (a chunk's
-// coordinates are < 2^16, so the code holds them whole). The wrapper raises
-// before the launch on a window of more than MAX_SORT ids.
+// The codes are sorted by a bitonic network, padded with 0xFFFFFFFF to a
+// power of two of at least a warp's codes, and decoded back into ids (a
+// chunk's coordinates are < 2^16, so the code holds them whole). The wrapper
+// raises before the launch on a window of more than MAX_SORT ids.
 //
 // Exactness: built with -fmad=false (IEEE division and root, no contraction,
 // as every kernel of the port): the move is the torch expression order (see
@@ -36,12 +37,25 @@
 // version's.
 //
 // Bound: latency. A few hundred bytes, nine hashes and the sort's
-// n log^2 n / 4 compare-exchanges (66 barrier steps at 1,980 ids, 91 at
-// 8,040) in one block of 1,024 threads on one SM, whose four schedulers'
-// issue rate sets the sort's time, so a thread takes one pair a step. (A
-// thread a code, half of them idle, issued twice the instructions; ending
-// the steps inside a warp at a warp barrier saved nothing: PERF.md §6.) The
-// key chain and the move run on thread 0 while the others load the codes.
+// n log^2 n / 4 compare-exchanges (66 steps at 1,980 ids, 91 at 8,040) on
+// one SM, whose issue rate set the first version's time (one block of 1,024
+// threads, a pair a thread and a barrier a step, the key chain on thread 0
+// before the first barrier: PERF.md §6). The design takes that path apart:
+//   - the sort holds E = CODES codes a thread in registers (more where the
+//     width needs more than MAX_THREADS threads), a block of them
+//     consecutive (thread t holds t * E + e): a step of distance j below E
+//     compares registers, one below a warp's codes swaps with lane
+//     lane ^ (j / E) by __shfl_xor_sync, and only the steps of a larger j
+//     go through shared memory (two buffers in turn, one barrier a step):
+//     10 of the 66 steps at 1,980 ids (16 warps), 15 of the 91 at 8,040
+//     (E = 8, 32 warps). The network is unrolled for each width (a
+//     template), so no step spends instructions on its loop, its kind or
+//     its direction. The sort is latency-bound: more warps with fewer codes
+//     each won (E = 4 against 8 and 16; 2 tied with 4: PERF.md §6);
+//   - the key chain, the move and the collision test run in block 1, on
+//     another SM, beside the sort; inside the chain the independent hashes
+//     (the rotation split's two children, the camera split's two, randint's
+//     two) go to two lanes, so its depth is five hashes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,8 +65,11 @@
 
 namespace {
 
-constexpr int THREADS = 1024;
-constexpr int MAX_SORT = 16384;  // codes a block sorts: 64 KiB of shared memory
+constexpr int MAX_SORT = 16384;     // codes a block sorts
+constexpr int CODES = 4;            // codes a sorting thread holds, at least
+constexpr int WARP = 32;
+constexpr int MAX_THREADS = 1024;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
 // The C entry's parameters (the wrapper's ctypes Structure in
 // runtime/step.py, field for field: pointers, then ints, then floats).
@@ -106,25 +123,35 @@ __device__ __forceinline__ void store_key(long long* out, mm::Key k) {
   out[1] = (long long)k.k2;
 }
 
-// Thread 0: the key chain and the seed.
-__device__ void key_chain(const Params& p, uint32_t frame) {
-  const mm::Key key = mm::load_key(p.key);
-  const mm::Key rkey = mm::child(key, 0), next = mm::child(key, 1);
-  const mm::Key fkey = mm::child(next, frame);
-  const mm::Key jkey = mm::child(fkey, 0), tkey = mm::child(fkey, 1);
-  const uint32_t higher = mm::word(mm::child(tkey, 0), 0);
-  const uint32_t lower = mm::word(mm::child(tkey, 1), 0);
+__device__ __forceinline__ mm::Key lane_key(mm::Key k, int lane) {
+  return mm::Key{__shfl_sync(FULL, k.k1, lane), __shfl_sync(FULL, k.k2, lane)};
+}
+
+// Warp 0 of block 1: the key chain and the seed. Lane l hashes child l & 1
+// where a step has two independent children; every lane computes the same
+// chain, lanes 0 and 1 hand theirs on by shuffles.
+__device__ void key_chain(const Params& p, uint32_t frame, int lane) {
+  const uint32_t half = lane & 1;
+  const mm::Key split = mm::child(mm::load_key(p.key), half);   // rkey, next
+  const mm::Key next = lane_key(split, 1);
+  const mm::Key pair = mm::child(mm::child(next, frame), half);  // jkey, tkey
+  const mm::Key tkey = lane_key(pair, 1);
+  const uint32_t w = mm::word(mm::child(tkey, half), 0);         // higher, lower
+  const uint32_t higher = __shfl_sync(FULL, w, 0), lower = __shfl_sync(FULL, w, 1);
+  if (lane == 1) {
+    store_key(p.key_out, next);
+    store_key(p.keys_out + 4, tkey);
+  }
+  if (lane != 0) return;
   const uint64_t span = p.seed_span;
   uint64_t offset = (((uint64_t)(higher % span) * p.seed_mult) & 0xFFFFFFFFull) + lower % span;
   offset = (offset & 0xFFFFFFFFull) % span;
-  store_key(p.key_out, next);
-  store_key(p.keys_out, rkey);
-  store_key(p.keys_out + 2, jkey);
-  store_key(p.keys_out + 4, tkey);
+  store_key(p.keys_out, split);
+  store_key(p.keys_out + 2, pair);
   *p.seed_out = (int)((uint32_t)p.seed_min + (uint32_t)offset);
 }
 
-// Thread 0: the moved centre (runtime/step.py integrate_movement).
+// The moved centre (runtime/step.py integrate_movement).
 __device__ void move(const Params& p, float* moved) {
   const mm::Quat q = mm::load_quat(p.quat);
   float rx = p.step, ry = 0.0f, rz = 0.0f;
@@ -137,31 +164,21 @@ __device__ void move(const Params& p, float* moved) {
   moved[2] = p.center[2] + (((-rz * a - fz * s) + rz * d) + fz * w);
 }
 
-__global__ void __launch_bounds__(THREADS) frame_setup_kernel(Params p, int width) {
-  extern __shared__ uint32_t codes[];  // [width] with the sort flag
+// Block 1: the keys, the counters, the move and its collision test.
+__device__ void setup_block(const Params& p) {
   __shared__ float moved[3];
   const int tid = threadIdx.x;
-  const long long cursor = *p.cursor;
-  if (tid == 0) {
+  if (tid < WARP) {
     const uint32_t frame = (uint32_t)*p.frame + 1u;
-    key_chain(p, frame);
-    move(p, moved);
-    *p.frame_out = (int)frame;
-    *p.cursor_out = (int)((cursor + p.n) % p.total);
-  }
-  // 1. The window: its ids, or their Morton codes to sort.
-  for (int i = tid; i < (p.sort ? width : p.n); i += blockDim.x) {
-    const int id = i < p.n ? p.perm[(cursor + i) % p.total] : 0;
-    if (!p.sort) {
-      p.ids[i] = id;
-    } else {
-      codes[i] = i < p.n ? spread((uint32_t)(id % p.chunks_x)) |
-                               (spread((uint32_t)(id / p.chunks_x)) << 1)
-                         : 0xFFFFFFFFu;
+    key_chain(p, frame, tid);
+    if (tid == 0) {
+      *p.frame_out = (int)frame;
+      *p.cursor_out = (int)((*p.cursor + (long long)p.n) % p.total);
     }
+  } else if (tid == WARP) {
+    move(p, moved);
   }
   __syncthreads();
-  // 2. The collision test of the moved box against every leaf box.
   const float lo_x = moved[0] - p.half_x, lo_y = moved[1] - p.half_y, lo_z = moved[2] - p.half_z;
   const float hi_x = moved[0] + p.half_x, hi_y = moved[1] + p.half_y, hi_z = moved[2] + p.half_z;
   int hit = 0;
@@ -172,42 +189,136 @@ __global__ void __launch_bounds__(THREADS) frame_setup_kernel(Params p, int widt
            (lo_z <= mx[2]) & (hi_z >= mn[2]);
   }
   hit = __syncthreads_or(hit);
-  for (int c = tid; c < 3; c += blockDim.x) p.center_out[c] = hit ? p.center[c] : moved[c];
-  if (!p.sort) return;
-  // 3. The bitonic sort of the codes, ascending: a step is width / 2
-  // compare-exchanges of the pairs (i, i + j), i with bit j clear, one a
-  // thread, both codes written back (min first where i's k-block ascends).
-  for (int k = 2; k <= width; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = tid; t < width / 2; t += blockDim.x) {
-        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1)), l = i | j;
-        const uint32_t a = codes[i], b = codes[l];
-        const uint32_t lo = a < b ? a : b, hi = a < b ? b : a;
-        const bool up = (i & k) == 0;
-        codes[i] = up ? lo : hi;
-        codes[l] = up ? hi : lo;
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = tid; i < p.n; i += blockDim.x) {
-    const uint32_t c = codes[i];
-    p.ids[i] = (int)compact(c >> 1) * p.chunks_x + (int)compact(c);
+  if (tid < 3) p.center_out[tid] = hit ? p.center[tid] : moved[tid];
+}
+
+// A compare-exchange step of distance J < E inside a thread's codes: the
+// pair (e, e + J), e with bit J clear; ascending where the element's k-block
+// ascends.
+template <int E, int J>
+__device__ __forceinline__ void exchange_registers(uint32_t (&v)[E], int i0, int k) {
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (e & J) continue;
+    const bool up = ((i0 + e) & k) == 0;
+    const uint32_t lo = min(v[e], v[e + J]), hi = max(v[e], v[e + J]);
+    v[e] = up ? lo : hi;
+    v[e + J] = up ? hi : lo;
   }
 }
 
-}  // namespace
+template <int E>
+__device__ __forceinline__ void register_step(uint32_t (&v)[E], int i0, int j, int k) {
+  if (j == 1) exchange_registers<E, 1>(v, i0, k);
+  if (j == 2) exchange_registers<E, 2>(v, i0, k);
+  if constexpr (E > 4) if (j == 4) exchange_registers<E, 4>(v, i0, k);
+  if constexpr (E > 8) if (j == 8) exchange_registers<E, 8>(v, i0, k);
+}
 
-extern "C" int mm_frame_setup(const void* params, void* stream) {
-  const Params& p = *static_cast<const Params*>(params);
-  if (p.n < 1 || p.total < p.n || p.chunks_x < 1 || p.leaves < 0 || p.seed_span == 0 ||
-      (p.sort && p.n > MAX_SORT))
-    return (int)cudaErrorInvalidValue;
-  int width = 0;
-  if (p.sort)
-    for (width = 1; width < p.n; width <<= 1) {
+// The element keeps the smaller code where it is the lower of its pair in an
+// ascending k-block, or the upper in a descending one.
+__device__ __forceinline__ uint32_t keep(uint32_t mine, uint32_t theirs, bool keep_min) {
+  return keep_min ? min(mine, theirs) : max(mine, theirs);
+}
+
+// A step of distance j = E * m, m < 32: the partner is lane lane ^ m's
+// register e.
+template <int E>
+__device__ __forceinline__ void exchange_lanes(uint32_t (&v)[E], int lane, int m, bool up) {
+  const bool keep_min = ((lane & m) == 0) == up;
+#pragma unroll
+  for (int e = 0; e < E; ++e) v[e] = keep(v[e], __shfl_xor_sync(FULL, v[e], m), keep_min);
+}
+
+// A step of distance j >= a warp's codes: through the shared buffer buf,
+// which no thread reads in the step before (the caller alternates two).
+template <int E>
+__device__ __forceinline__ void exchange_shared(uint32_t (&v)[E], uint32_t* buf, int i0, int j,
+                                                bool up) {
+  static_assert(E % 4 == 0, "a thread stores its codes as 16-byte words");
+  uint4* mine = reinterpret_cast<uint4*>(buf + i0);
+#pragma unroll
+  for (int q = 0; q < E / 4; ++q)
+    mine[q] = make_uint4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  __syncthreads();
+  const uint4* theirs = reinterpret_cast<const uint4*>(buf + (i0 ^ j));
+  const bool keep_min = ((i0 & j) == 0) == up;
+#pragma unroll
+  for (int q = 0; q < E / 4; ++q) {
+    const uint4 w = theirs[q];
+    v[4 * q] = keep(v[4 * q], w.x, keep_min);
+    v[4 * q + 1] = keep(v[4 * q + 1], w.y, keep_min);
+    v[4 * q + 2] = keep(v[4 * q + 2], w.z, keep_min);
+    v[4 * q + 3] = keep(v[4 * q + 3], w.w, keep_min);
+  }
+}
+
+// Block 0: the window, and with the sort flag its bitonic sort of W = 2^L
+// codes (W >= WARP * E; W / E threads, or a warp more).
+template <int E, int L>
+__device__ void window_block(const Params& p, uint32_t* buf) {
+  constexpr int W = 1 << L;
+  const int tid = threadIdx.x;
+  const int cursor = *p.cursor;  // in [0, total)
+  if (!p.sort) {
+    for (int i = tid; i < p.n; i += blockDim.x)
+      p.ids[i] = p.perm[((uint32_t)cursor + i) % (uint32_t)p.total];
+    return;
+  }
+  const int i0 = tid * E;
+  if (i0 >= W) return;  // the second warp of a one-warp sort: it has no barrier
+  uint32_t v[E];
+  int at = i0 < p.n ? (int)(((uint32_t)cursor + i0) % (uint32_t)p.total) : 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (i0 + e < p.n) {
+      const int id = p.perm[at];
+      v[e] = spread((uint32_t)(id % p.chunks_x)) | (spread((uint32_t)(id / p.chunks_x)) << 1);
+    } else {
+      v[e] = 0xFFFFFFFFu;
     }
-  const size_t smem = (size_t)width * sizeof(uint32_t);
+    at = at + 1 == p.total ? 0 : at + 1;
+  }
+  const int lane = tid & (WARP - 1);
+  int parity = 0;
+#pragma unroll
+  for (int a = 1; a <= L; ++a) {
+    const int k = 1 << a;
+#pragma unroll
+    for (int b = a - 1; b >= 0; --b) {
+      const int j = 1 << b;
+      if (j >= WARP * E) {
+        exchange_shared<E>(v, buf + parity * W, i0, j, (i0 & k) == 0);
+        parity ^= 1;
+      } else if (j >= E) {
+        exchange_lanes<E>(v, lane, j / E, (i0 & k) == 0);
+      } else {
+        register_step<E>(v, i0, j, k);
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    if (i0 + e < p.n) p.ids[i0 + e] = (int)compact(v[e] >> 1) * p.chunks_x + (int)compact(v[e]);
+}
+
+template <int E, int L>
+__global__ void __launch_bounds__(MAX_THREADS) frame_setup_kernel(Params p) {
+  extern __shared__ uint4 smem[];  // [2, 2^L] codes with the sort flag
+  if (blockIdx.x == 1)
+    setup_block(p);
+  else
+    window_block<E, L>(p, reinterpret_cast<uint32_t*>(smem));
+}
+
+// The launch of a sort of 2^L codes (or, with no sort flag, of none).
+template <int L>
+int launch(const Params& p, cudaStream_t stream) {
+  constexpr int W = 1 << L;
+  constexpr int E = W / MAX_THREADS > CODES ? W / MAX_THREADS : CODES;
+  constexpr int sort_threads = W / E > 2 * WARP ? W / E : 2 * WARP;
+  const int threads = p.sort ? sort_threads : MAX_THREADS;
+  const size_t smem = p.sort ? 2 * (size_t)W * sizeof(uint32_t) : 0;
   if (smem > 48 * 1024) {
     // Opt in to the shared memory past 48 KiB, once per device.
     static bool opted[64] = {};
@@ -216,11 +327,37 @@ extern "C" int mm_frame_setup(const void* params, void* stream) {
     if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
     if (!opted[device]) {
       const cudaError_t err = cudaFuncSetAttribute(
-          frame_setup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SORT * 4);
+          frame_setup_kernel<E, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
       opted[device] = true;
     }
   }
-  frame_setup_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(p, width);
+  frame_setup_kernel<E, L><<<2, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+constexpr int log2_of(int n) { return n > 1 ? 1 + log2_of(n / 2) : 0; }
+
+// The launch of the width 2^log, from 2^L up.
+template <int L>
+int launch_log(const Params& p, int log, cudaStream_t stream) {
+  if constexpr (L > log2_of(MAX_SORT))
+    return (int)cudaErrorInvalidValue;
+  else
+    return log == L ? launch<L>(p, stream) : launch_log<L + 1>(p, log, stream);
+}
+
+constexpr int MIN_LOG = log2_of(WARP * CODES);  // a warp's codes, the least width
+
+}  // namespace
+
+extern "C" int mm_frame_setup(const void* params, void* stream) {
+  const Params& p = *static_cast<const Params*>(params);
+  if (p.n < 1 || p.total < p.n || p.chunks_x < 1 || p.leaves < 0 || p.seed_span == 0 ||
+      (p.sort && p.n > MAX_SORT))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  int log = MIN_LOG;
+  while (p.sort && (1 << log) < p.n) ++log;
+  return launch_log<MIN_LOG>(p, log, s);
 }

@@ -1,5 +1,6 @@
 // Resolve: a frame's traced light into pixel colours, written as the
-// chunk's rows of the screen; one thread a pixel's colour channel.
+// chunk's rows of the screen; a block a run of PIXELS pixels, staged in
+// shared memory.
 //
 // Replaces the glue that XLA fuses under jit after the JAX package's tracer
 // call (mirror_maze_tpu/render/pipeline.py:128-129 tone_map + jnp.mean and
@@ -21,18 +22,41 @@
 // or in the screen itself (render/frame_glue.py resolve).
 //
 // Bound: bytes. The light is read once (12 B a sample) and the rows written
-// once (12 B a pixel). A warp's 32 threads read ~11 pixels' samples, each
-// thread its channel's word of every sample; the lines stay in the L1 while
-// the warp walks them. Staging a block's light in shared memory with
-// coalesced loads first, and unrolling the loads eight deep, were measured
-// no faster (PERF.md §6).
+// once (12 B a pixel). The first version (a thread a pixel's channel,
+// reading its channel's word of every sample) spent ~11 L1 wavefronts a load
+// on ~11 pixels' lines, and half its bound went there (PERF.md §6). Here a
+// block:
+//   1. reads its pixels' light, one contiguous span, with 16-byte loads and
+//      tone-maps it into shared memory in the light's own order, PAD words
+//      after every RUN_FLOATS (one run of RUN samples x 3 channels), so that
+//      a run's floats start 4 banks after the run before;
+//   2. sums each run of a pixel in one lane, its three channels side by side
+//      left to right, reading the run with 16-byte loads (eight lanes of a
+//      quarter warp hit eight different bank quads);
+//   3. adds each pixel channel's runs left to right in one lane, scales by
+//      the reciprocal and writes the rows (consecutive lanes, consecutive
+//      columns).
+// The 16-byte route needs every run to start on 16 bytes: spp a multiple of
+// RUN and the light 16-byte aligned. Any other spp, or a light that is not
+// aligned, takes the same layout with 4-byte shared-memory accesses, and
+// reads the span's unaligned head and tail one float at a time. A block
+// stages at most SMEM_BYTES (no opt-in): PIXELS pixels, fewer where a
+// pixel's samples are many; the wrapper's RESOLVE_MAX_SPP is the most
+// samples one pixel may have. 16 pixels a block of 128 threads measured
+// fastest at [main]'s and config_scale's shapes (against 32 / 256, 32 / 128,
+// 16 / 64 and 8 / 64: PERF.md §6).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int RUN = 32;  // samples summed left to right before their run is added
+constexpr int THREADS = 128;
+constexpr int RUN = 32;                // samples summed left to right before their run is added
+constexpr int RUN_FLOATS = 3 * RUN;    // one run's floats: RUN samples x 3 channels
+constexpr int PAD = 4;                 // words after every RUN_FLOATS staged floats
+constexpr int PIXELS = 16;             // pixels a block, at most
+constexpr int SMEM_BYTES = 48 * 1024;  // a block's staging, at most
 
 // The C entry's parameters (the wrapper's ctypes Structure in
 // render/frame_glue.py, field for field: pointers, then ints, then floats).
@@ -48,24 +72,107 @@ __device__ __forceinline__ float tone(float l) {
   return __fsqrt_rn(isnan(l) ? l : fmaxf(l, 0.0f));
 }
 
-__global__ void __launch_bounds__(THREADS) resolve_kernel(Params p) {
-  const int o = blockIdx.x * THREADS + threadIdx.x;
-  if (o >= 3 * p.n_pixels) return;
-  const int k = o / 3, c = o - 3 * k;
-  const float* l = p.light + (size_t)k * p.spp * 3 + c;
-  float total = 0.0f;
-  for (int r0 = 0; r0 < p.spp; r0 += RUN) {
-    const int end = r0 + RUN < p.spp ? r0 + RUN : p.spp;
-    float run = tone(l[3 * r0]);
-    for (int s = r0 + 1; s < end; ++s) run = run + tone(l[3 * s]);
-    total = r0 == 0 ? run : total + run;
-  }
-  const float mean = total * p.rcp_spp;
-  if (p.ids == nullptr) {
-    p.out[o] = mean;
+// The shared-memory word of staged float f.
+__host__ __device__ __forceinline__ int slot(int f) { return f + PAD * (f / RUN_FLOATS); }
+
+// Shared-memory words of a block of `pixels` pixels: the staged light, then
+// the runs' sums [pixels * 3, runs].
+__host__ __device__ __forceinline__ int block_words(int pixels, int spp) {
+  const int floats = pixels * 3 * spp, runs = (spp + RUN - 1) / RUN;
+  return floats + PAD * ((floats + RUN_FLOATS - 1) / RUN_FLOATS) + pixels * 3 * runs;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS) resolve_kernel(Params p, int pixels) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, span = 3 * p.spp, runs = (p.spp + RUN - 1) / RUN;
+  const int k0 = blockIdx.x * pixels;
+  const int np = min(pixels, p.n_pixels - k0), nf = np * span;
+  const float* src = p.light + (size_t)k0 * span;
+  float* sums = smem + block_words(pixels, p.spp) - pixels * 3 * runs;
+
+  // 1. Stage the span, tone-mapped.
+  if (VEC) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    for (int q = tid; q < nf / 4; q += blockDim.x) {
+      const float4 x = src4[q];
+      *reinterpret_cast<float4*>(smem + slot(4 * q)) =
+          make_float4(tone(x.x), tone(x.y), tone(x.z), tone(x.w));
+    }
   } else {
-    const int j = k / p.ppc, pn = k - j * p.ppc;
-    p.out[(size_t)p.ids[j] * p.ppc * 3 + 3 * pn + c] = mean;
+    const int head = min(nf, (int)((16 - ((uintptr_t)src & 15)) & 15) / 4);
+    const int body = (nf - head) / 4;
+    const float4* src4 = reinterpret_cast<const float4*>(src + head);
+    for (int f = tid; f < head; f += blockDim.x) smem[slot(f)] = tone(src[f]);
+    for (int q = tid; q < body; q += blockDim.x) {
+      const float4 x = src4[q];
+      const int f = head + 4 * q;
+      smem[slot(f)] = tone(x.x);
+      smem[slot(f + 1)] = tone(x.y);
+      smem[slot(f + 2)] = tone(x.z);
+      smem[slot(f + 3)] = tone(x.w);
+    }
+    for (int f = head + 4 * body + tid; f < nf; f += blockDim.x) smem[slot(f)] = tone(src[f]);
+  }
+  __syncthreads();
+
+  // 2. A lane a run of a pixel: each channel left to right.
+  for (int t = tid; t < np * runs; t += blockDim.x) {
+    const int px = t / runs, r = t - px * runs;
+    int f = px * span + r * RUN_FLOATS;
+    float a, b, c;
+    if (VEC) {  // a whole run, RUN_FLOATS at slot(f) on 16 bytes: four samples in three loads
+      const float4* run = reinterpret_cast<const float4*>(smem + slot(f));
+      float4 x = run[0], y = run[1], z = run[2];
+      a = x.x;
+      b = x.y;
+      c = x.z;
+      a = a + x.w; b = b + y.x; c = c + y.y;
+      a = a + y.z; b = b + y.w; c = c + z.x;
+      a = a + z.y; b = b + z.z; c = c + z.w;
+#pragma unroll
+      for (int q = 3; q < RUN_FLOATS / 4; q += 3) {
+        x = run[q];
+        y = run[q + 1];
+        z = run[q + 2];
+        a = a + x.x; b = b + x.y; c = c + x.z;
+        a = a + x.w; b = b + y.x; c = c + y.y;
+        a = a + y.z; b = b + y.w; c = c + z.x;
+        a = a + z.y; b = b + z.z; c = c + z.w;
+      }
+    } else {
+      const int len = min(RUN, p.spp - r * RUN);
+      a = smem[slot(f)];
+      b = smem[slot(f + 1)];
+      c = smem[slot(f + 2)];
+      for (int s = 1; s < len; ++s) {
+        f += 3;
+        a = a + smem[slot(f)];
+        b = b + smem[slot(f + 1)];
+        c = c + smem[slot(f + 2)];
+      }
+    }
+    float* out = sums + 3 * px * runs + r;
+    out[0] = a;
+    out[runs] = b;
+    out[2 * runs] = c;
+  }
+  __syncthreads();
+
+  // 3. A lane a pixel's channel: its runs left to right, the mean, the row.
+  for (int t = tid; t < 3 * np; t += blockDim.x) {
+    const float* run = sums + t * runs;
+    float total = run[0];
+    for (int r = 1; r < runs; ++r) total = total + run[r];
+    const float mean = total * p.rcp_spp;
+    const int px = t / 3, k = k0 + px;
+    if (p.ids == nullptr) {
+      p.out[(size_t)3 * k0 + t] = mean;
+    } else {
+      const int j = k / p.ppc, pn = k - j * p.ppc;
+      p.out[(size_t)p.ids[j] * p.ppc * 3 + 3 * pn + (t - 3 * px)] = mean;
+    }
   }
 }
 
@@ -73,10 +180,19 @@ __global__ void __launch_bounds__(THREADS) resolve_kernel(Params p) {
 
 extern "C" int mm_resolve(const void* params, void* stream) {
   const Params& p = *static_cast<const Params*>(params);
-  if (p.n_pixels < 0 || p.spp < 1 || p.ppc < 1 || (p.ids != nullptr && p.n_pixels % p.ppc))
+  if (p.n_pixels < 0 || p.spp < 1 || p.spp > SMEM_BYTES / 4 || p.ppc < 1 ||
+      (p.ids != nullptr && p.n_pixels % p.ppc))
     return (int)cudaErrorInvalidValue;
   if (p.n_pixels == 0) return (int)cudaGetLastError();
-  const int blocks = (3 * p.n_pixels + THREADS - 1) / THREADS;
-  resolve_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(p);
+  int pixels = PIXELS;
+  while (pixels > 0 && block_words(pixels, p.spp) * 4 > SMEM_BYTES) --pixels;
+  if (pixels == 0) return (int)cudaErrorInvalidValue;  // past RESOLVE_MAX_SPP
+  const size_t smem = (size_t)block_words(pixels, p.spp) * 4;
+  const int blocks = (p.n_pixels + pixels - 1) / pixels;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (p.spp % RUN == 0 && ((uintptr_t)p.light & 15) == 0)
+    resolve_kernel<true><<<blocks, THREADS, smem, s>>>(p, pixels);
+  else
+    resolve_kernel<false><<<blocks, THREADS, smem, s>>>(p, pixels);
   return (int)cudaGetLastError();
 }

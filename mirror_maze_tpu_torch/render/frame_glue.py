@@ -47,9 +47,12 @@ from .tracer import tone_map
 # total: XLA-CPU's jitted jnp.mean over the sample axis sums so for spp <= 32
 # and for multiples of 32.
 RUN = 32
-# The most samples a pixel the resolve kernel stages in 48 KiB of shared
-# memory (csrc/resolve.cu: a pixel's light and its runs' sums).
-RESOLVE_MAX_SPP = 3968
+# The most samples a pixel the resolve kernel takes: csrc/resolve.cu stages
+# a block's light, tone-mapped, in at most 48 KiB of shared memory
+# (SMEM_BYTES), with 4 words of padding after every run's 96 floats, and the
+# runs' sums beside it: a pixel of spp samples takes 3 * spp + 7 *
+# ceil(spp / 32) words, which one pixel fills at 3816.
+RESOLVE_MAX_SPP = 3816
 
 
 class Window(NamedTuple):

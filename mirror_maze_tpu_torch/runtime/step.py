@@ -225,7 +225,8 @@ _SetupParams = params_type(
      "cursor_out", "frame_out", "center_out", "key_out", "keys_out", "seed_out"),
     ("total", "n", "sort", "chunks_x", "leaves", "seed_min", "seed_span", "seed_mult"),
     ("step", "half_x", "half_y", "half_z"))
-# Windows the kernel sorts in one block's shared memory (csrc/frame_setup.cu).
+# Windows the kernel sorts in one block (csrc/frame_setup.cu: 1,024 threads of
+# 16 codes in registers at the most).
 MAX_SORT = 16384
 
 

@@ -1321,3 +1321,94 @@ def test_resolve_kernel_sums_in_the_plain_order(cuda_device, spp):
     assert frame_glue.resolve(light, spp, same, ids, in_place=True) is same
     assert glue_ndiff(same, want) == 0
     assert glue_ndiff(frame_glue.resolve(light, spp), frame_glue.resolve_plain(light, spp)) == 0
+
+
+# Window sizes across the sort's regimes: one code, a warp's lanes, one
+# warp's codes (128), the shared-memory steps past it, [main]'s 1,980,
+# config_scale's 8,040 (8 codes a thread) and the most the kernel sorts (16).
+SORT_WINDOWS = [1, 2, 31, 32, 33, 127, 128, 129, 255, 256, 257, 1980, 2048, 2049, 8040, 16384]
+
+
+@pytest.mark.parametrize("sort,n", [(True, n) for n in SORT_WINDOWS] + [(False, 1980)])
+def test_frame_setup_kernel_is_bitwise_its_plain_version(cuda_device, sort, n):
+    """A window of n ids popped across the end of the queue (the cursor n // 2
+    + 1 before it) of a 256 x 128 chunk grid, sorted or not, with a D + W
+    move, a random key and frame: every tensor the kernel writes bitwise
+    frame_setup_plain's; one launch."""
+    from mirror_maze_tpu_torch.runtime import step
+    from mirror_maze_tpu_torch.runtime.state import init_state
+
+    rng = np.random.default_rng(n)
+    cfg = golden_config()
+    grid = dataclasses.replace(cfg.screen, width=1024, height=512, sort_chunk_window=sort)
+    cfg = cfg.replace(screen=grid)
+    total = grid.total_chunks
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    state = init_state(cfg, device=cuda_device)._replace(
+        perm=torch.from_numpy(rng.permutation(total).astype(np.int32)).to(cuda_device),
+        cursor=torch.tensor(total - n // 2 - 1, dtype=torch.int32, device=cuda_device),
+        key=torch.from_numpy(rng.integers(0, 2 ** 32, 2, dtype=np.uint64).astype(np.int64))
+        .to(cuda_device),
+        frame=torch.tensor(int(rng.integers(1000)), dtype=torch.int32, device=cuda_device))
+    row = torch.tensor([0.0, 0.0, 1.0, 1.0, 0.0], device=cuda_device)
+    before = kernels.launches["frame_setup"]
+    got = step.frame_setup_kernel(scene, cfg, state, row, n, grid)
+    assert kernels.launches["frame_setup"] == before + 1
+    want = step.frame_setup_plain(scene, cfg, state, row, n, grid)
+    for f in want._fields:
+        assert glue_ndiff(getattr(got, f), getattr(want, f)) == 0, f
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("spp", [1, 3, 8, 32, 33, 64, 96, 3816])
+def test_resolve_kernel_is_bitwise_its_plain_version(cuda_device, spp, aligned):
+    """112 pixels (3.5 blocks of 32) of light with negatives, -0 and NaN, on
+    a 16-byte boundary or 12 bytes past one: the screen's rows and the
+    colours without ids bitwise resolve_plain; one launch each. The last
+    spp is RESOLVE_MAX_SPP."""
+    from mirror_maze_tpu_torch.render import frame_glue
+
+    assert frame_glue.RESOLVE_MAX_SPP == 3816
+    rng = np.random.default_rng(spp)
+    k = 16 * 7
+    raw = rng.random((k * spp + 1, 3)).astype(np.float32) * 3 - 0.5
+    raw[::97] = -0.0
+    raw[5::1013, 1] = np.nan
+    light = torch.from_numpy(raw).to(cuda_device)
+    light = light[:-1] if aligned else light[1:]
+    assert light.is_contiguous() and (light.data_ptr() % 16 == 0) == aligned
+    screen = torch.from_numpy(rng.random((20, 48)).astype(np.float32)).to(cuda_device)
+    ids = torch.from_numpy(rng.permutation(20)[:7].astype(np.int32)).to(cuda_device)
+    before = kernels.launches["resolve"]
+    got = frame_glue.resolve_kernel(light, spp, screen.clone(), ids)
+    colours = frame_glue.resolve_kernel(light, spp, torch.empty(k, 3, device=cuda_device))
+    assert kernels.launches["resolve"] == before + 2
+    assert glue_ndiff(got, frame_glue.resolve_plain(light, spp, screen, ids)) == 0
+    assert glue_ndiff(colours, frame_glue.resolve_plain(light, spp)) == 0
+
+
+def test_resolve_kernel_raises_past_its_most_samples(cuda_device):
+    """The wrapper raises at RESOLVE_MAX_SPP + 1 before any launch, and the C
+    entry itself refuses that spp (it stages no pixel of it) while it takes
+    RESOLVE_MAX_SPP."""
+    import ctypes
+
+    from mirror_maze_tpu_torch.render import frame_glue
+
+    most = frame_glue.RESOLVE_MAX_SPP
+    light = torch.zeros(2 * (most + 1), 3, device=cuda_device)
+    out = torch.empty(2, 3, device=cuda_device)
+    before = kernels.launches["resolve"]
+    with pytest.raises(ValueError, match=f"at most {most} samples"):
+        frame_glue.resolve_kernel(light, most + 1, out)
+    assert kernels.launches["resolve"] == before
+    for spp, ok in ((most, True), (most + 1, False)):
+        p = frame_glue._ResolveParams()
+        p.light, p.out = light.data_ptr(), out.data_ptr()
+        p.n_pixels, p.spp, p.ppc, p.rcp_spp = 2, spp, 1, 1.0 / spp
+        if ok:
+            kernels.launch("resolve", ctypes.addressof(p))
+        else:
+            with pytest.raises(RuntimeError, match="failed to launch"):
+                kernels.launch("resolve", ctypes.addressof(p))
+    torch.cuda.synchronize()
