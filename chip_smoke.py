@@ -10,14 +10,17 @@ tracer's segment, ``shade``, and the step's glue, ``frame_setup``,
 ``camera_rays`` and ``resolve``), holds
 each against its plain PyTorch version on the card at the shapes of every
 path it drives (``[threefry]``: every draw of ops/prng.py bitwise, in every
-output, on the main path's jitter draw and the jnp tracer's, and erf_inv
-beside ``torch.special.erfinv``; ``[frame-glue]``: the three glue kernels
-bitwise on every buffer they write, on [main]'s frame 1, a walk into a wall
-and a free one, a turning frame, config_scale's frame 1 (a window of 8,040
-ids), [bands]' second band (row0 540), config_fuzzy's frame 1 (the seed
-row), config_v0 and config_bvh through the jnp tracer), checks the
-engine's scripted run against the committed golden frame, and drives four
-configurations at full width through ``make_scan_step``:
+output, on the main path's jitter draw and the jnp tracer's, erf_inv on
+every 127th float32 pattern of [-1, 1] with each of its steps checked, and
+erf_inv beside ``torch.special.erfinv``; ``[frame-glue]``: the three glue
+kernels bitwise on every buffer they write, on [main]'s frame 1, a walk
+into a wall and a free one, a turning frame, config_scale's frame 1 (a
+window of 8,040 ids), [bands]' second band (row0 540), config_fuzzy's
+frame 1 (the seed row), config_v0 and config_bvh through the jnp tracer,
+config_scale at 7680x4320 (a window of 32,400 ids, frame_setup's tiled
+route) and config_interactive at 4,096 spp (resolve's pieces route)),
+checks the engine's scripted run against the committed golden frame, and
+drives four configurations at full width through ``make_scan_step``:
 
 - ``[main]``  ``config_interactive`` (10x10 maze, 1920x1080, 64 spp, 8
   mirror bounces; every plane group in one tile), 168 frames;
@@ -44,6 +47,10 @@ with its triangles made glass; and further paths of the engine:
   ``config_interactive`` as 2 bands and ``config_scale`` as 4, ALL BANDS ON
   THE ONE CARD (no multi-GPU number), each band presented by the present
   kernel's halo variant with its neighbours' rows;
+- ``[scale-8k]`` ``config_scale`` at 7680x4320 and ``[spp4096]``
+  ``config_interactive`` at 4,096 spp, an idle and a turning frame each
+  (the glue kernels' tiled sort and pieces resolve in the step's graphs),
+  and ``[spp4096-render]`` 64 pixels at 4,096 spp through ``render_pixels``;
 
 Every frame of those engine paths is one replay of the step's captured CUDA
 graph (runtime/graph.py; the first frame of each input kind eager), and each
@@ -175,9 +182,10 @@ phase with its seconds:
   process exits 0, the GIF has 6 frames, each walker ends past its spawn.
 
 Every phase prints one line; any failure exits non-zero. Every phase checks
-its kernels' launch counts: a frame stepped launches one ``frame_setup``,
-one ``camera_rays`` and one ``resolve`` (a block of rows of an offline
-render one ``camera_rays`` and one ``resolve``). A draw of ops/prng.py
+its kernels' launch counts: a frame stepped launches one ``frame_setup``
+(and, for a sorted window past 16,384 ids, its ``frame_setup_merge``
+passes), one ``camera_rays`` and one ``resolve`` (a block of rows of an
+offline render one ``camera_rays`` and one ``resolve``). A draw of ops/prng.py
 launches the threefry kernel; the frame's keys and the jitter are drawn
 inside the two glue launches, so a phase that ran on the card launched a
 drawing kernel, and the engine paths and ``[graph]`` check the threefry
@@ -190,7 +198,9 @@ kernel's rows ``bvh_walk``, ``bvh_walk@interactive``, ``bvh_walk@bounce``,
 ``threefry@jitter``, ``threefry@normal`` and ``threefry@erfinv``, the last
 with ``torch.special.erfinv``'s time as ``library_ms``,
 ``shade@interactive``, and the glue's ``frame_setup``, ``frame_setup@scale``,
-``camera_rays``, ``camera_rays@scale``, ``resolve`` and ``resolve@scale``)
+``frame_setup@8k`` (its merge passes' launches as ``merge_launches``),
+``camera_rays``, ``camera_rays@scale``, ``resolve``, ``resolve@scale`` and
+``resolve@4096spp``)
 and ``{"ok": true, "device": {...}}``. Every jnp
 path on the card launches the shade kernel once a segment, and each
 phase checks that count.
@@ -226,7 +236,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # Published H100 SXM peak (NVIDIA data sheet; dense, at the 700 W limit);
 # the memory rate is time_present.py's HBM_BYTES_PER_S.
 FP32_OPS_PER_S = 67e12
-FP64_OPS_PER_S = 33.5e12           # outside the tensor cores
 # int32 issue: an SM's 4 schedulers issue at most one warp instruction (32
 # lanes) a clock each (the Hopper architecture white paper), and integer
 # adds issue to the FMA pipe (IMAD) as well as the ALU pipe, so at most 128
@@ -792,10 +801,15 @@ THREEFRY_REPS = 20
 # erf_inv's own output.
 THREEFRY_INT_OPS = 79
 ERFINV_FMAS, LOG1P_FMAS, LOG_FMAS = 8, 11, 10
-# The normal draw's instantiation (source IOTA, output NORMAL) and the
-# instructions counted in its SASS: float64 conversions and arithmetic, FMAs.
-THREEFRY_NORMAL_KERNEL = "threefry_kernelILi0ELi3E"
+# The normal draw's and erf_inv's instantiations (source IOTA, output
+# NORMAL; source VALUES, output ERFINV) and the instructions counted in their
+# SASS: float64 conversions and arithmetic, FMAs.
+THREEFRY_SASS_KERNELS = {"normal": "threefry_kernelILi0ELi3E",
+                         "erf_inv": "threefry_kernelILi3ELi4E"}
 THREEFRY_SASS_OPS = ("F2F.F64.F32", "F2F.F32.F64", "DFMA", "DMUL", "DADD", "FFMA", "BRA")
+# erf_inv's float32 patterns of [-1, 1] checked every run: every 127th
+# (16,777,218 >= 2^24, tools/erf_inv_check.py; a card test checks them all).
+ERFINV_STRIDE = 127
 
 
 def threefry_bound(n_out: int, out_bytes: int, fp32_ops: int = 0) -> tuple:
@@ -825,6 +839,7 @@ def threefry_phase(dev, smi: str, cfg) -> dict:
     from mirror_maze_tpu_torch import kernels
     from mirror_maze_tpu_torch.ops import prng
     from mirror_maze_tpu_torch.runtime.state import init_state
+    from mirror_maze_tpu_torch.tools import erf_inv_check
     from time_present import HBM_BYTES_PER_S, time_ms
 
     t0 = time.perf_counter()
@@ -832,11 +847,13 @@ def threefry_phase(dev, smi: str, cfg) -> dict:
     if text is None:
         log("[sass] no cuobjdump in this toolkit")
     else:
-        body = next((part for part in re.split(r"\n\s*Function : ", text)
-                     if re.match(r"\S*" + THREEFRY_NORMAL_KERNEL, part)), "")
-        ops = {op: len(re.findall(r"\s" + re.escape(op) + r"\b", body))
-               for op in THREEFRY_SASS_OPS}
-        log(f"[sass] threefry's normal instantiation ({THREEFRY_NORMAL_KERNEL}): {ops}")
+        for tag, kernel in THREEFRY_SASS_KERNELS.items():
+            body = next((part for part in re.split(r"\n\s*Function : ", text)
+                         if re.match(r"\S*" + kernel, part)), "")
+            ops = {op: len(re.findall(r"\s" + re.escape(op) + r"\b", body))
+                   for op in THREEFRY_SASS_OPS}
+            ops["instructions"] = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", body))
+            log(f"[sass] threefry's {tag} instantiation ({kernel}): {ops}")
 
     def check(tag, kernel, plain) -> None:
         got, want = kernel(), plain()
@@ -935,7 +952,8 @@ def threefry_phase(dev, smi: str, cfg) -> dict:
     lo_t = torch.tensor(lo, device=dev)
     every = torch.maximum(lo_t, ((m | 0x3F800000).view(torch.float32) - 1.0)
                           * (torch.tensor(1.0, device=dev) - lo_t) + lo_t)
-    edges = [1.0, 0.0, float(np.nextafter(np.float32(1), np.float32(0)))]
+    edges = [1.0, 0.0, float(np.nextafter(np.float32(1), np.float32(0))), 2.0 ** -149,
+             2.0 ** -127, 2.0 ** -126, float(np.float32(2.0 ** -126) - np.float32(2.0 ** -149))]
     for centre in (np.sqrt(1.0 - np.exp(-5.0)), np.sqrt(float(prng._LOG1P_SMALL))):
         c = int(np.float32(centre).view(np.int32))
         edges += [float(v) for v in np.arange(c - 64, c + 65, dtype=np.int32).view(np.float32)]
@@ -946,8 +964,24 @@ def threefry_phase(dev, smi: str, cfg) -> dict:
         f"drew {covered} of the uniform's {2 ** 23} values ({covered / 2 ** 23:.4%}), "
         f"{branches['rational']} through log1p's rational branch and {branches['w_ge_5']} "
         f"through erf_inv's w >= 5 branch; erf_inv on all {2 ** 23} uniforms and {2 * len(edges)}"
-        f" edges (+-1, +-0, around w = 5 and log1p's branch): bitwise the plain version")
+        f" edges (+-1, +-0, subnormals, around w = 5 and log1p's branch): bitwise the plain "
+        f"version")
     del every, values, m
+    release()
+
+    # erf_inv (its ERFINV output) on every ERFINV_STRIDE-th float32 pattern of
+    # [-1, 1]: no step's native fmaf may differ from prng.fma there, and the
+    # output bitwise.
+    t1 = time.perf_counter()
+    found = erf_inv_check.check(ERFINV_STRIDE, dev)
+    stray = erf_inv_check.differing_steps(found)
+    log(f"[threefry] erf_inv on every {ERFINV_STRIDE}th float32 pattern of [-1, 1] "
+        f"({found['patterns']}): native fmaf differs from prng.fma at steps {stray}; the "
+        f"native route against the float64 route {found['native_differs']} differ; "
+        f"prng.erf_inv against erf_inv_plain {found['output_differs']} differ; "
+        f"{time.perf_counter() - t1:.1f} s | {smi}")
+    if stray or found["native_differs"] or found["output_differs"]:
+        raise SystemExit("[threefry] FAIL: erf_inv's steps or output")
     release()
 
     # [bench-bvh]'s unit_sphere draw: the rays of a frame x 3 normals.
@@ -975,8 +1009,8 @@ def threefry_phase(dev, smi: str, cfg) -> dict:
 
     # erf_inv (the ERFINV output) on that draw's uniforms, beside
     # torch.special.erfinv: the same function, not XLA's polynomial bit for
-    # bit. Bound: one read and one write of each value, or the float64
-    # operations the emulated FMAs count (as the normal row's).
+    # bit. Bound: one read and one write of each value, or the float32 FMAs
+    # each value's branches take (every step native) over the fp32 rate.
     check("erf_inv of the unit_sphere draw's uniforms", lambda: prng.erf_inv(u),
           lambda: prng.erf_inv_plain(u))
     lib, ours = torch.special.erfinv(u), prng.erf_inv(u)
@@ -985,8 +1019,8 @@ def threefry_phase(dev, smi: str, cfg) -> dict:
     del lib, ours
     ms = time_ms(lambda: prng.erf_inv(u), THREEFRY_REPS, graph=True)
     lib_ms = time_ms(lambda: torch.special.erfinv(u), THREEFRY_REPS, graph=True)
-    times = {"bytes": 8 * n_norm / HBM_BYTES_PER_S * 1e3,
-             "fp64": fma_ops / FP64_OPS_PER_S * 1e3}
+    times = {"bytes": 8 * n_norm / HBM_BYTES_PER_S * 1e3,     # fma_ops: the same u's erf_inv
+             "fp32": fma_ops / FP32_OPS_PER_S * 1e3}
     by = max(times, key=times.get)
     bound_ms = times[by]
     entries["threefry@erfinv"] = dict(kernel="threefry", lib="threefry_erf_inv",
@@ -999,9 +1033,9 @@ def threefry_phase(dev, smi: str, cfg) -> dict:
         f"version; kernel {ms:.4f} ms/launch replayed from a graph, plain version "
         f"{entries['threefry@erfinv']['plain_ms']:.3f} ms, torch.special.erfinv {lib_ms:.4f} ms "
         f"(bitwise XLA's polynomial on {lib_same:.4%} of the values, at most {lib_ulps} ulp "
-        f"apart); bound {bound_ms:.4f} ms by {by} (bytes {times['bytes']:.4f}, fp64 "
-        f"{times['fp64']:.4f}), share {bound_ms / ms:.1%}; {time.perf_counter() - t0:.1f} s "
-        f"| {smi}")
+        f"apart); bound {bound_ms:.4f} ms by {by} (bytes {times['bytes']:.4f}, fp32 "
+        f"{times['fp32']:.4f} for {fma_ops} operations), share {bound_ms / ms:.1%}; "
+        f"{time.perf_counter() - t0:.1f} s | {smi}")
     del u
     release()
     return entries
@@ -1011,16 +1045,25 @@ def threefry_phase(dev, smi: str, cfg) -> dict:
 # glue_inputs): [main]'s frame 1, a W move into a wall and a free one, a
 # turning frame, config_scale's frame 1 (a window of 8,040 ids), [bands]'
 # second band (row0 540), config_fuzzy's frame 1 (the seed row), config_v0
-# (1 spp) and config_bvh (4 spp) through the jnp tracer.
+# (1 spp) and config_bvh (4 spp) through the jnp tracer, config_scale at
+# 7680x4320 (a window of 32,400 ids: frame_setup's tiled route) and
+# config_interactive at 4,096 spp (resolve's pieces route).
 GLUE_INPUTS = ("interactive:frame1", "interactive:collide", "interactive:walk",
                "interactive:turn", "scale:frame1", "bands:frame1", "fuzzy:frame1", "v0:frame1",
-               "bvh:frame1")
+               "bvh:frame1", "scale-8k:frame1", "spp4096:frame1")
+# The rows: (tag, input, the kernels timed on it).
+GLUE_ROWS = (("", "interactive:frame1", ("camera_rays", "resolve", "frame_setup")),
+             ("@scale", "scale:frame1", ("camera_rays", "resolve", "frame_setup")),
+             ("@8k", "scale-8k:frame1", ("frame_setup",)),
+             ("@4096spp", "spp4096:frame1", ("resolve",)))
 GLUE_REPS = 20
 # frame_setup's integer operations for its bound: an id's Morton code and its
 # decode (two spreads, two compacts, the modulo and the division), a
-# compare-exchange of the sort (the compare and two selects), a leaf box's
-# test (six compares, five ands).
-SETUP_ID_OPS, SETUP_SORT_OPS, SETUP_LEAF_OPS = 40, 3, 11
+# comparison of the sort, a leaf box's test (six compares, five ands). A
+# sorted window of n distinct codes is charged n * ceil(log2 n) comparisons,
+# what a merge sort of them makes (within 1.45 n of log2(n!), the fewest any
+# comparison sort can make), not the kernel's network or merge passes.
+SETUP_ID_OPS, SETUP_SORT_OPS, SETUP_LEAF_OPS = 40, 1, 11
 
 
 def frame_glue_phase(dev, smi: str) -> dict:
@@ -1028,14 +1071,15 @@ def frame_glue_phase(dev, smi: str) -> dict:
     plain version on every buffer it writes, on every input of GLUE_INPUTS;
     then the rows ``frame_setup``, ``frame_setup@scale``, ``camera_rays``,
     ``camera_rays@scale``, ``resolve`` and ``resolve@scale`` on [main]'s and
-    config_scale's frame 1: ms a launch from CUDA events over graph-replayed
-    launches, the plain version's ms, the bound. frame_setup's rows also
+    config_scale's frame 1, ``frame_setup@8k`` (config_scale at 7680x4320)
+    and ``resolve@4096spp`` (config_interactive at 4,096 spp): ms a launch
+    from CUDA events over graph-replayed launches, the plain version's ms,
+    the bound. frame_setup's rows also
     give the floor of a one-block launch replayed from a graph (a
     one-element in-place add, timed alone the same way): its share is
     against that floor plus its operations bound. Returns the rows'
     entries."""
     import dataclasses
-    import math
 
     import torch
 
@@ -1072,7 +1116,7 @@ def frame_glue_phase(dev, smi: str) -> dict:
     log(f"[frame-glue] launch floor: a one-element in-place add {floor_ms:.5f} ms/launch "
         f"replayed from a graph (least of {', '.join(f'{f:.5f}' for f in floors)}) | {smi}")
     entries = {}
-    for tag, name in (("", "interactive:frame1"), ("@scale", "scale:frame1")):
+    for tag, name, timed_kernels in GLUE_ROWS:
         cfg, scene, state, row, grid, row0, nearest = glue_inputs(name, dev)
         sc, spp = cfg.screen, cfg.screen.samples_per_pixel
         n = grid.effective_chunks_per_frame
@@ -1100,14 +1144,13 @@ def frame_glue_phase(dev, smi: str) -> dict:
         timed_fns["frame_setup"] = (
             lambda: step.frame_setup_kernel(scene, cfg, state, row, n, grid),
             lambda: step.frame_setup_plain(scene, cfg, state, row, n, grid))
-        width = 1 << max(0, (n - 1).bit_length())
-        levels = int(math.log2(width)) if width > 1 else 0
+        compares = n * (n - 1).bit_length() if sc.sort_chunk_window else 0
         leaves = scene.leaf_min.shape[0]
         bytes_of["frame_setup"] = 2 * ids_bytes + 24 * leaves + 96
         ops_of["frame_setup"] = (9 * THREEFRY_INT_OPS + SETUP_ID_OPS * n
-                                 + SETUP_SORT_OPS * width * levels * (levels + 1) // 4
-                                 + SETUP_LEAF_OPS * leaves)
-        for kernel, (fn, plain) in timed_fns.items():
+                                 + SETUP_SORT_OPS * compares + SETUP_LEAF_OPS * leaves)
+        for kernel in timed_kernels:
+            fn, plain = timed_fns[kernel]
             ms = time_ms(fn, GLUE_REPS, graph=True)
             plain_ms = time_ms(plain, 3)
             by_bytes = bytes_of[kernel] / HBM_BYTES_PER_S * 1e3
@@ -1134,6 +1177,102 @@ def frame_glue_phase(dev, smi: str) -> dict:
         release()
     del one
     return entries
+
+
+# [scale-8k] / [spp4096]: the engine past the glue kernels' one-block limits
+# (tests/_torch_tools.py BIG): config_scale at 7680x4320 and
+# config_interactive at 4,096 spp, an idle and a turning frame each; and an
+# offline render of BIG_RENDER_PIXELS pixels at 4,096 spp.
+BIG_PATHS = ("scale-8k", "spp4096")
+BIG_RENDER_PIXELS = 64
+
+
+def big_phases(dev, smi: str) -> dict:
+    """[scale-8k] and [spp4096]: each configuration's two frames through
+    make_scan_step (graph replays after a first call that captures them)
+    and through the eager loop (make_scan_step_fn): state and frame bitwise,
+    one tracer, present, frame_setup, camera_rays and resolve a frame, the
+    permutation's draws; [spp4096] then renders BIG_RENDER_PIXELS pixels
+    through render_pixels, its colours bitwise resolve_plain of the same
+    light. Returns each path's launch counts."""
+    import torch
+
+    from _torch_tools import big_config
+    from mirror_maze_tpu_torch import kernels
+    from mirror_maze_tpu_torch.ops import prng
+    from mirror_maze_tpu_torch.render.frame_glue import resolve_plain
+    from mirror_maze_tpu_torch.render.pipeline import render_pixels, trace_samples, tracer_seed
+    from mirror_maze_tpu_torch.render.scenebuf import upload_scene
+    from mirror_maze_tpu_torch.runtime.state import FrameInputs, init_state
+    from mirror_maze_tpu_torch.runtime.step import make_scan_step, make_scan_step_fn, merge_passes
+    from mirror_maze_tpu_torch.scene import build_scene
+
+    out = {}
+    frames = [FrameInputs.idle(), FrameInputs.make(mouse_dx=-27.0)]
+    for path in BIG_PATHS:
+        t0 = time.perf_counter()
+        release()
+        cfg = big_config(path)
+        scene = upload_scene(build_scene(cfg.maze), device=dev)
+        run = make_scan_step(scene, cfg)
+        run(init_state(cfg, device=dev), frames)                   # first-call costs, captures
+        torch.cuda.synchronize()
+        st0 = init_state(cfg, seed=0, device=dev)
+        kernels.reset_launches()
+        (st, frame), ms = timed(lambda: run(st0, frames))
+        counts = dict(kernels.launches)
+        graphs = graph_line(only_graphs(run.runner))
+        (est, eframe), eager_ms = timed(lambda: make_scan_step_fn(cfg, len(frames))(
+            scene, init_state(cfg, seed=0, device=dev), frames))
+        same = states_bitwise(st, est) and torch.equal(frame, eframe)
+        sc = cfg.screen
+        n = sc.effective_chunks_per_frame
+        rays = n * sc.pixels_per_chunk * sc.samples_per_pixel
+        merges = merge_passes(n, sc.sort_chunk_window)
+        want = {"tracer": len(frames), "present": len(frames), **glue(len(frames)),
+                **nonzero({"frame_setup_merge": len(frames) * merges})}
+        lit = int(frame.to(torch.int64).sum())
+        log(f"[{path}] config_{'scale' if path == 'scale-8k' else 'interactive'} "
+            f"{sc.width}x{sc.height} {sc.samples_per_pixel} spp, {len(frames)} frames (idle, "
+            f"turn), a window of {n} ids (grid {sc.chunks_x}x{sc.chunks_y}), {rays} rays/frame: "
+            f"{ms / len(frames):.1f} ms/frame, {rays / (ms / len(frames)) / 1e3:.2f} Mrays/s, "
+            f"checksum {lit}; launches {counts}; eager loop {eager_ms / len(frames):.1f} "
+            f"ms/frame, make_scan_step == eager bitwise {same}; {graphs}; "
+            f"{time.perf_counter() - t0:.1f} s | {smi}")
+        # Two frames light 2/64 of the screen: the frame must not be blank.
+        if not (same and holds(counts, want, True) and lit > 0
+                and {k: counts.get(k, 0) for k in ("threefry", "threefry_uniform")}
+                == step_draws(cfg, frames) and bool(torch.isfinite(st.screen).all())):
+            raise SystemExit(f"[{path}] FAIL")
+        out[path] = counts
+        del run, st, st0, frame, est, eframe
+        if path == "spp4096":
+            t0 = time.perf_counter()
+            side = int(BIG_RENDER_PIXELS ** 0.5)
+            ys, xs = torch.meshgrid(torch.arange(side, device=dev) + sc.height // 2,
+                                    torch.arange(side, device=dev) + sc.width // 2,
+                                    indexing="ij")
+            pix = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.int32)
+            cam = init_state(cfg, device=dev).camera(cfg)
+            key = prng.PRNGKey(5, device=dev)
+            kernels.reset_launches()
+            colours = render_pixels(scene, cam, pix, key, cfg)
+            counts = dict(kernels.launches)
+            jkey, tkey = prng.split(key)
+            light = trace_samples(scene, cam, pix, jkey, tkey, tracer_seed(tkey), cfg)
+            same = torch.equal(colours.view(torch.int32),
+                               resolve_plain(light, sc.samples_per_pixel).view(torch.int32))
+            log(f"[spp4096-render] render_pixels of {pix.shape[0]} pixels at "
+                f"{sc.samples_per_pixel} spp ({light.shape[0]} rays): colours bitwise "
+                f"resolve_plain of the same light {same}, mean {float(colours.mean()):.4f}; "
+                f"launches {counts}; {time.perf_counter() - t0:.1f} s | {smi}")
+            if not (same and holds(counts, {"tracer": 1, **glue(renders=1)}, True)
+                    and bool(torch.isfinite(colours).all())):
+                raise SystemExit("[spp4096-render] FAIL")
+            del light, colours
+        del scene
+        release()
+    return out
 
 
 # [shade]: the sets the shade kernel is held against shade_segment_plain on,
@@ -2715,6 +2854,7 @@ def main() -> int:
     # on the main path's jitter draw and the jnp tracer's draws.
     entries.update(threefry_phase(dev, smi, configs["main"]))
     entries.update(frame_glue_phase(dev, smi))
+    big_launches = big_phases(dev, smi)
 
     # 4. Tracer kernel vs its plain version on frame 1's rays of each path.
     # The kernel traces the whole wavefront. The plain version traces the
@@ -3348,15 +3488,22 @@ def main() -> int:
     # gather, a sort, a move, a box test and a key chain), its camera rays
     # (a rotation and a threefry draw) or the resolve (a root, a mean and a
     # row scatter), so library_ms is null.
+    launches.update(big_launches)
     for row, path in (("frame_setup", "main"), ("frame_setup@scale", "scale"),
+                      ("frame_setup@8k", "scale-8k"),
                       ("camera_rays", "main"), ("camera_rays@scale", "scale"),
-                      ("resolve", "main"), ("resolve@scale", "scale")):
+                      ("resolve", "main"), ("resolve@scale", "scale"),
+                      ("resolve@4096spp", "spp4096")):
         e = entries[row]
         k = e["kernel"]
         kern.append(dict(name=row, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
                          launches=launches[path].get(k, 0), max_abs_err=e["max_abs_err"],
                          ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
                          bound_by=e["bound_by"], library_ms=None))
+        if k == "frame_setup" and path in BIG_PATHS:
+            # The tiled route's merge passes, launched by the same C entry
+            # and timed inside the row's ms.
+            kern[-1]["merge_launches"] = launches[path].get("frame_setup_merge", 0)
     log(json.dumps({"kernels": kern}))
     count = torch.cuda.device_count()
     if count != 1:

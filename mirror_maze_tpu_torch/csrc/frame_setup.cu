@@ -27,8 +27,10 @@
 // their Morton codes, and any correct sort gives the stable argsort's order.
 // The codes are sorted by a bitonic network, padded with 0xFFFFFFFF to a
 // power of two of at least a warp's codes, and decoded back into ids (a
-// chunk's coordinates are < 2^16, so the code holds them whole). The wrapper
-// raises before the launch on a window of more than MAX_SORT ids.
+// chunk's coordinates are < 2^16, so the code holds them whole; the wrapper
+// raises on a larger grid, where the reference's 16-bit codes collide). A
+// window of at most MAX_SORT ids is sorted by block 0 alone; a larger one
+// (config_scale at 7680x4320 pops 32,400) by the tiled route below.
 //
 // Exactness: built with -fmad=false (IEEE division and root, no contraction,
 // as every kernel of the port): the move is the torch expression order (see
@@ -56,6 +58,21 @@
 //     another SM, beside the sort; inside the chain the independent hashes
 //     (the rotation split's two children, the camera split's two, randint's
 //     two) go to two lanes, so its depth is five hashes.
+//
+// The tiled route, a window of n > MAX_SORT ids: the first launch has one
+// block a tile of TILE ids (the last tile shorter), each sorting its tile's
+// codes with the network above into the scratch buffer `codes`, and the
+// setup block last. Then ceil(log2(tiles)) merge passes, one launch each,
+// merge pairs of sorted runs: an element's place in its pair is its index in
+// its run plus the codes of the other run below it (a binary search; the
+// codes are distinct, so no two are equal). The last pass decodes into ids.
+// n is a host int, so the launches are fixed by it and a CUDA graph captures
+// them all. One block's network grows faster than its codes, and the merge
+// passes spread over every SM, so the tiles are small: at 32,400 ids 16
+// tiles of 2,048 (4 codes on 512 threads) and 4 passes, 0.021 ms on the
+// H100, against 0.086 with tiles of 16,384, 0.022 of 4,096, 0.023 of 1,024
+// and 0.052 for an LSD radix sort of the grid's 22 code bits in three 8-bit
+// passes (PERF.md §6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,9 +83,11 @@
 namespace {
 
 constexpr int MAX_SORT = 16384;     // codes a block sorts
+constexpr int TILE = 2048;          // codes a tile of the tiled route (a power of two)
 constexpr int CODES = 4;            // codes a sorting thread holds, at least
 constexpr int WARP = 32;
 constexpr int MAX_THREADS = 1024;
+constexpr int MERGE_THREADS = 256;  // a merge pass's block
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
 // The C entry's parameters (the wrapper's ctypes Structure in
@@ -92,6 +111,7 @@ struct Params {
   long long* key_out;       // [2] the state's next key
   long long* keys_out;      // [3, 2] rkey, jkey, tkey
   int* seed_out;            // [1]
+  uint32_t* codes;          // [2, n] scratch of the tiled route (n > MAX_SORT), else null
   int total, n, sort, chunks_x, leaves;
   int seed_min;             // randint's minval
   unsigned int seed_span;   // (maxval - minval) as uint32, 1 for an empty range
@@ -116,6 +136,11 @@ __device__ __forceinline__ uint32_t compact(uint32_t v) {  // spread's inverse
   v = (v | (v >> 4)) & 0x00FF00FFu;
   v = (v | (v >> 8)) & 0x0000FFFFu;
   return v;
+}
+
+// The id of a Morton code (spread's inverse on both coordinates).
+__device__ __forceinline__ int decode(uint32_t v, int chunks_x) {
+  return (int)compact(v >> 1) * chunks_x + (int)compact(v);
 }
 
 __device__ __forceinline__ void store_key(long long* out, mm::Key k) {
@@ -254,8 +279,9 @@ __device__ __forceinline__ void exchange_shared(uint32_t (&v)[E], uint32_t* buf,
 }
 
 // Block 0: the window, and with the sort flag its bitonic sort of W = 2^L
-// codes (W >= WARP * E; W / E threads, or a warp more).
-template <int E, int L>
+// codes (W >= WARP * E; W / E threads, or a warp more). TILED: block b
+// sorts the window's ids [b W, b W + W) into codes[b W ...], undecoded.
+template <int E, int L, bool TILED>
 __device__ void window_block(const Params& p, uint32_t* buf) {
   constexpr int W = 1 << L;
   const int tid = threadIdx.x;
@@ -265,13 +291,15 @@ __device__ void window_block(const Params& p, uint32_t* buf) {
       p.ids[i] = p.perm[((uint32_t)cursor + i) % (uint32_t)p.total];
     return;
   }
+  const int base = TILED ? (int)blockIdx.x * W : 0;
+  const int count = TILED ? min(W, p.n - base) : p.n;
   const int i0 = tid * E;
   if (i0 >= W) return;  // the second warp of a one-warp sort: it has no barrier
   uint32_t v[E];
-  int at = i0 < p.n ? (int)(((uint32_t)cursor + i0) % (uint32_t)p.total) : 0;
+  int at = i0 < count ? (int)(((uint32_t)cursor + (uint32_t)(base + i0)) % (uint32_t)p.total) : 0;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    if (i0 + e < p.n) {
+    if (i0 + e < count) {
       const int id = p.perm[at];
       v[e] = spread((uint32_t)(id % p.chunks_x)) | (spread((uint32_t)(id / p.chunks_x)) << 1);
     } else {
@@ -298,17 +326,67 @@ __device__ void window_block(const Params& p, uint32_t* buf) {
     }
   }
 #pragma unroll
-  for (int e = 0; e < E; ++e)
-    if (i0 + e < p.n) p.ids[i0 + e] = (int)compact(v[e] >> 1) * p.chunks_x + (int)compact(v[e]);
+  for (int e = 0; e < E; ++e) {
+    if (i0 + e >= count) continue;
+    if (TILED)
+      p.codes[base + i0 + e] = v[e];
+    else
+      p.ids[i0 + e] = decode(v[e], p.chunks_x);
+  }
 }
 
-template <int E, int L>
+// The window blocks, then the setup block (the last).
+template <int E, int L, bool TILED>
 __global__ void __launch_bounds__(MAX_THREADS) frame_setup_kernel(Params p) {
   extern __shared__ uint4 smem[];  // [2, 2^L] codes with the sort flag
-  if (blockIdx.x == 1)
+  if (blockIdx.x == gridDim.x - 1)
     setup_block(p);
   else
-    window_block<E, L>(p, reinterpret_cast<uint32_t*>(smem));
+    window_block<E, L, TILED>(p, reinterpret_cast<uint32_t*>(smem));
+}
+
+// A merge pass of the tiled route: the n codes of src in sorted runs of
+// `run` (the last one shorter) merged pairwise into dst, or on the last pass
+// decoded into ids. A thread an element.
+__global__ void __launch_bounds__(MERGE_THREADS)
+    merge_kernel(const uint32_t* src, uint32_t* dst, int* ids, int n, int run, int chunks_x) {
+  const int i = blockIdx.x * MERGE_THREADS + threadIdx.x;
+  if (i >= n) return;
+  const int r = i / run;
+  const long long other = (long long)(r ^ 1) * run;  // the other run of the pair
+  const int len = other < n ? (int)min((long long)run, n - other) : 0;
+  const uint32_t x = src[i];
+  const uint32_t* o = src + (len > 0 ? other : 0);
+  int lo = 0, hi = len;  // the other run's codes below x: [0, lo)
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (o[mid] < x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  const long long at = (long long)(r & ~1) * run + (i - (long long)r * run) + lo;
+  if (ids != nullptr)
+    ids[at] = decode(x, chunks_x);
+  else
+    dst[at] = x;
+}
+
+// Opt the instantiation in to the shared memory past 48 KiB, once per device.
+template <int E, int L, bool TILED>
+int allow_smem(size_t smem) {
+  if (smem <= 48 * 1024) return (int)cudaSuccess;
+  static bool opted[64] = {};
+  int device = 0;
+  cudaGetDevice(&device);
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  if (!opted[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        frame_setup_kernel<E, L, TILED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    opted[device] = true;
+  }
+  return (int)cudaSuccess;
 }
 
 // The launch of a sort of 2^L codes (or, with no sort flag, of none).
@@ -319,20 +397,9 @@ int launch(const Params& p, cudaStream_t stream) {
   constexpr int sort_threads = W / E > 2 * WARP ? W / E : 2 * WARP;
   const int threads = p.sort ? sort_threads : MAX_THREADS;
   const size_t smem = p.sort ? 2 * (size_t)W * sizeof(uint32_t) : 0;
-  if (smem > 48 * 1024) {
-    // Opt in to the shared memory past 48 KiB, once per device.
-    static bool opted[64] = {};
-    int device = 0;
-    cudaGetDevice(&device);
-    if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
-    if (!opted[device]) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          frame_setup_kernel<E, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      opted[device] = true;
-    }
-  }
-  frame_setup_kernel<E, L><<<2, threads, smem, stream>>>(p);
+  const int err = allow_smem<E, L, false>(smem);
+  if (err != (int)cudaSuccess) return err;
+  frame_setup_kernel<E, L, false><<<2, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -349,14 +416,44 @@ int launch_log(const Params& p, int log, cudaStream_t stream) {
 
 constexpr int MIN_LOG = log2_of(WARP * CODES);  // a warp's codes, the least width
 
+// The tiled route: a block a tile of TILE ids and the setup block, then the
+// merge passes, the last into ids.
+int launch_tiles(const Params& p, cudaStream_t stream) {
+  constexpr int L = log2_of(TILE);
+  constexpr int E = TILE / MAX_THREADS > CODES ? TILE / MAX_THREADS : CODES;
+  static_assert(TILE / E <= MAX_THREADS && TILE / E >= WARP, "a tile's threads");
+  const size_t smem = 2 * (size_t)TILE * sizeof(uint32_t);
+  int err = allow_smem<E, L, true>(smem);
+  if (err != (int)cudaSuccess) return err;
+  const int tiles = (p.n + TILE - 1) / TILE;
+  frame_setup_kernel<E, L, true><<<tiles + 1, TILE / E, smem, stream>>>(p);
+  err = (int)cudaGetLastError();
+  uint32_t* src = p.codes;
+  uint32_t* dst = p.codes + p.n;
+  const int blocks = (p.n + MERGE_THREADS - 1) / MERGE_THREADS;
+  for (long long run = TILE; err == (int)cudaSuccess && run < p.n; run *= 2) {
+    const bool last = 2 * run >= p.n;
+    merge_kernel<<<blocks, MERGE_THREADS, 0, stream>>>(src, last ? nullptr : dst,
+                                                       last ? p.ids : nullptr, p.n, (int)run,
+                                                       p.chunks_x);
+    err = (int)cudaGetLastError();
+    uint32_t* t = src;
+    src = dst;
+    dst = t;
+  }
+  return err;
+}
+
 }  // namespace
 
 extern "C" int mm_frame_setup(const void* params, void* stream) {
   const Params& p = *static_cast<const Params*>(params);
+  const bool tiled = p.sort && p.n > MAX_SORT;
   if (p.n < 1 || p.total < p.n || p.chunks_x < 1 || p.leaves < 0 || p.seed_span == 0 ||
-      (p.sort && p.n > MAX_SORT))
+      (tiled && p.codes == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (tiled) return launch_tiles(p, s);
   int log = MIN_LOG;
   while (p.sort && (1 << log) < p.n) ++log;
   return launch_log<MIN_LOG>(p, log, s);

@@ -10,9 +10,10 @@
 //   - each sample's tone map sqrt(max(l, 0)) (render/tracer.py tone_map; the
 //     max passes NaN, as torch.clamp_min does and fmaxf does not);
 //   - their sum in one fixed order, the order XLA-CPU's jitted jnp.mean sums
-//     in for spp <= 32 and for multiples of 32: runs of 32 samples, each run
-//     left to right, the runs' sums left to right; then times the float32
-//     reciprocal of spp (render/frame_glue.py sample_mean);
+//     in for spp <= 32, for multiples of 32 up to 1,024 and for multiples of
+//     1,024: runs of 32 samples, each run left to right; blocks of 32 runs,
+//     each the runs' sums left to right; the blocks' sums left to right; then
+//     times the float32 reciprocal of spp (render/frame_glue.py sample_mean);
 //   - written to row ids[k / (cw * cw)] of the chunk-major screen at column
 //     (k % (cw * cw)) * 3 + c (the chunk_pixels order), or to colour k of a
 //     [K, 3] output where there are no ids (the offline render).
@@ -33,18 +34,28 @@
 //   2. sums each run of a pixel in one lane, its three channels side by side
 //      left to right, reading the run with 16-byte loads (eight lanes of a
 //      quarter warp hit eight different bank quads);
-//   3. adds each pixel channel's runs left to right in one lane, scales by
-//      the reciprocal and writes the rows (consecutive lanes, consecutive
+//   3. adds each pixel channel's runs in one lane, a block of BLOCK_RUNS
+//      runs left to right and the blocks left to right, scales by the
+//      reciprocal and writes the rows (consecutive lanes, consecutive
 //      columns).
 // The 16-byte route needs every run to start on 16 bytes: spp a multiple of
 // RUN and the light 16-byte aligned. Any other spp, or a light that is not
 // aligned, takes the same layout with 4-byte shared-memory accesses, and
 // reads the span's unaligned head and tail one float at a time. A block
 // stages at most SMEM_BYTES (no opt-in): PIXELS pixels, fewer where a
-// pixel's samples are many; the wrapper's RESOLVE_MAX_SPP is the most
-// samples one pixel may have. 16 pixels a block of 128 threads measured
-// fastest at [main]'s and config_scale's shapes (against 32 / 256, 32 / 128,
-// 16 / 64 and 8 / 64: PERF.md §6).
+// pixel's samples are many, down to one pixel at RESOLVE_MAX_SPP = 3,816
+// (render/frame_glue.py). 16 pixels a block of 128 threads measured fastest
+// at [main]'s and config_scale's shapes (against 32 / 256, 32 / 128, 16 / 64
+// and 8 / 64: PERF.md §6).
+//
+// Past RESOLVE_MAX_SPP (resolve_pieces_kernel) a block resolves one pixel,
+// a block of BLOCK_RUNS runs (a piece) at a time, in the same order: it
+// stages a piece's floats tone-mapped in the same padded layout (16-byte
+// loads and, where the pixel's span is 16-byte aligned, 16-byte stores), a
+// lane a run's channel sums it left to right, and lanes 0-2 add the piece's
+// runs left to right and the piece's sum to their channel's total, which
+// they hold from piece to piece in a register. So any spp fits the 13 KB a
+// block stages.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,6 +68,7 @@ constexpr int RUN_FLOATS = 3 * RUN;    // one run's floats: RUN samples x 3 chan
 constexpr int PAD = 4;                 // words after every RUN_FLOATS staged floats
 constexpr int PIXELS = 16;             // pixels a block, at most
 constexpr int SMEM_BYTES = 48 * 1024;  // a block's staging, at most
+constexpr int BLOCK_RUNS = 32;         // runs summed left to right before their block is added
 
 // The C entry's parameters (the wrapper's ctypes Structure in
 // render/frame_glue.py, field for field: pointers, then ints, then floats).
@@ -160,11 +172,16 @@ __global__ void __launch_bounds__(THREADS) resolve_kernel(Params p, int pixels) 
   }
   __syncthreads();
 
-  // 3. A lane a pixel's channel: its runs left to right, the mean, the row.
+  // 3. A lane a pixel's channel: its runs by blocks, the mean, the row.
   for (int t = tid; t < 3 * np; t += blockDim.x) {
     const float* run = sums + t * runs;
-    float total = run[0];
-    for (int r = 1; r < runs; ++r) total = total + run[r];
+    float total = 0.0f;
+    for (int b = 0; b < runs; b += BLOCK_RUNS) {
+      float block = run[b];
+      const int end = min(runs, b + BLOCK_RUNS);
+      for (int r = b + 1; r < end; ++r) block = block + run[r];
+      total = b == 0 ? block : total + block;
+    }
     const float mean = total * p.rcp_spp;
     const int px = t / 3, k = k0 + px;
     if (p.ids == nullptr) {
@@ -176,20 +193,91 @@ __global__ void __launch_bounds__(THREADS) resolve_kernel(Params p, int pixels) 
   }
 }
 
+// Past RESOLVE_MAX_SPP: pixel blockIdx.x, a block of BLOCK_RUNS runs at a time.
+__global__ void __launch_bounds__(THREADS) resolve_pieces_kernel(Params p) {
+  __shared__ float4 stage4[BLOCK_RUNS * (RUN_FLOATS + PAD) / 4];
+  __shared__ float sums[3 * BLOCK_RUNS];
+  float* stage = reinterpret_cast<float*>(stage4);
+  const int tid = threadIdx.x, k = blockIdx.x, runs = (p.spp + RUN - 1) / RUN;
+  const long long span = 3LL * p.spp;
+  const float* light = p.light + (size_t)k * span;
+  const int head = (int)((16 - ((uintptr_t)light & 15)) & 15) / 4;  // floats to 16 bytes
+  float total = 0.0f;
+  for (int r0 = 0; r0 < runs; r0 += BLOCK_RUNS) {
+    const int nr = min(BLOCK_RUNS, runs - r0);
+    const float* src = light + (size_t)r0 * RUN_FLOATS;
+    const int nf = (int)min((long long)nr * RUN_FLOATS, span - (long long)r0 * RUN_FLOATS);
+    // 1. Stage the piece, tone-mapped (a piece starts 384 bytes after the
+    //    one before, so every piece has the pixel's head).
+    const int h = min(nf, head), body = (nf - h) / 4;
+    const float4* src4 = reinterpret_cast<const float4*>(src + h);
+    for (int f = tid; f < h; f += THREADS) stage[slot(f)] = tone(src[f]);
+    for (int q = tid; q < body; q += THREADS) {
+      const float4 x = src4[q];
+      const int f = h + 4 * q;
+      if (h == 0) {  // f % 4 == 0 and a run holds f..f+3: one 16-byte store
+        *reinterpret_cast<float4*>(stage + slot(f)) =
+            make_float4(tone(x.x), tone(x.y), tone(x.z), tone(x.w));
+      } else {
+        stage[slot(f)] = tone(x.x);
+        stage[slot(f + 1)] = tone(x.y);
+        stage[slot(f + 2)] = tone(x.z);
+        stage[slot(f + 3)] = tone(x.w);
+      }
+    }
+    for (int f = h + 4 * body + tid; f < nf; f += THREADS) stage[slot(f)] = tone(src[f]);
+    __syncthreads();
+    // 2. A lane a run's channel, its samples left to right.
+    if (tid < 3 * nr) {
+      const int r = tid / 3, c = tid - 3 * r;
+      const int len = min(RUN, p.spp - (r0 + r) * RUN);
+      const float* run = stage + slot(r * RUN_FLOATS);  // a run's floats are contiguous
+      float a = run[c];
+      if (len == RUN) {
+#pragma unroll
+        for (int s = 1; s < RUN; ++s) a = a + run[3 * s + c];
+      } else {
+        for (int s = 1; s < len; ++s) a = a + run[3 * s + c];
+      }
+      sums[c * BLOCK_RUNS + r] = a;
+    }
+    __syncthreads();
+    // 3. Lanes 0-2: the piece's runs left to right, then into their
+    //    channel's total. The next piece's stage writes only `stage`; its
+    //    barrier comes before its sums are written.
+    if (tid < 3) {
+      float block = sums[tid * BLOCK_RUNS];
+      for (int r = 1; r < nr; ++r) block = block + sums[tid * BLOCK_RUNS + r];
+      total = r0 == 0 ? block : total + block;
+    }
+  }
+  if (tid < 3) {
+    const float mean = total * p.rcp_spp;
+    if (p.ids == nullptr) {
+      p.out[(size_t)3 * k + tid] = mean;
+    } else {
+      const int j = k / p.ppc, pn = k - j * p.ppc;
+      p.out[(size_t)p.ids[j] * p.ppc * 3 + 3 * pn + tid] = mean;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int mm_resolve(const void* params, void* stream) {
   const Params& p = *static_cast<const Params*>(params);
-  if (p.n_pixels < 0 || p.spp < 1 || p.spp > SMEM_BYTES / 4 || p.ppc < 1 ||
-      (p.ids != nullptr && p.n_pixels % p.ppc))
+  if (p.n_pixels < 0 || p.spp < 1 || p.ppc < 1 || (p.ids != nullptr && p.n_pixels % p.ppc))
     return (int)cudaErrorInvalidValue;
   if (p.n_pixels == 0) return (int)cudaGetLastError();
-  int pixels = PIXELS;
+  const cudaStream_t s = (cudaStream_t)stream;
+  int pixels = p.spp <= SMEM_BYTES / 4 ? PIXELS : 0;  // a larger spp overflows no int below
   while (pixels > 0 && block_words(pixels, p.spp) * 4 > SMEM_BYTES) --pixels;
-  if (pixels == 0) return (int)cudaErrorInvalidValue;  // past RESOLVE_MAX_SPP
+  if (pixels == 0) {  // past RESOLVE_MAX_SPP
+    resolve_pieces_kernel<<<p.n_pixels, THREADS, 0, s>>>(p);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = (size_t)block_words(pixels, p.spp) * 4;
   const int blocks = (p.n_pixels + pixels - 1) / pixels;
-  const cudaStream_t s = (cudaStream_t)stream;
   if (p.spp % RUN == 0 && ((uintptr_t)p.light & 15) == 0)
     resolve_kernel<true><<<blocks, THREADS, smem, s>>>(p, pixels);
   else

@@ -116,6 +116,13 @@ LIBRARIES = {
     "resolve": ("resolve.cu", (), ("mm_resolve", _GLUE)),
 }
 
+# Further C entries of a library: (library, symbol) -> argument types.
+# threefry's step check of its erf_inv route (ops/prng.py erf_inv_steps).
+ENTRIES = {
+    ("threefry", "mm_erf_inv_steps"): [_C.c_uint, _C.c_uint, _C.c_ulonglong, _C.c_void_p,
+                                       _C.c_void_p],   # first, stride, count, counts, stream
+}
+
 launches: collections.Counter = collections.Counter()
 _captures: list = []    # the Counters of the captures in progress, innermost last
 _libs: dict = {}
@@ -245,13 +252,36 @@ def build(names=tuple(LIBRARIES), verbose: bool = False) -> dict:
         return {n: _libs[n] for n in names}
 
 
-def launch(name: str, *args, count_as: str | None = None) -> None:
-    """Call library ``name``'s C entry on the current stream, count the
-    launch (under ``count_as`` where one library serves two variants; into
-    the innermost ``counting_capture`` where one is open) and raise if CUDA
-    refused it."""
-    fn = _libs.get(name) or build((name,))[name]
+def _entry(name: str, symbol: str):
+    """Library ``name``'s further C entry ``symbol`` (``ENTRIES``)."""
+    fn = _libs.get((name, symbol))
+    if fn is None:
+        build((name,))
+        with _lock:
+            fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
+            fn.argtypes = ENTRIES[(name, symbol)]
+            fn.restype = ctypes.c_int
+            _libs[(name, symbol)] = fn
+    return fn
+
+
+def launch(name: str, *args, count_as: str | None = None, symbol: str | None = None) -> None:
+    """Call library ``name``'s C entry (or its further entry ``symbol``) on
+    the current stream, count the launch (under ``count_as`` where one
+    library serves two variants; into the innermost ``counting_capture``
+    where one is open) and raise if CUDA refused it."""
+    if symbol is None:
+        fn = _libs.get(name) or build((name,))[name]
+    else:
+        fn = _entry(name, symbol)
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch: error {err}")
-    (_captures[-1] if _captures else launches)[count_as or name] += 1
+    count(count_as or name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Count ``n`` launches of kernel ``name`` (into the innermost
+    ``counting_capture`` where one is open): ``launch``'s own, and those a C
+    entry makes after its first kernel (frame_setup's merge passes)."""
+    (_captures[-1] if _captures else launches)[name] += n

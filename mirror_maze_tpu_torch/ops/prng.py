@@ -358,6 +358,36 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return launch_draw(erf_inv_draw(x))
 
 
+# erf_inv's FMA steps (csrc/threefry.cu STEPS): _log_f32's 10, log1p's
+# rational 11, Giles' two polynomials' 8 each.
+ERF_INV_STEPS = 37
+# The float32 patterns of [-1, 1], both zeros included: [+0, 1] and [-0, -1].
+ERF_INV_RANGES = ((0x00000000, 0x3F800001), (0x80000000, 0xBF800001))
+
+
+def erf_inv_steps(first: int, count: int, stride: int = 1, device=None) -> torch.Tensor:
+    """The threefry kernel's check of its erf_inv routes on the card (one
+    launch of csrc/threefry.cu ``mm_erf_inv_steps``): for the float32 bit
+    patterns ``first + e * stride``, e < ``count``, erf_inv on the float64
+    route with each step's native fmaf compared on the same operands. Returns
+    int64 [ERF_INV_STEPS + 1]: the patterns at which step s's native fmaf
+    differs from ``fma``, then those at which the outputs' all-native route
+    differs from the float64 route. It names the step to look at where the
+    whole-output check (``erf_inv`` against ``erf_inv_plain``) fails. A
+    check of the kernel's own arithmetic, so it has no plain version: it
+    raises off the card."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        raise ValueError(f"prng.erf_inv_steps checks the kernel on a CUDA device, got {dev}")
+    if count < 0 or not 0 <= first <= MASK or (count and first + (count - 1) * stride > MASK):
+        raise ValueError(f"patterns {first:#x} + e * {stride}, e < {count}, leave 32 bits")
+    counts = torch.zeros(ERF_INV_STEPS + 1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch("threefry", first, stride, count, counts.data_ptr(),
+                       symbol="mm_erf_inv_steps", count_as="threefry_steps")
+    return counts
+
+
 def normal(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     """``jax.random.normal`` in float32: sqrt(2) * erf_inv(u), u uniform on
     [nextafter(-1, 0), 1). Keys as in ``random_bits``."""

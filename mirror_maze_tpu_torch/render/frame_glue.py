@@ -20,8 +20,8 @@ torch ops the kernel replaces, and any other device raises. The kernels are
 bitwise their plain versions on the card. Two places of the plain versions
 fix an order that torch leaves open: the divisions by the screen's size are
 multiplies by float32 reciprocals (what torch does on the card and XLA under
-``jit``; the CPU divides), and the mean sums in runs of 32 samples
-(``sample_mean``).
+``jit``; the CPU divides), and the mean sums in runs of 32 samples and
+blocks of 32 runs (``sample_mean``).
 """
 
 from __future__ import annotations
@@ -43,15 +43,18 @@ from .camera import Camera, ray_directions
 from .scheduler import chunk_origin_xy, chunk_pixels
 from .tracer import tone_map
 
-# Samples summed left to right before their run's sum is added to the
-# total: XLA-CPU's jitted jnp.mean over the sample axis sums so for spp <= 32
-# and for multiples of 32.
+# Samples summed left to right before their run's sum is added to its block,
+# and runs a block: XLA-CPU's jitted jnp.mean over the sample axis sums so
+# (runs left to right into blocks of 1,024 samples, the blocks left to right)
+# for spp <= 32, for multiples of 32 up to 1,024 and for multiples of 1,024.
 RUN = 32
-# The most samples a pixel the resolve kernel takes: csrc/resolve.cu stages
-# a block's light, tone-mapped, in at most 48 KiB of shared memory
+BLOCK_RUNS = 32
+# The most samples a pixel the resolve kernel stages whole: csrc/resolve.cu
+# stages a block's light, tone-mapped, in at most 48 KiB of shared memory
 # (SMEM_BYTES), with 4 words of padding after every run's 96 floats, and the
 # runs' sums beside it: a pixel of spp samples takes 3 * spp + 7 *
-# ceil(spp / 32) words, which one pixel fills at 3816.
+# ceil(spp / 32) words, which one pixel fills at 3816. Past it the kernel
+# stages a pixel 32 runs at a time (resolve_pieces_kernel), in the same order.
 RESOLVE_MAX_SPP = 3816
 
 
@@ -199,16 +202,21 @@ _ResolveParams = params_type(("light", "ids", "out"), ("n_pixels", "spp", "ppc")
 
 def sample_mean(samples: torch.Tensor) -> torch.Tensor:
     """The mean of samples [K, spp, 3] over the samples in one fixed order:
-    runs of RUN samples, each summed left to right, the runs' sums left to
-    right, times the float32 reciprocal of spp. It is XLA-CPU's jitted
-    ``jnp.mean(samples, axis=1)`` for spp <= 32 and for multiples of 32."""
+    runs of RUN samples, each summed left to right; blocks of BLOCK_RUNS
+    runs, each the runs' sums left to right; the blocks' sums left to right;
+    times the float32 reciprocal of spp. It is XLA-CPU's jitted
+    ``jnp.mean(samples, axis=1)`` for spp <= 32, for multiples of 32 up to
+    1,024 and for multiples of 1,024 (XLA splits other large spp otherwise)."""
     spp = samples.shape[1]
     total = None
-    for r0 in range(0, spp, RUN):
-        run = samples[:, r0]
-        for s in range(r0 + 1, min(r0 + RUN, spp)):
-            run = run + samples[:, s]
-        total = run if total is None else total + run
+    for b0 in range(0, spp, RUN * BLOCK_RUNS):
+        block = None
+        for r0 in range(b0, min(b0 + RUN * BLOCK_RUNS, spp), RUN):
+            run = samples[:, r0]
+            for s in range(r0 + 1, min(r0 + RUN, spp)):
+                run = run + samples[:, s]
+            block = run if block is None else block + run
+        total = block if total is None else total + block
     return total * reciprocal(spp)
 
 
@@ -227,8 +235,9 @@ def resolve_kernel(light: torch.Tensor, spp: int, out: torch.Tensor,
                    ids: torch.Tensor | None = None) -> torch.Tensor:
     """One launch of the ``resolve`` kernel into ``out``: the rows ``ids``
     of the chunk-major screen ``out`` [C, cw*cw*3], or with no ids the
-    colours ``out`` [K, 3]. Bitwise ``resolve_plain``; raises off the card
-    and on malformed operands."""
+    colours ``out`` [K, 3], at any spp (past RESOLVE_MAX_SPP the pieces
+    route). Bitwise ``resolve_plain``; raises off the card and on malformed
+    operands."""
     dev = light.device
     need_card(dev, "resolve")
     f32 = torch.float32
@@ -244,9 +253,11 @@ def resolve_kernel(light: torch.Tensor, spp: int, out: torch.Tensor,
         k = ids.shape[0] * ppc
         p.ids = operand("resolve", "ids", ids, torch.int32, (ids.shape[0],), dev)
         p.out = operand("resolve", "screen", out, f32, tuple(out.shape), dev)
-    if k * spp * 3 > 2 ** 31 - 1 or spp > RESOLVE_MAX_SPP:
-        raise ValueError(f"the resolve kernel takes at most {RESOLVE_MAX_SPP} samples a pixel "
-                         f"and 2^31 light values, got {k} pixels of {spp}")
+    if k * spp * 3 > 2 ** 31 - 1:
+        # The tracer indexes a ray's light with an int (csrc/tracer.cu), so no
+        # frame's light holds more.
+        raise ValueError(f"the resolve kernel takes at most 2^31 - 1 light values, got {k} "
+                         f"pixels of {spp} samples")
     p.light = operand("resolve", "light", light, f32, (k * spp, 3), dev)
     p.n_pixels, p.spp, p.ppc, p.rcp_spp = k, spp, ppc, reciprocal(spp)
     with torch.cuda.device(dev):

@@ -37,6 +37,7 @@ itself (``make_step_fn`` / ``make_scan_step_fn``).
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 import weakref
@@ -68,6 +69,22 @@ def _owning():
         yield
     finally:
         _owner.depth -= 1
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """No cyclic garbage collection during a capture: a collection there can
+    free a dead graph of an earlier runner, and destroying it is a CUDA call
+    that invalidates the capture in progress (the launch after it fails with
+    cudaErrorStreamCaptureInvalidated). torch.cuda.graph no longer collects
+    before a capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _flatten(state) -> list:
@@ -163,7 +180,7 @@ class StepGraphs:
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         with (kernels.counting_capture() as counted, fused_tracer.work_counters(self._work),
-              _owning()):
+              _owning(), _gc_paused()):
             with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
                 reserved = torch.cuda.memory_reserved(dev)
                 new = _flatten(self._body(_unflatten(template, self._static), self._static_in,

@@ -222,29 +222,41 @@ def frame_setup_plain(scene: DeviceScene, cfg: EngineConfig, state: EngineState,
 
 _SetupParams = params_type(
     ("perm", "cursor", "key", "frame", "center", "quat", "input", "leaf_min", "leaf_max", "ids",
-     "cursor_out", "frame_out", "center_out", "key_out", "keys_out", "seed_out"),
+     "cursor_out", "frame_out", "center_out", "key_out", "keys_out", "seed_out", "codes"),
     ("total", "n", "sort", "chunks_x", "leaves", "seed_min", "seed_span", "seed_mult"),
     ("step", "half_x", "half_y", "half_z"))
 # Windows the kernel sorts in one block (csrc/frame_setup.cu: 1,024 threads of
-# 16 codes in registers at the most).
+# 16 codes in registers at the most); a larger one takes its tiled route,
+# tiles of TILE ids merged in passes, through a scratch of 2n codes.
 MAX_SORT = 16384
+TILE = 2048
+
+
+def merge_passes(n_chunks: int, sort: bool) -> int:
+    """The merge passes the frame_setup kernel's C entry launches after its
+    first kernel for a window of ``n_chunks`` ids: ceil(log2(tiles)) on the
+    tiled route, none on the one-block route."""
+    return (-(-n_chunks // TILE) - 1).bit_length() if sort and n_chunks > MAX_SORT else 0
+# The chunk grid's side the Morton codes hold (ops/morton.py spreads 16 bits).
+MAX_GRID_SIDE = 1 << 16
 
 
 def frame_setup_kernel(scene: DeviceScene, cfg: EngineConfig, state: EngineState,
                        inp: torch.Tensor, n_chunks: int, grid: ScreenConfig) -> FrameSetup:
-    """``frame_setup`` in one launch of the ``frame_setup`` kernel
-    (csrc/frame_setup.cu), bitwise its plain version on every tensor it
-    writes. Raises on tensors that are not on a CUDA device, on malformed
-    operands and, before the launch, on a window the kernel cannot sort;
-    there is no fallback."""
+    """``frame_setup`` in one call of the ``frame_setup`` kernel's C entry
+    (csrc/frame_setup.cu: one launch, or past MAX_SORT sorted ids the tiled
+    route's launches), bitwise its plain version on every tensor it writes.
+    Raises on tensors that are not on a CUDA device, on malformed operands
+    and, before the launch, on a window larger than the queue or a sorted
+    window of a grid whose side exceeds MAX_GRID_SIDE chunks (where the
+    reference's 16-bit Morton codes collide); there is no fallback."""
     total = state.perm.shape[0]
     sort = cfg.screen.sort_chunk_window
     if not 1 <= n_chunks <= total:
         raise ValueError(f"a window of {n_chunks} chunks from a queue of {total}")
-    if sort and (n_chunks > MAX_SORT or grid.chunks_x > 1 << 16 or grid.chunks_y > 1 << 16):
-        raise ValueError(f"the frame_setup kernel sorts windows of at most {MAX_SORT} chunks "
-                         f"of a grid under 2^16 x 2^16, got {n_chunks} of "
-                         f"{grid.chunks_x} x {grid.chunks_y}")
+    if sort and (grid.chunks_x > MAX_GRID_SIDE or grid.chunks_y > MAX_GRID_SIDE):
+        raise ValueError(f"the frame_setup kernel sorts windows of a grid of at most 2^16 x "
+                         f"2^16 chunks, got {grid.chunks_x} x {grid.chunks_y}")
     dev = state.cam_center.device
     need_card(dev, "frame_setup")
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
@@ -273,6 +285,9 @@ def frame_setup_kernel(scene: DeviceScene, cfg: EngineConfig, state: EngineState
         rkey=None, jkey=None, tkey=None,
         seed=torch.empty(1, dtype=i32, device=dev))
     keys = torch.empty((3, 2), dtype=i64, device=dev)   # rkey, jkey, tkey
+    if sort and n_chunks > MAX_SORT:
+        codes = torch.empty(2 * n_chunks, dtype=i32, device=dev)   # held until the launch
+        p.codes = codes.data_ptr()
     p.ids, p.cursor_out, p.frame_out, p.center_out, p.key_out, p.seed_out = (
         t.data_ptr() for t in (out.ids, out.cursor, out.frame, out.center, out.key, out.seed))
     p.keys_out = keys.data_ptr()
@@ -283,6 +298,9 @@ def frame_setup_kernel(scene: DeviceScene, cfg: EngineConfig, state: EngineState
     p.half_x, p.half_y, p.half_z = (float(np.float32(h)) for h in cfg.camera.player_half_extent)
     with torch.cuda.device(dev):            # the launch goes to this device's stream
         kernels.launch("frame_setup", ctypes.addressof(p))
+    merges = merge_passes(n_chunks, sort)
+    if merges:                              # launched by the same C entry
+        kernels.count("frame_setup_merge", merges)
     return out._replace(rkey=keys[0], jkey=keys[1], tkey=keys[2])
 
 

@@ -733,6 +733,21 @@ def walk_into_wall(scene, cfg, state, most: int = 2000):
     return state, most
 
 
+# The configurations past the glue kernels' one-block limits: config_scale
+# at 7680x4320 (1,920 x 1,080 chunks, a sorted window of 32,400 ids: the
+# frame_setup kernel's tiled route) and config_interactive at 4,096 samples
+# a pixel (the resolve kernel's pieces route).
+BIG = {"scale-8k": ("scale", dict(width=7680, height=4320)),
+       "spp4096": ("interactive", dict(samples_per_pixel=4096))}
+
+
+def big_config(name: str):
+    """The EngineConfig of ``BIG[name]``."""
+    base, screen = BIG[name]
+    cfg = P.NAMED_CONFIGS[base]()
+    return cfg.replace(screen=dataclasses.replace(cfg.screen, **screen))
+
+
 def glue_inputs(name: str, device):
     """(cfg, scene, state, input row, grid, row0, nearest_fn) of one input of
     the glue kernels: the frames ``chip_smoke.py``'s ``[frame-glue]`` and
@@ -742,7 +757,9 @@ def glue_inputs(name: str, device):
     config_interactive's second band of two) and
     the frame: ``frame1`` (idle, from the initial state), ``collide`` (a W
     move into a wall), ``walk`` (a free W move), ``turn`` (a turn while
-    walking)."""
+    walking). ``scale-8k`` is config_scale at 7680x4320 (a sorted window of
+    32,400 ids) and ``spp4096`` config_interactive at 4,096 samples a pixel
+    (``big_config``)."""
     from mirror_maze_tpu_torch.parallel import shard
     from mirror_maze_tpu_torch.render.pipeline import scene_nearest_fn
     from mirror_maze_tpu_torch.render.scenebuf import upload_scene
@@ -750,7 +767,7 @@ def glue_inputs(name: str, device):
     from mirror_maze_tpu_torch.runtime.step import input_stack
 
     config, frame = name.split(":")
-    cfg = (golden_config() if config == "golden"
+    cfg = (golden_config() if config == "golden" else big_config(config) if config in BIG
            else P.NAMED_CONFIGS["interactive" if config == "bands" else config]())
     if config == "bvh":
         cfg = cfg.replace(intersector="bvh")    # config_bvh's scene through the walk

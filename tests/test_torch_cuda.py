@@ -1086,6 +1086,20 @@ def test_threefry_erf_inv_on_every_uniform_and_the_edges(cuda_device):
     assert int(torch.isinf(got).sum()) == 2                 # +-1 -> +-inf
 
 
+def test_threefry_erf_inv_on_every_float32_of_minus_one_one(cuda_device):
+    """The ERFINV output on all 2,130,706,434 float32 patterns of [-1, 1]
+    (tools/erf_inv_check.py): the step check finds no step where a native
+    fmaf differs from prng.fma on the float64 chain, the all-native route
+    never differs from the float64 route, and prng.erf_inv is erf_inv_plain
+    bitwise."""
+    from mirror_maze_tpu_torch.tools import erf_inv_check
+
+    out = erf_inv_check.check(1, cuda_device)
+    assert out["patterns"] == 2130706434
+    assert erf_inv_check.differing_steps(out) == [], out["steps"]
+    assert out["native_differs"] == 0 and out["output_differs"] == 0
+
+
 def test_threefry_normal_on_2_26_counts(cuda_device):
     """normal over 2^26 counts (nearly all of the uniform's 2^23 values, both
     of Giles' branches and both of log1p's), one launch: bitwise the plain
@@ -1285,7 +1299,10 @@ def test_frame_setup_collides_as_the_plain_version(cuda_device):
 
 
 def test_frame_setup_raises_on_a_window_it_cannot_sort(cuda_device):
-    """The guard runs before the launch: no launch is counted."""
+    """The guards run before the launch: a window larger than the queue and a
+    sorted window of a grid past 2^16 chunks a side raise with no launch
+    counted; MAX_SORT ids and one more (the tiled route) are one counted
+    frame_setup launch each, and only the tiled route counts merge passes."""
     from mirror_maze_tpu_torch.runtime import step
     from mirror_maze_tpu_torch.runtime.state import init_state
 
@@ -1295,11 +1312,20 @@ def test_frame_setup_raises_on_a_window_it_cannot_sort(cuda_device):
     scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
     state = init_state(cfg, device=cuda_device)
     row = torch.zeros(5, device=cuda_device)
+    tall = dataclasses.replace(cfg.screen, width=4, height=4 * (step.MAX_GRID_SIDE + 1))
     before = kernels.launches["frame_setup"]
-    with pytest.raises(ValueError, match="at most 16384"):
-        step.frame_setup_kernel(scene, cfg, state, row, step.MAX_SORT + 1, cfg.screen)
+    merges = kernels.launches["frame_setup_merge"]
+    with pytest.raises(ValueError, match="a window of"):
+        step.frame_setup_kernel(scene, cfg, state, row, cfg.screen.total_chunks + 1, cfg.screen)
+    with pytest.raises(ValueError, match="2\\^16 x 2\\^16"):
+        step.frame_setup_kernel(scene, cfg, state, row, 12, tall)
+    assert kernels.launches["frame_setup"] == before
     step.frame_setup_kernel(scene, cfg, state, row, step.MAX_SORT, cfg.screen)
-    assert kernels.launches["frame_setup"] == before + 1
+    assert kernels.launches["frame_setup_merge"] == merges
+    step.frame_setup_kernel(scene, cfg, state, row, step.MAX_SORT + 1, cfg.screen)
+    assert kernels.launches["frame_setup"] == before + 2
+    assert kernels.launches["frame_setup_merge"] == merges + 4     # 9 tiles
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("spp", [1, 3, 8, 33, 64, 96])
@@ -1327,6 +1353,47 @@ def test_resolve_kernel_sums_in_the_plain_order(cuda_device, spp):
 # warp's codes (128), the shared-memory steps past it, [main]'s 1,980,
 # config_scale's 8,040 (8 codes a thread) and the most the kernel sorts (16).
 SORT_WINDOWS = [1, 2, 31, 32, 33, 127, 128, 129, 255, 256, 257, 1980, 2048, 2049, 8040, 16384]
+
+
+# Windows past one block's sort (the tiled route): one id more than MAX_SORT
+# on the 256 x 128 grid, config_scale's window at 7680x4320 (32,400 ids) and
+# that grid's whole queue (2,073,600 ids, 1,013 tiles).
+TILED_WINDOWS = [(16385, 1024, 512), (32400, 7680, 4320), (2073600, 7680, 4320)]
+
+
+@pytest.mark.parametrize("n,width,height", TILED_WINDOWS)
+def test_frame_setup_kernel_sorts_windows_past_one_block(cuda_device, n, width, height):
+    """A sorted window of n > MAX_SORT ids popped across the end of a random
+    queue, with a D + W move, a random key and frame: every tensor the
+    kernel writes bitwise frame_setup_plain's; one counted frame_setup launch
+    (the tiles and the setup block) and ceil(log2(tiles)) counted merge
+    passes."""
+    from mirror_maze_tpu_torch.runtime import step
+    from mirror_maze_tpu_torch.runtime.state import init_state
+
+    rng = np.random.default_rng(n)
+    cfg = golden_config()
+    cfg = cfg.replace(screen=dataclasses.replace(cfg.screen, sort_chunk_window=True))
+    grid = dataclasses.replace(cfg.screen, width=width, height=height)
+    total = grid.total_chunks
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    state = init_state(cfg, device=cuda_device)._replace(
+        perm=torch.from_numpy(rng.permutation(total).astype(np.int32)).to(cuda_device),
+        cursor=torch.tensor(total - n // 2 - 1 if n < total else 7, dtype=torch.int32,
+                            device=cuda_device),
+        key=torch.from_numpy(rng.integers(0, 2 ** 32, 2, dtype=np.uint64).astype(np.int64))
+        .to(cuda_device),
+        frame=torch.tensor(int(rng.integers(1000)), dtype=torch.int32, device=cuda_device))
+    row = torch.tensor([0.0, 0.0, 1.0, 1.0, 0.0], device=cuda_device)
+    before = {k: kernels.launches[k] for k in ("frame_setup", "frame_setup_merge")}
+    got = step.frame_setup_kernel(scene, cfg, state, row, n, grid)
+    merges = {16385: 4, 32400: 4, 2073600: 10}[n]
+    assert step.merge_passes(n, True) == merges
+    assert {k: kernels.launches[k] - v for k, v in before.items()} == dict(
+        frame_setup=1, frame_setup_merge=merges)
+    want = step.frame_setup_plain(scene, cfg, state, row, n, grid)
+    for f in want._fields:
+        assert glue_ndiff(getattr(got, f), getattr(want, f)) == 0, f
 
 
 @pytest.mark.parametrize("sort,n", [(True, n) for n in SORT_WINDOWS] + [(False, 1980)])
@@ -1360,12 +1427,13 @@ def test_frame_setup_kernel_is_bitwise_its_plain_version(cuda_device, sort, n):
 
 
 @pytest.mark.parametrize("aligned", [True, False])
-@pytest.mark.parametrize("spp", [1, 3, 8, 32, 33, 64, 96, 3816])
+@pytest.mark.parametrize("spp", [1, 3, 8, 32, 33, 64, 96, 2048, 2080, 3816, 3817, 4096, 5000])
 def test_resolve_kernel_is_bitwise_its_plain_version(cuda_device, spp, aligned):
     """112 pixels (3.5 blocks of 32) of light with negatives, -0 and NaN, on
     a 16-byte boundary or 12 bytes past one: the screen's rows and the
-    colours without ids bitwise resolve_plain; one launch each. The last
-    spp is RESOLVE_MAX_SPP."""
+    colours without ids bitwise resolve_plain; one launch each. 2,048 and
+    2,080 sum blocks of 32 runs; 3,816 is RESOLVE_MAX_SPP, the most a block
+    stages, and 3,817, 4,096 and 5,000 take the pieces route."""
     from mirror_maze_tpu_torch.render import frame_glue
 
     assert frame_glue.RESOLVE_MAX_SPP == 3816
@@ -1387,28 +1455,25 @@ def test_resolve_kernel_is_bitwise_its_plain_version(cuda_device, spp, aligned):
     assert glue_ndiff(colours, frame_glue.resolve_plain(light, spp)) == 0
 
 
-def test_resolve_kernel_raises_past_its_most_samples(cuda_device):
-    """The wrapper raises at RESOLVE_MAX_SPP + 1 before any launch, and the C
-    entry itself refuses that spp (it stages no pixel of it) while it takes
-    RESOLVE_MAX_SPP."""
-    import ctypes
-
+def test_resolve_kernel_takes_any_spp(cuda_device):
+    """The C entry takes RESOLVE_MAX_SPP, the spp after it and 100,003 (a
+    piece route of 3,126 runs, the last of 3 samples), bitwise the plain
+    version; the wrapper raises only past 2^31 - 1 light values, before any
+    launch."""
     from mirror_maze_tpu_torch.render import frame_glue
 
     most = frame_glue.RESOLVE_MAX_SPP
-    light = torch.zeros(2 * (most + 1), 3, device=cuda_device)
-    out = torch.empty(2, 3, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for spp in (most, most + 1, 100003):
+        light = torch.rand((3 * spp, 3), generator=gen, device=cuda_device) * 2 - 0.5
+        before = kernels.launches["resolve"]
+        got = frame_glue.resolve_kernel(light, spp, torch.empty(3, 3, device=cuda_device))
+        assert kernels.launches["resolve"] == before + 1
+        assert glue_ndiff(got, frame_glue.resolve_plain(light, spp)) == 0, spp
+    spp = 1 << 20
     before = kernels.launches["resolve"]
-    with pytest.raises(ValueError, match=f"at most {most} samples"):
-        frame_glue.resolve_kernel(light, most + 1, out)
+    with pytest.raises(ValueError, match="2\\^31 - 1 light values"):
+        frame_glue.resolve_kernel(torch.zeros(4, 3, device=cuda_device), spp,
+                                  torch.empty(683, 3, device=cuda_device))
     assert kernels.launches["resolve"] == before
-    for spp, ok in ((most, True), (most + 1, False)):
-        p = frame_glue._ResolveParams()
-        p.light, p.out = light.data_ptr(), out.data_ptr()
-        p.n_pixels, p.spp, p.ppc, p.rcp_spp = 2, spp, 1, 1.0 / spp
-        if ok:
-            kernels.launch("resolve", ctypes.addressof(p))
-        else:
-            with pytest.raises(RuntimeError, match="failed to launch"):
-                kernels.launch("resolve", ctypes.addressof(p))
     torch.cuda.synchronize()

@@ -14,7 +14,8 @@ JAX package's step does. Tolerances:
   or two of a unit vector: the same FMA contraction);
 - the resolve bitwise (tolerance 0): the plain version sums the samples in
   the order of the jitted ``jnp.mean`` and multiplies by the same float32
-  reciprocal, for spp <= 32 and for multiples of 32.
+  reciprocal, for spp <= 32, multiples of 32 up to 1,024 and multiples of
+  1,024; at other spp (3,817) the golden rule, and within rtol 1e-6.
 """
 
 import dataclasses
@@ -29,7 +30,7 @@ import torch
 import mirror_maze_tpu.config as JC
 import mirror_maze_tpu_torch as P
 from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
-from _torch_tools import golden_config, port_config, walk_into_wall
+from _torch_tools import assert_frames_match, golden_config, port_config, walk_into_wall
 from mirror_maze_tpu.ops.sampling import ray_jitter as j_jitter
 from mirror_maze_tpu.render import upload_scene as j_upload
 from mirror_maze_tpu.render.accumulate import scatter_chunk_rows as j_scatter
@@ -183,6 +184,68 @@ def test_pinhole_rays_plain_match_jax(config, band):
     np.testing.assert_array_equal(ori.numpy(), np.broadcast_to(cam.center.numpy(), (k * spp, 3)))
 
 
+@pytest.mark.parametrize("n", [16385, 32400])
+def test_frame_setup_plain_orders_large_windows_as_jax(n):
+    """Windows past one block of the kernel's sort (MAX_SORT = 16,384): 16,385
+    ids and config_scale's window at 7680x4320 (32,400 of its 1,920 x 1,080
+    chunks), popped across the end of a random queue: frame_setup_plain's
+    ids bitwise the JAX package's take_chunks + sort_window_morton."""
+    jcfg = _jcfg("golden")
+    jgrid = dataclasses.replace(jcfg.screen, width=7680, height=4320, sort_chunk_window=True)
+    grid = P.ScreenConfig(**dataclasses.asdict(jgrid))
+    assert jgrid.effective_chunks_per_frame == 32400
+    cfg = golden_config()
+    cfg = cfg.replace(screen=dataclasses.replace(cfg.screen, sort_chunk_window=True))
+    rng = np.random.default_rng(n)
+    st = init_state(cfg, device="cpu")._replace(
+        perm=torch.from_numpy(rng.permutation(grid.total_chunks).astype(np.int32)),
+        cursor=torch.tensor(grid.total_chunks - n // 3, dtype=torch.int32))
+    scene = upload_scene(build_scene(cfg.maze), device="cpu")
+    got = step.frame_setup_plain(scene, cfg, st, torch.zeros(5), n, grid)
+
+    @jax.jit
+    def window(perm, cursor):
+        ids, cur = j_take(perm, cursor, n)
+        return j_sort(ids, jgrid), cur
+
+    ids, cur = window(jnp.asarray(st.perm.numpy()), jnp.int32(int(st.cursor)))
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(ids))
+    assert int(got.cursor) == int(cur)
+
+
+@pytest.mark.parametrize("spp", [3817, 4096])
+def test_resolve_plain_past_the_staged_spp_against_jax(spp):
+    """spp past RESOLVE_MAX_SPP (the kernel's pieces route), on 8 pixels of
+    two chunks: at 4,096 (a multiple of 32) the screen's rows and the colours
+    bitwise the jitted reference mean (tone_map, jnp.mean,
+    scatter_chunk_rows); at 3,817 jnp.mean sums in another order, so the
+    8-bit colours by the golden rule and the float colours within 1e-6."""
+    rng = np.random.default_rng(SEED + spp)
+    c, ppc, k = 5, 4, 2
+    light = rng.random((k * ppc * spp, 3)).astype(np.float32) * 4 - 1
+    screen = rng.random((c, ppc * 3)).astype(np.float32)
+    ids = np.array([3, 1], dtype=np.int32)
+
+    @jax.jit
+    def jresolve(light, screen, ids):
+        colors = jnp.mean(j_tone_map(light).reshape(k * ppc, spp, 3), axis=1)
+        return j_scatter(screen, ids, colors), colors
+
+    want_screen, want_colors = (np.asarray(a) for a in jresolve(light, screen, ids))
+    t = torch.from_numpy
+    got_screen = frame_glue.resolve(t(light), spp, t(screen), t(ids)).numpy()
+    got_colors = frame_glue.resolve(t(light), spp).numpy()
+    if spp % frame_glue.RUN == 0:
+        np.testing.assert_array_equal(got_screen.view(np.int32), want_screen.view(np.int32))
+        np.testing.assert_array_equal(got_colors.view(np.int32), want_colors.view(np.int32))
+    else:
+        eight = lambda x: np.round(np.clip(x, 0, 1) * 255).astype(np.uint8)   # noqa: E731
+        assert_frames_match(eight(got_screen), eight(want_screen))
+        np.testing.assert_allclose(got_colors, want_colors, rtol=1e-6, atol=0)
+        np.testing.assert_array_equal(np.delete(got_screen, ids, 0),
+                                      np.delete(screen, ids, 0))
+
+
 def test_pinhole_rays_seed_row_is_the_pixels_texel():
     cfg = golden_config()
     cfg = cfg.replace(tracer=dataclasses.replace(cfg.tracer, noise_rng=True))
@@ -199,7 +262,7 @@ def test_pinhole_rays_seed_row_is_the_pixels_texel():
         frame_glue.pinhole_rays(cam, win, prng.PRNGKey(1), cfg)
 
 
-@pytest.mark.parametrize("spp", [1, 3, 8, 64])
+@pytest.mark.parametrize("spp", [1, 3, 8, 64, 1024, 2048])
 def test_resolve_plain_matches_jax_bitwise(spp):
     rng = np.random.default_rng(SEED + spp)
     c, ppc, k = 40, 16, 6
@@ -239,6 +302,27 @@ def test_sample_mean_sums_runs_of_32():
     for i in range(1, 32):
         run = run + s[:, i]
     want = (run + s[:, 32]) * float(np.float32(1) / np.float32(33))
+    assert torch.equal(frame_glue.sample_mean(s), want)
+
+
+def test_sample_mean_adds_blocks_of_32_runs():
+    """For 2,080 samples (65 runs): runs 0-31 left to right into a block, runs
+    32-63 into the next, run 64 alone, then the three blocks left to right."""
+    rng = np.random.default_rng(SEED)
+    s = torch.from_numpy(rng.random((20, 2080, 3)).astype(np.float32))
+    runs = []
+    for r0 in range(0, 2080, 32):
+        run = s[:, r0]
+        for i in range(r0 + 1, r0 + 32):
+            run = run + s[:, i]
+        runs.append(run)
+    blocks = []
+    for b in (0, 32, 64):
+        block = runs[b]
+        for r in runs[b + 1:b + 32]:
+            block = block + r
+        blocks.append(block)
+    want = ((blocks[0] + blocks[1]) + blocks[2]) * float(np.float32(1) / np.float32(2080))
     assert torch.equal(frame_glue.sample_mean(s), want)
 
 
@@ -294,14 +378,25 @@ def test_a_tensor_neither_on_the_cpu_nor_on_the_card_raises(name):
 
 
 def test_frame_setup_guards_the_window_before_the_launch():
+    """A sorted window of any size up to the queue is the kernel's (past
+    MAX_SORT its tiled route): the only size raise is for a window larger
+    than the queue, and for a grid side past 2^16 chunks, where the
+    reference's 16-bit Morton codes collide; otherwise a CPU tensor raises
+    for being off the card, before any launch."""
     scene, cfg, st, row, _, _ = _setup_args()
     wide = dataclasses.replace(cfg.screen, width=1024, height=512, sort_chunk_window=True)
     cfg = cfg.replace(screen=wide)
     st = st._replace(perm=torch.arange(wide.total_chunks, dtype=torch.int32))
-    with pytest.raises(ValueError, match="at most 16384"):
-        step.frame_setup_kernel(scene, cfg, st, row, step.MAX_SORT + 1, wide)
+    before = dict(kernels.launches)
+    for n in (step.MAX_SORT + 1, wide.total_chunks):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            step.frame_setup_kernel(scene, cfg, st, row, n, wide)
     with pytest.raises(ValueError, match="a window of"):
         step.frame_setup_kernel(scene, cfg, st, row, wide.total_chunks + 1, wide)
+    tall = dataclasses.replace(wide, width=4, height=4 * (step.MAX_GRID_SIDE + 1))
+    with pytest.raises(ValueError, match="2\\^16 x 2\\^16"):
+        step.frame_setup_kernel(scene, cfg, st, row, 12, tall)
+    assert kernels.launches == before
 
 
 # --- The kernel library hash --------------------------------------------------

@@ -7,12 +7,20 @@ against the kernels' own constants and the plain versions.
   a warp's codes: the partner is lane ``lane ^ (j / CODES)``'s register of the
   same index) or a shared-memory step. The model sorts with exactly that
   partition and checks where every partner lies.
+  Past MAX_SORT ids the tiled route: a block a tile of TILE ids sorted by
+  that network, then merge passes, each element placed at its index in
+  its run plus the other run's codes below it; the model places every
+  element as the merge kernel does and checks that each place is taken
+  once.
 - ``csrc/resolve.cu``: a block's pixels staged in shared memory in the
   light's order with PAD words after every run's floats; a lane a run of a
   pixel sums its three channels left to right; a lane a pixel's channel adds
   the runs. The model follows every index and checks that each staged word
   is written once, each run reads its samples in order, each output is
-  written once, and the result is bitwise ``resolve_plain``.
+  written once, and the result is bitwise ``resolve_plain``. Past
+  RESOLVE_MAX_SPP the pieces route: a block a pixel, a block of BLOCK_RUNS
+  runs staged at a time, a lane a run's channel, lanes 0-2 carrying the
+  channel's total from piece to piece; modelled the same way.
 
 The constants (codes a thread, threads, RUN, pixels a block, the staging
 budget) are read from the ``.cu`` sources' text, so model and kernel cannot
@@ -58,11 +66,15 @@ def test_the_models_read_the_kernels_constants():
     limits agree with them."""
     assert {k: SORT[k] for k in ("MAX_SORT", "CODES", "WARP", "MAX_THREADS")} == dict(
         MAX_SORT=16384, CODES=4, WARP=32, MAX_THREADS=1024)
-    assert SORT["MAX_SORT"] == step.MAX_SORT
+    assert SORT["MAX_SORT"] == step.MAX_SORT and SORT["MERGE_THREADS"] == 256
+    assert SORT["TILE"] == step.TILE
+    tile = SORT["TILE"]
+    assert tile & (tile - 1) == 0 and SORT["WARP"] * SORT["CODES"] <= tile <= SORT["MAX_SORT"]
     assert {k: RESOLVE[k] for k in ("THREADS", "RUN", "RUN_FLOATS", "PAD", "PIXELS",
-                                    "SMEM_BYTES")} == dict(
-        THREADS=128, RUN=32, RUN_FLOATS=96, PAD=4, PIXELS=16, SMEM_BYTES=48 * 1024)
-    assert RESOLVE["RUN"] == frame_glue.RUN
+                                    "SMEM_BYTES", "BLOCK_RUNS")} == dict(
+        THREADS=128, RUN=32, RUN_FLOATS=96, PAD=4, PIXELS=16, SMEM_BYTES=48 * 1024,
+        BLOCK_RUNS=32)
+    assert (RESOLVE["RUN"], RESOLVE["BLOCK_RUNS"]) == (frame_glue.RUN, frame_glue.BLOCK_RUNS)
 
 
 # --- frame_setup's sort -------------------------------------------------------
@@ -93,12 +105,12 @@ def sort_steps(width: int, codes: int) -> list:
     return steps
 
 
-def model_sort(codes_in: np.ndarray) -> np.ndarray:
+def model_sort(codes_in: np.ndarray, width: int | None = None) -> np.ndarray:
     """The window's codes sorted as the kernel sorts them: padded to the
-    width, element i held by thread i // codes, each step's partner checked
-    against the step's kind."""
+    width (mm_frame_setup's choice, or ``width``), element i held by thread
+    i // codes, each step's partner checked against the step's kind."""
     n = codes_in.shape[0]
-    width, codes, threads = sort_geometry(n)
+    width, codes, threads = sort_geometry(width or n)
     v = np.full(width, PAD_CODE, dtype=np.uint32)
     v[:n] = codes_in
     i = np.arange(width)
@@ -181,6 +193,53 @@ def test_sort_model_sorts_distinct_codes_at_every_width(n, seed):
     assert np.array_equal(v[:n], np.sort(codes)) and (v[n:] == PAD_CODE).all()
 
 
+def model_tiled_sort(codes_in: np.ndarray) -> tuple:
+    """The tiled route of mm_frame_setup on a window of n > MAX_SORT codes:
+    tiles of TILE sorted by the block network at the tile's width
+    (``model_sort``; the padding left out of the scratch), then the merge
+    passes, each element of run r placed at its index in r plus the codes of
+    run r ^ 1 below it. Returns (the sorted codes, the launches: the tiles'
+    and one a pass)."""
+    n, tile = codes_in.shape[0], SORT["TILE"]
+    assert n > SORT["MAX_SORT"]
+    tiles = -(-n // tile)
+    v = np.concatenate([model_sort(codes_in[t * tile:(t + 1) * tile], tile)[:min(tile, n - t * tile)]
+                        for t in range(tiles)])
+    i = np.arange(n, dtype=np.int64)
+    run, launches = tile, 1
+    while run < n:
+        r = i // run
+        other = (r ^ 1) * run
+        length = np.clip(n - other, 0, run)
+        below = np.zeros(n, dtype=np.int64)
+        for o in np.unique(other[length > 0]):      # each run's codes, sorted
+            mine = other == o
+            below[mine] = np.searchsorted(v[o:o + run], v[mine], side="left")
+        at = (r & ~1) * run + (i - r * run) + below
+        assert np.array_equal(np.sort(at), i)       # every place taken once
+        out = np.empty_like(v)
+        out[at] = v
+        v, run, launches = out, run * 2, launches + 1
+    return v, launches
+
+
+@pytest.mark.parametrize("n,grid", [
+    (16385, (1024, 512)), (32400, (7680, 4320)), (32768, (1024, 512)), (32769, (2048, 1024)),
+    (49153, (2048, 1024)), (100000, (2048, 1024)), (2073600, (7680, 4320))])
+def test_tiled_sort_model_gives_the_plain_window_order(n, grid):
+    """Windows past MAX_SORT: 16,385, the 8K window of config_scale at
+    7680x4320 (32,400 of 1,920 x 1,080 chunks), whole tiles and one id more,
+    odd tile counts, and the whole 8K queue: decoded, the model's codes are
+    sort_window_morton's window, after one launch for the tiles and one a
+    merge pass."""
+    sc = ScreenConfig(width=grid[0], height=grid[1], chunk_width=4, sort_chunk_window=True)
+    ids = _window(np.random.default_rng(n), n, sc)
+    v, made = model_tiled_sort(morton(ids, sc.chunks_x))
+    assert made == 1 + (-(-n // SORT["TILE"]) - 1).bit_length() == 1 + step.merge_passes(n, True)
+    want = sort_window_morton(torch.from_numpy(ids), sc).numpy()
+    assert np.array_equal(unmorton(v, sc.chunks_x), want)
+
+
 # --- resolve's staging --------------------------------------------------------
 
 
@@ -250,11 +309,14 @@ def model_resolve(light: np.ndarray, spp: int, k: int, ids, ppc: int, out: np.nd
                 assert (px * 3 + c) * runs + r not in sums
                 sums[(px * 3 + c) * runs + r] = acc[c]
         assert len(sums) == n_px * 3 * runs and max(sums) < pixels * 3 * runs
-        # 3. A lane a pixel's channel: runs in order, the mean, the row.
+        # 3. A lane a pixel's channel: runs in order by blocks, the mean, the row.
         for t in range(3 * n_px):
-            total = sums[t * runs]
-            for r in range(1, runs):
-                total = np.float32(total + sums[t * runs + r])
+            total = None
+            for b in range(0, runs, RESOLVE["BLOCK_RUNS"]):
+                block = sums[t * runs + b]
+                for r in range(b + 1, min(runs, b + RESOLVE["BLOCK_RUNS"])):
+                    block = np.float32(block + sums[t * runs + r])
+                total = block if total is None else np.float32(total + block)
             px, c = divmod(t, 3)
             kk = k0 + px
             o = 3 * kk + c if ids is None else int(ids[kk // ppc]) * ppc * 3 + 3 * (kk % ppc) + c
@@ -292,6 +354,84 @@ def test_resolve_model_writes_every_output_once_in_the_plain_order(spp, with_ids
     else:
         out = np.full(k * 3, np.nan, dtype=np.float32)
         writes = model_resolve(toned, spp, k, None, 1, out, vector)
+        want = frame_glue.resolve_plain(light, spp).numpy().reshape(-1)
+        assert (writes == 1).all()
+    same = (out.view(np.int32) == want.view(np.int32)) | (np.isnan(out) & np.isnan(want))
+    assert same.all()
+
+
+def model_resolve_pieces(light: np.ndarray, spp: int, k: int, ids, ppc: int,
+                         out: np.ndarray) -> np.ndarray:
+    """resolve_pieces_kernel's blocks (one a pixel), every index followed:
+    ``light`` tone-mapped as in ``model_resolve``. Returns the writes an
+    output element got."""
+    run_, rf, pad, pr = RESOLVE["RUN"], RESOLVE["RUN_FLOATS"], RESOLVE["PAD"], \
+        RESOLVE["BLOCK_RUNS"]
+    span, runs = 3 * spp, -(-spp // run_)
+    stage_words = pr * (rf + pad)
+    assert 3 * pr <= RESOLVE["THREADS"] and stage_words * 4 + 3 * pr * 4 <= 48 * 1024
+    writes = np.zeros(out.shape[0], dtype=np.int64)
+    for kk in range(k):
+        total = [None, None, None]
+        for r0 in range(0, runs, pr):
+            nr = min(pr, runs - r0)
+            nf = min(nr * rf, span - r0 * rf)
+            stage = np.full(stage_words, np.nan, dtype=np.float32)
+            staged = np.zeros(stage_words, dtype=np.int64)
+            for f in range(nf):                      # 1. the piece, in the light's order
+                stage[slot(f)] = light[kk * span + r0 * rf + f]
+                staged[slot(f)] += 1
+            assert staged.max() == 1
+            sums = {}
+            for t in range(3 * nr):                  # 2. a lane a run's channel
+                r, c = divmod(t, 3)
+                length = min(run_, spp - (r0 + r) * run_)
+                base = slot(r * rf)
+                a = None
+                for smp in range(length):
+                    w = base + 3 * smp + c
+                    assert w == slot(r * rf + 3 * smp + c) and staged[w] == 1
+                    a = stage[w] if a is None else np.float32(a + stage[w])
+                sums[(c, r)] = a
+            for c in range(3):                       # 3. the piece's runs, then the total
+                block = sums[(c, 0)]
+                for r in range(1, nr):
+                    block = np.float32(block + sums[(c, r)])
+                total[c] = block if total[c] is None else np.float32(total[c] + block)
+        for c in range(3):
+            o = 3 * kk + c if ids is None else int(ids[kk // ppc]) * ppc * 3 + 3 * (kk % ppc) + c
+            out[o] = np.float32(total[c] * np.float32(frame_glue.reciprocal(spp)))
+            writes[o] += 1
+    return writes
+
+
+@pytest.mark.parametrize("spp", [3817, 4096, 5000])
+@pytest.mark.parametrize("with_ids", [True, False])
+def test_resolve_pieces_model_writes_every_output_once_in_the_plain_order(spp, with_ids):
+    """Past RESOLVE_MAX_SPP (no pixel fits a block's staging: block_pixels is
+    0): 4 pixels of light with negatives, -0 and NaN, every output written
+    once and bitwise resolve_plain, through three whole pieces and a short
+    one (3,817: 120 runs, the last of 9 samples), four whole pieces (4,096)
+    and a last piece of 29 runs (5,000)."""
+    assert block_pixels(spp) == 0
+    rng = np.random.default_rng(spp)
+    k, ppc = 4, 2
+    raw = rng.random((k * spp, 3)).astype(np.float32) * 3 - 0.5
+    raw[::97] = -0.0
+    raw[5::1013, 1] = np.nan
+    light = torch.from_numpy(raw)
+    toned = tone_map(light).numpy().reshape(-1)
+    if with_ids:
+        screen = torch.from_numpy(rng.random((5, ppc * 3)).astype(np.float32))
+        ids = torch.from_numpy(np.array([3, 0], dtype=np.int32))
+        out = screen.numpy().copy().reshape(-1)
+        writes = model_resolve_pieces(toned, spp, k, ids.numpy(), ppc, out)
+        want = frame_glue.resolve_plain(light, spp, screen, ids).numpy().reshape(-1)
+        assert (writes.reshape(screen.shape)[[3, 0]] == 1).all()
+        assert writes.reshape(screen.shape)[[1, 2, 4]].sum() == 0
+    else:
+        out = np.full(k * 3, np.nan, dtype=np.float32)
+        writes = model_resolve_pieces(toned, spp, k, None, 1, out)
         want = frame_glue.resolve_plain(light, spp).numpy().reshape(-1)
         assert (writes == 1).all()
     same = (out.view(np.int32) == want.view(np.int32)) | (np.isnan(out) & np.isnan(want))

@@ -14,6 +14,10 @@ parts only where the rule for it says. The kernel itself is held against the pla
 card (tests/test_torch_cuda.py, chip_smoke.py ``[threefry]``).
 """
 
+import collections
+import ctypes
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -127,17 +131,21 @@ def test_the_threefry_library_is_built_like_the_others():
     assert "-fmad=false" in kernels.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in \
         kernels.NVCC_FLAGS
     text = (kernels.CSRC / source).read_text()
-    assert 'extern "C" int mm_threefry(' in text
-    # The one native fmaf is fma64's native route, which only the NORMAL
-    # output takes (its domain is checked below); the ERFINV output takes
-    # the exact route. Every other float32 step is its own operation.
-    assert text.count("__fmaf_rn(") == 1 and text.count("fmaf(") == 0
-    fma64 = text[text.index("float fma64("):]
-    fma64 = fma64[:fma64.index("\n}\n")]
-    assert "if (EXACT) return __double2float_rn(__fma_rn((double)a, (double)b, (double)c));" \
-        in fma64 and "return __fmaf_rn(a, b, c);" in fma64
-    assert text.count("erf_inv<false>(") == 1 and "__fmul_rn(erf_inv<false>(u)" in text
-    assert text.count("erf_inv<true>(") == 1 and "= erf_inv<true>(((const float*)a.data)" in text
+    assert 'extern "C" int mm_threefry(' in text and 'extern "C" int mm_erf_inv_steps(' in text
+    assert kernels.ENTRIES[("threefry", "mm_erf_inv_steps")][-1] is ctypes.c_void_p
+    # The native fmaf is fma_step's: the route's own, and the step check's
+    # comparison. Every FMA of erf_inv is a numbered fma_step; NORMAL and
+    # ERFINV take the all-native route, the check compares it with the
+    # float64 one.
+    assert text.count("__fmaf_rn(") == 2 and text.count("fmaf(") == 0
+    step = text[text.index("float fma_step("):]
+    step = step[:step.index("\n}\n")]
+    assert "return __fmaf_rn(a, b, c);" in step and \
+        "__double2float_rn(__fma_rn((double)a, (double)b, (double)c))" in step
+    assert "enum Route { NATIVE = 0, FLOAT64 = 1 };" in text
+    assert text.count("erf_inv<NATIVE>(") == 3 and "__fmul_rn(erf_inv<NATIVE>(u)" in text
+    assert "= erf_inv<NATIVE>(((const float*)a.data)" in text
+    assert text.count("erf_inv<FLOAT64>(") == 1
     assert kernels._lib_path("threefry").name.startswith("libthreefry-")
 
 
@@ -486,3 +494,158 @@ def test_kernel_fma_route_at_the_subnormal_edge():
     ma, mb, mc = _midpoint_triples(rng, n, -149, -124)
     differs_mid, _ = _check_route(ma, mb, mc)
     assert slow > n // 4 and differs_mid > 0
+
+
+# --- ERFINV's steps (csrc/threefry.cu fma_step), modelled in NumPy ---
+#
+# The ERFINV output, as the NORMAL one, takes a native fmaf at every step of
+# erf_inv. The card checks that on every float32 pattern in [-1, 1]
+# (tools/erf_inv_check.py); here the model reads the step numbering from
+# the source and holds the route on a seeded sample of patterns and on the
+# edges: at every step the fmaf of the plain version's operands is
+# prng.fma's result, and erf_inv computed with native fmafs is
+# erf_inv_plain bitwise.
+
+STEP_TEXT = (kernels.CSRC / "threefry.cu").read_text()
+# The plain version's prng.fma calls in order, as the kernel numbers them:
+# log1p's den (10-14) and num (15-20), _log_f32 (0-9), then Giles' 8, step
+# 21 + j below w = 5 and 29 + j from it on.
+PLAIN_CALL_STEPS = list(range(10, 21)) + list(range(10)) + [(21 + j, 29 + j) for j in range(8)]
+
+
+def test_the_step_numbering_is_the_sources():
+    """The MM_FMA steps are numbered 0-36 in the order the source evaluates
+    them (_log_f32, log1p's den and num, Giles' two polynomials), each with
+    the plain version's constant."""
+    steps = re.findall(r"MM_FMA\((\d+), ", STEP_TEXT)
+    assert [int(x) for x in steps] == list(range(prng.ERF_INV_STEPS))
+    assert f"constexpr int STEPS = {prng.ERF_INV_STEPS};" in STEP_TEXT
+    hexf = lambda m: float.fromhex(m.rstrip("f"))                       # noqa: E731
+    consts = [hexf(m) for m in re.findall(r"MM_FMA\(\d+, [^;]*?, (-?0x[0-9a-f.]+p[-+]\d+f)\)",
+                                          STEP_TEXT)]
+    # The steps whose last operand is a constant: _log_f32's polynomial (0-5)
+    # and its e * Q1 (8), then log1p's den and num, Giles' coefficients 1-8.
+    assert consts[:7] == [prng._LOG_POLY[i] for i in (1, 2, 4, 5, 7, 8)] + [prng._LOG_Q1]
+    assert consts[7:18] == list(prng._LOG1P_DEN[1:]) + list(prng._LOG1P_NUM[1:])
+    assert consts[18:] == list(prng._ERFINV_W_LT_5[1:]) + list(prng._ERFINV_W_GE_5[1:])
+
+
+def _native_erf_inv(x: np.ndarray):
+    """erf_inv_plain with each prng.fma replaced by the exact fmaf model: the
+    kernel's NATIVE route. Returns (the route's result, {step: elements where
+    the native fmaf of the plain chain's operands differs from prng.fma,
+    counting only the elements whose branch reaches the step})."""
+    real = prng.fma
+    calls, differ = [0], collections.Counter()
+    state = {}
+
+    def routed(a, b, c):
+        i = calls[0]
+        calls[0] += 1
+        want = real(a, b, c)
+        n = a.numel()
+        arr = lambda t: (t.float().numpy() if isinstance(t, torch.Tensor)     # noqa: E731
+                         else np.full(n, t, np.float32))
+        av, bv, cv = arr(a), np.broadcast_to(arr(b), (n,)), np.broadcast_to(arr(c), (n,))
+        native = exact_fmaf(av, bv, cv)
+        if i == 0:                                   # log1p's input: its rational branch
+            state["small"] = np.abs(bv) < prng._LOG1P_SMALL
+        step = PLAIN_CALL_STEPS[i]
+        if isinstance(step, tuple):                  # Giles: the branch by the constant
+            lt = cv == np.float32(prng._ERFINV_W_LT_5[i - 20])
+            steps = np.where(lt, step[0], step[1])
+            reach = np.ones(n, bool)
+        else:
+            steps = np.full(n, step)
+            reach = state["small"] if step >= 10 else ~state["small"]
+        bad = (_bits(native) != _bits(want.numpy())) & reach
+        for s_ in np.unique(steps[bad]):
+            differ[int(s_)] += int((bad & (steps == s_)).sum())
+        return torch.from_numpy(native)
+
+    prng.fma = routed
+    try:
+        got = prng.erf_inv_plain(torch.from_numpy(x)).numpy()
+    finally:
+        prng.fma = real
+    assert calls[0] == 29
+    return got, differ
+
+
+def _erf_inv_edges() -> np.ndarray:
+    """+-0, +-1, the floats next to them, subnormals, and 64 floats each side
+    of w = 5 (Giles' branch) and of log1p's branch, both signs."""
+    edges = [0.0, 1.0, float(np.nextafter(np.float32(1), np.float32(0))),
+             float(np.nextafter(np.float32(0), np.float32(1))), 2.0 ** -126, 2.0 ** -127,
+             float(np.float32(2.0 ** -126) - np.float32(2.0 ** -149)), 2.0 ** -24, 2.0 ** -12]
+    for centre in (np.sqrt(1.0 - np.exp(-5.0)), np.sqrt(float(prng._LOG1P_SMALL))):
+        c = int(np.float32(centre).view(np.int32))
+        edges += [float(v) for v in np.arange(c - 64, c + 65, dtype=np.int32).view(np.float32)]
+    e = np.array(edges, np.float32)
+    return np.concatenate([e, -e])
+
+
+def _erf_inv_sample(seed: int, n: int) -> np.ndarray:
+    """n float32 patterns of [-1, 1], uniform over the patterns."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 0x3F800001, n, dtype=np.uint32)
+    bits |= (rng.random(n) < 0.5).astype(np.uint32) << np.uint32(31)
+    return bits.view(np.float32)
+
+
+@pytest.mark.parametrize("values", ["edges", "sample"])
+def test_the_native_route_is_erf_inv_plain(values):
+    """On the edges and on 2^20 seeded patterns of [-1, 1]: no step's native
+    fmaf differs from prng.fma on the plain chain's operands, and the native
+    route is erf_inv_plain bitwise (its w = 5 and log1p branches both
+    reached)."""
+    x = _erf_inv_edges() if values == "edges" else _erf_inv_sample(16, 1 << 20)
+    got, differ = _native_erf_inv(x)
+    assert not differ, differ
+    want = prng.erf_inv_plain(torch.from_numpy(x)).numpy()
+    assert np.array_equal(_bits(got), _bits(want))
+    w = -prng.log1p(torch.from_numpy(x * -x)).numpy()
+    assert (w >= 5.0).any() and (w < 5.0).any()
+    assert (np.abs(x * -x) < prng._LOG1P_SMALL).any() and (np.abs(x * -x) >= prng._LOG1P_SMALL).any()
+
+
+def test_the_step_model_finds_a_step_the_native_route_breaks():
+    """The model sees a difference where one is made: erf_inv_plain with one
+    step's prng.fma cut to two roundings (the product, then the sum) differs
+    from the native fmaf at that step, and only there."""
+    real = prng.fma
+    x = np.random.default_rng(17).uniform(-1, 1, 1 << 14).astype(np.float32)
+    broken = []
+
+    def two_roundings(a, b, c):
+        broken.append(len(broken))
+        if len(broken) == 2:                         # log1p's den, step 11
+            b = b.float() if isinstance(b, torch.Tensor) else b
+            return (a * b + c).float() if not isinstance(c, torch.Tensor) else \
+                (a * b + c.float()).float()
+        return real(a, b, c)
+
+    prng.fma = two_roundings
+    try:
+        _, differ = _native_erf_inv(x)
+    finally:
+        prng.fma = real
+    assert set(differ) == {11} and differ[11] > 0
+
+
+def test_the_step_check_runs_only_on_the_card(monkeypatch, capsys):
+    """prng.erf_inv_steps and tools/erf_inv_check.py check the kernel, so off
+    the card they raise or exit 2 (no plain version stands in); the ranges
+    cover every float32 of [-1, 1] and no pattern past 32 bits is asked for;
+    the tool names the steps with a count."""
+    from mirror_maze_tpu_torch.tools import erf_inv_check
+
+    assert sum(end - first for first, end in prng.ERF_INV_RANGES) == 2130706434
+    with pytest.raises(ValueError, match="CUDA device"):
+        prng.erf_inv_steps(0, 4, device="cpu")
+    with pytest.raises(ValueError, match="32 bits"):
+        prng.erf_inv_steps(0xFFFFFFF0, 32, device="cuda")
+    assert erf_inv_check.differing_steps({"steps": [0, 3, 0, 1] + [0] * 33}) == [1, 3]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert erf_inv_check.main([]) == 2
+    assert "needs a CUDA card" in capsys.readouterr().err
