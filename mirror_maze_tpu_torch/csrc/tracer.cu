@@ -133,6 +133,12 @@
 // - The diagnostics are aggregated per warp: the lanes that finish a ray of
 //   the same reference block in the same step are grouped with
 //   __match_any_sync and one of them makes the block's two atomics.
+// - Every instantiation counts its work into the launch's `counters`
+//   (Count, below: one buffer of 64-bit words per device, added to by every
+//   launch and never reset by one). Lane 0 of a warp adds to the warp's slot
+//   in shared memory at points where the warp is converged, so the counts
+//   hold no register across the loop, and the warp adds its slot to the
+//   buffer with one atomicAdd a word when it checks in.
 //
 // The stages a scene does not need are template parameters (PRIMS:
 // triangles or spheres; GLASS; WALK: multi-tile groups), so a maze of opaque
@@ -155,6 +161,23 @@
 #define TILE 9     // floats per tile row (render/scenebuf.py tile_table)
 #define TEX4 2     // float4s per texture row (TEX_WIDTH)
 #define FULL 0xffffffffu
+#define WARPS 32   // most warps of a block (1,024 threads)
+
+// The launch's counters (render/fused_tracer.py COUNTERS, in this order).
+// A record test is one plane or sphere record tested for one ray.
+enum Count {
+  RAY_SEGMENTS,   // (ray, segment) pairs traced alive
+  WARP_SEGMENTS,  // (warp, segment) pairs with a live lane
+  TESTS_ISSUED,   // record tests issued in lane slots, needed or not
+  TESTS_NEEDED,   // record tests the live rays that reach a tile need
+  COUNTS
+};
+
+// Per warp: its counts so far, the single-tile groups' tests left out (they
+// follow from the segments at the check-in). Only the warp's lane 0 reads
+// and writes its slot.
+__shared__ unsigned long long warp_counts[WARPS][COUNTS];
+constexpr size_t COUNT_BYTES = sizeof(unsigned long long) * WARPS * COUNTS;
 
 struct Params {
   const float* ori;
@@ -178,6 +201,7 @@ struct Params {
   int* diag_segments;       // [2, n_blocks]: max and sum of segments lived (DIAG kernels)
   unsigned int* diag_mask;  // [n_blocks, max_segments, mask_words] walked tiles reached
   int mask_words;
+  unsigned long long* counters;  // [COUNTS], added to (Count)
 };
 
 // The running nearest hit: t and the winner's (tie-summed) normal (a
@@ -463,8 +487,9 @@ __host__ __device__ __forceinline__ int resident_float4s(const Params& p, bool t
          (tex ? (p.n_planes + p.n_spheres) * TEX4 : 0);
 }
 
-// Bytes of shared memory a block stages: the resident records (RESIDENT
-// only), the tile table and the walk order.
+// Bytes of dynamic shared memory a block stages: the resident records
+// (RESIDENT only), the tile table and the walk order. The warps' counts
+// (warp_counts) take COUNT_BYTES more, statically.
 static size_t smem_bytes(const Params& p, bool resident, bool tex) {
   return (size_t)(resident ? resident_float4s(p, tex) : 0) * sizeof(float4) +
          (size_t)p.n_tiles * TILE * sizeof(float) +
@@ -524,6 +549,8 @@ __global__ void TRACE_BOUNDS trace_kernel(const Params p) {
 
   const unsigned lane = threadIdx.x & 31u;
   const unsigned below = (1u << lane) - 1u;   // the lanes before this one
+  if (lane == 0)
+    for (int c = 0; c < COUNTS; ++c) warp_counts[threadIdx.x >> 5][c] = 0;
   const uint32_t seed = (uint32_t)p.seed[0];
   const float t_min = p.t_min;
   bool more = true;   // the counter may still hold rays (the same in all lanes)
@@ -561,9 +588,14 @@ __global__ void TRACE_BOUNDS trace_kernel(const Params p) {
         mh = dc = seg = 0;
       }
     }
-    if (__ballot_sync(FULL, i >= 0) == 0) {
+    const unsigned live = __ballot_sync(FULL, i >= 0);
+    if (live == 0) {
       if (!more) break;
       continue;
+    }
+    if (lane == 0) {
+      warp_counts[threadIdx.x >> 5][RAY_SEGMENTS] += __popc(live);
+      warp_counts[threadIdx.x >> 5][WARP_SEGMENTS] += 1;
     }
     bool dead = false;
     const bool active = i >= 0;
@@ -625,7 +657,13 @@ __global__ void TRACE_BOUNDS trace_kernel(const Params p) {
         // The warp tests the tile ray by ray when that costs less: per ray
         // ceil(count / 32) records a lane and the reductions (~1.5 records),
         // against `count` records once.
-        if (__popc(need) * (2 * ((count + 31) >> 5) + 3) < 2 * count) {
+        const bool by_ray = __popc(need) * (2 * ((count + 31) >> 5) + 3) < 2 * count;
+        if (lane == 0 && count > 0) {
+          unsigned long long* c = warp_counts[threadIdx.x >> 5];
+          c[TESTS_NEEDED] += (unsigned long long)__popc(need) * count;
+          c[TESTS_ISSUED] += by_ray ? 32ull * __popc(need) * ((count + 31) >> 5) : 32ull * count;
+        }
+        if (by_ray) {
           float best = BIG;  // for this lane's ray: the tile's nearest t,
           int at = 0, ties = 0;  // its first record, the records at it
           for (unsigned todo = need; todo != 0; todo &= todo - 1) {
@@ -653,11 +691,16 @@ __global__ void TRACE_BOUNDS trace_kernel(const Params p) {
               ties = nt;
             }
           }
-          if (reach && best < h.t) {
+          // The rays' own lanes take their records: the warp issues the
+          // longest of those scans in every lane.
+          const int rescan = (reach && best < h.t) ? (ties == 1 ? 1 : count - at) : 0;
+          const int longest = __reduce_max_sync(FULL, rescan);
+          if (lane == 0) warp_counts[threadIdx.x >> 5][TESTS_ISSUED] += 32ull * longest;
+          if (rescan > 0) {
             own = false;
-            scan_group<RESIDENT, PRIMS, GLASS, TEX>(rec, sph, ptex, stex, first + at,
-                                                    ties == 1 ? 1 : count - at, mode, ox, oy,
-                                                    oz, dx, dy, dz, sdo, soo, t_min, h, own);
+            scan_group<RESIDENT, PRIMS, GLASS, TEX>(rec, sph, ptex, stex, first + at, rescan,
+                                                    mode, ox, oy, oz, dx, dy, dz, sdo, soo,
+                                                    t_min, h, own);
           }
         } else if (reach) {
           own = false;
@@ -809,8 +852,17 @@ __global__ void TRACE_BOUNDS trace_kernel(const Params p) {
     if (dead) i = -1;
   }
 
-  // Check in; the last warp out resets the counters for the next launch.
+  // Add the warp's counts, with the single-tile groups' tests: every lane
+  // slot of a warp-segment issues them, every live ray needs them.
+  // Check in; the last warp out resets the work counters for the next launch.
   if (lane == 0) {
+    const unsigned long long* c = warp_counts[threadIdx.x >> 5];
+    unsigned long long single = 0;
+    for (int ti = 0; ti < p.n_single; ++ti) single += (unsigned long long)s_tiles[ti * TILE + 7];
+    atomicAdd(p.counters + RAY_SEGMENTS, c[RAY_SEGMENTS]);
+    atomicAdd(p.counters + WARP_SEGMENTS, c[WARP_SEGMENTS]);
+    atomicAdd(p.counters + TESTS_ISSUED, c[TESTS_ISSUED] + 32ull * single * c[WARP_SEGMENTS]);
+    atomicAdd(p.counters + TESTS_NEEDED, c[TESTS_NEEDED] + single * c[RAY_SEGMENTS]);
     __threadfence();
     const unsigned warps = gridDim.x * (blockDim.x >> 5);
     if (atomicAdd(p.work + 1, 1u) == warps - 1u) {
@@ -871,6 +923,7 @@ static int launch(const Params& p, int max_blocks, int* geometry, cudaStream_t s
     return (int)cudaErrorInvalidValue;
   if (DIAG && (p.diag_segments == nullptr || p.diag_mask == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (p.counters == nullptr) return (int)cudaErrorInvalidValue;
   auto kernel = trace_kernel<RESIDENT, WALK, SKY, PRIMS, GLASS, TEX, DIAG>;
   const size_t smem = smem_bytes(p, RESIDENT, TEX);
   static Geometry g[16];   // per device
@@ -914,14 +967,16 @@ static int launch_sky(const Params& p, bool sky, bool prims, bool glass, int max
 }
 
 // work: two zeroed words of this launch's stream (see Params::work), left
-// zeroed by the launch. max_blocks: at most this many blocks (0: as many as
-// fill the card). geometry: 6 ints out, or null.
+// zeroed by the launch. counters: COUNTS words the launch adds its counts
+// to. max_blocks: at most this many blocks (0: as many as fill the card).
+// geometry: 6 ints out, or null.
 extern "C" int mm_trace_paths(const float* ori, const float* dirs, const float* planes,
                               int n_planes, const float* spheres, int n_spheres,
                               const float* plane_tex, const float* sphere_tex,
                               const float* tiles, int n_tiles, int n_single,
                               const int* order, const int* seed, const float* seed_row,
-                              float* light, unsigned int* work, int* diag_segments, unsigned int* diag_mask,
+                              float* light, unsigned int* work, unsigned long long* counters,
+                              int* diag_segments, unsigned int* diag_mask,
                               int mask_words, int n_rays, int block_rays, int max_segments,
                               int bounce_limit, int mirror_limit, int prims, int glass,
                               int fresnel, float mirror_tint, float t_min, float sky_r,
@@ -933,17 +988,17 @@ extern "C" int mm_trace_paths(const float* ori, const float* dirs, const float* 
                     n_rays, block_rays, max_segments, bounce_limit, mirror_limit, fresnel,
                     mirror_tint, t_min,
                     sky_r, sky_g, sky_b, sky_strength, sky_lf, sky_log_lf,
-                    plane_tex, sphere_tex, diag_segments, diag_mask, mask_words};
+                    plane_tex, sphere_tex, diag_segments, diag_mask, mask_words, counters};
   const cudaStream_t s = (cudaStream_t)stream;
   const bool sky = sky_strength != 0.f;
-  // The whole scene resident when it fits the shared memory a block of this
-  // device may opt in to.
+  // The whole scene resident when it fits, beside the warps' counts, the
+  // shared memory a block of this device may opt in to.
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
-  const bool resident = smem_bytes(p, true, MM_TEX) <= (size_t)optin;
+  const bool resident = smem_bytes(p, true, MM_TEX) + COUNT_BYTES <= (size_t)optin;
   if (!resident) return launch_sky<false, true>(p, sky, prims, glass, max_blocks, geometry, s);
   if (n_tiles > n_single)
     return launch_sky<true, true>(p, sky, prims, glass, max_blocks, geometry, s);

@@ -20,7 +20,8 @@ source includes (``#include "..."``: ``threefry.cuh``, ``quat.cuh``) are
 hashed into its library's name with it.
 
 Nothing here runs at import: the CPU tests import every module and this
-machine may have no ``nvcc`` at all.
+machine may have no ``nvcc`` at all. A build is the program's span
+``kernels.build``, a load and bind ``kernels.load`` (utils/profiling.py).
 
 ``launches`` counts kernel launches by name. Each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that it went
@@ -64,6 +65,7 @@ _TRACER = ("mm_trace_paths", [
     _C.c_void_p, _C.c_void_p,                            # plane and sphere texture rows
     _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p,        # tiles, T, single, order
     _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,  # seed, seed_row, light, work
+    _C.c_void_p,                                         # counters
     _C.c_void_p, _C.c_void_p, _C.c_int,                  # diagnostics: segments, mask, words
     _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,    # R, B, segments, limits
     _C.c_int, _C.c_int, _C.c_int,                        # prims, glass, fresnel
@@ -217,51 +219,66 @@ def ptxas_summary(out: str) -> str:
 def build(names=tuple(LIBRARIES), verbose: bool = False) -> dict:
     """Compile (where not built yet) and load the named libraries; returns
     {name: ctypes function}. Raises with nvcc's output on a failed build."""
+    from .utils.profiling import span
+
     with _lock:
         todo = [n for n in names if n not in _libs]
-        procs = {}
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        for name in todo:
-            path = _lib_path(name)
-            if path.exists():
-                continue
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            source, macros, _ = LIBRARIES[name]
-            cmd = [_nvcc(), *NVCC_FLAGS, *macros, "-Xptxas", "-v", "-o", str(tmp),
-                   str(CSRC / source)]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True),
-                           tmp, path)
-        failed = []
-        for name, (proc, tmp, path) in procs.items():
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"{name}:\n{out}")
-                continue
-            if verbose:
-                print(f"[nvcc {name}]\n{ptxas_summary(out)}", flush=True)
-            os.replace(tmp, path)
-        if failed:
-            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-        for name in todo:
-            symbol, argtypes = LIBRARIES[name][2]
-            fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _libs[name] = fn
+        missing = [n for n in todo if not _lib_path(n).exists()]
+        if missing:
+            with span("kernels.build"):
+                _compile(missing, verbose)
+        if todo:
+            with span("kernels.load"):
+                for name in todo:
+                    symbol, argtypes = LIBRARIES[name][2]
+                    _libs[name] = _bind(name, symbol, argtypes)
         return {n: _libs[n] for n in names}
+
+
+def _compile(names, verbose: bool) -> None:
+    """One ``nvcc`` process a library, in parallel; raises with nvcc's
+    output on a failed build."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        path = _lib_path(name)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        source, macros, _ = LIBRARIES[name]
+        cmd = [_nvcc(), *NVCC_FLAGS, *macros, "-Xptxas", "-v", "-o", str(tmp),
+               str(CSRC / source)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, path)
+    failed = []
+    for name, (proc, tmp, path) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+            continue
+        if verbose:
+            print(f"[nvcc {name}]\n{ptxas_summary(out)}", flush=True)
+        os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+
+
+def _bind(name: str, symbol: str, argtypes):
+    """Library ``name``'s C entry ``symbol``, loaded (built already)."""
+    fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _entry(name: str, symbol: str):
     """Library ``name``'s further C entry ``symbol`` (``ENTRIES``)."""
+    from .utils.profiling import span
+
     fn = _libs.get((name, symbol))
     if fn is None:
         build((name,))
-        with _lock:
-            fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
-            fn.argtypes = ENTRIES[(name, symbol)]
-            fn.restype = ctypes.c_int
-            _libs[(name, symbol)] = fn
+        with _lock, span("kernels.load"):
+            fn = _libs[(name, symbol)] = _bind(name, symbol, ENTRIES[(name, symbol)])
     return fn
 
 

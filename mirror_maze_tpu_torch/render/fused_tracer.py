@@ -78,6 +78,12 @@ with the noise seed row, the sky term and the per-block diagnostics:
   same count except through rays that have left the world (their running
   nearest hit may differ). The wavefront is padded to whole blocks with
   zero rays as the reference pads it: they live one segment and vote too.
+
+Every CUDA launch adds what it did to its device's counters (``counters``,
+``COUNTERS``): live ray-segments and warp-segments, and record tests issued
+in lane slots against those the live rays reaching each tile need. The plain
+version adds nothing there; its ``stats`` count ``ray_segments`` and the
+tests (``plane_tests + sphere_tests``) as ``tests_needed`` counts them.
 """
 
 from __future__ import annotations
@@ -120,6 +126,13 @@ GEOMETRY = ("blocks", "threads", "smem", "registers", "per_sm", "resident")
 # whatever stream is current, so its pair cannot be the capture stream's.
 _work: dict = {}
 _graph_work: list = []
+# What every launch adds to its device's counters (csrc/tracer.cu Count, in
+# its order); a record test is one plane or sphere record tested for a ray.
+COUNTERS = ("ray_segments", "warp_segments", "tests_issued", "tests_needed")
+# Shared bytes a block keeps the counts of its warps in (32 warps of COUNTERS
+# 64-bit words, csrc/tracer.cu warp_counts), beside the scene it stages.
+COUNT_BYTES = 32 * len(COUNTERS) * 8
+_counters: dict = {}     # device index -> int64 [len(COUNTERS)]
 
 
 @contextlib.contextmanager
@@ -135,6 +148,35 @@ def work_counters(pair: torch.Tensor):
         yield
     finally:
         _graph_work.pop()
+
+
+def counter_buffer(device) -> torch.Tensor:
+    """The tracer's counters on a CUDA ``device``: allocated and zeroed at
+    the first call, then the same buffer for good, which every launch on the
+    device adds to (graph replays too). The first call must not be inside a
+    CUDA graph capture."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    buf = _counters.get(index)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the tracer's counters are allocated outside a graph capture: "
+                               "launch once on the device first")
+        buf = _counters[index] = torch.zeros(len(COUNTERS), dtype=torch.int64,
+                                             device=torch.device("cuda", index))
+    return buf
+
+
+def counters(device) -> dict:
+    """{name: count} of the tracer launches on a CUDA ``device`` since its
+    first or the last ``reset_counters`` (``COUNTERS``; zeros where none
+    ran), with one device-to-host copy. ``tests_needed / tests_issued`` is
+    the share of the lane slots that tested a record a live ray needed."""
+    return dict(zip(COUNTERS, counter_buffer(device).tolist()))
+
+
+def reset_counters(device) -> None:
+    counter_buffer(device).zero_()
 
 
 def _f32(x: float) -> float:
@@ -693,12 +735,13 @@ def trace_paths_fused(
             if key not in _work:
                 _work[key] = torch.zeros(2, dtype=torch.int32, device=dev)
             work = _work[key]
+        counts = counter_buffer(dev)
         kernels.launch(
             name, ori.data_ptr(), dirs.data_ptr(), planes.data_ptr(), planes.shape[0],
             spheres.data_ptr(), spheres.shape[0], ptr(plane_tex), ptr(sphere_tex),
             tiles.data_ptr(), tiles.shape[0], tiles.shape[0] - order.shape[0], order.data_ptr(),
             seed.data_ptr(), ptr(seed_row), light.data_ptr(), work.data_ptr(),
-            ptr(segments), ptr(mask),
+            counts.data_ptr(), ptr(segments), ptr(mask),
             0 if mask is None else mask.shape[2], ori.shape[0], block,
             cfg.max_segments, cfg.bounce_limit, cfg.mirror_limit,
             int(prims), int(scene.has_glass), int(cfg.fresnel),

@@ -39,7 +39,6 @@ from __future__ import annotations
 import contextlib
 import gc
 import threading
-import time
 import weakref
 from typing import Callable
 
@@ -47,6 +46,7 @@ import torch
 
 from .. import kernels
 from ..render import fused_tracer
+from ..utils.profiling import span
 
 
 _owner = threading.local()
@@ -128,7 +128,10 @@ class StepGraphs:
     runner: ``capture_s`` (seconds spent capturing), ``pool_bytes`` (device
     memory the captures reserved), ``replays`` and ``eager_frames``, and
     ``copies`` (device-to-device copies it made: input rows, states copied
-    in and handed back)."""
+    in and handed back). Its spans (utils/profiling.py): ``step.replays``
+    around a call's frames, one a call, with ``step.copy_in``,
+    ``graph.eager`` (a kind's eager first frame) and ``graph.capture``
+    inside, then ``step.hand_back`` (the state's clones)."""
 
     def __init__(self, body: Callable, device):
         self._body = body
@@ -162,13 +165,15 @@ class StepGraphs:
     def _copy_in(self, leaves) -> None:
         if len(leaves) != len(self._static):
             raise ValueError(f"a state of {len(leaves)} tensors, the graphs hold {len(self._static)}")
-        for s, t in zip(self._static, leaves):
-            if t.shape != s.shape or t.dtype != s.dtype or t.device != s.device:
-                raise ValueError(f"a state tensor {t.dtype} {tuple(t.shape)} on {t.device} where "
-                                 f"the graphs hold {s.dtype} {tuple(s.shape)} on {s.device}")
-            if t is not s:
-                s.copy_(t)
-                self.copies += 1
+        with span("step.copy_in"):
+            for s, t in zip(self._static, leaves):
+                if t.shape != s.shape or t.dtype != s.dtype or t.device != s.device:
+                    raise ValueError(f"a state tensor {t.dtype} {tuple(t.shape)} on {t.device} "
+                                     f"where the graphs hold {s.dtype} {tuple(s.shape)} on "
+                                     f"{s.device}")
+                if t is not s:
+                    s.copy_(t)
+                    self.copies += 1
 
     def _capture(self, kind, template, leaves, row) -> None:
         dev = self.device
@@ -177,10 +182,10 @@ class StepGraphs:
             self._static_in = torch.empty_like(row)
             self._work = torch.zeros(2, dtype=torch.int32, device=dev)
             self._pool = torch.cuda.graph_pool_handle()
+        fused_tracer.counter_buffer(dev)     # allocated outside the capture
         graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with (kernels.counting_capture() as counted, fused_tracer.work_counters(self._work),
-              _owning(), _gc_paused()):
+        with (span("graph.capture") as captured, kernels.counting_capture() as counted,
+              fused_tracer.work_counters(self._work), _owning(), _gc_paused()):
             with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
                 reserved = torch.cuda.memory_reserved(dev)
                 new = _flatten(self._body(_unflatten(template, self._static), self._static_in,
@@ -190,7 +195,7 @@ class StepGraphs:
                         s.copy_(t)
                 del new
         self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
-        self.capture_s += time.perf_counter() - t0
+        self.capture_s += captured.seconds
         self._graphs[kind] = (graph, counted)
 
     def run(self, state, rows: torch.Tensor, kinds) -> object:
@@ -206,29 +211,32 @@ class StepGraphs:
         in_static = self._is_handed(leaves)
         self._handed = None
         cur = self._static if in_static else leaves
-        for i, (what, kind) in enumerate(call_plan(kinds, self._graphs)):
-            if what == "eager":
-                cur = _flatten(self._body(_unflatten(state, cur), rows[i], kind))
-                in_static = False
-                self.eager_frames += 1
-                self._capture(kind, state, cur, rows[i])
-                continue
-            if not in_static:
-                self._copy_in(cur)
-                cur, in_static = self._static, True
-            graph, counted = self._graphs[kind]
-            self._static_in.copy_(rows[i])
-            graph.replay()
-            kernels.add_launches(counted)
-            self.replays += 1
-            self.copies += 1
-        if in_static:
-            out = [t.clone() for t in self._static]
-            self.copies += len(out)
-            self._handed = ([weakref.ref(t) for t in out], [t._version for t in out])
-        else:
-            static = {id(t) for t in self._static or ()}
-            out = [t.clone() if id(t) in static else t for t in cur]
+        with span("step.replays"):
+            for i, (what, kind) in enumerate(call_plan(kinds, self._graphs)):
+                if what == "eager":
+                    with span("graph.eager"):
+                        cur = _flatten(self._body(_unflatten(state, cur), rows[i], kind))
+                    in_static = False
+                    self.eager_frames += 1
+                    self._capture(kind, state, cur, rows[i])
+                    continue
+                if not in_static:
+                    self._copy_in(cur)
+                    cur, in_static = self._static, True
+                graph, counted = self._graphs[kind]
+                self._static_in.copy_(rows[i])
+                graph.replay()
+                kernels.add_launches(counted)
+                self.replays += 1
+                self.copies += 1
+        with span("step.hand_back"):
+            if in_static:
+                out = [t.clone() for t in self._static]
+                self.copies += len(out)
+                self._handed = ([weakref.ref(t) for t in out], [t._version for t in out])
+            else:
+                static = {id(t) for t in self._static or ()}
+                out = [t.clone() if id(t) in static else t for t in cur]
         return _unflatten(state, out)
 
 

@@ -17,7 +17,8 @@ standard library's ``http.server``:
   GET  /map     live top-down minimap PNG with the camera marker
                 (utils/minimap.py; host NumPy, no device work)
   GET  /stats   JSON: frame counter, fps, camera position and yaw, clients,
-                the streaming stages' counts and times, rollbacks, error
+                the streaming stages' counts and times, rollbacks, error,
+                and the process's span totals (utils/profiling.py)
   POST /input   JSON {w,a,s,d: bool, dx: float}: key HOLD state plus an
                 accumulated mouse-x delta in reference pixels
   POST /ckpt    checkpoint the live session to the server's configured
@@ -56,6 +57,7 @@ import numpy as np
 
 from ..config import EngineConfig
 from ..render.scenebuf import DeviceScene
+from ..utils.profiling import span, totals
 from .loop import InteractiveLoop, host_field
 from .state import FrameInputs
 
@@ -580,9 +582,9 @@ class EngineServer:
                             return
                         self._enc_cond.wait(0.5)
                     frame, self._enc_frame = self._enc_frame, None
-                t0 = time.monotonic()
-                arr = self._fetch(frame)
-                self._fetch_ms = 1000.0 * (time.monotonic() - t0)
+                with span("server.fetch") as fetched:
+                    arr = self._fetch(frame)
+                self._fetch_ms = 1000.0 * fetched.seconds
                 with self._fetch_cond:
                     self._fetched = arr
                     self._fetched_n += 1
@@ -606,11 +608,11 @@ class EngineServer:
                             return
                         self._fetch_cond.wait(0.5)
                     arr, self._fetched = self._fetched, None
-                t0 = time.monotonic()
-                buf, ctype = self._encode_arr(arr)
-                self.hub.publish(buf, ctype)
+                with span("server.encode") as encoded:
+                    buf, ctype = self._encode_arr(arr)
+                    self.hub.publish(buf, ctype)
                 self._encoded_n += 1
-                self._encode_ms = 1000.0 * (time.monotonic() - t0)
+                self._encode_ms = 1000.0 * encoded.seconds
         except Exception:  # noqa: BLE001 — terminal: report and stop
             import sys
             import traceback
@@ -732,8 +734,9 @@ class EngineServer:
             "width": self.cfg.screen.width,
             "height": self.cfg.screen.height,
             # Streaming pipeline: frames fetched / encoded so far and
-            # the last per-stage durations (host clock); encode_ms
-            # overlaps the next fetch.
+            # the last per-stage durations (the spans server.fetch and
+            # server.encode, host clock); encode_ms overlaps the next
+            # fetch.
             "fetched": int(self._fetched_n),
             "fetch_ms": round(float(self._fetch_ms), 1),
             "encoded": int(self._encoded_n),
@@ -744,6 +747,12 @@ class EngineServer:
                 int(self._rollbacks) if self.watchdog_interval else None
             ),
             "error": self._error,
+            # Where the process's host time went: every span's count,
+            # seconds and self seconds so far (utils/profiling.py), the
+            # steps' upload, replays, hand-back and display, the graphs'
+            # eager frames and captures, the kernels' build and load, the
+            # fetch and the encode.
+            "spans": totals(),
         }
 
     def start(self) -> None:

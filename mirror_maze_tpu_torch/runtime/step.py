@@ -64,6 +64,7 @@ from ..render.present import present
 from ..render.scenebuf import DeviceScene
 from ..render.scheduler import adaptive_reorder, sort_window_morton, take_chunks
 from ..scene.collision import collides
+from ..utils.profiling import span
 from .graph import StepRunner, state_owned
 from .state import EngineState, FrameInputs
 
@@ -101,8 +102,9 @@ def upload_rows(rows: np.ndarray, device) -> torch.Tensor:
 
 def upload_inputs(frames: Sequence[FrameInputs], device) -> torch.Tensor:
     """``input_stack`` on ``device``: to a CUDA device one pinned,
-    non-blocking copy for the whole call."""
-    return upload_rows(input_stack(frames), device)
+    non-blocking copy for the whole call (the span ``step.upload``)."""
+    with span("step.upload"):
+        return upload_rows(input_stack(frames), device)
 
 
 def integrate_movement(
@@ -325,8 +327,10 @@ def frame_setup(scene: DeviceScene, cfg: EngineConfig, state: EngineState, inp: 
 
 
 def display(state: EngineState, cfg: EngineConfig) -> torch.Tensor:
-    """The uint8 display frame [H, W, 3] of a state's screen."""
-    return to_display(cm_to_spatial(state.screen, cfg.screen))
+    """The uint8 display frame [H, W, 3] of a state's screen (the span
+    ``step.display``)."""
+    with span("step.display"):
+        return to_display(cm_to_spatial(state.screen, cfg.screen))
 
 
 def _body(scene, cfg, nearest_fn):
@@ -358,12 +362,14 @@ def make_step(
     a captured graph; the state and frame handed back are the caller's,
     never written again. The
     bvh traversal bounds default to those of the scene's BVH
-    (derive_traversal_bounds). ``step.runner`` is the StepRunner."""
+    (derive_traversal_bounds). ``step.runner`` is the StepRunner. A call
+    is the span ``step.call``."""
     runner = _runner(scene, cfg, max_depth, max_leaf)
 
     def step(state: EngineState, inputs: FrameInputs):
-        state = run_frames(runner, state, [inputs])
-        return state, display(state, cfg)
+        with span("step.call"):
+            state = run_frames(runner, state, [inputs])
+            return state, display(state, cfg)
 
     step.runner = runner
     return step
@@ -496,12 +502,13 @@ def make_scan_step(
     On a CUDA state a call of n frames is one upload of the inputs and n
     graph replays; on the CPU an eager loop. Only the final frame's display
     is built; the state and frame handed back are the caller's.
-    ``run.runner`` is the StepRunner."""
+    ``run.runner`` is the StepRunner. A call is the span ``step.call``."""
     runner = _runner(scene, cfg, max_depth, max_leaf)
 
     def run(state: EngineState, inputs):
-        state = run_frames(runner, state, frame_inputs(inputs))
-        return state, display(state, cfg)
+        with span("step.call"):
+            state = run_frames(runner, state, frame_inputs(inputs))
+            return state, display(state, cfg)
 
     run.runner = runner
     return run

@@ -1,67 +1,93 @@
 """Profiling and observability (counterpart of the JAX package's
-``utils/profiling.py``): ``FrameStats``, a rolling frame-time and ray
-throughput account of an engine loop; ``trace``, a ``torch.profiler``
-capture; ``device_memory_stats``; the fused tracer's
-``tracer_segment_histogram``; and the port's own ``warp_lane_share`` and
-``sass_loops``.
+``utils/profiling.py``): ``span``, the program's own spans at its layer
+boundaries, summed per name into ``totals()`` and on torch.profiler's
+timeline while it records; ``trace``, a ``torch.profiler`` capture;
+``device_memory_stats``; the fused tracer's ``tracer_segment_histogram``;
+and the port's own ``warp_lane_share`` and ``sass_loops``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import re
+import threading
 import time
-from collections import deque
-from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.autograd import _profiler_enabled
 
 from ..render.fused_tracer import LANES, WARP, trace_paths_fused
 
 
-@dataclass
-class FrameStats:
-    """Rolling window of frame timings and ray throughput, on the host
-    clock (``tick`` once a frame; no device sync of its own)."""
+class span:
+    """A span of the program's host work, as a context manager: on leaving
+    it, its count, seconds and self seconds (its seconds less those of the
+    spans closed inside it on the same thread) are added to the process's
+    totals under ``name`` (``totals()``), and ``seconds`` holds its
+    duration. While torch.profiler records, it is also a host record
+    ``mm.<name>`` on the profiler's timeline, beside the device's records:
+    an operator's record (kineto's ``cpu_op``), not a ``record_function``
+    annotation, which would also lay a range over the device's timeline
+    that a reader of its operations would take for one. Spans wrap host
+    calls only: one inside a captured CUDA graph body would run at the
+    capture and never on a replay."""
 
-    rays_per_frame: int
-    window: int = 120
-    _times: deque = field(default_factory=lambda: deque(maxlen=121))
-    _frames: int = 0
+    __slots__ = ("name", "seconds", "children", "_t0", "_record")
 
-    def tick(self) -> None:
-        self._times.append(time.perf_counter())
-        self._frames += 1
+    def __init__(self, name: str):
+        self.name = name
+        self.seconds = 0.0
+        self.children = 0.0     # seconds of the spans closed inside it on its thread
+        self._record = None
 
-    @property
-    def frames(self) -> int:
-        return self._frames
+    def __enter__(self) -> "span":
+        _open_spans().append(self)
+        if _profiler_enabled():
+            self._record = torch._C._profiler._RecordFunctionFast(f"mm.{self.name}")
+            self._record.__enter__()
+        self._t0 = time.perf_counter()
+        return self
 
-    @property
-    def fps(self) -> float:
-        if len(self._times) < 2:
-            return 0.0
-        dt = self._times[-1] - self._times[0]
-        return (len(self._times) - 1) / dt if dt > 0 else 0.0
+    def __exit__(self, *exc) -> None:
+        self.seconds = time.perf_counter() - self._t0
+        if self._record is not None:
+            self._record.__exit__(*exc)
+            self._record = None
+        stack = _open_spans()
+        stack.pop()
+        if stack:
+            stack[-1].children += self.seconds
+        with _lock:
+            entry = _totals.setdefault(self.name, [0, 0.0, 0.0])
+            entry[0] += 1
+            entry[1] += self.seconds
+            entry[2] += self.seconds - self.children
 
-    @property
-    def frame_ms(self) -> float:
-        f = self.fps
-        return 1000.0 / f if f > 0 else 0.0
 
-    @property
-    def mrays_per_s(self) -> float:
-        return self.rays_per_frame * self.fps / 1e6
+_totals: dict = {}              # name -> [count, seconds, self seconds]
+_lock = threading.Lock()
+_threads = threading.local()    # .spans: the spans open on this thread, innermost last
 
-    def summarize(self) -> dict:
-        return {
-            "frames": self.frames,
-            "fps": round(self.fps, 2),
-            "frame_ms": round(self.frame_ms, 3),
-            "mrays_per_s": round(self.mrays_per_s, 2),
-            "rays_per_frame": self.rays_per_frame,
-        }
+
+def _open_spans() -> list:
+    stack = getattr(_threads, "spans", None)
+    if stack is None:
+        stack = _threads.spans = []
+    return stack
+
+
+def totals() -> dict:
+    """{name: {"count", "seconds", "self_seconds"}} of every span closed in
+    this process since the start or the last ``reset_totals()``."""
+    with _lock:
+        return {k: dict(count=c, seconds=s, self_seconds=own)
+                for k, (c, s, own) in _totals.items()}
+
+
+def reset_totals() -> None:
+    with _lock:
+        _totals.clear()
 
 
 @contextlib.contextmanager

@@ -41,7 +41,11 @@ from _torch_tools import (
 )
 from mirror_maze_tpu_torch import kernels
 from mirror_maze_tpu_torch.config import MazeConfig, ScreenConfig, TracerConfig, config_interactive
-from mirror_maze_tpu_torch.render.fused_tracer import trace_paths_fused, trace_paths_plain
+from mirror_maze_tpu_torch.render.fused_tracer import (
+    COUNT_BYTES,
+    trace_paths_fused,
+    trace_paths_plain,
+)
 from mirror_maze_tpu_torch.render.present import present, present_plain
 from mirror_maze_tpu_torch.parallel import shard
 from mirror_maze_tpu_torch.render.accumulate import cm_to_spatial
@@ -336,9 +340,10 @@ RESIDENCY_SCENES = {
 @pytest.mark.parametrize("name", list(RESIDENCY_SCENES))
 def test_resident_decision_from_byte_counts(cuda_device, name):
     """The launcher keeps the whole scene in shared memory when its records,
-    texture rows, tile table and walk order fit what a block may opt in to,
-    and reports that with the bytes it staged. config_scale's 64x64 maze is
-    216,276 bytes, inside the H100's 232,448."""
+    texture rows, tile table and walk order fit what a block may opt in to
+    beside its warps' counts, and reports that with the bytes it staged.
+    config_scale's 64x64 maze is 216,276 bytes, inside the H100's 232,448
+    less 1,024."""
     build, resident = RESIDENCY_SCENES[name]
     dev = upload_scene(build(), device=cuda_device)
     walked = sum(g[2] for g in dev.group_meta if g[2] > 1)
@@ -347,8 +352,10 @@ def test_resident_decision_from_byte_counts(cuda_device, name):
     tables = 36 * dev.tiles.shape[0] + 4 * walked
     if name == "scale":
         assert records + tables == 2692 * 80 + 23 * 36 + 22 * 4 == 216_276
-    limit = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
-    if limit == 232_448:                    # the H100's
+    # Beside them each block keeps its warps' counts (fused_tracer.COUNT_BYTES).
+    limit = (torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+             - COUNT_BYTES)
+    if limit == 232_448 - COUNT_BYTES:      # the H100's
         assert (records + tables <= limit) == resident
     o = torch.zeros((4096, 3), device=cuda_device)
     d = torch.nn.functional.normalize(torch.rand((4096, 3), device=cuda_device) - 0.5, dim=1)
@@ -777,6 +784,112 @@ def test_graph_step_accepts_a_watchdog_rollback(cuda_device):
     got, frame = run(back, script[14:])
     est, eframe = make_scan_step_fn(cfg, len(script) - 14)(scene, back, script[14:])
     assert _states_bitwise(got, est) and torch.equal(frame, eframe)
+
+
+# What each tracer launch of a ray adds to the counters whatever warp traces
+# it; the warp counts depend on which rays the refill hands a warp.
+PER_RAY_COUNTERS = ("ray_segments", "tests_needed")
+
+
+@pytest.mark.parametrize("name", ["golden", "multi_tile"])
+def test_graph_replays_add_to_the_tracer_counters_as_eager_launches(cuda_device, name):
+    """A script through the eager loop and through make_scan_step (one eager
+    frame a kind, the rest graph replays) adds the same per-ray counts to
+    the tracer's counters; the call records the runner's spans once each,
+    the eager frames and captures once a kind."""
+    from mirror_maze_tpu_torch.render import fused_tracer
+    from mirror_maze_tpu_torch.runtime.state import init_state
+    from mirror_maze_tpu_torch.runtime.step import make_scan_step, make_scan_step_fn
+    from mirror_maze_tpu_torch.utils import profiling
+
+    if name == "golden":
+        cfg, script = golden_config(), golden_script(FrameInputs)
+    else:
+        cfg, script = multi_tile_config(P), multi_tile_script(FrameInputs)
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    fused_tracer.reset_counters(cuda_device)
+    est, _ = make_scan_step_fn(cfg, len(script))(scene, init_state(cfg, device=cuda_device),
+                                                 script)
+    eager = fused_tracer.counters(cuda_device)
+    run = make_scan_step(scene, cfg)
+    fused_tracer.reset_counters(cuda_device)
+    profiling.reset_totals()
+    st, _ = run(init_state(cfg, device=cuda_device), script)
+    graphed = fused_tracer.counters(cuda_device)
+    spans = profiling.totals()
+    assert _states_bitwise(st, est)
+    assert eager["ray_segments"] > 0
+    assert {k: graphed[k] for k in PER_RAY_COUNTERS} == {k: eager[k] for k in PER_RAY_COUNTERS}
+    graphs = run.runner.graphs[st.screen.device]
+    assert {k: spans[k]["count"] for k in ("step.call", "step.upload", "step.replays",
+                                           "step.hand_back", "step.display")} == dict.fromkeys(
+        ("step.call", "step.upload", "step.replays", "step.hand_back", "step.display"), 1)
+    assert spans["graph.eager"]["count"] == graphs.eager_frames == len(graphs.kinds)
+    assert spans["graph.capture"]["count"] == len(graphs.kinds)
+    assert spans["graph.capture"]["seconds"] == pytest.approx(graphs.capture_s)
+    assert spans["step.replays"]["self_seconds"] < spans["step.replays"]["seconds"]
+
+
+@pytest.mark.parametrize("name,rays", [("interactive", None), ("scale", 1 << 18)])
+def test_tracer_counters_count_what_the_plain_version_counts(cuda_device, name, rays,
+                                                             monkeypatch):
+    """Frame 1 of config_interactive (every ray) and of config_scale (its
+    first 2^18 rays): the kernel's light bitwise the plain version's, its
+    live ray-segments and needed record tests those the plain version counts
+    on the same rays, and the lane slots it issued at
+    least those needed (32 lanes a warp-segment).
+
+    One kind of ray is counted apart: a diffuse scatter that draws exactly
+    the reversed normal leaves a zero direction, NaN once normalized. The
+    kernel's slab test (fminf/fmaxf, which drop a NaN) can pass such a ray
+    into a walked tile, where the plain version's (torch's min/max, which
+    keep it) fails it; it hits nothing either way and dies, so the light
+    is the same. The kernel's extra tests are those of the tiles that the
+    plain slab test passes when run with the kernel's clamped reciprocal of
+    a NaN, -BIG."""
+    from _torch_tools import frame1_inputs
+    from mirror_maze_tpu_torch.render import fused_tracer
+    from mirror_maze_tpu_torch.render.pipeline import tracer_seed
+    from mirror_maze_tpu_torch.runtime.state import init_state
+
+    extra = dict(visits=0, tests=0)
+    plain_slab = fused_tracer._slab_pass
+
+    def slab(box, o, inv_d, tmin, alive):
+        reach = plain_slab(box, o, inv_d, tmin, alive)
+        kernel = plain_slab(box, o, torch.nan_to_num(inv_d, nan=-fused_tracer.BIG), tmin, alive)
+        assert not bool((reach & ~kernel).any())
+        if int(box[7]) > 0:
+            n = int((kernel & ~reach).sum())
+            extra["visits"] += n
+            extra["tests"] += n * int(box[7])
+        return reach
+
+    monkeypatch.setattr(fused_tracer, "_slab_pass", slab)
+
+    cfg = P.NAMED_CONFIGS[name]()
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    ori, dirs, tkey, row = frame1_inputs(cfg, scene)
+    ori, dirs = ori[:rays].contiguous(), dirs[:rays].contiguous()
+    row = None if row is None else row[:rays].contiguous()
+    seed, tc = tracer_seed(tkey), cfg.tracer
+    anchor = init_state(cfg, device=cuda_device).camera(cfg).center
+    fused_tracer.reset_counters(cuda_device)
+    got = trace_paths_fused(scene, ori, dirs, seed, tc, tc.block_rows, anchor=anchor,
+                            seed_row=row)
+    c = fused_tracer.counters(cuda_device)
+    stats = {}
+    want = trace_paths_plain(scene, ori, dirs, seed, tc, tc.block_rows, anchor=anchor,
+                             seed_row=row, stats=stats)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert c["ray_segments"] == stats["ray_segments"] > ori.shape[0]
+    assert c["tests_needed"] == stats["plane_tests"] + stats["sphere_tests"] + extra["tests"]
+    assert extra["visits"] <= 1e-5 * stats["tile_visits"]
+    assert c["tests_needed"] <= c["tests_issued"]
+    assert c["ray_segments"] <= 32 * c["warp_segments"]
+    fused_tracer.reset_counters(cuda_device)
+    assert set(fused_tracer.counters(cuda_device).values()) == {0}
 
 
 def test_graph_runners_on_two_streams_keep_their_own_work_counters(cuda_device):

@@ -161,6 +161,36 @@ def test_stream_delivers_multipart_frames(server):
     assert payload.startswith(b"\x89PNG") or payload[:2] == b"\xff\xd8"
 
 
+def test_stats_stage_times_are_the_fetch_and_encode_spans(server):
+    """The fetcher's device-to-host copy and the encoder's encode are the
+    spans server.fetch and server.encode; /stats reports the last of each."""
+    from mirror_maze_tpu_torch.utils import profiling
+
+    with _open_stream(server.port) as sk:
+        _read_parts(sk, 2)
+    s = _wait_stats(server.port, lambda s: s["fetched"] >= 2 and s["encoded"] >= 2)
+    t = profiling.totals()
+    assert t["server.fetch"]["count"] >= s["fetched"] and t["server.encode"]["count"] >= 2
+    assert 0.0 <= s["fetch_ms"] <= 1e3 * t["server.fetch"]["seconds"] + 0.05
+    assert 0.0 <= s["encode_ms"] <= 1e3 * t["server.encode"]["seconds"] + 0.05
+
+
+def test_stats_report_the_span_totals(server):
+    """/stats holds the process's span totals: the engine's steps (their
+    upload, replays or eager frames, display) and the streaming stages."""
+    with _open_stream(server.port) as sk:
+        _read_parts(sk, 2)
+    s = _wait_stats(server.port, lambda s: s["encoded"] >= 2)
+    spans = s["spans"]
+    assert {"step.call", "step.upload", "step.display", "server.fetch",
+            "server.encode"} <= set(spans)
+    for k in ("step.call", "server.fetch"):
+        assert set(spans[k]) == {"count", "seconds", "self_seconds"}
+        assert spans[k]["count"] >= 1
+        assert 0.0 <= spans[k]["self_seconds"] <= spans[k]["seconds"]
+    assert spans["step.call"]["self_seconds"] < spans["step.call"]["seconds"]
+
+
 def test_stream_multiple_clients(server):
     """Two concurrent stream clients both receive frames; one dropping
     does not stall the other, and the client count settles back to 0."""
