@@ -296,10 +296,11 @@ GALLERY_PLAIN_PROGRAMS = 256
 # Programs (blocks of B rays) of config_scale's wavefront that the plain
 # version traces for the comparison, spread evenly over the wavefront.
 SCALE_PLAIN_PROGRAMS = 86
-# The kernel whose scan loops the build's SASS is read for: the resident,
+# The kernels whose scan loops the build's SASS is read for: the resident,
 # quads-only one-tile instantiation (RESIDENT, no WALK, SKY, PRIMS, GLASS,
-# TEX or DIAG).
-SASS_KERNEL = "_Z12trace_kernelILb1ELb0ELb0ELb0ELb0ELb0ELb0EEv6Params"
+# TEX or DIAG) on the general route, and the same on the axis route (AXIS).
+SASS_KERNEL = "_Z12trace_kernelILb1ELb0ELb0ELb0ELb0ELb0ELb0ELb0EEv6Params"
+SASS_AXIS_KERNEL = "_Z12trace_kernelILb1ELb0ELb0ELb0ELb0ELb0ELb0ELb1EEv6Params"
 # The tracer rows' ms/launch on an NVIDIA H100 80GB HBM3 at 700 W before the
 # kernel was redesigned for Hopper (one thread a ray, a block per 128 rays):
 # printed beside this run's as a reference, never in the kernels line.
@@ -2748,6 +2749,14 @@ def main() -> int:
                 f"({lp['insts'] / lp['rcp']:.1f} a record; {lp['lds'] / lp['rcp']:.1f} shared "
                 f"loads, {lp['f32'] / lp['rcp']:.1f} f32 instructions; 16 f32 operations and "
                 f"16 per tested edge counted in the bound)")
+        # The axis route's pass-1 loops (one 16-byte entry a record in
+        # modes 1 and 2, no reciprocal).
+        for lp in sass_loops(text, SASS_AXIS_KERNEL, marker="LDS.128"):
+            if lp["rcp"] == 0:
+                log(f"[sass] {SASS_AXIS_KERNEL} pass-1 loop {lp['start']:#06x}-"
+                    f"{lp['end']:#06x}: {lp['insts']} instructions for {lp['records']} "
+                    f"entries ({lp['insts'] / lp['records']:.1f} an entry; "
+                    f"{lp['f32'] / lp['records']:.1f} f32 instructions)")
 
     import dataclasses
 
@@ -2922,6 +2931,8 @@ def main() -> int:
             f"({stats['warp_segments']} warp-segments){walked}")
         where = ("the whole scene resident" if geo["resident"] else
                  "tile table and walk order only, records in global memory")
+        if geo["axis"]:
+            where += ", the axis route's pass-1 tables beside them"
         log(f"[{tag}] geometry: persistent grid of {geo['blocks']} blocks x {geo['threads']} "
             f"threads ({geo['per_sm']} a SM), {geo['registers']} registers, {geo['smem']} B "
             f"of shared memory: {where}, {n_walk} walked tiles")

@@ -88,11 +88,33 @@
 // round differently from the reference), so every multiply and add issues
 // on its own and the kernel can reach at most half of a bound that counts
 // 67 TFLOP/s (a rate that counts a fused multiply-add as two). On the H100
-// it is bound by instruction issue: a mode-1 record issues ~52 instructions
-// for the 32 operations counted (the reciprocal's range check, compares,
-// branches). What the design moves is how many lanes do useful work, how
-// many records a warp tests that none of its rays needs, and where the
-// records are read from:
+// it is bound by instruction issue: the general test of a mode-1 record
+// compiles to 57 instructions (its unrolled loop) for the 32 operations
+// counted (the reciprocal's range check, compares, branches), the axis
+// test below to 21.5 (mode 0: 92 and 29.5, mode 2: 15.5). What the design
+// moves is how many instructions a record takes, how many lanes do useful
+// work, how many records a warp tests that none of its rays needs, and
+// where the records are read from:
+//
+// - Axis-aligned quads tested in two terms. A maze's walls, floors and
+//   boundaries are quads whose normal and tested edges lie along the axes
+//   (render/scenebuf.py axis_tables). For such a record the plane test
+//   reduces, bit for bit, to t = (sign(n_A) d - o_A) (1 / d_A) and
+//   s = (w_B o_B - b) + t (w_B d_B) (axis_min says why). Pass 1 tests a
+//   scan's records in this form from 16- or 32-byte entries in shared
+//   memory, sorted stably by axis class so that a run of one class picks
+//   the ray's components once, and keeps the nearest t and its record (or
+//   that records tie on it), a fold in any order (a min and two selects).
+//   The ray's own lane then takes that record as the scan takes a nearer
+//   one, or on a tie scans the whole scan again in record order, so ties
+//   sum as they always did. Rays whose o or d has a non-finite component
+//   and launches with t_min <= 0 take the general scan; a scene none of
+//   whose scans holds 16 axis records (render/scenebuf.py
+//   AXIS_MIN_RECORDS), or that has triangles or spheres, has no tables and
+//   runs the instantiations without the route. The pass-1
+//   tables stay resident where the whole scene does not fit beside them:
+//   the records, which only the take and the rescans read, then come from
+//   global memory.
 //
 // - Persistent warps that refill dead lanes. The grid fills the card (the
 //   SM count times the resident blocks per SM, from the occupancy of each
@@ -125,10 +147,10 @@
 //   0.6), and one thread a ray pays for every tile of that union in every
 //   lane. So all lanes walk the tiles together, and a tile that few of them
 //   reach is tested ray by ray by the whole warp: each lane takes every 32nd
-//   record, a warp reduction gives the nearest t, its first record and how
-//   many records tie there, and the ray's own lane then takes that record
-//   (on a tie, the records from it on) through the same scan as before, so
-//   the result is the sequential scan's bit for bit. A tile that many lanes
+//   record, folded as pass 1 folds (the nearest t and its record, or that
+//   records tie on it), and the ray's own lane then takes that record (on a
+//   tie, the whole tile in record order) through the same scan as before,
+//   so the result is the sequential scan's bit for bit. A tile that many lanes
 //   reach is scanned by each of them alone, as before.
 // - The diagnostics are aggregated per warp: the lanes that finish a ray of
 //   the same reference block in the same step are grouped with
@@ -162,6 +184,12 @@
 #define TEX4 2     // float4s per texture row (TEX_WIDTH)
 #define FULL 0xffffffffu
 #define WARPS 32   // most warps of a block (1,024 threads)
+#define AXIS_GENERAL 27  // class of the pass-1 entries tested in the general form
+// The per-ray cost of the warp's test of an axis tile for one ray (its
+// shuffles, reductions and runs), in halves of an axis record's test: about
+// twelve records. Measured on config_scale's tracer (H100): 24 against 4,
+// 10, 16, 48 and never, 0.5-9% faster.
+#define AXIS_RAY_COST 24
 
 // The launch's counters (render/fused_tracer.py COUNTERS, in this order).
 // A record test is one plane or sphere record tested for one ray.
@@ -170,6 +198,7 @@ enum Count {
   WARP_SEGMENTS,  // (warp, segment) pairs with a live lane
   TESTS_ISSUED,   // record tests issued in lane slots, needed or not
   TESTS_NEEDED,   // record tests the live rays that reach a tile need
+  AXIS_TESTS,     // of TESTS_ISSUED, the axis records' two-term tests (pass 1)
   COUNTS
 };
 
@@ -202,6 +231,11 @@ struct Params {
   unsigned int* diag_mask;  // [n_blocks, max_segments, mask_words] walked tiles reached
   int mask_words;
   unsigned long long* counters;  // [COUNTS], added to (Count)
+  // The pass-1 tables (AXIS kernels; render/scenebuf.py axis_tables).
+  const float* axis_entries;  // [n_axis4, 4] pass-1 entries
+  const int* axis_tiles;      // [n_tiles, 4] first run, runs, axis records, their lane slots
+  const int* axis_runs;       // [n_runs, 4] first float4, entries, class, axes
+  int n_axis4, n_runs;
 };
 
 // The running nearest hit: t and the winner's (tie-summed) normal (a
@@ -298,6 +332,25 @@ __device__ __forceinline__ float sphere_t(const float4* S, float ox, float oy, f
   return (disc > 0.0f && t > t_min) ? t : BIG;
 }
 
+// Make plane record R (its first float4 `a`, texture row `tex`) the running
+// hit at distance `t`: what a scan does where a record is strictly nearer.
+template <bool RESIDENT, bool PRIMS, bool GLASS, bool TEX>
+__device__ __forceinline__ void take_row(const float4* R, float4 a, const float4* tex, float t,
+                                         Hit& h, bool& own) {
+  const float4 c = load4<RESIDENT>(R + 3);  // albedo, emission r
+  const float4 e = load4<RESIDENT>(R + 4);  // emission g b, is_mirror, ior
+  h.t = t;
+  h.nx = a.x; h.ny = a.y; h.nz = a.z;
+  h.cr = c.x; h.cg = c.y; h.cb = c.z;
+  h.er = c.w; h.eg = e.x; h.eb = e.y;
+  h.mir = e.z;
+  if constexpr (PRIMS) { h.inv_r = 0.f; h.sph = 0.f; }
+  if constexpr (GLASS) h.ior = e.w;
+  if constexpr (TEX)
+    carry_tex<RESIDENT, false>(h, tex, load4<RESIDENT>(R + 1), load4<RESIDENT>(R + 2));
+  own = true;
+}
+
 // Test `count` plane records of one mode from row `first` on against the
 // ray and fold them into the running hit.
 template <bool RESIDENT, int MODE, bool PRIMS, bool GLASS, bool TEX>
@@ -311,19 +364,7 @@ __device__ __forceinline__ void scan_rows(const float4* rec, const float4* tex, 
     float4 a;
     const float tv = row_t<RESIDENT, MODE>(R, ox, oy, oz, dx, dy, dz, t_min, a);
     if (tv < h.t) {
-      const float4 c = load4<RESIDENT>(R + 3);  // albedo, emission r
-      const float4 e = load4<RESIDENT>(R + 4);  // emission g b, is_mirror, ior
-      h.t = tv;
-      h.nx = a.x; h.ny = a.y; h.nz = a.z;
-      h.cr = c.x; h.cg = c.y; h.cb = c.z;
-      h.er = c.w; h.eg = e.x; h.eb = e.y;
-      h.mir = e.z;
-      if constexpr (PRIMS) { h.inv_r = 0.f; h.sph = 0.f; }
-      if constexpr (GLASS) h.ior = e.w;
-      if constexpr (TEX)
-        carry_tex<RESIDENT, false>(h, tex + (size_t)(first + k) * TEX4, load4<RESIDENT>(R + 1),
-                                   load4<RESIDENT>(R + 2));
-      own = true;
+      take_row<RESIDENT, PRIMS, GLASS, TEX>(R, a, tex + (size_t)(first + k) * TEX4, tv, h, own);
     } else if (tv == h.t && own && tv < BIG) {
       const float4 c = load4<RESIDENT>(R + 3);
       const float4 e = load4<RESIDENT>(R + 4);
@@ -416,56 +457,158 @@ __device__ __forceinline__ void scan_group(const float4* rec, const float4* sph,
 #undef SPHERES
 }
 
-// This lane's share of a tile that the warp tests for one ray: records
-// lane, lane + 32, ... of the `count` from `first` on. Gives their nearest
-// t (`lm`, BIG if none), the first of them at it (`li`) and how many are
-// at it (`lc`).
+// Fold record `k`'s hit distance `tv` (+inf on a miss, which neither beats
+// nor ties anything) into a lane's pass 1: the nearest t (`lm`) and the
+// record at it (`li`), or TIED where two records or more are at it. Any
+// order of records gives the same two: two selects and a min.
+#define TIED -1
+__device__ __forceinline__ void fold_min(float tv, int k, float& lm, int& li) {
+  li = tv < lm ? k : (tv == lm ? TIED : li);
+  lm = fminf(lm, tv);
+}
+
+__device__ __forceinline__ float pick3(int axis, float x, float y, float z) {
+  return axis == 0 ? x : (axis == 1 ? y : z);
+}
+
+// Pass 1 of an axis tile of mode MODE: its runs [r0, r0 + nr) of pass-1
+// entries (`ent`, shared memory), this lane taking entries start, start +
+// step, ... of each run. An entry's index counts from `base`, the place of
+// the tile's first record in its scan (the single-tile groups' joint one,
+// or the walked tile's own). An axis record's test, for a ray with finite o
+// and d and t_min > 0:
+//
+//   t = (sign(n_A) d - o_A) * (1 / d_A), s = (w_B o_B - b) + t (w_B d_B)
+//
+// where the general test (row_t) computes t = (d - n.o) * (1 / n.d) and s =
+// (w.o - b) + t (w.d). With one nonzero component of n, w and n_A = +-1,
+// every other product is a zero, the dots are n_A o_A, n_A d_A, w_B o_B and
+// w_B d_B exactly (up to the sign of a zero), 1 / (n_A d_A) = n_A (1 / d_A)
+// and (d - n_A o_A) n_A = sign(n_A) d - o_A, since rounding is symmetric in
+// sign: the same t and s. They differ only where a record has no effect in
+// either: a zero's sign reaches t = +-0, which fails t > t_min, or an s that
+// is compared with 0 and 1, where -0 and +0 agree; d_A = +-0 gives t = +-inf
+// or NaN, which fails t > t_min or an edge test, or (mode 2) is no nearer
+// than the running hit (at most BIG). And 1 - s >= 0 is s <= 1 for every
+// float s. A record of the run of class AXIS_GENERAL takes the general test.
+template <bool RESIDENT, int MODE>
+__device__ __forceinline__ void axis_min(const float4* ent, const int4* runs, int r0, int nr,
+                                         const float4* rec, int first, int base, int start,
+                                         int step, float ox, float oy, float oz, float dx,
+                                         float dy, float dz, float ix, float iy, float iz,
+                                         float t_min, float& lm, int& li) {
+  constexpr int W = (MODE == 0 || MODE == 6) ? 2 : 1;   // float4s an entry
+  constexpr bool EDGE1 = MODE != 2;
+  constexpr bool EDGE2 = MODE == 0 || MODE == 6;
+  const float inf = __int_as_float(0x7f800000);
+  for (int r = r0; r < r0 + nr; ++r) {
+    const int4 run = runs[r];   // first float4, entries, class, its axes A | B << 8 | C << 16
+    const float4* E = ent + run.x;
+    if (run.z == AXIS_GENERAL) {
+      for (int e = start; e < run.y; e += step) {
+        const int k = __float_as_int(E[e * W].w);
+        float4 a;
+        const float tv = row_t<RESIDENT, MODE>(rec + (size_t)(first + k - base) * RECORD4, ox,
+                                               oy, oz, dx, dy, dz, t_min, a);
+        fold_min(tv < BIG ? tv : inf, k, lm, li);
+      }
+      continue;
+    }
+    const int A = run.w & 3, B = (run.w >> 8) & 3, C = run.w >> 16;
+    const float oa = pick3(A, ox, oy, oz), ia = pick3(A, ix, iy, iz);
+    const float ob = pick3(B, ox, oy, oz), db = pick3(B, dx, dy, dz);
+    const float oc = pick3(C, ox, oy, oz), dc = pick3(C, dx, dy, dz);
+    for (int e = start; e < run.y; e += step) {
+      const float4 x = E[e * W];   // sign(n_A) d, w1_B, b1, index
+      const float t = (x.x - oa) * ia;
+      bool ok = t > t_min;
+      if (EDGE1) {
+        const float s1 = (x.y * ob - x.z) + t * (x.y * db);
+        ok = ok && s1 >= 0.f && s1 <= 1.f;
+      }
+      if (EDGE2) {
+        const float4 y = E[e * W + 1];   // w2_C, b2
+        const float s2 = (y.x * oc - y.y) + t * (y.x * dc);
+        ok = ok && s2 >= 0.f && s2 <= 1.f;
+      }
+      fold_min(ok ? t : inf, __float_as_int(x.w), lm, li);
+    }
+  }
+}
+
+template <bool RESIDENT, bool GLASS>
+__device__ __forceinline__ void tile_axis_min(const float4* ent, const int4* runs, int4 ax,
+                                              const float4* rec, int first, int base, int mode,
+                                              int start, int step, float ox, float oy,
+                                              float oz, float dx, float dy, float dz,
+                                              float ix, float iy, float iz, float t_min,
+                                              float& lm, int& li) {
+#define AXIS_MIN(MODE) \
+  axis_min<RESIDENT, MODE>(ent, runs, ax.x, ax.y, rec, first, base, start, step, ox, oy, oz, \
+                           dx, dy, dz, ix, iy, iz, t_min, lm, li)
+  if (mode == 0) AXIS_MIN(0);
+  else if (mode == 1) AXIS_MIN(1);
+  else if (mode == 2 || !GLASS) AXIS_MIN(2);
+  else AXIS_MIN(6);
+#undef AXIS_MIN
+}
+
+// The general test's pass 1 of records start, start + step, ... of the
+// `count` from `first` on, indices counted from `base`.
 template <bool RESIDENT, bool SPHERES, int MODE>
-__device__ __forceinline__ void lane_min(const float4* base, int first, int count,
-                                         unsigned lane, float ox, float oy, float oz,
-                                         float dx, float dy, float dz, float sdo, float soo,
-                                         float t_min, float& lm, int& li, int& lc) {
-  for (int r = (int)lane; r < count; r += 32) {
+__device__ __forceinline__ void general_min(const float4* base_rec, int first, int count,
+                                            int base, int start, int step, float ox, float oy,
+                                            float oz, float dx, float dy, float dz, float sdo,
+                                            float soo, float t_min, float& lm, int& li) {
+  const float inf = __int_as_float(0x7f800000);
+  for (int r = start; r < count; r += step) {
     float4 a;
     float tv;
     if constexpr (SPHERES)
-      tv = sphere_t<RESIDENT, MODE == 5>(base + (size_t)(first + r) * SPHERE4, ox, oy, oz, dx,
-                                         dy, dz, sdo, soo, t_min, a);
+      tv = sphere_t<RESIDENT, MODE == 5>(base_rec + (size_t)(first + r) * SPHERE4, ox, oy, oz,
+                                         dx, dy, dz, sdo, soo, t_min, a);
     else
-      tv = row_t<RESIDENT, MODE>(base + (size_t)(first + r) * RECORD4, ox, oy, oz, dx, dy, dz,
-                                 t_min, a);
-    if (tv < lm) { lm = tv; li = r; lc = 1; }
-    else if (tv == lm) ++lc;
+      tv = row_t<RESIDENT, MODE>(base_rec + (size_t)(first + r) * RECORD4, ox, oy, oz, dx, dy,
+                                 dz, t_min, a);
+    fold_min(tv < BIG ? tv : inf, base + r, lm, li);
   }
 }
 
 template <bool RESIDENT, bool PRIMS, bool GLASS>
-__device__ __forceinline__ void tile_lane_min(const float4* rec, const float4* sph, int first,
-                                              int count, int mode, unsigned lane, float ox,
-                                              float oy, float oz, float dx, float dy,
-                                              float dz, float sdo, float soo, float t_min,
-                                              float& lm, int& li, int& lc) {
-  lm = BIG; li = 0x7fffffff; lc = 0;
-#define LANE_MIN(B, SPH, MODE) \
-  lane_min<RESIDENT, SPH, MODE>(B, first, count, lane, ox, oy, oz, dx, dy, dz, sdo, soo, \
-                                t_min, lm, li, lc)
-  if (mode == 0) LANE_MIN(rec, false, 0);
-  else if (mode == 1) LANE_MIN(rec, false, 1);
-  else if (mode == 2 || !(PRIMS || GLASS)) LANE_MIN(rec, false, 2);
+__device__ __forceinline__ void tile_general_min(const float4* rec, const float4* sph,
+                                                 int first, int count, int base, int mode,
+                                                 int start, int step, float ox, float oy,
+                                                 float oz, float dx, float dy, float dz,
+                                                 float sdo, float soo, float t_min, float& lm,
+                                                 int& li) {
+#define GENERAL_MIN(B, SPH, MODE) \
+  general_min<RESIDENT, SPH, MODE>(B, first, count, base, start, step, ox, oy, oz, dx, dy, dz, \
+                                   sdo, soo, t_min, lm, li)
+  if (mode == 0) GENERAL_MIN(rec, false, 0);
+  else if (mode == 1) GENERAL_MIN(rec, false, 1);
+  else if (mode == 2 || !(PRIMS || GLASS)) GENERAL_MIN(rec, false, 2);
   else {
     if constexpr (PRIMS) {
-      if (mode == 3) LANE_MIN(sph, true, 3);
-      else if (mode == 4) LANE_MIN(rec, false, 4);
+      if (mode == 3) GENERAL_MIN(sph, true, 3);
+      else if (mode == 4) GENERAL_MIN(rec, false, 4);
     }
     if constexpr (GLASS) {
-      if (mode == 6) LANE_MIN(rec, false, 6);
+      if (mode == 6) GENERAL_MIN(rec, false, 6);
     }
     if constexpr (PRIMS && GLASS) {
-      if (mode == 5) LANE_MIN(sph, true, 5);
-      else if (mode == 7) LANE_MIN(rec, false, 7);
+      if (mode == 5) GENERAL_MIN(sph, true, 5);
+      else if (mode == 7) GENERAL_MIN(rec, false, 7);
     }
   }
-#undef LANE_MIN
+#undef GENERAL_MIN
+}
+
+// Whether all six of a ray's components are finite (the axis test's guard).
+__device__ __forceinline__ bool finite_ray(float ox, float oy, float oz, float dx, float dy,
+                                           float dz) {
+  const float inf = __int_as_float(0x7f800000);
+  return fabsf(ox) < inf && fabsf(oy) < inf && fabsf(oz) < inf && fabsf(dx) < inf &&
+         fabsf(dy) < inf && fabsf(dz) < inf;
 }
 
 // 1/x clamped to +-BIG: a zero direction component gives a huge, finite
@@ -487,11 +630,19 @@ __host__ __device__ __forceinline__ int resident_float4s(const Params& p, bool t
          (tex ? (p.n_planes + p.n_spheres) * TEX4 : 0);
 }
 
+// Float4s of shared memory the pass-1 tables take (AXIS kernels), after the
+// resident records: the entries, a row of 4 ints a tile, 4 ints a run.
+__host__ __device__ __forceinline__ int axis_float4s(const Params& p) {
+  return p.n_axis4 + p.n_tiles + p.n_runs;
+}
+
 // Bytes of dynamic shared memory a block stages: the resident records
-// (RESIDENT only), the tile table and the walk order. The warps' counts
-// (warp_counts) take COUNT_BYTES more, statically.
-static size_t smem_bytes(const Params& p, bool resident, bool tex) {
-  return (size_t)(resident ? resident_float4s(p, tex) : 0) * sizeof(float4) +
+// (RESIDENT only), the pass-1 tables (AXIS only), the tile table and the
+// walk order. The warps' counts (warp_counts) take COUNT_BYTES more,
+// statically.
+static size_t smem_bytes(const Params& p, bool resident, bool tex, bool axis) {
+  return (size_t)((resident ? resident_float4s(p, tex) : 0) + (axis ? axis_float4s(p) : 0)) *
+             sizeof(float4) +
          (size_t)p.n_tiles * TILE * sizeof(float) +
          (size_t)(p.n_tiles - p.n_single) * sizeof(int);
 }
@@ -502,24 +653,32 @@ static size_t smem_bytes(const Params& p, bool resident, bool tex) {
 // the scene has triangles or spheres (modes 3, 4, 5, 7). GLASS: it has a
 // glass group (modes 5, 6, 7) and the dielectric stage runs. TEX: it has a
 // textured primitive and the texture stage runs. DIAG: the per-block
-// diagnostics are gathered.
+// diagnostics are gathered. AXIS (never with PRIMS): the scene has axis
+// records, their pass-1 tables are in shared memory, t_min > 0, and the
+// tiles that hold axis records take the axis route (pass 1, then the winner
+// taken, or on a tie the scan again in record order); the others, and every
+// lane whose o or d has a non-finite component, keep the general scan.
 //
 // The libraries without the texture stage hold their kernels to blocks of
 // 1,024 threads, so to 64 registers: a walking kernel (78-92 registers
 // otherwise) then runs 32 warps on an SM beside a whole 64x64 maze, at the
 // cost of 120-240 bytes of spills a thread; the others use fewer than 64
-// anyway. The textured kernels (72-112 registers) keep what they use.
+// anyway. A walking kernel of the axis route is held to 768 threads, so to
+// 80 registers: at 64 it spills 270 + 320 bytes a thread, and its 24 warps
+// an SM run config_scale's tracer 3% faster than 32 (H100). The textured
+// kernels (72-112 registers) keep what they use.
 #if MM_TEX
-#define TRACE_BOUNDS
+#define TRACE_BOUNDS(THREADS)
 #else
-#define TRACE_BOUNDS __launch_bounds__(1024)
+#define TRACE_BOUNDS(THREADS) __launch_bounds__(THREADS)
 #endif
-template <bool RESIDENT, bool WALK, bool SKY, bool PRIMS, bool GLASS, bool TEX, bool DIAG>
-__global__ void TRACE_BOUNDS trace_kernel(const Params p) {
+template <bool RESIDENT, bool WALK, bool SKY, bool PRIMS, bool GLASS, bool TEX, bool DIAG,
+          bool AXIS>
+__global__ void TRACE_BOUNDS(AXIS && WALK ? 768 : 1024) trace_kernel(const Params p) {
   // Shared: [plane records, sphere records, texture rows: RESIDENT only]
-  // [tile table] [walk order].
+  // [pass-1 entries, axis tile rows, runs: AXIS only] [tile table] [walk order].
   extern __shared__ float4 shared[];
-  const int n_res = RESIDENT ? resident_float4s(p, TEX) : 0;
+  const int n_res = (RESIDENT ? resident_float4s(p, TEX) : 0) + (AXIS ? axis_float4s(p) : 0);
   float* s_tiles = (float*)(shared + n_res);
   int* s_order = (int*)(s_tiles + p.n_tiles * TILE);
   const int n_walk = p.n_tiles - p.n_single;
@@ -543,6 +702,20 @@ __global__ void TRACE_BOUNDS trace_kernel(const Params p) {
       stex = at;
     }
   }
+  const float4* ent = nullptr;   // AXIS: the pass-1 entries, tile rows and runs
+  const int4* s_axt = nullptr;
+  const int4* s_runs = nullptr;
+  if constexpr (AXIS) {
+    float4* at = shared + (RESIDENT ? resident_float4s(p, TEX) : 0);
+    stage(at, p.axis_entries, p.n_axis4);
+    ent = at;
+    at += p.n_axis4;
+    stage(at, (const float*)p.axis_tiles, p.n_tiles);
+    s_axt = (const int4*)at;
+    at += p.n_tiles;
+    stage(at, (const float*)p.axis_runs, p.n_runs);
+    s_runs = (const int4*)at;
+  }
   for (int k = threadIdx.x; k < p.n_tiles * TILE; k += blockDim.x) s_tiles[k] = p.tiles[k];
   for (int k = threadIdx.x; k < n_walk; k += blockDim.x) s_order[k] = p.order[k];
   __syncthreads();
@@ -553,6 +726,14 @@ __global__ void TRACE_BOUNDS trace_kernel(const Params p) {
     for (int c = 0; c < COUNTS; ++c) warp_counts[threadIdx.x >> 5][c] = 0;
   const uint32_t seed = (uint32_t)p.seed[0];
   const float t_min = p.t_min;
+  // AXIS: the single-tile groups' records, and of them the axis records.
+  int single_all = 0, single_axis = 0;
+  if constexpr (AXIS) {
+    for (int ti = 0; ti < p.n_single; ++ti) {
+      single_all += (int)s_tiles[ti * TILE + 7];
+      single_axis += s_axt[ti].z;
+    }
+  }
   bool more = true;   // the counter may still hold rays (the same in all lanes)
   // This lane's ray (-1: none) and its state.
   int i = -1, seg = 0, mh = 0, dc = 0;
@@ -603,36 +784,109 @@ __global__ void TRACE_BOUNDS trace_kernel(const Params p) {
     Hit h = {BIG, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     float sdo = 0.f, soo = 0.f;
     bool own = true;
+    // AXIS: whether the lane's ray takes the axis route (o and d finite), and
+    // its IEEE reciprocals of d.
+    bool fin = false;
+    float ix = 0.f, iy = 0.f, iz = 0.f;
+    int rescan = 0;   // AXIS: the records this lane rescans of the single-tile groups
     if (active) {
       if constexpr (PRIMS) {
         sdo = (ox * dx + oy * dy) + oz * dz;
         soo = (ox * ox + oy * oy) + oz * oz;
       }
-      // The single-tile groups are one joint scan: ties sum across them.
-      for (int ti = 0; ti < p.n_single; ++ti) {
-        const float* T = s_tiles + ti * TILE;
-        scan_group<RESIDENT, PRIMS, GLASS, TEX>(rec, sph, ptex, stex, (int)T[6], (int)T[7],
-                                                (int)T[8], ox, oy, oz, dx, dy, dz, sdo, soo,
-                                                t_min, h, own);
+      if constexpr (AXIS) {
+        fin = finite_ray(ox, oy, oz, dx, dy, dz);
+        ix = 1.0f / dx;
+        iy = 1.0f / dy;
+        iz = 1.0f / dz;
+      }
+      if (AXIS && fin && single_axis > 0) {
+        // The single-tile groups are one joint scan (ties sum across them):
+        // pass 1 over all their records, indexed in that scan, then the
+        // record at the nearest t, or where records tie on it, the whole
+        // scan again in record order.
+        float lm = BIG;
+        int li = 0;
+        for (int ti = 0, off = 0; ti < p.n_single; ++ti) {
+          const float* T = s_tiles + ti * TILE;
+          const int first = (int)T[6], count = (int)T[7], mode = (int)T[8];
+          const int4 ax = s_axt[ti];
+          if (ax.y > 0)
+            tile_axis_min<RESIDENT, GLASS>(ent, s_runs, ax, rec, first, off, mode, 0, 1, ox, oy,
+                                           oz, dx, dy, dz, ix, iy, iz, t_min, lm, li);
+          else
+            tile_general_min<RESIDENT, PRIMS, GLASS>(rec, sph, first, count, off, mode, 0, 1,
+                                                     ox, oy, oz, dx, dy, dz, sdo, soo, t_min,
+                                                     lm, li);
+          off += count;
+        }
+        if (lm < BIG && li == TIED) {
+          // Records tie on the nearest t: the whole joint scan again.
+          rescan = single_all;
+          for (int ti = 0; ti < p.n_single; ++ti) {
+            const float* T = s_tiles + ti * TILE;
+            scan_group<RESIDENT, PRIMS, GLASS, TEX>(rec, sph, ptex, stex, (int)T[6], (int)T[7],
+                                                    (int)T[8], ox, oy, oz, dx, dy, dz, sdo, soo,
+                                                    t_min, h, own);
+          }
+        } else if (lm < BIG) {
+          // The record at it, taken as the scan takes a nearer record.
+          int ti = 0, off = 0;
+          for (; li >= off + (int)s_tiles[ti * TILE + 7]; ++ti) off += (int)s_tiles[ti * TILE + 7];
+          const int k = (int)s_tiles[ti * TILE + 6] + li - off;
+          const float4* R = rec + (size_t)k * RECORD4;
+          take_row<RESIDENT, PRIMS, GLASS, TEX>(R, load4<RESIDENT>(R), ptex + (size_t)k * TEX4,
+                                                lm, h, own);
+        }
+      } else {
+        // The single-tile groups are one joint scan: ties sum across them.
+        for (int ti = 0; ti < p.n_single; ++ti) {
+          const float* T = s_tiles + ti * TILE;
+          scan_group<RESIDENT, PRIMS, GLASS, TEX>(rec, sph, ptex, stex, (int)T[6], (int)T[7],
+                                                  (int)T[8], ox, oy, oz, dx, dy, dz, sdo, soo,
+                                                  t_min, h, own);
+        }
+      }
+    }
+    if constexpr (AXIS) {
+      // The lane slots of the single-tile groups: pass 1 where a lane took
+      // the axis route, the general scan where one did not, and the longest
+      // rescan.
+      __syncwarp();
+      const bool axis_route = fin && single_axis > 0;
+      const unsigned fm = __ballot_sync(FULL, axis_route);
+      const unsigned gm = __ballot_sync(FULL, active && !axis_route);
+      const int longest = __reduce_max_sync(FULL, rescan);
+      if (lane == 0) {
+        unsigned long long* c = warp_counts[threadIdx.x >> 5];
+        c[TESTS_ISSUED] += 32ull * ((unsigned long long)single_all * ((fm != 0) + (gm != 0)) +
+                                    (unsigned)longest);
+        if (fm != 0) c[AXIS_TESTS] += 32ull * single_axis;
       }
     }
     if constexpr (WALK) {
       // The walked tiles, all lanes together. A tile that many lanes' rays
       // reach, each of them scans alone. One that few reach, the whole warp
       // tests for one of those rays at a time, each lane every 32nd record:
-      // the nearest t, its first record and the records at it; the ray's
-      // lane then takes that record (with ties, the records from it on),
+      // the nearest t and its record, or TIED; the ray's lane then takes
+      // that record (with ties, the whole tile again in record order),
       // which is what its own scan of the tile would have kept.
       float idx = 0.f, idy = 0.f, idz = 0.f;
-      if (active) {
+      if (active && !AXIS) {
         idx = clamped_rcp(dx);
         idy = clamped_rcp(dy);
         idz = clamped_rcp(dz);
       }
       for (int k = 0; k < n_walk; ++k) {
-        const float* T = s_tiles + s_order[k] * TILE;
+        const int tix = s_order[k];
+        const float* T = s_tiles + tix * TILE;
         bool reach = false;
         if (active) {
+          if constexpr (AXIS) {   // clamped_rcp's bits, from the IEEE reciprocals
+            idx = fminf(fmaxf(ix, -BIG), BIG);
+            idy = fminf(fmaxf(iy, -BIG), BIG);
+            idz = fminf(fmaxf(iz, -BIG), BIG);
+          }
           const float t1x = (T[0] - ox) * idx, t2x = (T[3] - ox) * idx;
           const float t1y = (T[1] - oy) * idy, t2y = (T[4] - oy) * idy;
           const float t1z = (T[2] - oz) * idz, t2z = (T[5] - oz) * idz;
@@ -654,6 +908,104 @@ __global__ void TRACE_BOUNDS trace_kernel(const Params p) {
         const unsigned need = __ballot_sync(FULL, reach);
         if (need == 0) continue;
         const int first = (int)T[6], count = (int)T[7], mode = (int)T[8];
+        if constexpr (AXIS) {
+          const int4 ax = s_axt[tix];
+          if (ax.y > 0) {
+            // An axis tile: the same two routes, pass 1 for the lanes whose
+            // rays are finite (the general test for the others), then the
+            // ray's own lane rescans the record at the tile's nearest t, or
+            // where records tie on it, the whole tile in record order. A
+            // lane takes `slots` entries when the warp tests the tile for
+            // one ray.
+            const unsigned fm = __ballot_sync(FULL, reach && fin);
+            const int n_need = __popc(need), n_fin = __popc(fm);
+            const int slots = ax.w + ((count - ax.z + 31) >> 5);
+            const bool by_ray = n_need * (2 * slots + AXIS_RAY_COST) < 2 * count;
+            if (lane == 0) {
+              unsigned long long* c = warp_counts[threadIdx.x >> 5];
+              c[TESTS_NEEDED] += (unsigned long long)n_need * count;
+              if (by_ray) {
+                c[TESTS_ISSUED] += 32ull * ((unsigned long long)n_fin * slots +
+                                            (unsigned long long)(n_need - n_fin) *
+                                                ((count + 31) >> 5));
+                c[AXIS_TESTS] += 32ull * n_fin * ax.w;
+              } else {
+                c[TESTS_ISSUED] += 32ull * count * ((fm != 0) + (n_fin < n_need));
+                if (fm != 0) c[AXIS_TESTS] += 32ull * ax.z;
+              }
+            }
+            // Converged here and below wherever a collective follows a
+            // divergent branch: without it the collectives take their slow
+            // path for a warp that arrives split (40% of config_scale's
+            // tracer time on the H100).
+            __syncwarp();
+            float best = BIG;   // for this lane's ray: the tile's nearest t
+            int at = 0;         // and its record, or TIED
+            if (by_ray) {
+              for (unsigned todo = need; todo != 0; todo &= todo - 1) {
+                const int j = __ffs(todo) - 1;
+                const float jox = __shfl_sync(FULL, ox, j), joy = __shfl_sync(FULL, oy, j);
+                const float joz = __shfl_sync(FULL, oz, j), jdx = __shfl_sync(FULL, dx, j);
+                const float jdy = __shfl_sync(FULL, dy, j), jdz = __shfl_sync(FULL, dz, j);
+                float lm = BIG;
+                int li = 0;
+                if ((fm >> j) & 1u) {
+                  const float jix = __shfl_sync(FULL, ix, j), jiy = __shfl_sync(FULL, iy, j);
+                  const float jiz = __shfl_sync(FULL, iz, j);
+                  tile_axis_min<RESIDENT, GLASS>(ent, s_runs, ax, rec, first, 0, mode, lane, 32,
+                                                 jox, joy, joz, jdx, jdy, jdz, jix, jiy, jiz,
+                                                 t_min, lm, li);
+                } else {
+                  tile_general_min<RESIDENT, false, GLASS>(rec, sph, first, count, 0, mode, lane,
+                                                           32, jox, joy, joz, jdx, jdy, jdz, 0.f,
+                                                           0.f, t_min, lm, li);
+                }
+                float m = lm;
+                for (int off = 16; off > 0; off >>= 1)
+                  m = fminf(m, __shfl_xor_sync(FULL, m, off));
+                // The tile's record at m, or TIED (a lane's own tie is
+                // TIED, below every index).
+                const unsigned at_m = __ballot_sync(FULL, lm == m);
+                const int fi = __reduce_min_sync(FULL, lm == m ? li : 0x7fffffff);
+                if (lane == (unsigned)j) {
+                  best = m;
+                  at = __popc(at_m) > 1 ? TIED : fi;
+                }
+                __syncwarp();
+              }
+            } else if (reach) {
+              if (fin)
+                tile_axis_min<RESIDENT, GLASS>(ent, s_runs, ax, rec, first, 0, mode, 0, 1, ox, oy,
+                                               oz, dx, dy, dz, ix, iy, iz, t_min, best, at);
+              else
+                tile_general_min<RESIDENT, false, GLASS>(rec, sph, first, count, 0, mode, 0, 1,
+                                                         ox, oy, oz, dx, dy, dz, 0.f, 0.f, t_min,
+                                                         best, at);
+            }
+            __syncwarp();
+            // The tile's record at its nearest t is taken as the scan takes
+            // a nearer record; where records tie on it, the whole tile is
+            // scanned again.
+            const bool win = reach && best < h.t, tied = at == TIED;
+            const int longest = __reduce_max_sync(FULL, win && tied ? count : 0);
+            if (lane == 0) warp_counts[threadIdx.x >> 5][TESTS_ISSUED] += 32ull * longest;
+            if (win) {
+              own = false;
+              if (tied) {
+                scan_group<RESIDENT, PRIMS, GLASS, TEX>(rec, sph, ptex, stex, first, count, mode,
+                                                        ox, oy, oz, dx, dy, dz, sdo, soo, t_min,
+                                                        h, own);
+              } else {
+                const float4* R = rec + (size_t)(first + at) * RECORD4;
+                take_row<RESIDENT, PRIMS, GLASS, TEX>(R, load4<RESIDENT>(R),
+                                                      ptex + (size_t)(first + at) * TEX4, best, h,
+                                                      own);
+              }
+            }
+            __syncwarp();
+            continue;
+          }
+        }
         // The warp tests the tile ray by ray when that costs less: per ray
         // ceil(count / 32) records a lane and the reductions (~1.5 records),
         // against `count` records once.
@@ -664,8 +1016,8 @@ __global__ void TRACE_BOUNDS trace_kernel(const Params p) {
           c[TESTS_ISSUED] += by_ray ? 32ull * __popc(need) * ((count + 31) >> 5) : 32ull * count;
         }
         if (by_ray) {
-          float best = BIG;  // for this lane's ray: the tile's nearest t,
-          int at = 0, ties = 0;  // its first record, the records at it
+          float best = BIG;  // for this lane's ray: the tile's nearest t
+          int at = 0;        // and its record, or TIED
           for (unsigned todo = need; todo != 0; todo &= todo - 1) {
             const int j = __ffs(todo) - 1;
             const float jox = __shfl_sync(FULL, ox, j), joy = __shfl_sync(FULL, oy, j);
@@ -676,31 +1028,31 @@ __global__ void TRACE_BOUNDS trace_kernel(const Params p) {
               jsdo = __shfl_sync(FULL, sdo, j);
               jsoo = __shfl_sync(FULL, soo, j);
             }
-            float lm;
-            int li, lc;
-            tile_lane_min<RESIDENT, PRIMS, GLASS>(rec, sph, first, count, mode, lane, jox, joy,
-                                                  joz, jdx, jdy, jdz, jsdo, jsoo, t_min, lm,
-                                                  li, lc);
+            float lm = BIG;
+            int li = 0;
+            tile_general_min<RESIDENT, PRIMS, GLASS>(rec, sph, first, count, 0, mode, lane, 32,
+                                                     jox, joy, joz, jdx, jdy, jdz, jsdo, jsoo,
+                                                     t_min, lm, li);
             float m = lm;
             for (int off = 16; off > 0; off >>= 1) m = fminf(m, __shfl_xor_sync(FULL, m, off));
+            const unsigned at_m = __ballot_sync(FULL, lm == m);
             const int fi = __reduce_min_sync(FULL, lm == m ? li : 0x7fffffff);
-            const int nt = __reduce_add_sync(FULL, lm == m ? lc : 0);
             if (lane == (unsigned)j) {
               best = m;
-              at = fi;
-              ties = nt;
+              at = __popc(at_m) > 1 ? TIED : fi;
             }
           }
           // The rays' own lanes take their records: the warp issues the
           // longest of those scans in every lane.
-          const int rescan = (reach && best < h.t) ? (ties == 1 ? 1 : count - at) : 0;
+          const bool tied = at == TIED;
+          const int rescan = (reach && best < h.t) ? (tied ? count : 1) : 0;
           const int longest = __reduce_max_sync(FULL, rescan);
           if (lane == 0) warp_counts[threadIdx.x >> 5][TESTS_ISSUED] += 32ull * longest;
           if (rescan > 0) {
             own = false;
-            scan_group<RESIDENT, PRIMS, GLASS, TEX>(rec, sph, ptex, stex, first + at, rescan,
-                                                    mode, ox, oy, oz, dx, dy, dz, sdo, soo,
-                                                    t_min, h, own);
+            scan_group<RESIDENT, PRIMS, GLASS, TEX>(rec, sph, ptex, stex,
+                                                    tied ? first : first + at, rescan, mode, ox,
+                                                    oy, oz, dx, dy, dz, sdo, soo, t_min, h, own);
           }
         } else if (reach) {
           own = false;
@@ -861,8 +1213,11 @@ __global__ void TRACE_BOUNDS trace_kernel(const Params p) {
     for (int ti = 0; ti < p.n_single; ++ti) single += (unsigned long long)s_tiles[ti * TILE + 7];
     atomicAdd(p.counters + RAY_SEGMENTS, c[RAY_SEGMENTS]);
     atomicAdd(p.counters + WARP_SEGMENTS, c[WARP_SEGMENTS]);
-    atomicAdd(p.counters + TESTS_ISSUED, c[TESTS_ISSUED] + 32ull * single * c[WARP_SEGMENTS]);
+    // AXIS kernels count the single-tile groups' lane slots a segment at a time.
+    atomicAdd(p.counters + TESTS_ISSUED,
+              c[TESTS_ISSUED] + (AXIS ? 0ull : 32ull * single * c[WARP_SEGMENTS]));
     atomicAdd(p.counters + TESTS_NEEDED, c[TESTS_NEEDED] + single * c[RAY_SEGMENTS]);
+    if (AXIS) atomicAdd(p.counters + AXIS_TESTS, c[AXIS_TESTS]);
     __threadfence();
     const unsigned warps = gridDim.x * (blockDim.x >> 5);
     if (atomicAdd(p.work + 1, 1u) == warps - 1u) {
@@ -914,8 +1269,8 @@ static cudaError_t geometry_of(K kernel, size_t smem, Geometry& g) {
 }
 
 // geometry (out, host): blocks, threads, shared bytes, registers, blocks per
-// SM, resident (1) or not.
-template <bool RESIDENT, bool WALK, bool SKY, bool PRIMS, bool GLASS>
+// SM, resident (1) or not, the axis route (1) or not.
+template <bool RESIDENT, bool WALK, bool SKY, bool PRIMS, bool GLASS, bool AXIS>
 static int launch(const Params& p, int max_blocks, int* geometry, cudaStream_t stream) {
   constexpr bool TEX = MM_TEX, DIAG = MM_DIAG;
   if (TEX && ((p.n_planes > 0 && p.plane_tex == nullptr) ||
@@ -924,8 +1279,8 @@ static int launch(const Params& p, int max_blocks, int* geometry, cudaStream_t s
   if (DIAG && (p.diag_segments == nullptr || p.diag_mask == nullptr))
     return (int)cudaErrorInvalidValue;
   if (p.counters == nullptr) return (int)cudaErrorInvalidValue;
-  auto kernel = trace_kernel<RESIDENT, WALK, SKY, PRIMS, GLASS, TEX, DIAG>;
-  const size_t smem = smem_bytes(p, RESIDENT, TEX);
+  auto kernel = trace_kernel<RESIDENT, WALK, SKY, PRIMS, GLASS, TEX, DIAG, AXIS>;
+  const size_t smem = smem_bytes(p, RESIDENT, TEX, AXIS);
   static Geometry g[16];   // per device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -945,36 +1300,46 @@ static int launch(const Params& p, int max_blocks, int* geometry, cudaStream_t s
     geometry[3] = geo.regs;
     geometry[4] = geo.per_sm;
     geometry[5] = RESIDENT;
+    geometry[6] = AXIS;
   }
   if (p.n_rays > 0) kernel<<<(unsigned)blocks, geo.threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <bool RESIDENT, bool WALK, bool SKY>
+// The axis route runs beside quads alone (no scene with triangles or
+// spheres has its tables), so no AXIS kernel has the PRIMS stage.
+template <bool RESIDENT, bool WALK, bool SKY, bool AXIS>
 static int launch_stages(const Params& p, bool prims, bool glass, int max_blocks,
                          int* geometry, cudaStream_t s) {
-  if (prims) return glass ? launch<RESIDENT, WALK, SKY, true, true>(p, max_blocks, geometry, s)
-                          : launch<RESIDENT, WALK, SKY, true, false>(p, max_blocks, geometry, s);
-  return glass ? launch<RESIDENT, WALK, SKY, false, true>(p, max_blocks, geometry, s)
-               : launch<RESIDENT, WALK, SKY, false, false>(p, max_blocks, geometry, s);
+  if constexpr (!AXIS) {
+    if (prims)
+      return glass ? launch<RESIDENT, WALK, SKY, true, true, false>(p, max_blocks, geometry, s)
+                   : launch<RESIDENT, WALK, SKY, true, false, false>(p, max_blocks, geometry, s);
+  }
+  return glass ? launch<RESIDENT, WALK, SKY, false, true, AXIS>(p, max_blocks, geometry, s)
+               : launch<RESIDENT, WALK, SKY, false, false, AXIS>(p, max_blocks, geometry, s);
 }
 
-template <bool RESIDENT, bool WALK>
+template <bool RESIDENT, bool WALK, bool AXIS>
 static int launch_sky(const Params& p, bool sky, bool prims, bool glass, int max_blocks,
                       int* geometry, cudaStream_t s) {
-  return sky ? launch_stages<RESIDENT, WALK, true>(p, prims, glass, max_blocks, geometry, s)
-             : launch_stages<RESIDENT, WALK, false>(p, prims, glass, max_blocks, geometry, s);
+  return sky ? launch_stages<RESIDENT, WALK, true, AXIS>(p, prims, glass, max_blocks, geometry, s)
+             : launch_stages<RESIDENT, WALK, false, AXIS>(p, prims, glass, max_blocks, geometry,
+                                                          s);
 }
 
 // work: two zeroed words of this launch's stream (see Params::work), left
 // zeroed by the launch. counters: COUNTS words the launch adds its counts
 // to. max_blocks: at most this many blocks (0: as many as fill the card).
-// geometry: 6 ints out, or null.
+// axis_entries, axis_tiles, axis_runs: the pass-1 tables (Params), n_axis4 =
+// 0 for a scene without axis records. geometry: 7 ints out, or null.
 extern "C" int mm_trace_paths(const float* ori, const float* dirs, const float* planes,
                               int n_planes, const float* spheres, int n_spheres,
                               const float* plane_tex, const float* sphere_tex,
                               const float* tiles, int n_tiles, int n_single,
-                              const int* order, const int* seed, const float* seed_row,
+                              const int* order, const float* axis_entries, int n_axis4,
+                              const int* axis_tiles, const int* axis_runs, int n_runs,
+                              const int* seed, const float* seed_row,
                               float* light, unsigned int* work, unsigned long long* counters,
                               int* diag_segments, unsigned int* diag_mask,
                               int mask_words, int n_rays, int block_rays, int max_segments,
@@ -988,7 +1353,8 @@ extern "C" int mm_trace_paths(const float* ori, const float* dirs, const float* 
                     n_rays, block_rays, max_segments, bounce_limit, mirror_limit, fresnel,
                     mirror_tint, t_min,
                     sky_r, sky_g, sky_b, sky_strength, sky_lf, sky_log_lf,
-                    plane_tex, sphere_tex, diag_segments, diag_mask, mask_words, counters};
+                    plane_tex, sphere_tex, diag_segments, diag_mask, mask_words, counters,
+                    axis_entries, axis_tiles, axis_runs, n_axis4, n_runs};
   const cudaStream_t s = (cudaStream_t)stream;
   const bool sky = sky_strength != 0.f;
   // The whole scene resident when it fits, beside the warps' counts, the
@@ -998,9 +1364,21 @@ extern "C" int mm_trace_paths(const float* ori, const float* dirs, const float* 
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
-  const bool resident = smem_bytes(p, true, MM_TEX) + COUNT_BYTES <= (size_t)optin;
-  if (!resident) return launch_sky<false, true>(p, sky, prims, glass, max_blocks, geometry, s);
+  // A scene of quads with axis records, traced with t_min > 0, takes the axis route
+  // where its pass-1 tables fit: with the whole scene resident beside them,
+  // or else with the records in global memory (pass 2 alone reads them).
+  if (n_axis4 > 0 && t_min > 0.f && !prims) {
+    if (smem_bytes(p, true, MM_TEX, true) + COUNT_BYTES <= (size_t)optin)
+      return n_tiles > n_single
+                 ? launch_sky<true, true, true>(p, sky, prims, glass, max_blocks, geometry, s)
+                 : launch_sky<true, false, true>(p, sky, prims, glass, max_blocks, geometry, s);
+    if (smem_bytes(p, false, MM_TEX, true) + COUNT_BYTES <= (size_t)optin)
+      return launch_sky<false, true, true>(p, sky, prims, glass, max_blocks, geometry, s);
+  }
+  const bool resident = smem_bytes(p, true, MM_TEX, false) + COUNT_BYTES <= (size_t)optin;
+  if (!resident)
+    return launch_sky<false, true, false>(p, sky, prims, glass, max_blocks, geometry, s);
   if (n_tiles > n_single)
-    return launch_sky<true, true>(p, sky, prims, glass, max_blocks, geometry, s);
-  return launch_sky<true, false>(p, sky, prims, glass, max_blocks, geometry, s);
+    return launch_sky<true, true, false>(p, sky, prims, glass, max_blocks, geometry, s);
+  return launch_sky<true, false, false>(p, sky, prims, glass, max_blocks, geometry, s);
 }

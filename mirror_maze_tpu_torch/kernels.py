@@ -64,6 +64,8 @@ _TRACER = ("mm_trace_paths", [
     _C.c_void_p, _C.c_int,                               # spheres, S
     _C.c_void_p, _C.c_void_p,                            # plane and sphere texture rows
     _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p,        # tiles, T, single, order
+    _C.c_void_p, _C.c_int, _C.c_void_p, _C.c_void_p,     # axis entries, float4s, tile rows, runs
+    _C.c_int,                                            # runs
     _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,  # seed, seed_row, light, work
     _C.c_void_p,                                         # counters
     _C.c_void_p, _C.c_void_p, _C.c_int,                  # diagnostics: segments, mask, words

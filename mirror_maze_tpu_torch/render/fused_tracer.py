@@ -80,10 +80,25 @@ with the noise seed row, the sky term and the per-block diagnostics:
   zero rays as the reference pads it: they live one segment and vote too.
 
 Every CUDA launch adds what it did to its device's counters (``counters``,
-``COUNTERS``): live ray-segments and warp-segments, and record tests issued
-in lane slots against those the live rays reaching each tile need. The plain
-version adds nothing there; its ``stats`` count ``ray_segments`` and the
-tests (``plane_tests + sphere_tests``) as ``tests_needed`` counts them.
+``COUNTERS``): live ray-segments and warp-segments, record tests issued in
+lane slots against those the live rays reaching each tile need, and of the
+issued ones the axis records' two-term tests. The plain version adds nothing
+there; its ``stats`` count ``ray_segments`` and the tests (``plane_tests +
+sphere_tests``) as ``tests_needed`` counts them, and ``axis_tests``, the
+needed tests of axis records.
+
+On the card, a scan (the single-tile groups together, or a walked tile) of a
+scene without triangles or spheres, with at least scenebuf.AXIS_MIN_RECORDS
+axis records (quads whose normal and tested edges each lie along one axis,
+as every wall, floor and boundary of a maze does; scenebuf.py
+``axis_tables``) takes the axis route: pass 1 tests
+its records in an exact two-term form, sorted by axis class, and keeps the
+nearest t and its record; the ray's own lane takes that record as the scan
+takes a nearer one, or where records tie on it, scans again in record order
+with the general test, so ties sum as the sequential scan sums them and the
+light is the same bit for bit. Where t_min <= 0, a ray's o or d is not
+finite, or no scan of the scene takes the route, the kernel takes the
+general scan.
 """
 
 from __future__ import annotations
@@ -98,6 +113,8 @@ from .. import kernels
 from ..config import TracerConfig
 from ..ops.vecmath import sqrt
 from .scenebuf import (
+    AXIS_RUN_WIDTH,
+    AXIS_TILE_WIDTH,
     SPHERE_MODES,
     SPHERE_RECORD_WIDTH,
     TEX_WIDTH,
@@ -119,7 +136,7 @@ EDGE_TESTS = {0: 2, 1: 1, 2: 0, 4: 2, 6: 2, 7: 2}   # per plane test, by mode
 SEL_WIDTH = 13
 TEX_SEL_WIDTH = 26
 DIAG_ROWS = 5
-GEOMETRY = ("blocks", "threads", "smem", "registers", "per_sm", "resident")
+GEOMETRY = ("blocks", "threads", "smem", "registers", "per_sm", "resident", "axis")
 # The kernel's two work counters per (device, stream), zeroed once; each
 # launch leaves its pair zeroed (csrc/tracer.cu Params::work). A CUDA graph
 # capture brings its own pair (``work_counters``): a graph replays on
@@ -128,7 +145,7 @@ _work: dict = {}
 _graph_work: list = []
 # What every launch adds to its device's counters (csrc/tracer.cu Count, in
 # its order); a record test is one plane or sphere record tested for a ray.
-COUNTERS = ("ray_segments", "warp_segments", "tests_issued", "tests_needed")
+COUNTERS = ("ray_segments", "warp_segments", "tests_issued", "tests_needed", "axis_tests")
 # Shared bytes a block keeps the counts of its warps in (32 warps of COUNTERS
 # 64-bit words, csrc/tracer.cu warp_counts), beside the scene it stages.
 COUNT_BYTES = 32 * len(COUNTERS) * 8
@@ -327,19 +344,21 @@ def _test_counts(mode: int, n: int) -> list:
 
 def _plain_tables(scene: DeviceScene, anchor: torch.Tensor):
     """What a pass of the plain version reads of the scene: ([(mode,
-    records, properties) of each single-tile group], [(mode, records,
-    properties, tile row) of each walked tile, in walk order]). A tile of
-    padding only holds no record; it stays in the walk (its inverted box
-    passes the slab test, which the diagnostics count) and is never tested."""
+    records, properties, axis records) of each single-tile group], [(mode,
+    records, properties, axis records, tile row) of each walked tile, in walk
+    order]). A tile of padding only holds no record; it stays in the walk
+    (its inverted box passes the slab test, which the diagnostics count) and
+    is never tested."""
     rows = []
-    for tile in scene.tiles.cpu().tolist():
+    n_axis = scene.axis_tiles[:, 2].tolist()
+    for tile, axis in zip(scene.tiles.cpu().tolist(), n_axis):
         first, count, mode = int(tile[6]), int(tile[7]), int(tile[8])
         sph = mode in SPHERE_MODES
         records = (scene.spheres if sph else scene.planes)[first:first + count]
         tex = None
         if scene.textured:
             tex = (scene.sphere_tex if sph else scene.plane_tex)[first:first + count]
-        rows.append((mode, records, _props(mode, records, tex)))
+        rows.append((mode, records, _props(mode, records, tex), axis))
     n_single = sum(1 for g in scene.group_meta if g[2] == 1)
     order = tile_order(scene.tiles, scene.group_meta, anchor).tolist()
     return rows[:n_single], [rows[ti] + (scene.tiles[ti],) for ti in order]
@@ -376,7 +395,8 @@ def trace_paths_plain(
     groups whose slab test passes against the nearest hit of the tiles
     before; ``plane_tests``, ``edge_tests`` and ``sphere_tests``, the hit
     tests and edge tests of those tiles' primitives and of the single-tile
-    groups'; ``glass_hits``, the live hits on glass (each runs the
+    groups', and ``axis_tests``, the hit tests of the axis records among
+    them; ``glass_hits``, the live hits on glass (each runs the
     dielectric stage); ``textured_hits``, the live hits on a textured
     primitive (each evaluates a checker). For warps of 32 consecutive rays
     (in the order given): ``warp_segments``, the (warp, segment) pairs with
@@ -464,11 +484,11 @@ def _warp_any(mask: torch.Tensor) -> torch.Tensor:
 
 def _nearest(single, walk, o, d, t_min, alive, counts, skip, width, vote=None):
     """Nearest hit over all groups in the reference's merge order:
-    (t [R], sel [R, width]). ``counts`` (or None) is a tensor of five
+    (t [R], sel [R, width]). ``counts`` (or None) is a tensor of six
     sums over the walked tiles: tile visits, plane tests, edge tests,
-    sphere tests and warp tile visits. ``vote`` (or None) is (votes [walked
-    tiles, blocks], the rays' blocks [R]): each walked tile's count of rays
-    that reach it is added to its row."""
+    sphere tests, warp tile visits and axis tests. ``vote`` (or None) is
+    (votes [walked tiles, blocks], the rays' blocks [R]): each walked tile's
+    count of rays that reach it is added to its row."""
     sdo = (o[:, 0] * d[:, 0] + o[:, 1] * d[:, 1]) + o[:, 2] * d[:, 2]
     soo = (o[:, 0] * o[:, 0] + o[:, 1] * o[:, 1]) + o[:, 2] * o[:, 2]
     if single:
@@ -478,7 +498,7 @@ def _nearest(single, walk, o, d, t_min, alive, counts, skip, width, vote=None):
         sel = o.new_zeros((o.shape[0], width))
     if walk:
         inv_d = torch.clamp(1.0 / d, -BIG, BIG)
-    for k, (mode, rows, props, tile) in enumerate(walk):
+    for k, (mode, rows, props, n_axis, tile) in enumerate(walk):
         reach = _slab_pass(tile, o, inv_d, tmin, alive)
         if vote is not None:
             vote[0][k].index_add_(0, vote[1], reach.to(torch.int32))
@@ -488,6 +508,7 @@ def _nearest(single, walk, o, d, t_min, alive, counts, skip, width, vote=None):
             counts[:4] += reach.sum() * torch.tensor([1] + _test_counts(mode, rows.shape[0]),
                                                      device=counts.device)
             counts[4] += _warp_any(reach).sum()
+            counts[5] += reach.sum() * n_axis
         tile_t, tile_sel = _dense_nearest([(mode, rows, props)], o, d, t_min, sdo, soo)
         better = tile_t < tmin
         if skip:
@@ -511,11 +532,11 @@ def _trace_plain_chunk(single, walk, has_glass, textured, o, d, rng, cfg, stats,
     alive = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
     counts = None
     if stats is not None:
-        counts = torch.zeros(5, dtype=torch.int64, device=o.device)
+        counts = torch.zeros(6, dtype=torch.int64, device=o.device)
         glass_hits = torch.zeros((), dtype=torch.int64, device=o.device)
         textured_hits = torch.zeros((), dtype=torch.int64, device=o.device)
         per_segment = [1] + [sum(c) for c in zip(*(
-            [_test_counts(g[0], g[1].shape[0]) for g in single] or [[0, 0, 0]]))]
+            [_test_counts(g[0], g[1].shape[0]) + [g[3]] for g in single] or [[0, 0, 0, 0]]))]
     lived = torch.zeros_like(mh)                    # segments each ray entered alive
     for seg in range(cfg.max_segments):
         n_alive = int(alive.sum())
@@ -523,8 +544,8 @@ def _trace_plain_chunk(single, walk, has_glass, textured, o, d, rng, cfg, stats,
             break
         lived = lived + alive.to(torch.int32)
         if stats is not None:
-            for name, n in zip(("ray_segments", "plane_tests", "edge_tests", "sphere_tests"),
-                               per_segment):
+            for name, n in zip(("ray_segments", "plane_tests", "edge_tests", "sphere_tests",
+                                "axis_tests"), per_segment):
                 stats[name] = stats.get(name, 0) + n_alive * n
             stats["warp_segments"] = stats.get("warp_segments", 0) + int(_warp_any(alive).sum())
         vote = None if diag is None else (diag["votes"][seg], diag["block"])
@@ -625,7 +646,7 @@ def _trace_plain_chunk(single, walk, has_glass, textured, o, d, rng, cfg, stats,
         alive = hit & ~(spec & (mh_new >= cfg.mirror_limit)) & (dc < cfg.bounce_limit)
     if stats is not None:
         names = ("tile_visits", "plane_tests", "edge_tests", "sphere_tests", "warp_tile_visits",
-                 "glass_hits", "textured_hits")
+                 "axis_tests", "glass_hits", "textured_hits")
         for name, n in zip(names, counts.tolist() + [int(glass_hits), int(textured_hits)]):
             stats[name] = stats.get(name, 0) + n
     if diag is not None:
@@ -657,14 +678,18 @@ def trace_paths_fused(
     ``grid_blocks`` caps the kernel's persistent grid (None: as many blocks
     as fill the card); the light never depends on it. A CUDA launch fills
     ``geometry`` (when given) with the geometry the launcher chose: blocks,
-    threads, shared bytes, registers, blocks per SM, and whether the whole
-    scene was resident in shared memory (``GEOMETRY``)."""
+    threads, shared bytes, registers, blocks per SM, whether the whole
+    scene was resident in shared memory and whether the axis route ran
+    (``GEOMETRY``)."""
     dev = ori.device
     planes, spheres, tiles = scene.planes, scene.spheres, scene.tiles
     if anchor is None:
         anchor = torch.zeros(3, dtype=torch.float32, device=dev)
     checked = [("planes", planes, torch.float32), ("spheres", spheres, torch.float32),
                ("tiles", tiles, torch.float32),
+               ("axis_entries", scene.axis_entries, torch.float32),
+               ("axis_tiles", scene.axis_tiles, torch.int32),
+               ("axis_runs", scene.axis_runs, torch.int32),
                ("ori", ori, torch.float32), ("dirs", dirs, torch.float32),
                ("seed", seed, torch.int32), ("anchor", anchor, torch.float32)]
     if scene.textured:
@@ -687,6 +712,11 @@ def trace_paths_fused(
         raise ValueError("a textured scene must hold [P, 8] and [S, 8] texture rows")
     if sum(g[2] for g in scene.group_meta) != tiles.shape[0]:
         raise ValueError("group_meta must account for every tile")
+    if (scene.axis_entries.ndim != 2 or scene.axis_entries.shape[1] != 4
+            or tuple(scene.axis_tiles.shape) != (tiles.shape[0], AXIS_TILE_WIDTH)
+            or scene.axis_runs.ndim != 2 or scene.axis_runs.shape[1] != AXIS_RUN_WIDTH):
+        raise ValueError("the scene's pass-1 tables must be [E, 4] entries, a [T, 4] row a "
+                         "tile and [R, 4] runs (scenebuf.axis_tables)")
     if seed.numel() != 1:
         raise ValueError("seed must hold one int32")
     if anchor.shape != (3,):
@@ -716,6 +746,8 @@ def trace_paths_fused(
                            dtype=torch.int32, device=dev)
     ori, dirs, planes, spheres, tiles, seed = (
         x.contiguous() for x in (ori, dirs, planes, spheres, tiles, seed))
+    axis_entries, axis_tiles, axis_runs = (
+        x.contiguous() for x in (scene.axis_entries, scene.axis_tiles, scene.axis_runs))
     if seed_row is not None:
         seed_row = seed_row.contiguous()
     light = torch.empty_like(ori)
@@ -740,7 +772,9 @@ def trace_paths_fused(
             name, ori.data_ptr(), dirs.data_ptr(), planes.data_ptr(), planes.shape[0],
             spheres.data_ptr(), spheres.shape[0], ptr(plane_tex), ptr(sphere_tex),
             tiles.data_ptr(), tiles.shape[0], tiles.shape[0] - order.shape[0], order.data_ptr(),
-            seed.data_ptr(), ptr(seed_row), light.data_ptr(), work.data_ptr(),
+            axis_entries.data_ptr(), axis_entries.shape[0], axis_tiles.data_ptr(),
+            axis_runs.data_ptr(), axis_runs.shape[0], seed.data_ptr(), ptr(seed_row),
+            light.data_ptr(), work.data_ptr(),
             counts.data_ptr(), ptr(segments), ptr(mask),
             0 if mask is None else mask.shape[2], ori.shape[0], block,
             cfg.max_segments, cfg.bounce_limit, cfg.mirror_limit,
@@ -752,6 +786,7 @@ def trace_paths_fused(
     if geometry is not None:
         geometry.update(zip(GEOMETRY, out))
         geometry["resident"] = bool(geometry["resident"])
+        geometry["axis"] = bool(geometry["axis"])
     if not return_block_segments:
         return light
     bits = (mask[..., None] >> torch.arange(32, dtype=torch.int32, device=dev)) & 1

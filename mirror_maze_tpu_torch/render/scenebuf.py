@@ -71,6 +71,36 @@ SPHERE_MODES = (3, 5)
 GLASS_MODES = (5, 6, 7)
 N_MODES = 8
 
+# The pass-1 tables of the tracer's axis route (``axis_tables``, csrc/tracer.cu
+# axis_min). A quad record (modes 0, 1, 2, 6) is an axis record when its
+# normal has two components equal to +-0 and the third +-1, and each edge
+# vector its mode tests (w1 in modes 0, 1 and 6, w2 in modes 0 and 6) has
+# exactly one nonzero component. Its class is A + 3 B + 9 C: the axes of the
+# normal, w1 and w2 (0 for an edge the mode does not test). AXIS_GENERAL is
+# the class of the other records of a tile that holds axis records: the
+# kernel tests them in the general form. A pass-1 entry is AXIS_EDGES[mode]
+# float4s wide (one for modes 1 and 2): (sign(n_A) d, w1_B, b1, the record's
+# index as int32 bits), then (w2_C, b2, 0, 0) in modes 0 and 6. The index
+# counts in the record's scan: the single-tile groups' joint one (the tile's
+# first record at the records of the single tiles before it), or its walked
+# tile's own. A run of the [R, 4] int32 table: its first float4 in the
+# entries, its entries, its class, and its axes A | B << 8 | C << 16 (0 for
+# AXIS_GENERAL). A tile's row of the [T, 4] int32 table: its first run, its
+# runs (0: the tile has no axis record), its axis records, and the sum over
+# its axis runs of ceil(entries / 32) (the records a lane takes of them when
+# the warp tests the tile for one ray).
+AXIS_GENERAL = 27
+AXIS_EDGES = {0: 2, 1: 1, 2: 0, 6: 2}
+# The fewest axis records a scan (the single-tile groups together, or one
+# walked tile) takes the axis route with. A scan pays a fixed cost on it
+# (three reciprocals, the guard, the winner taken, the counts) and each class
+# run about a record's test, while an axis record saves more than half of
+# its test: the Cornell boxes' 7-wall rooms ran 50% slower with the route
+# (H100), a maze's scans of 52 records and more run 27-41% faster.
+AXIS_MIN_RECORDS = 16
+AXIS_TILE_WIDTH = 4
+AXIS_RUN_WIDTH = 4
+
 
 class ScenePrims(NamedTuple):
     """The scene in scene order (the JAX package's DeviceScene columns),
@@ -129,6 +159,9 @@ class DeviceScene(NamedTuple):
     mode_counts: tuple          # primitives of each test mode 0..7
     tiles: torch.Tensor         # [T, 9] tile table in merge order (tile_table)
     group_meta: tuple           # ((mode, first tile, tiles), ...) in merge order
+    axis_entries: torch.Tensor  # [E, 4] float32 pass-1 entries (axis_tables)
+    axis_tiles: torch.Tensor    # [T, 4] int32 each tile's runs of them
+    axis_runs: torch.Tensor     # [R, 4] int32 the runs, one class each
     noise: torch.Tensor         # [S, S] noise texture in [0, 1) (noise_rng)
     leaf_min: torch.Tensor      # [L, 3] BVH leaf boxes and sphere boxes (collision)
     leaf_max: torch.Tensor      # [L, 3]
@@ -355,6 +388,87 @@ def tile_table(table: np.ndarray, tile_by_mode: dict | None = None,
     return np.array(tiles, np.float32).reshape(-1, TILE_WIDTH), tuple(meta)
 
 
+def axis_classes(rows: np.ndarray, mode: int) -> np.ndarray:
+    """[n] int32: the class of each plane record ``rows`` [n, 20] of a quad
+    test mode, AXIS_GENERAL where it is not an axis record. From the
+    records' own values alone."""
+    n = rows[:, 0:3]
+    ok = ((n != 0).sum(axis=1) == 1) & (np.abs(n).max(axis=1) == 1)
+    code = np.argmax(n != 0, axis=1)
+    for k, cols in enumerate((slice(4, 7), slice(8, 11))[:AXIS_EDGES[mode]]):
+        w = rows[:, cols] != 0
+        ok &= w.sum(axis=1) == 1
+        code += 3 ** (k + 1) * np.argmax(w, axis=1)
+    return np.where(ok, code, AXIS_GENERAL).astype(np.int32)
+
+
+def axis_tables(records: np.ndarray, tiles: np.ndarray, group_meta: tuple):
+    """The pass-1 tables of the plane records [P, 20] cut into ``tiles``
+    [T, 9] of ``group_meta`` (tile_table): (entries [E, 4] float32, tile
+    rows [T, 4] int32, runs [R, 4] int32), laid out as AXIS_GENERAL says.
+
+    A scan with at least AXIS_MIN_RECORDS axis records takes the axis route:
+    the single-tile groups together, or a walked tile alone, in a scene of
+    quads alone (no triangle or sphere tile). Each of its
+    quad tiles that holds an axis record gives an entry for each of its
+    records: its axis records sorted stably by class, then its others in
+    record order, one run a class. Other tiles give none; a scene none of
+    whose scans takes the route gives empty tables, and its launches run
+    the general scan alone.
+
+    The kernel's axis test is exact: for finite o and d and t_min > 0, t =
+    (sign(n_A) d - o_A) (1 / d_A) and s = (w_B o_B - b) + t (w_B d_B) round
+    to the general test's values up to the sign of a zero, which no accept
+    reads (csrc/tracer.cu says why)."""
+    entries, runs = [], []
+    rows = np.zeros((tiles.shape[0], AXIS_TILE_WIDTH), np.int32)
+    n_single = sum(1 for g in group_meta if g[2] == 1)
+    base = np.cumsum([0] + [int(t[7]) for t in tiles[:n_single]])
+    classes = []
+    for tile in tiles:
+        first, count, mode = int(tile[6]), int(tile[7]), int(tile[8])
+        classes.append(axis_classes(records[first:first + count], mode) if mode in AXIS_EDGES
+                       else np.full(count, AXIS_GENERAL, np.int32))
+    n_axis = [int((c != AXIS_GENERAL).sum()) for c in classes]
+    # Beside triangles or spheres no scan takes the route: the kernels with
+    # those stages are built without it (csrc/tracer.cu launch_stages).
+    quads = all(int(t[8]) in AXIS_EDGES for t in tiles)
+    engaged = [quads and n >= AXIS_MIN_RECORDS for n in n_axis]
+    engaged[:n_single] = [quads and sum(n_axis[:n_single]) >= AXIS_MIN_RECORDS] * n_single
+    at = 0                                  # float4s so far
+    for ti, tile in enumerate(tiles):
+        first, count, mode = int(tile[6]), int(tile[7]), int(tile[8])
+        if not (engaged[ti] and n_axis[ti]):
+            continue
+        rec = records[first:first + count]
+        cls = classes[ti]
+        order = np.argsort(cls, kind="stable")
+        width = max(1, AXIS_EDGES[mode])
+        ent = np.zeros((count, 4 * width), np.float32)
+        for e, k in enumerate(order):
+            ent[e, 3] = np.int32(k + (base[ti] if ti < n_single else 0)).view(np.float32)
+            c = int(cls[k])
+            if c == AXIS_GENERAL:
+                continue
+            a, b, cc = c % 3, c // 3 % 3, c // 9
+            ent[e, 0] = rec[k, a] * rec[k, 3]           # sign(n_A) d, exact
+            ent[e, 1:3] = rec[k, 4 + b], rec[k, 7]
+            if width == 2:
+                ent[e, 4:6] = rec[k, 8 + cc], rec[k, 11]
+        starts = np.flatnonzero(np.diff(cls[order], prepend=-1))
+        lengths = np.diff(np.append(starts, count))
+        codes = cls[order][starts]
+        slots = sum(-(-int(n) // 32) for n, c in zip(lengths, codes) if c != AXIS_GENERAL)
+        rows[ti] = (len(runs), len(starts), n_axis[ti], slots)
+        runs += [(at + int(s) * width, int(n), int(c),
+                  0 if c == AXIS_GENERAL else c % 3 | (c // 3 % 3) << 8 | (c // 9) << 16)
+                 for s, n, c in zip(starts, lengths, codes)]
+        entries.append(ent.reshape(-1, 4))
+        at += count * width
+    return (np.concatenate(entries) if entries else np.zeros((0, 4), np.float32),
+            rows, np.array(runs, np.int32).reshape(-1, AXIS_RUN_WIDTH))
+
+
 def upload_scene(scene: Scene, device=None, noise: np.ndarray | None = None,
                  tile_by_mode: dict | None = None) -> DeviceScene:
     """Derive the tracer tables and the collision boxes and place them on
@@ -370,6 +484,7 @@ def upload_scene(scene: Scene, device=None, noise: np.ndarray | None = None,
     n_glass = int((sphere_table[:, 12] > 0.0).sum())
     counts = counts[:3] + (len(sphere_table) - n_glass, counts[4], n_glass) + counts[6:]
     tiles, group_meta = tile_table(table, tile_by_mode, sphere_table)
+    axis_entries, axis_tiles, axis_runs = axis_tables(records, tiles, group_meta)
     if noise is None:
         noise = generate_noise()
     bvh = build_bvh(scene.origin, scene.u, scene.v)
@@ -389,6 +504,9 @@ def upload_scene(scene: Scene, device=None, noise: np.ndarray | None = None,
         mode_counts=counts,
         tiles=as_dev(tiles),
         group_meta=group_meta,
+        axis_entries=as_dev(axis_entries),
+        axis_tiles=torch.from_numpy(axis_tiles).to(dev),
+        axis_runs=torch.from_numpy(axis_runs).to(dev),
         noise=as_dev(noise),
         leaf_min=as_dev(leaf_min),
         leaf_max=as_dev(leaf_max),

@@ -168,13 +168,17 @@ def tracer_segment_histogram(scene, cfg, ori, dirs, seed: int = 7, rows_per_bloc
 F32_OPS = ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FSET")
 
 
-def sass_loops(sass_text: str, function: str, max_len: int = 400) -> list:
+def sass_loops(sass_text: str, function: str, max_len: int = 400,
+               marker: str = "MUFU.RCP") -> list:
     """The loops of one kernel in ``cuobjdump -sass`` output (``function`` is
-    its mangled name): one dict per backward branch whose body holds an
-    MUFU.RCP (a reciprocal: one per plane record tested) and at most
-    ``max_len`` instructions, with the body's instructions (``insts``),
-    reciprocals (``rcp``), shared-memory loads (``lds``) and f32 arithmetic
-    and compares (``f32``), by address."""
+    its mangled name): one dict per backward branch whose body holds a
+    ``marker`` instruction and at most ``max_len`` instructions, with the
+    body's instructions (``insts``), markers (``records``), reciprocals
+    (``rcp``), shared-memory loads (``lds``) and f32 arithmetic and compares
+    (``f32``), by address. The default marker, MUFU.RCP (a reciprocal), is
+    one per plane record of the general test; ``LDS.128`` is one per entry
+    of the axis route's pass 1 in modes 1 and 2 (csrc/tracer.cu axis_min),
+    whose loops hold no reciprocal."""
     body = sass_text.split(f"Function : {function}\n", 1)
     if len(body) < 2:
         return []
@@ -200,8 +204,10 @@ def sass_loops(sass_text: str, function: str, max_len: int = 400) -> list:
             continue
         ops = [t.split()[1] if t.startswith("@") else t.split()[0] for _, t in insts[start:k + 1]]
         rcp = sum(op.startswith("MUFU.RCP") for op in ops)
-        if rcp:
-            loops.append(dict(start=insts[start][0], end=addr, insts=len(ops), rcp=rcp,
+        records = sum(op.startswith(marker) for op in ops)
+        if records:
+            loops.append(dict(start=insts[start][0], end=addr, insts=len(ops), records=records,
+                              rcp=rcp,
                               lds=sum(op.startswith("LDS") for op in ops),
                               f32=sum(op.split(".")[0] in F32_OPS for op in ops)))
     return loops

@@ -324,46 +324,60 @@ def _maze(name, **maze):
     return lambda: build_scene(dataclasses.replace(P.NAMED_CONFIGS[name]().maze, **maze))
 
 
-# name -> (scene, resident on a card whose block may opt in to 232,448 B)
+# name -> (scene, (resident, axis route) on a card whose block may opt in to
+# 232,448 B). The mazes' scans take the axis route; the Cornell box's and the
+# mesh gallery's rooms hold too few axis records for it.
 RESIDENCY_SCENES = {
-    "interactive": (_maze("interactive"), True),
-    "scale": (_maze("scale"), True),
-    "scale_glass": (_maze("scale", glass_prob=0.5), True),
-    "fuzzy": (_maze("fuzzy"), True),
-    "cornell_glass": (lambda: cornell_scene("glass"), True),
-    "mesh": (mesh_gallery_scene, True),
-    "mesh_checker": (lambda: checker_floor(mesh_gallery_scene()), True),
-    "maze80": (lambda: build_scene(MazeConfig(width=80, height=80)), False),
+    "interactive": (_maze("interactive"), (True, True)),
+    "scale": (_maze("scale"), (False, True)),
+    "scale_glass": (_maze("scale", glass_prob=0.5), (False, True)),
+    "fuzzy": (_maze("fuzzy"), (True, True)),
+    "cornell_glass": (lambda: cornell_scene("glass"), (True, False)),
+    "mesh": (mesh_gallery_scene, (True, False)),
+    "mesh_checker": (lambda: checker_floor(mesh_gallery_scene()), (True, False)),
+    "maze80": (lambda: build_scene(MazeConfig(width=80, height=80)), (False, True)),
 }
 
 
+@pytest.mark.parametrize("t_min", [None, 0.0])
 @pytest.mark.parametrize("name", list(RESIDENCY_SCENES))
-def test_resident_decision_from_byte_counts(cuda_device, name):
-    """The launcher keeps the whole scene in shared memory when its records,
-    texture rows, tile table and walk order fit what a block may opt in to
-    beside its warps' counts, and reports that with the bytes it staged.
-    config_scale's 64x64 maze is 216,276 bytes, inside the H100's 232,448
-    less 1,024."""
-    build, resident = RESIDENCY_SCENES[name]
+def test_resident_decision_from_byte_counts(cuda_device, name, t_min):
+    """The launcher takes the axis route for a scene with pass-1 tables and
+    t_min > 0 when the pass-1 tables, tile table and walk order fit what a
+    block may opt in to beside its warps' counts: with the whole scene's
+    records and texture rows beside them where those fit too, else with
+    the records in global memory. Otherwise, and with t_min <= 0, it keeps
+    the whole scene in shared memory where it fits. It reports the route
+    with the bytes it staged. config_scale's 64x64 maze is 216,276 bytes of
+    records and tables, inside the H100's 232,448 less 1,280, but not with
+    its 52,816 bytes of pass-1 tables, which alone fit."""
+    build, (resident, axis) = RESIDENCY_SCENES[name]
     dev = upload_scene(build(), device=cuda_device)
     walked = sum(g[2] for g in dev.group_meta if g[2] > 1)
     tex = 32 * (dev.num_planes + dev.num_spheres) if dev.textured else 0
     records = 80 * dev.num_planes + 64 * dev.num_spheres + tex
     tables = 36 * dev.tiles.shape[0] + 4 * walked
+    passes = 16 * (dev.axis_entries.shape[0] + dev.tiles.shape[0] + dev.axis_runs.shape[0])
     if name == "scale":
         assert records + tables == 2692 * 80 + 23 * 36 + 22 * 4 == 216_276
+        assert passes == 16 * (548 * 2 + 2138 + 23 + 44) == 52_816
     # Beside them each block keeps its warps' counts (fused_tracer.COUNT_BYTES).
     limit = (torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
              - COUNT_BYTES)
-    if limit == 232_448 - COUNT_BYTES:      # the H100's
-        assert (records + tables <= limit) == resident
+    tracer = TracerConfig() if t_min is None else TracerConfig(t_min=t_min)
+    want_axis = (tracer.t_min > 0 and dev.axis_entries.shape[0] > 0
+                 and passes + tables <= limit)
+    want_resident = records + (passes if want_axis else 0) + tables <= limit
+    if limit == 232_448 - COUNT_BYTES and t_min is None:      # the H100's
+        assert (want_resident, want_axis) == (resident, axis)
     o = torch.zeros((4096, 3), device=cuda_device)
     d = torch.nn.functional.normalize(torch.rand((4096, 3), device=cuda_device) - 0.5, dim=1)
     seed = torch.tensor([7], dtype=torch.int32, device=cuda_device)
     geo = {}
-    trace_paths_fused(dev, o, d, seed, TracerConfig(), 8, geometry=geo)
-    assert geo["resident"] == (records + tables <= limit)
-    assert geo["smem"] == (records if geo["resident"] else 0) + tables
+    trace_paths_fused(dev, o, d, seed, tracer, 8, geometry=geo)
+    assert (geo["resident"], geo["axis"]) == (want_resident, want_axis)
+    assert geo["smem"] == ((records if want_resident else 0) + (passes if want_axis else 0)
+                           + tables)
 
 
 @pytest.mark.parametrize("quantize", [True, False])
@@ -837,7 +851,9 @@ def test_tracer_counters_count_what_the_plain_version_counts(cuda_device, name, 
     first 2^18 rays): the kernel's light bitwise the plain version's, its
     live ray-segments and needed record tests those the plain version counts
     on the same rays, and the lane slots it issued at
-    least those needed (32 lanes a warp-segment).
+    least those needed (32 lanes a warp-segment); its lane slots of the axis
+    test at least the plain version's axis tests of the rays with finite o
+    and d (``axis_tests``).
 
     One kind of ray is counted apart: a diffuse scatter that draws exactly
     the reversed normal leaves a zero direction, NaN once normalized. The
@@ -852,7 +868,7 @@ def test_tracer_counters_count_what_the_plain_version_counts(cuda_device, name, 
     from mirror_maze_tpu_torch.render.pipeline import tracer_seed
     from mirror_maze_tpu_torch.runtime.state import init_state
 
-    extra = dict(visits=0, tests=0)
+    extra = dict(visits=0, tests=0, nan_tests=0)
     plain_slab = fused_tracer._slab_pass
 
     def slab(box, o, inv_d, tmin, alive):
@@ -863,9 +879,20 @@ def test_tracer_counters_count_what_the_plain_version_counts(cuda_device, name, 
             n = int((kernel & ~reach).sum())
             extra["visits"] += n
             extra["tests"] += n * int(box[7])
+            # (at most: the tile may hold fewer axis records than records)
+            extra["nan_tests"] += int((reach & extra["bad"]).sum()) * int(box[7])
         return reach
 
+    plain_nearest = fused_tracer._nearest
+
+    def nearest(single, walk, o, d, t_min, alive, *args, **kw):
+        # The rays whose o or d is not finite take the general test.
+        extra["bad"] = alive & ~(torch.isfinite(o).all(dim=1) & torch.isfinite(d).all(dim=1))
+        extra["nan_tests"] += int(extra["bad"].sum()) * sum(g[3] for g in single)
+        return plain_nearest(single, walk, o, d, t_min, alive, *args, **kw)
+
     monkeypatch.setattr(fused_tracer, "_slab_pass", slab)
+    monkeypatch.setattr(fused_tracer, "_nearest", nearest)
 
     cfg = P.NAMED_CONFIGS[name]()
     scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
@@ -888,8 +915,119 @@ def test_tracer_counters_count_what_the_plain_version_counts(cuda_device, name, 
     assert extra["visits"] <= 1e-5 * stats["tile_visits"]
     assert c["tests_needed"] <= c["tests_issued"]
     assert c["ray_segments"] <= 32 * c["warp_segments"]
+    # Every record of the maze is an axis record, every one of
+    # config_interactive's takes the axis route (config_scale's 6 of the
+    # single-tile group do not): the plain version counts the tests of those
+    # that do, and the kernel's lane slots of pass 1 hold at least those its
+    # rays with finite o and d need.
+    assert 0 < stats["axis_tests"] <= stats["plane_tests"]
+    assert (stats["axis_tests"] == stats["plane_tests"]) == (name == "interactive")
+    assert 0 < c["axis_tests"] <= c["tests_issued"]
+    assert c["axis_tests"] >= stats["axis_tests"] - extra["nan_tests"]
     fused_tracer.reset_counters(cuda_device)
     assert set(fused_tracer.counters(cuda_device).values()) == {0}
+
+
+def _glass_maze(cfg):
+    return dataclasses.replace(cfg, maze=dataclasses.replace(cfg.maze, glass_prob=0.5),
+                               tracer=dataclasses.replace(cfg.tracer, fresnel=True))
+
+
+@pytest.mark.parametrize("name,rays", [("interactive", None), ("scale", 1 << 18),
+                                       ("fuzzy", None), ("glass", None)])
+def test_axis_route_light_of_frame_1_is_the_plain_tracers(cuda_device, name, rays):
+    """Frame 1 of config_interactive, config_scale (its first 2^18 rays: the
+    walk, pass 1 resident and the records in global memory), config_fuzzy
+    (the seed row) and config_interactive with glass panes and Fresnel on
+    (mode 6): every record of a maze is an axis record, the kernel takes the
+    axis route, and its light is the plain version's bit for bit."""
+    from _torch_tools import frame1_inputs
+    from mirror_maze_tpu_torch.render.pipeline import tracer_seed
+    from mirror_maze_tpu_torch.runtime.state import init_state
+
+    cfg = (_glass_maze(P.NAMED_CONFIGS["interactive"]()) if name == "glass"
+           else P.NAMED_CONFIGS[name]())
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    assert scene.has_glass == (name == "glass")
+    ori, dirs, tkey, row = frame1_inputs(cfg, scene)
+    ori, dirs = ori[:rays].contiguous(), dirs[:rays].contiguous()
+    row = None if row is None else row[:rays].contiguous()
+    seed, tc = tracer_seed(tkey), cfg.tracer
+    anchor = init_state(cfg, device=cuda_device).camera(cfg).center
+    geo = {}
+    got = trace_paths_fused(scene, ori, dirs, seed, tc, tc.block_rows, anchor=anchor,
+                            seed_row=row, geometry=geo)
+    want = trace_paths_plain(scene, ori, dirs, seed, tc, tc.block_rows, anchor=anchor,
+                             seed_row=row)
+    torch.cuda.synchronize()
+    assert geo["axis"] and geo["resident"] == (name != "scale")
+    assert torch.equal(got, want)
+    assert float(want.mean()) > 0
+
+
+def _edge_rays(scene, n, seed):
+    """Rays at the axis test's edges, a third each: along an axis (the other
+    components +0 or -0); aimed through a corner of a quad (o = corner - 2 d
+    with d of components +-1 or +-0.5: every plane through the corner is
+    met at t = 2 exactly, so two, three or four records tie); and, among the
+    rest, o or d with an infinite or NaN component. The others are random."""
+    rng = np.random.default_rng(seed)
+    o, d = scene_rays(scene, n, seed)
+    k = n // 3
+    axis = rng.integers(0, 3, k)
+    d[:k] = np.where(rng.random((k, 3)) < 0.5, 0.0, -0.0)
+    d[np.arange(k), axis] = rng.choice([1.0, -1.0], k)
+    quads = np.asarray(scene.kind) != 3
+    org, u, v = (np.asarray(a, np.float32)[quads] for a in (scene.origin, scene.u, scene.v))
+    corners = np.concatenate([org, org + u, org + v, org + u + v]).astype(np.float32)
+    c = corners[rng.integers(0, len(corners), k)]
+    dc = rng.choice([1.0, -1.0, 0.5, -0.5], (k, 3)).astype(np.float32)
+    d[k:2 * k], o[k:2 * k] = dc, c - np.float32(2) * dc
+    bad = np.float32([np.nan, np.inf, -np.inf])
+    m = n - 2 * k
+    for arr in (o, d):
+        pick = 2 * k + np.flatnonzero(rng.random(m) < 0.15)
+        arr[pick, rng.integers(0, 3, len(pick))] = bad[rng.integers(0, 3, len(pick))]
+    return o, d
+
+
+@pytest.mark.parametrize("tiles", [None, {0: 16, 1: 32}])
+def test_axis_route_at_the_edges_of_the_axis_test(cuda_device, tiles):
+    """config_interactive's maze in its one tile a group, and the 16x16 maze
+    in walked tiles of 16 and 32 (pass 1 by each lane alone and by the warp
+    for one ray): rays along an axis, through the corners of the walls
+    (exact ties of two to four records, summed in record order by the
+    rescan), and rays whose o or d is infinite or NaN (the general test):
+    the light bitwise the plain version's. With t_min = 0 the launcher
+    takes the general route, bitwise too."""
+    maze = config_interactive().maze if tiles is None else MazeConfig(width=16, height=16)
+    scene = build_scene(maze)
+    dev = upload_scene(scene, device=cuda_device, tile_by_mode=tiles)
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in _edge_rays(scene, 60_000, 13))
+    seed = torch.tensor([7], dtype=torch.int32, device=cuda_device)
+    anchor = torch.tensor([3.0, -1.0, 7.0], device=cuda_device)
+    # Ties on the first segment: the most records at the nearest t of one
+    # scan, the single-tile groups' joint one or a walked tile's.
+    from mirror_maze_tpu_torch.render import fused_tracer
+
+    t_min = float(np.float32(TracerConfig().t_min))
+    ts = [fused_tracer._hit_ts(int(r[8]), dev.planes[int(r[6]):int(r[6]) + int(r[7])], o, d,
+                               t_min, None, None) for r in dev.tiles.tolist()]
+    n_single = sum(1 for g in dev.group_meta if g[2] == 1)
+    scans = [torch.cat(ts[:n_single], dim=1)] + ts[n_single:]
+    most = torch.stack([((t == t.min(dim=1).values[:, None]) & (t < fused_tracer.BIG)).sum(dim=1)
+                        for t in scans]).max(dim=0).values
+    assert int((most >= 2).sum()) > 100
+    assert tiles is not None or int((most >= 3).sum()) > 100
+    for tracer in (TracerConfig(bounce_limit=4, mirror_limit=6),
+                   TracerConfig(bounce_limit=4, mirror_limit=6, t_min=0.0)):
+        geo = {}
+        got = trace_paths_fused(dev, o, d, seed, tracer, 8, anchor=anchor, geometry=geo)
+        want = trace_paths_plain(dev, o, d, seed, tracer, 8, anchor=anchor)
+        torch.cuda.synchronize()
+        assert geo["axis"] == (tracer.t_min > 0)
+        assert torch.equal(got, want)
+        assert float(want.mean()) > 0
 
 
 def test_graph_runners_on_two_streams_keep_their_own_work_counters(cuda_device):
