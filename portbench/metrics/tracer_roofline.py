@@ -5,9 +5,11 @@ tracer's statistics of a seeded sample of the window's own rays and scaled
 to a launch) over the kernel's mean device time a launch in the traced
 window."""
 
+ROOFLINE = "tracer"
+
 
 def read(rec):
-    t, r = rec.get("trace"), rec.get("roofline")
+    t, r = rec.get("trace"), rec.get("rooflines", {}).get(ROOFLINE)
     if not t or not r or not t.get("tracer_launches"):
         return None
     ms = t["tracer_s"] * 1e3 / t["tracer_launches"]

@@ -11,7 +11,10 @@ neighbours. So for a call of F frames it takes the handed-in screen over
 square regions drawn from the seed, widened by F pixels, traces every chunk
 of the widened region that each frame refreshes, resolves it in, blurs and
 quantizes, and after F frames holds the regions exact; with ``regions``
-None the region is the whole screen.
+None the region is the whole screen. The scene and the rays' light are the
+configuration's reference route's (``"reference"`` in its file: the module
+``portbench/reference/<route>.py``, see ``__init__.py``); nothing else here
+knows how a ray is traced.
 
 ``compare`` gives the numbers that decide ``correct``:
 
@@ -27,15 +30,25 @@ None the region is the whole screen.
 
 from __future__ import annotations
 
+import importlib
+
 import numpy as np
 import torch
 
 from . import frame as fr
-from . import scene as sc
-from . import sim
-from . import tracer
+from . import route_module, sim
 
 STATE_FIELDS = ("cam_center", "quat", "half_theta", "perm", "cursor", "key", "frame")
+
+
+def route_of(cfg_file: dict):
+    """The reference route module that a configuration file names
+    (``"reference"``); a ValueError naming it where there is none such."""
+    route = importlib.import_module(route_module(cfg_file))
+    if not all(callable(getattr(route, f, None)) for f in ("build", "trace")):
+        raise ValueError(f"reference route {cfg_file['reference']!r}: {route.__name__} has no "
+                         "build() and trace()")
+    return route
 
 
 def regions_of(cfg: dict, seed: int, count: int, side: int) -> list:
@@ -68,19 +81,22 @@ def _spatial(cm: torch.Tensor, cfg: dict) -> torch.Tensor:
 
 
 class Reference:
-    """The reference of one run: its scene, and its engine stepped through
-    the run's script, in ``dtype`` (float32; lower for the control)."""
+    """The reference of one run of the configuration file ``cfg_file``: its
+    route's scene, and its engine stepped through the run's script, in
+    ``dtype`` (float32; lower for the control)."""
 
-    def __init__(self, cfg: dict, seed: int, script: list, device, dtype=torch.float32):
-        self.cfg, self.seed, self.script = cfg, seed, script
+    def __init__(self, cfg_file: dict, seed: int, script: list, device,
+                 dtype=torch.float32):
+        self.route = route_of(cfg_file)
+        self.cfg, self.seed, self.script = cfg_file["engine"], seed, script
         self.device, self.dtype = torch.device(device), dtype
-        # Elements of one [rays, planes] intermediate of the plain tracer.
-        self.budget = 1 << 26 if self.device.type == "cuda" else tracer.PLAIN_BUDGET
+        # Elements of one [rays, records] intermediate a route holds at once.
+        self.budget = 1 << 26 if self.device.type == "cuda" else 1 << 23
         # Float32 products stay float32 on the card (the tie sums of the
         # nearest-hit select are a matrix product).
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.scene = sc.build(cfg, device)
+        self.scene = self.route.build(self.cfg, device)
 
     def frames(self, want: set) -> tuple:
         engine = sim.Engine(self.cfg, self.seed, self.scene, self.dtype)
@@ -112,9 +128,9 @@ class Reference:
         return out, final
 
     def work(self, numbers: list, chunks: int) -> tuple:
-        """The plain tracer's statistics of ``chunks`` chunks drawn from the
-        seed out of the windows of frames ``numbers``, and the share of
-        those frames' rays they hold: (stats, sampled rays, rays)."""
+        """The route's statistics of ``chunks`` chunks drawn from the seed
+        out of the windows of frames ``numbers``, and the share of those
+        frames' rays they hold: (stats, sampled rays, rays)."""
         s = self.cfg["screen"]
         cw, spp, ppc = s["chunk_width"], s["samples_per_pixel"], s["chunk_width"] ** 2
         frames, _ = self.frames(set(numbers))
@@ -130,16 +146,12 @@ class Reference:
             center = f.center.to(self.device)
             ori, dirs, ray_ids = fr.rays(self.cfg, center, f.quat.to(self.device), pix, index,
                                          f.jkey, self.dtype)
-            tracer.trace(self.scene.planes, self.scene.tiles, self.scene.group_meta, ori, dirs,
-                         f.seed, self.cfg["tracer"], ray_ids, center.float(), self.dtype,
-                         stats=stats, budget=self.budget)
+            self.route.trace(self.scene, ori, dirs, ray_ids, [(f, ray_ids.numel())],
+                             center.float(), self.cfg["tracer"], self.dtype, self.budget,
+                             stats=stats)
             sampled += ray_ids.numel()
             total += ids.numel() * ppc * spp
         return stats, sampled, total
-
-    @property
-    def walked_tiles(self) -> int:
-        return sum(n for _, _, n in self.scene.group_meta if n > 1)
 
     def regions(self, check: dict) -> list:
         s = self.cfg["screen"]
@@ -184,17 +196,17 @@ class Reference:
             index = (k_all[:, None] * ppc + torch.arange(ppc, device=self.device)).reshape(-1)
             ori, dirs, ray_ids = fr.rays(self.cfg, f.center.to(self.device),
                                          f.quat.to(self.device), pix, index, f.jkey, self.dtype)
-            work.append(dict(parts=parts, pix=pix, ori=ori, dirs=dirs, ray_ids=ray_ids,
-                             seed=torch.full_like(ray_ids, f.seed),
+            work.append(dict(parts=parts, pix=pix, ori=ori, dirs=dirs, ray_ids=ray_ids, frame=f,
                              anchor=tuple(f.center.float().tolist())))
         lights = [None] * len(work)
         for anchor in dict.fromkeys(w["anchor"] for w in work):
             group = [i for i, w in enumerate(work) if w["anchor"] == anchor]
             cat = lambda key: torch.cat([work[i][key] for i in group])
-            light = tracer.trace(self.scene.planes, self.scene.tiles, self.scene.group_meta,
-                                 cat("ori"), cat("dirs"), cat("seed"), tc, cat("ray_ids"),
-                                 torch.tensor(anchor, device=self.device), self.dtype,
-                                 budget=self.budget)
+            light = self.route.trace(self.scene, cat("ori"), cat("dirs"), cat("ray_ids"),
+                                     [(work[i]["frame"], work[i]["ray_ids"].numel())
+                                      for i in group],
+                                     torch.tensor(anchor, device=self.device), tc, self.dtype,
+                                     self.budget)
             for i, part in zip(group, light.split([work[i]["ray_ids"].numel() for i in group])):
                 lights[i] = part
         for w, light in zip(work, lights):

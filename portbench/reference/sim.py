@@ -34,7 +34,8 @@ class Frame(NamedTuple):
     cursor: int              # after the pop (and the turn)
     key: tuple               # the state's key after the frame
     jkey: tuple
-    seed: int
+    tkey: tuple              # the threefry key of the frame's trace
+    seed: int                # the fused tracer's seed, drawn from tkey
     perm_from: tuple | None  # the key the queue in force after it was drawn from
 
 
@@ -126,7 +127,7 @@ class Engine:
             if bool(torch.isfinite(cand).all()):
                 self.quat, self.perm_from, self.cursor = cand, rkey, 0
         return Frame(self.frame, ids, self.center, self.quat, self.half_theta, self.cursor,
-                     self.key, jkey, prng.tracer_seed(tkey), self.perm_from)
+                     self.key, jkey, tkey, prng.tracer_seed(tkey), self.perm_from)
 
 
 def run(engine: Engine, script, want: set) -> dict:
@@ -136,7 +137,7 @@ def run(engine: Engine, script, want: set) -> dict:
     out = {}
     if 0 in want:
         out[0] = Frame(0, torch.zeros(0), engine.center, engine.quat, engine.half_theta,
-                       engine.cursor, engine.key, None, 0, engine.perm_from)
+                       engine.cursor, engine.key, None, None, 0, engine.perm_from)
     for keys, dx, rot in script:
         f = engine.advance(keys, dx, rot, engine.frame + 1 in want)
         if f.number in want:

@@ -1,6 +1,8 @@
-"""The plain path tracer: a frozen copy of the port's
-``render/fused_tracer.py trace_paths_plain`` for opaque quads (the maze's
-planes; no spheres, glass, textures or sky), in plain torch.
+"""The reference route ``tracer``: the plain path tracer, a frozen copy of
+the port's ``render/fused_tracer.py trace_paths_plain`` for opaque quads
+(the maze's planes; no spheres, glass, textures or sky), in plain torch.
+The route of the configurations whose ``intersector`` is ``pallas``: the
+port's fused tracer kernel.
 
 Per ray: PCG seeded from (seed, i // B, i % B); per segment the nearest hit
 over the single-tile groups tested jointly (planes tied exactly on t sum
@@ -20,6 +22,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import scene as sc
 
 BIG = 1e30
 LANES = 128
@@ -220,9 +224,25 @@ def trace_chunk(single, walk, o, d, rng, tc: dict, counts):
     return lt
 
 
-def trace(planes, tiles, group_meta, ori, dirs, seed, tc: dict, ray_ids: torch.Tensor,
-          anchor: torch.Tensor, dtype=torch.float32, stats: dict | None = None,
-          budget: int = PLAIN_BUDGET) -> torch.Tensor:
+def build(cfg: dict, device) -> sc.RefScene:
+    """The maze of ``cfg`` and its tables on ``device``."""
+    return sc.build(cfg, device)
+
+
+def trace(scene: sc.RefScene, ori, dirs, ray_ids: torch.Tensor, frames: list,
+          anchor: torch.Tensor, tc: dict, dtype=torch.float32, budget: int = PLAIN_BUDGET,
+          stats: dict | None = None) -> torch.Tensor:
+    """The route's light [R, 3] in ``dtype`` (portbench/reference/__init__.py):
+    each ray seeded from its frame's ``seed``."""
+    seed = torch.cat([torch.full((n,), f.seed, dtype=torch.int64, device=ray_ids.device)
+                      for f, n in frames])
+    return trace_paths(scene.planes, scene.tiles, scene.group_meta, ori, dirs, seed, tc,
+                       ray_ids, anchor, dtype, stats, budget).to(dtype)
+
+
+def trace_paths(planes, tiles, group_meta, ori, dirs, seed, tc: dict, ray_ids: torch.Tensor,
+                anchor: torch.Tensor, dtype=torch.float32, stats: dict | None = None,
+                budget: int = PLAIN_BUDGET) -> torch.Tensor:
     """The light [R, 3] (float32) of rays (ori, dirs) [R, 3] at positions
     ``ray_ids`` of their frame's wavefront, under the tracer config ``tc``
     (a configuration file's ``tracer`` group), their frame's ``seed`` (one

@@ -9,7 +9,10 @@ for. The cell (``workloads`` of BENCHMARK.json) names a configuration
 (``portbench/loops/<loop>.py``); its metrics are the entries of
 BENCHMARK.json whose ``workloads`` name it, each read by
 ``portbench/metrics/<metric>.py``; the limits of its check are
-``portbench/limits/<cell>.json``.
+``portbench/limits/<cell>.json``. The configuration names its plain
+reference's route (``"reference"``: ``portbench/reference/<route>.py``), and
+a metric that reads a kernel's roofline names it (``ROOFLINE`` in its
+module: ``portbench/roofline/<kernel>.py``).
 
 A run builds the scene and the engine from the seed, steps the mix's
 warm-up (every graph the mix uses is captured there), then steps the mix for
@@ -17,7 +20,8 @@ warm-up (every graph the mix uses is captured there), then steps the mix for
 ``--trace 1`` torch.profiler traces the window's second half and the
 per-layer metrics are printed instead of the end-to-end ones. Then the
 plain reference (``portbench/reference``) checks what the window produced,
-and the last line of standard output is one JSON object. With no card, or
+the rooflines that the printed metrics read are counted, and the last line
+of standard output is one JSON object. With no card, or
 fewer than the cell asks for, it exits 2 and prints no result; where the
 process holds JAX or the JAX package by the end, it exits 3 and prints no
 result.
@@ -105,7 +109,10 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool, de
     from mirror_maze_tpu_torch.runtime.state import init_state
     from mirror_maze_tpu_torch.scene.builder import build_scene
 
+    from .reference import route_module
+
     cfg_file = cfg_file or load_json(PKG / "configs" / f"{cell['config']}.json")
+    route_module(cfg_file)      # a route the reference lacks fails before a frame is stepped
     mix = mix or traffic.load(cell["traffic"], PKG)
     loop = loops.find(mix["loop"])
     dev = torch.device(device)
@@ -153,15 +160,16 @@ def check_numbers(rec: dict, plan: dict, control: torch.dtype | None = None) -> 
     it against the reference in float32."""
     from .reference import check as ref
 
-    cfg = rec["cfg_file"]["engine"]
+    cfg_file = rec["cfg_file"]
+    cfg = cfg_file["engine"]
     script = rec["stepped"]
     chosen = [(name, rec["checks"][name]) for name in plan["calls"] if name in rec["checks"]]
     specs = [dict(first=c["first"], frames=c["frames"], screen=c["before"].screen,
                   regions=plan["regions"]) for _, c in chosen]
-    reference = ref.Reference(cfg, rec["seed"], script, rec["device"])
+    reference = ref.Reference(cfg_file, rec["seed"], script, rec["device"])
     expected, final_ref = reference.expect(specs)
     if control is not None:
-        low, low_final = ref.Reference(cfg, rec["seed"], script, rec["device"],
+        low, low_final = ref.Reference(cfg_file, rec["seed"], script, rec["device"],
                                        control).expect(specs)
         got = [dict(before=e["before"], after=e["after"],
                     display=[np.stack([d, d]) for d in e["display"]]) for e in low]
@@ -175,32 +183,32 @@ def check_numbers(rec: dict, plan: dict, control: torch.dtype | None = None) -> 
     return ref.compare(expected, got, final)
 
 
-def tracer_work(rec: dict, frames: int = 4, chunks: int = 64) -> dict:
-    """The tracer's bound a launch (portbench/roofline/tracer.py), counted
-    on ``chunks`` chunks of each of ``frames`` traced frames drawn from the
-    seed and scaled to the frames' rays."""
-    from .reference import check as ref
-    from .roofline import tracer as roof
-
-    traced = rec["trace"]["frames"]
-    script, first = rec["stepped"], len(rec["stepped"]) - traced
-    rng = np.random.default_rng([rec["seed"], 0x700F])
-    numbers = sorted(int(n) for n in rng.choice(np.arange(first + 1, len(script) + 1),
-                                                min(frames, traced), replace=False))
-    reference = ref.Reference(rec["cfg_file"]["engine"], rec["seed"], script, rec["device"])
-    stats, sampled, total = reference.work(numbers, chunks)
-    ops = roof.operations(stats, reference.walked_tiles) * total / sampled / len(numbers)
-    n_bytes = roof.bytes_moved(total // len(numbers))
-    bound, by = roof.bound_ms(ops, n_bytes)
-    return dict(ops=ops, bytes=n_bytes, bound_ms=bound, bound_by=by, frames=numbers,
-                sampled_rays=sampled, stats=stats)
-
-
 def reader(name: str):
     """The reader of metric ``name``: ``portbench/metrics/<quantity>.py``,
     the quantity being the name up to its first dot (a quantity split by the
     end-to-end metric it moves, ``host_ms.<split>``, shares its reader)."""
     return importlib.import_module(f"portbench.metrics.{name.split('.')[0]}")
+
+
+def roofline(kernel: str):
+    """The count of kernel ``kernel``'s work: ``portbench/roofline/<kernel>.py``,
+    whose ``work(rec, reference)`` gives at least its ``bound_ms`` a launch."""
+    return importlib.import_module(f"portbench.roofline.{kernel}")
+
+
+def rooflines(bench: dict, cell: dict, rec: dict, kind: str) -> dict:
+    """{kernel: its work} of the kernels that the cell's ``kind`` metrics
+    name (``ROOFLINE`` in a reader's module), each counted on the plain
+    reference of the run's configuration, by its own route; {} where none
+    names one."""
+    from .reference import check as ref
+
+    kernels = sorted({k for m in metrics_of(bench, cell["name"], kind)
+                      if (k := getattr(reader(m["name"]), "ROOFLINE", None))})
+    if not kernels:
+        return {}
+    reference = ref.Reference(rec["cfg_file"], rec["seed"], rec["stepped"], rec["device"])
+    return {k: roofline(k).work(rec, reference) for k in kernels}
 
 
 def read_metrics(bench: dict, cell: str, kind: str, rec: dict) -> dict:
@@ -223,9 +231,14 @@ def card() -> str:
         return "unknown"
 
 
+def kind_of(rec: dict) -> str:
+    """The metrics a run prints: ``per_layer`` traced, else ``end_to_end``."""
+    return "per_layer" if rec["trace"] is not None else "end_to_end"
+
+
 def result(bench: dict, cell: dict, rec: dict, numbers: dict, limits: dict) -> dict:
     trace = rec["trace"]
-    kind = "per_layer" if trace is not None else "end_to_end"
+    kind = kind_of(rec)
     dev = rec["device"]
     device = {"platform": "gpu" if dev.type == "cuda" else dev.type,
               "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
@@ -277,9 +290,9 @@ def report(bench: dict, cell: dict, rec: dict) -> int:
     if rec["trace"] is not None:
         print(json.dumps({k: v for k, v in rec["trace"].items() if k != "breakdown"}),
               file=sys.stderr)
-        rec["roofline"] = tracer_work(rec)
-        print(json.dumps({"tracer_work": {k: v for k, v in rec["roofline"].items()}}),
-              file=sys.stderr)
+    rec["rooflines"] = rooflines(bench, cell, rec, kind_of(rec))
+    for kernel, work in rec["rooflines"].items():
+        print(json.dumps({f"{kernel}_work": work}), file=sys.stderr)
     out = result(bench, cell, rec, numbers, plan["limits"])
     bad = forbidden_modules()
     if bad:

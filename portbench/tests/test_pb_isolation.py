@@ -50,12 +50,12 @@ if phase:
         return original(*args, **kwargs)
     setattr(run, phase, loading_jax)
 bench = tiny.bench()
-rec = tiny.run_tiny("interactive.refine", seconds=0.2, trace=phase == "tracer_work")
+rec = tiny.run_tiny("interactive.refine", seconds=0.2, trace=phase == "rooflines")
 sys.exit(run.report(bench, run.cell_of(bench, "interactive.refine"), rec))
 """
 
 
-@pytest.mark.parametrize("phase", [None, "check_numbers", "tracer_work"])
+@pytest.mark.parametrize("phase", [None, "check_numbers", "rooflines"])
 def test_jax_loaded_after_the_window_leaves_no_result(phase):
     """The look for JAX comes last: a module named jax that the reference
     or the roofline's count loads stops the result line."""
@@ -69,19 +69,24 @@ def test_jax_loaded_after_the_window_leaves_no_result(phase):
 
 
 def test_the_reference_imports_nothing_of_the_port_or_of_jax():
-    out = python("import sys, portbench.reference.check, portbench.roofline.tracer; "
+    """Nor does any route or roofline module."""
+    modules = [f"portbench.{d}.{p.stem}" for d in ("reference", "roofline")
+               for p in sorted((run.PKG / d).glob("*.py")) if p.stem != "__init__"]
+    assert "portbench.reference.tracer" in modules and "portbench.roofline.tracer" in modules
+    out = python(f"import importlib, sys; [importlib.import_module(m) for m in {modules!r}]; "
                  "print(sorted({m.split('.')[0] for m in sys.modules}))")
     assert out.returncode == 0, out.stderr[-2000:]
     top = set(ast.literal_eval(out.stdout.strip()))
     assert not top & {"jax", "jaxlib", "flax", "mirror_maze_tpu", "mirror_maze_tpu_torch"}
-    for path in (run.PKG / "reference").glob("*.py"):
+    for path in [*(run.PKG / "reference").glob("*.py"), *(run.PKG / "roofline").glob("*.py")]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
                      [node.module or ""] if isinstance(node, ast.ImportFrom) and not node.level
                      else [])
             for name in names:
                 assert name.split(".")[0] in {"numpy", "torch", "__future__", "dataclasses",
-                                              "typing", "types"}, (path.name, name)
+                                              "typing", "types", "importlib", "re", "sys"}, (
+                    path.name, name)
 
 
 def test_forbidden_modules_compare_whole_top_level_names():

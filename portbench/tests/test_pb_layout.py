@@ -1,6 +1,7 @@
 """BENCHMARK.json against the benchmark's contract, and each configuration
-file against the port's preset it stands for."""
+file against the port's preset it stands for, with its stated overrides."""
 
+import copy
 import dataclasses
 import json
 import re
@@ -8,6 +9,7 @@ import re
 import pytest
 
 from portbench import run
+from portbench.reference import check
 
 from . import tiny
 
@@ -25,15 +27,77 @@ def plain(x):
     return x
 
 
-@pytest.mark.parametrize("name", ["interactive", "scale"])
-def test_config_file_is_the_ports_preset_field_for_field(name):
-    from mirror_maze_tpu_torch.config import NAMED_CONFIGS
+CONFIGS = [c["name"] for c in tiny.bench()["configs"]]
 
-    got = run.load_json(run.PKG / "configs" / f"{name}.json")
-    want = plain(dataclasses.asdict(NAMED_CONFIGS[name]()))
-    assert got["engine"] == want
-    assert got["preset"] == f"config_{name}"
-    assert run.engine_config(got["engine"]) == NAMED_CONFIGS[name]()
+
+def config_file(name: str) -> dict:
+    return run.load_json(run.PKG / "configs" / f"{name}.json")
+
+
+def replaced(obj, path: list, value):
+    """``obj`` with the field at ``path`` (names of nested dataclasses) set."""
+    if len(path) > 1:
+        value = replaced(getattr(obj, path[0]), path[1:], value)
+    return dataclasses.replace(obj, **{path[0]: value})
+
+
+def field_at(obj, path: list):
+    for name in path:
+        obj = getattr(obj, name)
+    return obj
+
+
+def as_field(value):
+    return tuple(value) if isinstance(value, list) else value
+
+
+def holds_to_its_preset(got: dict) -> None:
+    """A configuration file's ``engine`` is its ``preset`` (a function of the
+    port's config module) with its ``overrides`` (field path -> value) set,
+    field for field: every field that differs is stated, and each stated
+    value is what ``run.engine_config`` reads."""
+    from mirror_maze_tpu_torch import config
+
+    want = getattr(config, got["preset"])()
+    for path, value in got["overrides"].items():
+        want = replaced(want, path.split("."), as_field(value))
+    assert got["engine"] == plain(dataclasses.asdict(want))
+    engine = run.engine_config(got["engine"])
+    assert engine == want
+    for path, value in got["overrides"].items():
+        assert field_at(engine, path.split(".")) == as_field(value), path
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_config_file_is_the_ports_preset_field_for_field(name):
+    got = config_file(name)
+    assert isinstance(got["overrides"], dict)
+    holds_to_its_preset(got)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_config_file_names_a_reference_route_that_exists(name):
+    got = config_file(name)
+    assert (run.PKG / "reference" / f"{got['reference']}.py").exists()
+    route = check.route_of(got)
+    assert callable(route.build) and callable(route.trace)
+
+
+def test_a_configuration_on_another_intersector_needs_only_its_overrides():
+    """``config_interactive`` with ``intersector`` bvh, as a file of its own
+    would state it, passes the same check; an unstated change fails it."""
+    got = config_file("interactive")
+    got.update(name="interactive-bvh", overrides={"intersector": "bvh"})
+    got["engine"]["intersector"] = "bvh"
+    holds_to_its_preset(got)
+    nested = copy.deepcopy(got)
+    nested["overrides"]["camera.spawn"] = [-5.0, 0.0, -35.0]
+    nested["engine"]["camera"]["spawn"] = [-5.0, 0.0, -35.0]
+    holds_to_its_preset(nested)
+    unstated = copy.deepcopy(got)
+    unstated["engine"]["screen"]["samples_per_pixel"] = 32
+    with pytest.raises(AssertionError):
+        holds_to_its_preset(unstated)
 
 
 def test_benchmark_json_keeps_the_contracts_shape():

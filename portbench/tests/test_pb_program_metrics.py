@@ -125,3 +125,32 @@ def test_a_traced_run_on_the_cpu_reads_the_programs_spans():
     assert read("warmup_s", rec) == 0.0               # nor captures a graph
     assert read("step_idle_ms", rec) >= 0.0
     assert read("tracer_lane_share", rec) is None
+
+
+LONG = "void resolve_kernel<" + "x" * 200 + ">"
+
+
+def test_by_kernel_gives_each_kernel_of_the_window_its_seconds_and_launches():
+    """Kernels by name (cut to 120 characters), those that overlap the
+    window alone; copies and spans are no kernels."""
+    recs = records() + [(LONG, "kernel", 46 * MS, 47 * MS), (LONG, "kernel", 93 * MS, 94 * MS),
+                        ("void trace_kernel<true>", "kernel", 101 * MS, 130 * MS),
+                        ("present", "kernel", -9 * MS, -1 * MS)]
+    got = trace.reduce(recs, 120)["by_kernel"]
+    assert set(got) == {"void trace_kernel<true>", "present", LONG[:120]}
+    assert got["void trace_kernel<true>"] == dict(seconds=pytest.approx(0.06), launches=2)
+    assert got["present"] == dict(seconds=pytest.approx(0.004), launches=2)
+    assert got[LONG[:120]] == dict(seconds=pytest.approx(0.002), launches=2)
+
+
+def test_by_kernel_leaves_the_tracer_glue_and_breakdown_as_they_were():
+    recs = records() + [(LONG, "kernel", 46 * MS, 47 * MS)]
+    got = trace.reduce(recs, 120)
+    assert got["tracer_s"] == pytest.approx(0.06) and got["tracer_launches"] == 2
+    # The glue: every device operation but the tracer and the host copies.
+    assert got["glue_s"] == pytest.approx(0.004 + 0.001) and got["kernels"] == 5
+    ops = dict(got["breakdown"]["device_ops"])
+    assert ops == pytest.approx({"void trace_kernel<true>": 0.06, "present": 0.004,
+                                 "Memcpy DtoH": 0.004, "Memcpy HtoD": 0.002, LONG[:120]: 0.001})
+    for name, k in got["by_kernel"].items():
+        assert k["seconds"] == ops[name]

@@ -72,8 +72,8 @@ def test_reference_tracer_is_the_ports_plain_version_bitwise_with_its_statistics
                              TracerConfig(**{k: tuple(v) if isinstance(v, list) else v
                                              for k, v in tc.items()}),
                              tc["block_rows"], anchor=ori[0], ray_ids=ids, stats=want_stats)
-    got = tracer.trace(scene.planes, scene.tiles, scene.group_meta, ori, dirs, 12345, tc, ids,
-                       ori[0], stats=got_stats)
+    got = tracer.trace_paths(scene.planes, scene.tiles, scene.group_meta, ori, dirs, 12345, tc,
+                             ids, ori[0], stats=got_stats)
     assert torch.equal(got, want)
     for k in got_stats:
         assert got_stats[k] == want_stats[k], k

@@ -7,7 +7,9 @@ Device operations are the profiler's kernel, memcpy and memset records.
 ``busy_s`` is the length of their union inside the window; ``window_s``
 the window's length; an idle gap is a stretch of the window with no device
 operation, named by the benchmark span the host was in at its middle
-(``harness`` outside every span).
+(``harness`` outside every span). ``by_kernel`` gives every kernel that ran
+in the window, by its name cut to 120 characters, its device seconds and
+launches, so that a metric reads any kernel's time by a part of its name.
 """
 
 from __future__ import annotations
@@ -95,6 +97,11 @@ def reduce(records: list, frames: int, top: int = 10) -> dict:
     for name, _, a, b in ops:
         by_name[name[:120]] += (b - a) * 1e-9
     kernels = [r for r in ops if r[1] == "kernel"]
+    by_kernel = {}
+    for name, _, a, b in kernels:
+        k = by_kernel.setdefault(name[:120], dict(seconds=0.0, launches=0))
+        k["seconds"] += (b - a) * 1e-9
+        k["launches"] += 1
     tracer = [r for r in kernels if TRACER in r[0]]
     glue = [r for r in ops if not (r[1] == "kernel" and TRACER in r[0])
             and not any(c in r[0] for c in HOST_COPIES)]
@@ -116,7 +123,7 @@ def reduce(records: list, frames: int, top: int = 10) -> dict:
         records=dict(kinds), window_s=(w1 - w0) * 1e-9, busy_s=busy_ns * 1e-9, frames=frames,
         kernels=len(kernels), tracer_launches=len(tracer),
         tracer_s=sum(b - a for _, _, a, b in tracer) * 1e-9,
-        glue_s=sum(b - a for _, _, a, b in glue) * 1e-9,
+        glue_s=sum(b - a for _, _, a, b in glue) * 1e-9, by_kernel=by_kernel,
         breakdown=dict(
             device_ops=[[n, s] for n, s in sorted(by_name.items(), key=lambda x: -x[1])[:top]],
             idle_gaps=[[n, s] for n, s in sorted(gaps.items(), key=lambda x: -x[1])[:top]]))
