@@ -102,7 +102,12 @@ each phase with its seconds:
   leaf, and rays with exact zero direction components; ms per launch, the
   plain walk's ms, the bound and its share; and the bounce set again with
   the live-id list of each segment (``bvh_walk@live``), against the plain
-  walk on the live rays gathered;
+  walk on the live rays gathered; on every set the walk's work counters
+  (render/intersect.py ``counters``: rays walked, nodes visited, threads
+  started) equal to the plain walk's counts on the same rays and the grid
+  (``--kernels-of`` a parent's checkout times that port's walk by the same
+  method, so the counting's cost a launch is the ``bvh_walk`` rows'
+  difference);
 - ``[shade]`` the shade kernel (csrc/shade.cu) bitwise ``shade_segment_plain``
   at every segment (o, d, thr, light, mh, dc, alive, the live count and the
   live-id list) at full width: ``[bench-bvh]``'s frame-1 rays (13 segments,
@@ -683,10 +688,11 @@ def bvh_kernel_phase(dev, smi: str) -> dict:
         tables = intersect.bvh_tables(p, leaf)
         walk = lambda o, d: intersect.nearest_hit_bvh_kernel(   # noqa: E731
             p, o, d, t_min, depth, leaf, tables=tables)
-        same, launched, hits, zeros, n_rays = True, 0, 0, 0, 0
+        same, counted, launched, hits, zeros, n_rays = True, True, 0, 0, 0, 0
         ms = plain_ms = ops = 0.0
         for ori, dirs in batches:
             before = dict(kernels.launches)
+            reset_walk_counters(intersect, dev)
             t, idx = walk(ori, dirs)
             launched += sum(v - before.get(k, 0) for k, v in kernels.launches.items())
             stats = {}
@@ -694,6 +700,7 @@ def bvh_kernel_phase(dev, smi: str) -> dict:
                 p, ori, dirs, t_min, depth, leaf, tables=tables, stats=stats))
             plain_ms += walk_ms
             same &= torch.equal(t.view(torch.int32), pt.view(torch.int32)) and torch.equal(idx, pi)
+            counted &= walk_counts_hold(intersect, dev, ori.shape[0], ori.shape[0], stats)
             hits += int((pt < intersect.BIG).sum())
             zeros += int((dirs == 0).any(dim=1).sum())
             n_rays += ori.shape[0]
@@ -712,11 +719,12 @@ def bvh_kernel_phase(dev, smi: str) -> dict:
         log(f"[bvh-kernel] {name}: {n_rays} rays in {k} launch(es) ({zeros} with a zero "
             f"direction component), {p.num_planes} planes, {p.num_spheres} spheres, tree depth "
             f"{depth}, leaves of <= {leaf}; kernel bitwise the plain walk and its sphere fold "
-            f"(t and idx): {same}; {hits / n_rays:.4f} hit; kernel {ms:.4f} ms/launch "
+            f"(t and idx): {same}; its counters the plain walk's counts: {counted}; "
+            f"{hits / n_rays:.4f} hit; kernel {ms:.4f} ms/launch "
             f"({launched} launch(es), the fold inside); plain walk {plain_ms:.2f} ms; bound "
             f"{bound_ms:.6f} ms by {by} (operations {ops_ms:.6f}, bytes {bytes_ms:.6f}), share "
             f"{bound_ms / ms:.1%} (at most 50% under -fmad=false){segs} | {smi}")
-        if not (same and launched == k and hits > 0.05 * n_rays):
+        if not (same and counted and launched == k and hits > 0.05 * n_rays):
             raise SystemExit(f"[bvh-kernel] FAIL: {name}")
         if name == "zero-components" and zeros != n_rays:
             raise SystemExit("[bvh-kernel] FAIL: the zero-component set lost its zeros")
@@ -729,6 +737,27 @@ def bvh_kernel_phase(dev, smi: str) -> dict:
         release()
     log(f"[bvh-kernel] {len(WALK_SETS)} ray sets in {time.perf_counter() - t0:.1f} s")
     return entries
+
+
+def reset_walk_counters(intersect, dev) -> None:
+    """Zero the walk kernel's counters, where the port has them (a port
+    before them, timed with ``--kernels-of``, has none)."""
+    if hasattr(intersect, "counters"):
+        intersect.reset_counters(dev)
+
+
+def walk_counts_hold(intersect, dev, n_rays: int, grid: int, stats: dict) -> bool:
+    """Whether the walk kernel's counters since the last reset are one
+    launch over ``grid`` rays that walked ``n_rays`` of them with the plain
+    walk's ``stats`` (its node visits); True for a port without them."""
+    if not hasattr(intersect, "counters"):
+        return True
+    want = dict(walk_rays=n_rays, walk_nodes=int(stats["visits"]),
+                walk_threads=-(-grid // 128) * 128)
+    got = intersect.counters(dev)
+    if got != want:
+        log(f"[bvh-kernel] the walk's counters {got}, the plain walk's counts {want}")
+    return got == want
 
 
 def live_walks(p, tables, t_min, depth, leaf, batches, masks, smi: str) -> dict:
@@ -745,7 +774,7 @@ def live_walks(p, tables, t_min, depth, leaf, batches, masks, smi: str) -> dict:
     from time_present import HBM_BYTES_PER_S, time_ms
 
     gen = torch.Generator().manual_seed(0)
-    same, listed = True, []
+    same, counted, listed = True, True, []
     ms = plain_ms = ops = n_bytes = 0.0
     table_bytes = (tables.noderow.numel() + tables.leafpack.numel()) * 4
     for (ori, dirs), mask in zip(batches, masks):
@@ -756,12 +785,14 @@ def live_walks(p, tables, t_min, depth, leaf, batches, masks, smi: str) -> dict:
         count = torch.tensor([sel.numel()], dtype=torch.int32, device=ori.device)
         walk = lambda: intersect.nearest_hit_bvh_kernel(   # noqa: E731
             p, ori, dirs, t_min, depth, leaf, tables=tables, live=(ids, count))
+        reset_walk_counters(intersect, ori.device)
         t, idx = walk()
         stats = {}
         (pt, pi), walk_ms = timed(lambda: intersect.nearest_hit_bvh(
             p, ori[sel], dirs[sel], t_min, depth, leaf, tables=tables, stats=stats))
         same &= (torch.equal(t[sel].view(torch.int32), pt.view(torch.int32))
                  and torch.equal(idx[sel], pi))
+        counted &= walk_counts_hold(intersect, ori.device, sel.numel(), ori.shape[0], stats)
         del t, idx, pt, pi
         ms += time_ms(walk, WALK_REPS, graph=True)
         plain_ms += walk_ms
@@ -775,11 +806,12 @@ def live_walks(p, tables, t_min, depth, leaf, batches, masks, smi: str) -> dict:
     bound_ms, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
     log(f"[bvh-kernel] live: the same {k} segments with the live-id list ({listed} rays "
         f"listed of {batches[0][0].shape[0]}, shuffled): kernel bitwise the plain walk on the "
-        f"listed rays gathered (t and idx): {same}; kernel {ms:.4f} ms/launch (grid sized for "
+        f"listed rays gathered (t and idx): {same}; its counters the plain walk's counts on "
+        f"them: {counted}; kernel {ms:.4f} ms/launch (grid sized for "
         f"every ray); plain walk on the gathered rays {plain_ms:.2f} ms; bound {bound_ms:.6f} "
         f"ms by {by} (operations {ops_ms:.6f}, bytes {bytes_ms:.6f}), share "
         f"{bound_ms / ms:.1%} | {smi}")
-    if not same:
+    if not (same and counted):
         raise SystemExit("[bvh-kernel] FAIL: live")
     return dict(kernel="bvh_walk", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 plain_rays=sum(listed) // k, bound_ms=bound_ms, bound_by=by)

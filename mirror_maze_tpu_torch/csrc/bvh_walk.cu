@@ -26,7 +26,20 @@
 // sphere i is n_planes + i); with a list, only the listed rays' entries are
 // written. The grid is sized for R either way, so a segment's walk is one
 // launch whose count a CUDA graph holds on the device; threads past the
-// count exit.
+// count walk nothing.
+// Work counters (render/intersect.py COUNTERS), added by every launch to an
+// int64 buffer [STRIPES, STRIPE_WIDTH] on the device: rays walked (a warp's
+// ballot), nodes visited (the walk loop's own count) and the threads the
+// launch started (block 0 adds its grid).
+// Each warp sums its lanes' visits and adds them with one atomic a counter,
+// to the stripe of its block, so that the atomics of a launch spread over
+// STRIPES lines of 128 bytes; the reader sums the stripes. The node count
+// takes 37 and 39 registers where the walk alone took 32 (rays and threads
+// alone keep 32; no way of counting the visits tried kept fewer than 36),
+// fewer warps an SM. On an H100 (PERF.md §6, in turns with the walk before
+// the counters): +3.0% a launch over every ray, +1.6% on 21 segments of
+// config_scale, -3.6% on a shuffled live list, +0.6% to +0.9% on
+// interactive-bvh's frame.
 //
 // Exactness against the plain version (built with -fmad=false and IEEE
 // division, as every kernel of the port):
@@ -70,6 +83,7 @@
 #include <cuda_runtime.h>
 
 #define MM_BVH_STACK 64  // levels a ray's stack holds (intersect.BVH_STACK)
+#define MM_BVH_STRIPES 32  // stripes of the work counters (intersect.COUNTER_STRIPES)
 
 namespace {
 
@@ -77,6 +91,7 @@ constexpr float BIG = 1e30f;
 constexpr int NODE_WIDTH = 14;
 constexpr int SLOT_WIDTH = 15;
 constexpr int THREADS = 128;
+constexpr int STRIPE_WIDTH = 16;  // int64 a stripe: one 128-byte line
 
 // Entry distance of the ray into the box (bmin = box[0:3], bmax = box[3:6]),
 // or BIG: render/intersect.py _slab.
@@ -92,22 +107,15 @@ __device__ __forceinline__ float slab(const float* __restrict__ box, float ox, f
   return (tf >= tn && tn < t_cur && tf > 0.0f) ? tn : BIG;
 }
 
+// One ray's walk and sphere fold, its t and idx written; returns the nodes
+// it visited.
 template <bool SPHERES>
-__global__ void __launch_bounds__(THREADS)
-    bvh_walk(const float* __restrict__ noderow, const float* __restrict__ leafpack,
-             int n_nodes, int n_slots, int max_leaf, const float* __restrict__ sph_center,
-             const float* __restrict__ sph_c2r2, const float* __restrict__ sph_ior,
-             int n_spheres, int n_planes, const float* __restrict__ ori,
-             const float* __restrict__ dirs, float* __restrict__ t_out,
-             int* __restrict__ idx_out, const int* __restrict__ ids,
-             const int* __restrict__ count, int n_rays, int n_levels, float t_min) {
-  int r = blockIdx.x * THREADS + threadIdx.x;
-  if (ids != nullptr) {
-    if (r >= min(*count, n_rays)) return;
-    r = ids[r];
-  } else if (r >= n_rays) {
-    return;
-  }
+__device__ __forceinline__ int walk_ray(
+    const float* __restrict__ noderow, const float* __restrict__ leafpack, int n_nodes,
+    int n_slots, int max_leaf, const float* __restrict__ sph_center,
+    const float* __restrict__ sph_c2r2, const float* __restrict__ sph_ior, int n_spheres,
+    int n_planes, const float* __restrict__ ori, const float* __restrict__ dirs,
+    float* __restrict__ t_out, int* __restrict__ idx_out, int r, int n_levels, float t_min) {
   const float ox = ori[3 * r], oy = ori[3 * r + 1], oz = ori[3 * r + 2];
   const float dx = dirs[3 * r], dy = dirs[3 * r + 1], dz = dirs[3 * r + 2];
   const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
@@ -116,7 +124,8 @@ __global__ void __launch_bounds__(THREADS)
   int idx = 0;
   int stack[MM_BVH_STACK];
   int sp = 0, cur = 0;
-  for (int visit = 0; visit < n_nodes; ++visit) {
+  int visit = 0;
+  for (; visit < n_nodes; ++visit) {
     const float* nr = noderow + (size_t)cur * NODE_WIDTH;
     const int ct = (int)nr[12];
     const int lf = (int)nr[13];
@@ -153,7 +162,10 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
     // A leaf, or a missed interior node: pop the latest far child, or stop.
-    if (sp == 0) break;
+    if (sp == 0) {
+      ++visit;
+      break;
+    }
     --sp;
     cur = sp < n_levels ? stack[sp] : 0;
   }
@@ -192,27 +204,67 @@ __global__ void __launch_bounds__(THREADS)
   }
   t_out[r] = t;
   idx_out[r] = idx;
+  return visit;
+}
+
+template <bool SPHERES>
+__global__ void __launch_bounds__(THREADS)
+    bvh_walk(const float* __restrict__ noderow, const float* __restrict__ leafpack,
+             int n_nodes, int n_slots, int max_leaf, const float* __restrict__ sph_center,
+             const float* __restrict__ sph_c2r2, const float* __restrict__ sph_ior,
+             int n_spheres, int n_planes, const float* __restrict__ ori,
+             const float* __restrict__ dirs, float* __restrict__ t_out,
+             int* __restrict__ idx_out, const int* __restrict__ ids,
+             const int* __restrict__ count, int n_rays, int n_levels, float t_min,
+             unsigned long long* __restrict__ counts) {
+  int r = blockIdx.x * THREADS + threadIdx.x;
+  // Every lane of a warp reaches the count's sums below, so a lane with no
+  // ray to walk skips the walk instead of returning.
+  bool walks;
+  if (ids != nullptr) {
+    walks = r < min(*count, n_rays);
+    if (walks) r = ids[r];
+  } else {
+    walks = r < n_rays;
+  }
+  unsigned visits = 0u;
+  if (walks) {
+    visits = walk_ray<SPHERES>(noderow, leafpack, n_nodes, n_slots, max_leaf, sph_center,
+                               sph_c2r2, sph_ior, n_spheres, n_planes, ori, dirs, t_out,
+                               idx_out, r, n_levels, t_min);
+  }
+  const unsigned rays = __popc(__ballot_sync(0xffffffffu, walks));
+  const unsigned nodes = __reduce_add_sync(0xffffffffu, visits);
+  unsigned long long* stripe =
+      counts + (size_t)(blockIdx.x & (MM_BVH_STRIPES - 1)) * STRIPE_WIDTH;
+  if ((threadIdx.x & 31) == 0 && rays != 0u) {
+    atomicAdd(stripe, (unsigned long long)rays);
+    atomicAdd(stripe + 1, (unsigned long long)nodes);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(stripe + 2, (unsigned long long)gridDim.x * THREADS);
 }
 
 }  // namespace
 
 // spheres: n_spheres of them (0: no fold); sph_ior null where no sphere is glass.
 // ids, count: the rays to walk, or both null for every ray.
+// counts: the work counters, int64 [MM_BVH_STRIPES, 16].
 extern "C" int mm_bvh_walk(const float* noderow, const float* leafpack, int n_nodes,
                            int n_slots, int max_leaf, const float* sph_center,
                            const float* sph_c2r2, const float* sph_ior, int n_spheres,
                            int n_planes, const float* ori, const float* dirs, float* t, int* idx,
                            const int* ids, const int* count, int n_rays, int n_levels,
-                           float t_min, void* stream) {
+                           float t_min, unsigned long long* counts, void* stream) {
   if (n_levels < 1 || n_levels > MM_BVH_STACK || n_nodes < 1 || n_slots < 1 || max_leaf < 1 ||
       n_spheres < 0 || (n_spheres > 0 && (sph_center == nullptr || sph_c2r2 == nullptr)) ||
-      (ids == nullptr) != (count == nullptr))
+      (ids == nullptr) != (count == nullptr) || counts == nullptr)
     return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return (int)cudaGetLastError();
   const int blocks = (n_rays + THREADS - 1) / THREADS;
   auto kernel = n_spheres > 0 ? bvh_walk<true> : bvh_walk<false>;
   kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       noderow, leafpack, n_nodes, n_slots, max_leaf, sph_center, sph_c2r2, sph_ior, n_spheres,
-      n_planes, ori, dirs, t, idx, ids, count, n_rays, n_levels, t_min);
+      n_planes, ori, dirs, t, idx, ids, count, n_rays, n_levels, t_min, counts);
   return (int)cudaGetLastError();
 }

@@ -90,6 +90,7 @@ _BVH_WALK = ("mm_bvh_walk", [
     _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,  # ori, dirs, t out, idx out
     _C.c_void_p, _C.c_void_p,                            # live ids, their count (or null)
     _C.c_int, _C.c_int, _C.c_float,                      # R, stack levels, t_min
+    _C.c_void_p,                                         # work counters
     _C.c_void_p,                                         # stream
 ])
 _THREEFRY = ("mm_threefry", [

@@ -32,6 +32,11 @@ keeps its state (every update is masked by ``live``), so iterations run
 past the last live ray change nothing, the result does not depend on
 ``check_every``, and one ray walked alone to its end gives the same result. ``walk_counts`` counts the plain
 walks, their iterations and the host fetches.
+
+Every launch of the kernel adds its work to its device's counters
+(``counters``, ``COUNTERS``): the rays it walked and the nodes they visited
+(the plain walk's ``stats`` ``visits``), and the threads its grid started.
+The buffer is made before any capture, so replayed graphs add to it too.
 """
 
 from __future__ import annotations
@@ -60,6 +65,43 @@ CHECK_EVERY = 1
 BVH_STACK = 64
 
 walk_counts: collections.Counter = collections.Counter()
+
+# What every launch of the walk kernel adds to its device's counters
+# (csrc/bvh_walk.cu, in its order): rays walked, nodes visited, threads
+# started. The kernel adds a warp's counts to one of COUNTER_STRIPES stripes of
+# 16 int64 (a 128-byte line each, MM_BVH_STRIPES), which ``counters`` sums.
+COUNTERS = ("walk_rays", "walk_nodes", "walk_threads")
+COUNTER_STRIPES = 32
+_counters: dict = {}     # device index -> int64 [COUNTER_STRIPES, 16]
+
+
+def counter_buffer(device) -> torch.Tensor:
+    """The walk kernel's counters on a CUDA ``device``: allocated and zeroed
+    at the first call, then the same buffer for good, which every launch on
+    the device adds to (graph replays too). The first call must not be inside
+    a CUDA graph capture."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    buf = _counters.get(index)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the walk's counters are allocated outside a graph capture: "
+                               "launch once on the device first")
+        buf = _counters[index] = torch.zeros((COUNTER_STRIPES, 16), dtype=torch.int64,
+                                             device=torch.device("cuda", index))
+    return buf
+
+
+def counters(device) -> dict:
+    """{name: count} of the walk kernel's launches on a CUDA ``device`` since
+    its first or the last ``reset_counters`` (``COUNTERS``; zeros where none
+    ran), with one device-to-host copy."""
+    totals = counter_buffer(device)[:, :len(COUNTERS)].sum(dim=0)
+    return dict(zip(COUNTERS, totals.tolist()))
+
+
+def reset_counters(device) -> None:
+    counter_buffer(device).zero_()
 
 
 def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -194,8 +236,8 @@ def nearest_hit_bvh(prims: ScenePrims, o: torch.Tensor, d: torch.Tensor, t_min: 
     ``max_leaf`` primitives of a leaf under masks; strictly nearer hits win
     in visit order. ``tables`` are ``bvh_tables(prims, max_leaf)``, built
     here when not given. With ``stats``, the work of the rays' walks is
-    added to it as int64 tensors: ``interior`` visits (two slab tests each)
-    and primitive ``tests``."""
+    added to it as int64 tensors: node ``visits``, ``interior`` visits (two
+    slab tests each) and primitive ``tests``."""
     if tables is None:
         tables = bvh_tables(prims, max_leaf)
     noderow, leafpack = tables.noderow, tables.leafpack
@@ -218,6 +260,7 @@ def nearest_hit_bvh(prims: ScenePrims, o: torch.Tensor, d: torch.Tensor, t_min: 
         is_leaf = ct >= 1
         lp = leafpack[lf.clamp(0, n_slots - 1)]
         if stats is not None:
+            stats["visits"] = stats.get("visits", 0) + live.sum()
             stats["interior"] = stats.get("interior", 0) + (live & ~is_leaf).sum()
             stats["tests"] = stats.get("tests", 0) + torch.where(
                 live & is_leaf, ct.clamp(max=max_leaf), 0).sum()
@@ -271,7 +314,8 @@ def nearest_hit_bvh_kernel(prims: ScenePrims, o: torch.Tensor, d: torch.Tensor, 
     o, d: [R, 3] float32 on a CUDA device. ``live = (ids, count)`` walks only
     the rays ``ids[:count]`` (ids int32 [R], count int32 [1], both on the
     rays' device; render/tracer.py trace_paths makes them): their t and idx
-    are the plain walk's, the other rays' entries are left unwritten. Raises
+    are the plain walk's, the other rays' entries are left unwritten. The
+    launch adds its work to the device's ``counters``. Raises
     where the walk needs more than ``BVH_STACK`` levels (``max_depth + 2``),
     the rays are not on a CUDA device or the list is malformed; it does not
     fall back to the plain walk."""
@@ -313,7 +357,7 @@ def nearest_hit_bvh_kernel(prims: ScenePrims, o: torch.Tensor, d: torch.Tensor, 
                        prims.num_planes, o.data_ptr(), d.data_ptr(), t.data_ptr(),
                        idx.data_ptr(), None if ids is None else ids.data_ptr(),
                        None if count is None else count.data_ptr(), n_rays, n_levels,
-                       float(t_min))
+                       float(t_min), counter_buffer(o.device).data_ptr())
     return t, idx
 
 

@@ -1517,6 +1517,76 @@ def test_trace_paths_on_the_card_is_the_parents(cuda_device):
     assert torch.equal(got.cpu().view(torch.int32), on_cpu.view(torch.int32))
 
 
+def _route_frame(tkey):
+    """A frame of the benchmark's reference whose only draw its route reads
+    is the tracer key ``tkey``."""
+    from portbench.reference import sim
+
+    key = tuple(int(k) & 0xFFFFFFFF for k in tkey.tolist())
+    return sim.Frame(1, None, None, None, None, 0, None, None, key, 0, None)
+
+
+@pytest.mark.parametrize("name", ["interactive", "bvh"])
+def test_walk_counters_are_the_segment_routes_counts(cuda_device, name):
+    """The walk kernel's counters over a frame's segment loop on the card
+    (every ray at the first segment, the live list after) are the
+    benchmark's route ``segments`` counts on the same rays, its threads a
+    grid for every ray at each segment, and its light the route's bit for
+    bit."""
+    from _torch_tools import frame1_rays
+    from mirror_maze_tpu_torch.render import intersect
+    from mirror_maze_tpu_torch.render.pipeline import scene_nearest_fn
+    from mirror_maze_tpu_torch.render.tracer import trace_paths
+    from portbench.reference import segments
+
+    cfg = P.NAMED_CONFIGS[name]().replace(intersector="bvh")
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    ori, dirs, key = frame1_rays(cfg, scene, with_key=True)
+    nearest = scene_nearest_fn(scene, cfg)
+    intersect.reset_counters(cuda_device)
+    got = trace_paths(scene.prims, ori, dirs, key, cfg.tracer, nearest)
+    counts = intersect.counters(cuda_device)
+    tc = dataclasses.asdict(cfg.tracer)
+    route_scene = segments.build(dataclasses.asdict(cfg), cuda_device)
+    stats = {}
+    want = segments.trace(route_scene, ori, dirs, torch.arange(ori.shape[0], device=cuda_device),
+                          [(_route_frame(key), ori.shape[0])], None, tc, stats=stats)
+    assert counts == dict(walk_rays=stats["walk_rays"], walk_nodes=stats["walk_nodes"],
+                          walk_threads=cfg.tracer.max_segments * -(-ori.shape[0] // 128) * 128)
+    assert counts["walk_nodes"] > counts["walk_rays"] > ori.shape[0]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_walk_counters_add_under_graph_replay(cuda_device):
+    """A walk captured into a CUDA graph adds its counts at every replay, as
+    many as the eager launch; reset_counters zeroes them."""
+    from _torch_tools import frame1_rays
+    from mirror_maze_tpu_torch.render import intersect
+    from mirror_maze_tpu_torch.render.pipeline import scene_nearest_fn
+
+    cfg = P.NAMED_CONFIGS["bvh"]().replace(intersector="bvh")
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    ori, dirs = frame1_rays(cfg, scene)
+    nearest = scene_nearest_fn(scene, cfg)
+    ids = torch.randperm(ori.shape[0], device=cuda_device).int()
+    count = torch.tensor([ori.shape[0] // 3], dtype=torch.int32, device=cuda_device)
+    intersect.reset_counters(cuda_device)
+    nearest(ori, dirs, live=(ids, count))
+    eager = intersect.counters(cuda_device)
+    assert eager["walk_rays"] == ori.shape[0] // 3 and eager["walk_nodes"] > 0
+    assert eager["walk_threads"] == -(-ori.shape[0] // 128) * 128
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        nearest(ori, dirs, live=(ids, count))
+    assert intersect.counters(cuda_device) == eager      # a capture runs nothing
+    for _ in range(3):
+        graph.replay()
+    assert intersect.counters(cuda_device) == {k: 4 * v for k, v in eager.items()}
+    intersect.reset_counters(cuda_device)
+    assert set(intersect.counters(cuda_device).values()) == {0}
+
+
 # --- The step's glue kernels (runtime/step.py frame_setup, render/frame_glue.py) ----
 
 
