@@ -200,8 +200,10 @@ are the ``{"kernels": [...]}`` summary (one row per kernel and path, every
 number measured or, for ``bound_ms``, computed in this run; the walk
 kernel's rows ``bvh_walk``, ``bvh_walk@interactive``, ``bvh_walk@bounce``,
 ``bvh_walk@live`` and ``bvh_walk@scale``, the threefry kernel's
-``threefry@jitter``, ``threefry@normal`` and ``threefry@erfinv``, the last
-with ``torch.special.erfinv``'s time as ``library_ms``,
+``threefry@jitter``, ``threefry@normal``, ``threefry@normal-live1`` and
+``threefry@normal-live6`` (that draw on the live-id lists of segments 1 and
+6) and ``threefry@erfinv``, the last with ``torch.special.erfinv``'s time as
+``library_ms``,
 ``shade@interactive``, and the glue's ``frame_setup``, ``frame_setup@scale``,
 ``frame_setup@8k`` (its merge passes' launches as ``merge_launches``),
 ``camera_rays``, ``camera_rays@scale``, ``resolve``, ``resolve@scale`` and
@@ -229,6 +231,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import inspect
 import json
 import os
 import re
@@ -266,6 +269,10 @@ REPLACES = {
                        "unit_sphere under jit; no pallas_call)",
     "threefry@erfinv": "mirror_maze_tpu/ops/sampling.py:25 (jax.lax.erf_inv inside "
                        "jax.random.normal under jit; no pallas_call)",
+    "threefry@normal-live1": "mirror_maze_tpu/ops/sampling.py:25 (jax.random.normal of "
+                             "unit_sphere under jit, every ray; no pallas_call)",
+    "threefry@normal-live6": "mirror_maze_tpu/ops/sampling.py:25 (jax.random.normal of "
+                             "unit_sphere under jit, every ray; no pallas_call)",
     # The shade kernel: the segment body of the jnp tracer's bounce loop,
     # which XLA fuses under jit; no pallas_call.
     "shade": "mirror_maze_tpu/render/tracer.py:115 (body of trace_paths' "
@@ -351,9 +358,9 @@ def timed(fn):
 
 def others(counts: dict) -> dict:
     """A phase's launch counts but the threefry kernel's (``threefry``,
-    ``threefry_uniform``, ``threefry_normal``): every draw of ops/prng.py
-    launches it, and the phases that can predict those counts check them
-    apart."""
+    ``threefry_uniform``, ``threefry_normal``, ``threefry_normal_listed``):
+    every draw of ops/prng.py launches it, and the phases that can predict
+    those counts check them apart."""
     return {k: v for k, v in counts.items() if not k.startswith("threefry")}
 
 
@@ -858,14 +865,16 @@ def threefry_bound(n_out: int, out_bytes: int, fp32_ops: int = 0) -> tuple:
     return times[top], "bytes" if top == "bytes" else "operations", times
 
 
-def threefry_phase(dev, smi: str, cfg) -> dict:
+def threefry_phase(dev, smi: str, cfg, listed: bool = True) -> dict:
     """[threefry]: the kernel bitwise its plain version in every output on
     THREEFRY_KEYS x THREEFRY_COUNTS, on a key batch through the jnp tracer's
     chain, on ``cfg``'s frame-1 jitter draw, on THREEFRY_NORMAL_COUNTS normal
     counts and on erf_inv's edges; the rows ``threefry@jitter`` (that draw)
     and ``threefry@normal`` (``[bench-bvh]``'s unit_sphere draw, the rays of a
     frame x 3): ms a launch replayed from a graph, the plain version's ms,
-    the bound. Returns the rows' entries."""
+    the bound; with ``listed`` (``--kernels-of`` passes it only for a port
+    that draws on a live-id list) the rows ``threefry@normal-live<it>``
+    (``normal_live_rows``). Returns the rows' entries."""
     import numpy as np
     import torch
 
@@ -1070,6 +1079,95 @@ def threefry_phase(dev, smi: str, cfg) -> dict:
         f"{times['fp32']:.4f} for {fma_ops} operations), share {bound_ms / ms:.1%}; "
         f"{time.perf_counter() - t0:.1f} s | {smi}")
     del u
+    release()
+    if listed:
+        entries.update(normal_live_rows(dev, smi))
+    return entries
+
+
+# The segments of [bench-bvh]'s frame 1 whose live-id lists the rows
+# threefry@normal-live<it> draw on: the second (nearly every ray alive) and
+# the seventh (a few in a hundred). An int32 pattern no float32 draw gives
+# (a NaN's), pre-filled in the output, marks the rows a listed draw leaves.
+NORMAL_LIVE_SEGMENTS = (1, 6)
+NORMAL_LIVE_TURNS = 2
+CANARY = -0x0BADF00D
+
+
+def normal_live_rows(dev, smi: str) -> dict:
+    """The rows ``threefry@normal-live<it>``: the normal draw of
+    [bench-bvh]'s frame 1 (config_interactive with the walk) at segment it,
+    on the live-id list that segment's walk reads (tests/_torch_tools.py
+    segment_lists), each listed row bitwise the full draw's and every other
+    row left as it was; ms a launch replayed from a graph, least of
+    NORMAL_LIVE_TURNS turns with the full draw of the same key (its ms
+    beside), the plain version's ms (it draws every row) and the bound of
+    the listed rows' hashes and normals. Returns the rows' entries."""
+    import numpy as np
+    import torch
+
+    import mirror_maze_tpu_torch as P
+    from _torch_tools import frame1_rays, listed_normal, segment_lists
+    from mirror_maze_tpu_torch.ops import prng
+    from mirror_maze_tpu_torch.render import upload_scene
+    from mirror_maze_tpu_torch.render.pipeline import scene_nearest_fn
+    from mirror_maze_tpu_torch.scene import build_scene
+    from time_present import time_ms
+
+    t0 = time.perf_counter()
+    cfg = P.NAMED_CONFIGS["interactive"]().replace(intersector="bvh")
+    scene = upload_scene(build_scene(cfg.maze), device=dev)
+    ori, dirs, key = frame1_rays(cfg, scene, with_key=True)
+    n_rays = ori.shape[0]
+    _, lists = segment_lists(scene.prims, ori, dirs, key, cfg.tracer,
+                             scene_nearest_fn(scene, cfg))
+    counts = {it: int(rows[1]) for it, rows in sorted(lists.items())}
+    del scene, ori, dirs
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    shape = (n_rays, 3)
+    entries = {}
+    for it in NORMAL_LIVE_SEGMENTS:
+        rows = lists[it]
+        n = counts[it]
+        seg_key = prng.fold_in(key, it)
+        full = prng.normal(seg_key, shape).view(torch.int32)
+        got = listed_normal(seg_key, shape, rows, CANARY).view(torch.int32)
+        listed = torch.zeros(n_rays, dtype=torch.bool, device=dev)
+        listed[rows[0][:n].long()] = True
+        if not (torch.equal(got[listed], full[listed]) and bool((got[~listed] == CANARY).all())):
+            raise SystemExit(f"[threefry] FAIL: the listed normal draw at segment {it} is not "
+                             "the full draw on its rows alone")
+        u = prng.uniform(seg_key, shape, lo, 1.0)[listed]
+        rational = int(((u * -u).abs() < prng._LOG1P_SMALL).sum())
+        n_norm = 3 * n
+        fma_ops = 2 * (ERFINV_FMAS * n_norm + LOG1P_FMAS * rational
+                       + LOG_FMAS * (n_norm - rational))
+        del full, got, u
+        turns = {"full": [], "listed": []}
+        for _ in range(NORMAL_LIVE_TURNS):
+            turns["full"].append(time_ms(lambda: prng.normal(seg_key, shape), THREEFRY_REPS,
+                                         graph=True))
+            turns["listed"].append(time_ms(lambda: prng.normal(seg_key, shape, rows=rows),
+                                           THREEFRY_REPS, graph=True))
+        ms, full_ms = min(turns["listed"]), min(turns["full"])
+        # The listed rows' normals written and their ids read, the count read.
+        bound_ms, by, times = threefry_bound(n_norm, 4 * n_norm + 4 * n + 4, fma_ops)
+        row = f"threefry@normal-live{it}"
+        entries[row] = dict(kernel="threefry", lib="threefry_normal_listed", max_abs_err=0.0,
+                            ms=ms,
+                            plain_ms=time_ms(lambda: prng.normal_plain(seg_key, shape), 3),
+                            bound_ms=bound_ms, bound_by=by, full_ms=full_ms, listed=n)
+        log(f"[threefry] {row}: [bench-bvh]'s frame-1 normal draw at segment {it} on its "
+            f"live-id list ({n} of {n_rays} rays, {n / n_rays:.4%}): the listed rows bitwise "
+            f"the full draw's, the other {n_rays - n} untouched; kernel {ms:.5f} ms/launch "
+            f"replayed from a graph against the full draw's {full_ms:.5f} (turns: listed "
+            f"{[round(x, 5) for x in turns['listed']]}, full "
+            f"{[round(x, 5) for x in turns['full']]}); bound {bound_ms:.5f} ms by {by} (bytes "
+            f"{times['bytes']:.5f}, int32 {times['int32']:.5f}, fp32 {times['fp32']:.5f}), "
+            f"share {bound_ms / ms:.1%} | {smi}")
+    log(f"[threefry] the live-id lists of [bench-bvh]'s frame 1 by segment: {counts}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del lists
     release()
     return entries
 
@@ -1626,7 +1724,8 @@ def jnp_phases(dev, smi: str) -> dict:
         same = states_bitwise(st, est) and torch.equal(frame, eframe)
         graphs = only_graphs(run.runner)
         want = {"present": n, "shade": n * cfg.tracer.max_segments, **glue(n)}
-        draws = {"threefry_normal": n * cfg.tracer.max_segments}
+        draws = {"threefry_normal": n,
+                 "threefry_normal_listed": n * (cfg.tracer.max_segments - 1)}
         walked = ""
         if backend == "bvh":
             want["bvh_walk"] = n * cfg.tracer.max_segments
@@ -1641,8 +1740,8 @@ def jnp_phases(dev, smi: str) -> dict:
             f"{rays / (ms / n) / 1e3:.3f} Mrays/s{walked}, checksum "
             f"{int(frame.to(torch.int64).sum())}; launches {counts}; eager loop {eager_ms / n:.1f} ms/frame, make_scan_step == eager "
             f"bitwise {same}; {graph_line(graphs)}; {time.perf_counter() - t0:.1f} s | {smi}")
-        if (not holds(counts, want, True) or counts.get("threefry_normal") != draws[
-                "threefry_normal"] or float(frame.float().mean()) <= 1.0 or not same or walks):
+        if (not holds(counts, want, True) or any(counts.get(k) != v for k, v in draws.items())
+                or float(frame.float().mean()) <= 1.0 or not same or walks):
             raise SystemExit(f"[{backend}] FAIL: launches {counts} (want {want}), a blank frame, "
                              "a plain walk, or not the eager step's")
         last[backend] = frame.cpu().numpy()
@@ -2538,13 +2637,17 @@ def entry_phases(dev, smi: str) -> dict:
                 and holds(sub, want(n, present=n, bvh_walk=n * segs, shade=n * segs), on_card)
                 and holds(counts, want(k, present=k, bvh_walk=k * segs, shade=k * segs),
                           on_card)
-                and sub.get("threefry_normal", 0) == (n * segs if on_card else 0)
+                and sub.get("threefry_normal", 0) == (n if on_card else 0)
+                and sub.get("threefry_normal_listed", 0) == (n * (segs - 1) if on_card else 0)
+                and counts.get("threefry_normal", 0) == (k if on_card else 0)
+                and counts.get("threefry_normal_listed", 0) == (k * (segs - 1) if on_card else 0)
                 and replays == (k if on_card else 0)
                 and (walks["first"], walks["later"], walks["listed"]) == (
                     (k, k * (segs - 1), k * (segs - 1)) if on_card else (0, 0, 0))):
             raise SystemExit("[bench-bvh] FAIL")
         bench_bvh_launches = dict(
-            {name: sub.get(name, 0) for name in ("threefry_normal", "threefry_erf_inv", "shade")},
+            {name: sub.get(name, 0) for name in ("threefry_normal", "threefry_normal_listed",
+                                                 "threefry_erf_inv", "shade")},
             walk_first=walks["first"], walk_later=walks["later"], walk_listed=walks["listed"])
 
         # [soak]: the random soups, the kernel bitwise its plain version under
@@ -2658,7 +2761,11 @@ def kernel_rows(port: str, only=KERNEL_PHASES) -> int:
     dev = torch.device("cuda")
     rows = bvh_kernel_phase(dev, smi) if "bvh-kernel" in only else {}
     if "threefry" in only:
-        rows.update(threefry_phase(dev, smi, P.NAMED_CONFIGS["interactive"]()))
+        from mirror_maze_tpu_torch.ops import prng
+
+        # A port before the listed draw has no rows= and no live rows.
+        rows.update(threefry_phase(dev, smi, P.NAMED_CONFIGS["interactive"](),
+                                   listed="rows" in inspect.signature(prng.normal).parameters))
     if glue:
         rows.update(frame_glue_phase(dev, smi))
     print(json.dumps({"port": port, "rows": {
@@ -3505,13 +3612,17 @@ def main() -> int:
                          plain_rays=e["plain_rays"], bound_ms=e["bound_ms"],
                          bound_by=e["bound_by"], library_ms=None))
     # The threefry kernel's rows: [main]'s jitter draw with [main]'s uniform
-    # launches, [bench-bvh]'s unit_sphere draw with that bench's normal
-    # launches (PyTorch's generators are Philox: no torch call computes
-    # threefry, so library_ms is null), and erf_inv on that draw's uniforms
-    # with that bench's erf_inv launches (a normal runs erf_inv inside its
-    # own launch), beside torch.special.erfinv as library_ms.
+    # launches, [bench-bvh]'s unit_sphere draw with that bench's full normal
+    # launches (a frame's first segment; PyTorch's generators are Philox:
+    # no torch call computes threefry, so library_ms is null), the same
+    # draw on the live-id lists of segments 1 and 6 with that bench's listed
+    # launches (segments 1-12), and erf_inv on that draw's uniforms with
+    # that bench's erf_inv launches (a normal runs erf_inv inside its own
+    # launch), beside torch.special.erfinv as library_ms.
     for row, n in (("threefry@jitter", launches["main"].get("threefry_uniform", 0)),
                    ("threefry@normal", bench_bvh["threefry_normal"]),
+                   *((f"threefry@normal-live{it}", bench_bvh["threefry_normal_listed"])
+                     for it in NORMAL_LIVE_SEGMENTS),
                    ("threefry@erfinv", bench_bvh["threefry_erf_inv"])):
         e = entries[row]
         kern.append(dict(name=row, route="cuda", source=SOURCES["threefry"],

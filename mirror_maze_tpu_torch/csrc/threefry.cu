@@ -18,7 +18,13 @@
 //                  int64 (fold_in; data null = one value for every key);
 //   source VALUES: no hash: the float32 values[e] go straight to erf_inv.
 // Keys are int64 [M, 2] holding uint32 words; a key stride of 0 broadcasts
-// one key, a data stride of 0 one data word. Outputs:
+// one key, a data stride of 0 one data word. A live-id list (ids int32 [R],
+// its count int32 [1] on the device; mm_threefry_rows) restricts a normal
+// draw of R rows of ROW elements to the rows ids[0 .. count): element e' <
+// ROW * count is row ids[e' / ROW]'s element e' % ROW, that is the full
+// draw's element e = ROW * ids[e' / ROW] + e' % ROW, computed from e as the
+// full draw computes it (a single key: c = e; per-row keys: m = e / ROW).
+// Rows not on the list are left unwritten. Outputs:
 //   PAIR    (b1, b2) as int64 [total, 2], the port's key layout;
 //   XOR     b1 ^ b2 as int64 [total];
 //   UNIFORM float32 in [lo, hi): 23 bits under exponent 0, minus one, times
@@ -51,7 +57,11 @@
 // running value float -> double -> float (two conversions at 16 a clock and
 // SM against a native fmaf's one float32 instruction at 128), which set the
 // time of the first versions of both outputs. Design: a grid-stride loop,
-// keys and data read through the L1, no shared memory.
+// keys and data read through the L1, no shared memory. A listed draw keeps
+// the full draw's grid and template instance: a thread reads the count once
+// (a near-empty list costs that read), and the list is a runtime operand, so
+// the normal draw without one pays a uniform null test before the full
+// loop; no other instance compiles the listed loop.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,6 +76,8 @@ using mm::threefry;
 using mm::to_uniform;
 
 constexpr int THREADS = 256;
+// Elements a row of a listed draw: the normal triples of the segment loop.
+constexpr unsigned ROW = 3;
 enum Source { IOTA = 0, DATA32 = 1, DATA64 = 2, VALUES = 3 };
 enum Output { PAIR = 0, XOR = 1, UNIFORM = 2, NORMAL = 3, ERFINV = 4 };
 
@@ -188,56 +200,83 @@ struct Args {
   unsigned long long total;
   float lo, hi;
   void* out;
+  const int* ids;    // a live-id list, or null: every element
+  const int* count;  // its count, on the device
 };
+
+// Element e of a draw: its key and count, the hash and the output.
+template <int SRC, int OUT>
+__device__ __forceinline__ void draw_element(const Args& a, unsigned long long e, bool narrow) {
+  if (SRC == VALUES) {
+    ((float*)a.out)[e] = erf_inv<NATIVE>(((const float*)a.data)[e * a.data_stride]);
+    return;
+  }
+  unsigned long long m;
+  uint32_t x1;
+  if (SRC == IOTA) {
+    if (a.per_key == a.total) {
+      m = 0;
+      x1 = (uint32_t)e;
+    } else if (narrow) {
+      const uint32_t q = (uint32_t)e / (uint32_t)a.per_key;
+      m = q;
+      x1 = (uint32_t)e - q * (uint32_t)a.per_key;
+    } else {
+      m = e / a.per_key;
+      x1 = (uint32_t)(e - m * a.per_key);
+    }
+  } else {
+    m = e;
+    if (a.data == nullptr)
+      x1 = a.data_imm;
+    else if (SRC == DATA32)
+      x1 = (uint32_t)((const int*)a.data)[e * a.data_stride];
+    else
+      x1 = (uint32_t)((const long long*)a.data)[e * a.data_stride];
+  }
+  const long long* k = a.keys + 2 * (m * a.key_stride);
+  uint32_t x0 = 0;
+  threefry((uint32_t)k[0], (uint32_t)k[1], x0, x1);
+  if (OUT == PAIR) {
+    ((longlong2*)a.out)[e] = make_longlong2((long long)x0, (long long)x1);
+  } else if (OUT == XOR) {
+    ((long long*)a.out)[e] = (long long)(x0 ^ x1);
+  } else if (OUT == UNIFORM) {
+    ((float*)a.out)[e] = to_uniform(x0 ^ x1, a.lo, a.hi);
+  } else if (OUT == NORMAL) {
+    // nextafter(-1, 0) and sqrt(2) in float32
+    const float u = to_uniform(x0 ^ x1, -0x1.fffffep-1f, 1.0f);
+    ((float*)a.out)[e] = __fmul_rn(erf_inv<NATIVE>(u), 0x1.6a09e6p+0f);
+  }
+}
 
 template <int SRC, int OUT>
 __global__ void __launch_bounds__(THREADS) threefry_kernel(Args a) {
   const unsigned long long step = (unsigned long long)gridDim.x * THREADS;
+  const unsigned long long first = (unsigned long long)blockIdx.x * THREADS + threadIdx.x;
   const bool narrow = a.total <= 0xFFFFFFFFull;
-  for (unsigned long long e = (unsigned long long)blockIdx.x * THREADS + threadIdx.x;
-       e < a.total; e += step) {
-    if (SRC == VALUES) {
-      ((float*)a.out)[e] = erf_inv<NATIVE>(((const float*)a.data)[e * a.data_stride]);
-      continue;
-    }
-    unsigned long long m;
-    uint32_t x1;
-    if (SRC == IOTA) {
-      if (a.per_key == a.total) {
-        m = 0;
-        x1 = (uint32_t)e;
-      } else if (narrow) {
-        const uint32_t q = (uint32_t)e / (uint32_t)a.per_key;
-        m = q;
-        x1 = (uint32_t)e - q * (uint32_t)a.per_key;
-      } else {
-        m = e / a.per_key;
-        x1 = (uint32_t)(e - m * a.per_key);
+  // Only the normal draw takes a live-id list: no other instance compiles
+  // this loop. Element i of ROW * count is row ids[i / ROW]'s element
+  // i % ROW (32-bit index arithmetic where the draw's counts fit 32 bits).
+  if constexpr (SRC == IOTA && OUT == NORMAL) {
+    if (a.ids != nullptr) {
+      const unsigned long long listed = ROW * (unsigned long long)(unsigned)*a.count;
+      const unsigned long long n = listed < a.total ? listed : a.total;
+      for (unsigned long long i = first; i < n; i += step) {
+        unsigned long long r, j;
+        if (narrow) {
+          r = (uint32_t)i / ROW;
+          j = (uint32_t)i - (uint32_t)r * ROW;
+        } else {
+          r = i / ROW;
+          j = i - r * ROW;
+        }
+        draw_element<SRC, OUT>(a, ROW * (unsigned long long)(unsigned)a.ids[r] + j, narrow);
       }
-    } else {
-      m = e;
-      if (a.data == nullptr)
-        x1 = a.data_imm;
-      else if (SRC == DATA32)
-        x1 = (uint32_t)((const int*)a.data)[e * a.data_stride];
-      else
-        x1 = (uint32_t)((const long long*)a.data)[e * a.data_stride];
-    }
-    const long long* k = a.keys + 2 * (m * a.key_stride);
-    uint32_t x0 = 0;
-    threefry((uint32_t)k[0], (uint32_t)k[1], x0, x1);
-    if (OUT == PAIR) {
-      ((longlong2*)a.out)[e] = make_longlong2((long long)x0, (long long)x1);
-    } else if (OUT == XOR) {
-      ((long long*)a.out)[e] = (long long)(x0 ^ x1);
-    } else if (OUT == UNIFORM) {
-      ((float*)a.out)[e] = to_uniform(x0 ^ x1, a.lo, a.hi);
-    } else if (OUT == NORMAL) {
-      // nextafter(-1, 0) and sqrt(2) in float32
-      const float u = to_uniform(x0 ^ x1, -0x1.fffffep-1f, 1.0f);
-      ((float*)a.out)[e] = __fmul_rn(erf_inv<NATIVE>(u), 0x1.6a09e6p+0f);
+      return;
     }
   }
+  for (unsigned long long e = first; e < a.total; e += step) draw_element<SRC, OUT>(a, e, narrow);
 }
 
 template <int SRC, int OUT>
@@ -295,19 +334,19 @@ extern "C" int mm_erf_inv_steps(unsigned int first, unsigned int stride, unsigne
   return (int)cudaGetLastError();
 }
 
-// source / output as the enums above; the pairs that exist: IOTA with PAIR,
-// XOR, UNIFORM or NORMAL; DATA32 / DATA64 with PAIR; VALUES with ERFINV.
-extern "C" int mm_threefry(const long long* keys, long long key_stride, int source,
-                           int output, const void* data, long long data_stride,
-                           unsigned int data_imm, unsigned long long per_key,
-                           unsigned long long total, float lo, float hi, void* out,
-                           void* stream) {
+namespace {
+
+int draw(const long long* keys, long long key_stride, int source, int output, const void* data,
+         long long data_stride, unsigned int data_imm, unsigned long long per_key,
+         unsigned long long total, float lo, float hi, void* out, const int* ids,
+         const int* count, void* stream) {
   if (total == 0) return (int)cudaGetLastError();
   if (out == nullptr || (source != VALUES && keys == nullptr) ||
       (source == IOTA && (per_key == 0 || per_key > 0xFFFFFFFFull || total % per_key)) ||
       (source == VALUES && data == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Args a{keys, key_stride, data, data_stride, data_imm, per_key, total, lo, hi, out};
+  const Args a{keys, key_stride, data, data_stride, data_imm, per_key, total, lo, hi, out,
+               ids, count};
   const cudaStream_t s = (cudaStream_t)stream;
   if (source == IOTA) {
     switch (output) {
@@ -324,4 +363,31 @@ extern "C" int mm_threefry(const long long* keys, long long key_stride, int sour
     return launch<VALUES, ERFINV>(a, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// source / output as the enums above; the pairs that exist: IOTA with PAIR,
+// XOR, UNIFORM or NORMAL; DATA32 / DATA64 with PAIR; VALUES with ERFINV.
+extern "C" int mm_threefry(const long long* keys, long long key_stride, int source,
+                           int output, const void* data, long long data_stride,
+                           unsigned int data_imm, unsigned long long per_key,
+                           unsigned long long total, float lo, float hi, void* out,
+                           void* stream) {
+  return draw(keys, key_stride, source, output, data, data_stride, data_imm, per_key, total, lo,
+              hi, out, nullptr, nullptr, stream);
+}
+
+// mm_threefry's normal draw (IOTA, NORMAL) of total / ROW rows, drawn at
+// the rows of the live-id list (ids, count) alone: the same launch and grid,
+// each listed row bitwise the full draw's.
+extern "C" int mm_threefry_rows(const long long* keys, long long key_stride, int source,
+                                int output, const void* data, long long data_stride,
+                                unsigned int data_imm, unsigned long long per_key,
+                                unsigned long long total, float lo, float hi, void* out,
+                                const int* ids, const int* count, void* stream) {
+  if (source != IOTA || output != NORMAL || ids == nullptr || count == nullptr || total % ROW)
+    return (int)cudaErrorInvalidValue;
+  return draw(keys, key_stride, source, output, data, data_stride, data_imm, per_key, total, lo,
+              hi, out, ids, count, stream);
 }

@@ -1,6 +1,6 @@
 """Device resolution: the CUDA card by default, the CPU only on request;
-the kernel wrappers' dispatch (``on_card``); and the step's device
-constants (``constant``).
+the kernel wrappers' dispatch (``on_card``); the check of a live-id list
+(``check_live_list``); and the step's device constants (``constant``).
 
 There is no silent fallback. ``device=None`` means ``cuda`` and raises when
 no card is present, so a run that was meant for the GPU can never quietly
@@ -35,6 +35,18 @@ def on_card(t: torch.Tensor, name: str) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {t.device}")
     return True
+
+
+def check_live_list(ids: torch.Tensor, count: torch.Tensor, n_rays: int, device) -> None:
+    """Raise unless (ids, count) is a live-id list for ``n_rays`` rays on
+    ``device``: ids contiguous int32 [n_rays], count int32 [1]."""
+    for name, x, shape in (("ids", ids, (n_rays,)), ("count", count, (1,))):
+        if (not isinstance(x, torch.Tensor) or x.dtype != torch.int32 or x.device != device
+                or tuple(x.shape) != shape or not x.is_contiguous()):
+            got = (f"{x.dtype} {tuple(x.shape)} on {x.device}" if isinstance(x, torch.Tensor)
+                   else type(x).__name__)
+            raise ValueError(f"a live-id list's {name} must be contiguous int32 {shape} on "
+                             f"{device}, got {got}")
 
 
 _constants: dict = {}

@@ -122,10 +122,15 @@ LIBRARIES = {
 }
 
 # Further C entries of a library: (library, symbol) -> argument types.
-# threefry's step check of its erf_inv route (ops/prng.py erf_inv_steps).
+# threefry's step check of its erf_inv route (ops/prng.py erf_inv_steps), and
+# its draw at the rows of a live-id list (ops/prng.py listed).
 ENTRIES = {
     ("threefry", "mm_erf_inv_steps"): [_C.c_uint, _C.c_uint, _C.c_ulonglong, _C.c_void_p,
                                        _C.c_void_p],   # first, stride, count, counts, stream
+    ("threefry", "mm_threefry_rows"): _THREEFRY[1][:-1] + [
+        _C.c_void_p, _C.c_void_p,                        # live ids, their count
+        _C.c_void_p,                                     # stream
+    ],
 }
 
 launches: collections.Counter = collections.Counter()

@@ -19,9 +19,12 @@ plain version (``*_plain``) on a CPU tensor and raise on any other device.
 The plain versions are int64 elementwise torch ops with ``& 0xFFFFFFFF``
 masks, which the kernel matches bit for bit. A launch counts in
 ``kernels.launches`` as ``threefry`` (split, fold_in, random_bits),
-``threefry_uniform``, ``threefry_normal`` or ``threefry_erf_inv``. ``randint`` and
-``permutation`` draw through ``split`` and ``random_bits`` and keep their
-own arithmetic (the modulo fold, the stable sort) in torch.
+``threefry_uniform``, ``threefry_normal``, ``threefry_normal_listed`` or
+``threefry_erf_inv``. ``normal(key, shape, rows=(ids, count))`` draws only
+the rows of a live-id list (the rays alive in a segment of render/tracer.py):
+on the card the other rows are left unwritten, on the CPU every row is drawn.
+``randint`` and ``permutation`` draw through ``split`` and ``random_bits``
+and keep their own arithmetic (the modulo fold, the stable sort) in torch.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..device import constant, on_card
+from ..device import check_live_list, constant, on_card
 from .vecmath import sqrt
 
 MASK = 0xFFFFFFFF
@@ -117,6 +120,9 @@ _IOTA, _DATA32, _DATA64, _VALUES = range(4)
 _PAIR, _XOR, _UNIFORM, _NORMAL, _ERFINV = range(5)
 _COUNT_AS = {_UNIFORM: "threefry_uniform", _NORMAL: "threefry_normal",
              _ERFINV: "threefry_erf_inv"}
+LISTED_AS = "threefry_normal_listed"   # a normal draw at the rows of a live-id list
+# Elements a row of a listed draw (csrc/threefry.cu ROW): normal triples.
+ROW = 3
 
 
 class Draw(NamedTuple):
@@ -125,7 +131,10 @@ class Draw(NamedTuple):
     count word c, where (source IOTA) m = e // per_key, c = e % per_key, or
     (DATA) m = e, c = ``data[e * data_stride]`` (``data_imm`` where ``data``
     is None); source VALUES feeds ``data`` to erf_inv. The output is a new
-    ``dtype`` tensor of ``shape``."""
+    ``dtype`` tensor of ``shape``. With a live-id list (``ids`` int32 [R],
+    ``count`` int32 [1], both on the device) a normal draw of R rows of
+    ``ROW`` elements computes element e' < ROW * count as the full draw's
+    element ROW * ids[e' // ROW] + e' % ROW, and no other."""
     keys: torch.Tensor | None        # int64 [M, 2]
     key_stride: int
     source: int
@@ -139,6 +148,8 @@ class Draw(NamedTuple):
     hi: float
     shape: tuple
     dtype: torch.dtype
+    ids: torch.Tensor | None = None      # int32 [R]: the rows drawn, or None: every row
+    count: torch.Tensor | None = None    # int32 [1]: how many of ``ids``
 
 
 def _check_key(key: torch.Tensor) -> None:
@@ -209,6 +220,20 @@ def erf_inv_draw(x: torch.Tensor) -> Draw:
                 tuple(x.shape), torch.float32)
 
 
+def listed(d: Draw, rows: tuple) -> Draw:
+    """The launch ``d`` makes, drawn only at the rows of the live-id list
+    ``rows = (ids, count)``: ``d`` is a normal draw whose output's leading
+    dimension R holds rows of ``ROW`` elements (one key and shape (R, 3), or
+    keys [R, 2] and shape (3,)), ``ids`` int32 [R] and ``count`` int32 [1] on
+    the keys' device. Raises on any other draw or list."""
+    n_rows = d.shape[0] if d.shape else 0
+    if d.source != _IOTA or d.output != _NORMAL or d.total != ROW * n_rows:
+        raise ValueError(f"a listed draw takes normal rows of {ROW}, got a draw of shape "
+                         f"{d.shape}, source {d.source}, output {d.output}")
+    check_live_list(*rows, n_rows, d.keys.device)
+    return d._replace(ids=rows[0], count=rows[1])
+
+
 def launch_draw(d: Draw) -> torch.Tensor:
     """Run one draw on the card: a new output tensor, one counted launch of
     the threefry kernel (none for an empty draw)."""
@@ -217,12 +242,15 @@ def launch_draw(d: Draw) -> torch.Tensor:
     if d.total:
         keys = d.keys.contiguous() if d.keys is not None else None
         data = d.data.contiguous() if d.data is not None else None
+        args = (keys.data_ptr() if keys is not None else None, d.key_stride, d.source, d.output,
+                data.data_ptr() if data is not None else None, d.data_stride, d.data_imm,
+                d.per_key, d.total, d.lo, d.hi, out.data_ptr())
         with torch.cuda.device(operand.device):   # the launch goes to this device's stream
-            kernels.launch("threefry", keys.data_ptr() if keys is not None else None,
-                           d.key_stride, d.source, d.output,
-                           data.data_ptr() if data is not None else None, d.data_stride,
-                           d.data_imm, d.per_key, d.total, d.lo, d.hi, out.data_ptr(),
-                           count_as=_COUNT_AS.get(d.output))
+            if d.ids is None:
+                kernels.launch("threefry", *args, count_as=_COUNT_AS.get(d.output))
+            else:
+                kernels.launch("threefry", *args, d.ids.data_ptr(), d.count.data_ptr(),
+                               symbol="mm_threefry_rows", count_as=LISTED_AS)
     return out
 
 
@@ -388,12 +416,19 @@ def erf_inv_steps(first: int, count: int, stride: int = 1, device=None) -> torch
     return counts
 
 
-def normal(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+def normal(key: torch.Tensor, shape: tuple, rows: tuple | None = None) -> torch.Tensor:
     """``jax.random.normal`` in float32: sqrt(2) * erf_inv(u), u uniform on
-    [nextafter(-1, 0), 1). Keys as in ``random_bits``."""
+    [nextafter(-1, 0), 1). Keys as in ``random_bits``. With ``rows = (ids,
+    count)``, a live-id list over the output's leading dimension R (rows of
+    ``ROW``; see ``listed``), the card draws only the rows ``ids[:count]``,
+    each bitwise the full draw's row, and leaves the others unwritten; the
+    CPU draws every row."""
     if not on_card(key, "prng.normal"):
+        if rows is not None:
+            listed(bits_draw(key, shape, _NORMAL), rows)     # the same checks as the card's
         return normal_plain(key, shape)
-    return launch_draw(bits_draw(key, shape, _NORMAL))
+    d = bits_draw(key, shape, _NORMAL)
+    return launch_draw(d if rows is None else listed(d, rows))
 
 
 def randint_fold(minval: int, maxval: int) -> tuple:

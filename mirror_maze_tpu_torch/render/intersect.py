@@ -47,6 +47,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
+from ..device import check_live_list
 from ..ops.vecmath import sqrt
 from .scenebuf import ScenePrims
 
@@ -359,15 +360,3 @@ def nearest_hit_bvh_kernel(prims: ScenePrims, o: torch.Tensor, d: torch.Tensor, 
                        None if count is None else count.data_ptr(), n_rays, n_levels,
                        float(t_min), counter_buffer(o.device).data_ptr())
     return t, idx
-
-
-def check_live_list(ids: torch.Tensor, count: torch.Tensor, n_rays: int, device) -> None:
-    """Raise unless (ids, count) is a live-id list for ``n_rays`` rays on
-    ``device``: ids contiguous int32 [n_rays], count int32 [1]."""
-    for name, x, shape in (("ids", ids, (n_rays,)), ("count", count, (1,))):
-        if (not isinstance(x, torch.Tensor) or x.dtype != torch.int32 or x.device != device
-                or tuple(x.shape) != shape or not x.is_contiguous()):
-            got = (f"{x.dtype} {tuple(x.shape)} on {x.device}" if isinstance(x, torch.Tensor)
-                   else type(x).__name__)
-            raise ValueError(f"a live-id list's {name} must be contiguous int32 {shape} on "
-                             f"{device}, got {got}")

@@ -28,8 +28,9 @@ draws are jax.random's (ops/prng.py), so the light follows the reference
 ray for ray up to the rounding of the glue.
 
 A segment is the nearest-hit call, the draws (``segment_draws``: the raw
-normal triples of every ray and the Fresnel uniforms, launches of the
-threefry kernel on the card) and the shading of every ray still alive. On
+normal triples and the Fresnel uniforms, launches of the threefry kernel on
+the card; from the second segment on the card draws the triples of the
+listed rays alone) and the shading of every ray still alive. On
 a CPU tensor the shading is ``shade_segment_plain``, a masked pass over
 every ray in torch ops. On a CUDA tensor it is ``shade_segment_kernel``, one
 launch of the hand-written kernel ``csrc/shade.cu`` (bitwise the plain
@@ -37,8 +38,9 @@ version), which updates the path state in place and appends the rays that
 stay alive to a live-id list: the next segment's ``nearest_fn(o, d,
 live=(ids, count))`` may walk only those (the bvh kernel does; the dense
 backends test every ray). Every update of the plain version is masked by
-``alive``, so a ray that is not alive is left as it is, its t and idx are
-never read, and the light does not depend on which backend reads the list.
+``alive``, so a ray that is not alive is left as it is, its t, idx and
+normal triple are never read, and the light does not depend on which backend
+reads the list.
 The count lives on the device, one int32 a segment made for each call, so
 a CUDA graph holds the whole loop. There is no fallback: on a CUDA tensor a
 failed build or launch raises.
@@ -53,11 +55,11 @@ import torch
 
 from .. import kernels
 from ..config import TracerConfig
-from ..device import constant
+from ..device import check_live_list, constant
 from ..ops import prng
 from ..ops.sampling import unit_from_normals
 from ..ops.vecmath import dot, normalize, reflect, sqrt
-from .intersect import BIG, check_live_list, nearest_hit_brute
+from .intersect import BIG, nearest_hit_brute
 from .scenebuf import ScenePrims
 
 # fn(o, d) -> (t, idx); on the card trace_paths calls fn(o, d, live=(ids,
@@ -115,19 +117,23 @@ def seed_row_keys(key: torch.Tensor, seed_row: torch.Tensor) -> torch.Tensor:
 
 
 def segment_draws(key: torch.Tensor, ray_keys: torch.Tensor | None, it: int, n_rays: int,
-                  fresnel: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+                  fresnel: bool, rows: tuple | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Segment ``it``'s draws: the raw normal triples g [R, 3] that the
     diffuse scatter's unit vectors are made from (``unit_sphere``'s draw),
     from ``fold_in(key, it)`` or per ray from ``fold_in(ray_keys, it)``; and
     with ``fresnel`` (glass with Schlick's split) the uniforms [R] from
-    ``fold_in(that key, 1)``, else None."""
+    ``fold_in(that key, 1)``, else None. With ``rows = (ids, count)``, the
+    segment's live-id list, the card draws g only at the listed rays (each
+    row bitwise the full draw's; the others unwritten, and the shade reads
+    none of them); u3 is drawn for every ray."""
     if ray_keys is None:
         seg_key = prng.fold_in(key, it)
-        g = prng.normal(seg_key, (n_rays, 3))
+        g = prng.normal(seg_key, (n_rays, 3), rows=rows)
         u3 = prng.uniform(prng.fold_in(seg_key, 1), (n_rays,)) if fresnel else None
     else:
         it_keys = prng.fold_in(ray_keys, it)
-        g = prng.normal(it_keys, (3,))
+        g = prng.normal(it_keys, (3,), rows=rows)
         u3 = prng.uniform(prng.fold_in(it_keys, 1), ()) if fresnel else None
     return g, u3
 
@@ -395,8 +401,9 @@ def trace_paths(
     returns the gathered light [R, 3]. ``nearest_fn(o, d) -> (t, idx)`` is
     the backend (``nearest_hit_brute`` when None); on the card it is called
     with ``live=(ids, count)`` from the second segment on, the rays alive
-    there (it may walk only those). The shading is the kernel on a CUDA
-    tensor and the plain version on a CPU tensor."""
+    there (it may walk only those), and the segment's normal triples are
+    drawn for those rays alone. The shading is the kernel on a CUDA tensor
+    and the plain version on a CPU tensor."""
     if nearest_fn is None:
         nearest_fn = lambda o, d, live=None: nearest_hit_brute(prims, o, d, cfg.t_min)  # noqa: E731
     n_rays = ori.shape[0]
@@ -415,10 +422,14 @@ def trace_paths(
         counts = torch.zeros((cfg.max_segments,), dtype=torch.int32, device=dev)
     for it in range(cfg.max_segments):
         if on_card and it > 0:
-            t, idx = nearest_fn(st.o, st.d, live=(ids, counts[it:it + 1]))
+            # The rays alive here: the walk and the normal draw take only
+            # those, whatever backend finds the hits.
+            live = (ids, counts[it:it + 1])
+            t, idx = nearest_fn(st.o, st.d, live=live)
         else:
+            live = None
             t, idx = nearest_fn(st.o, st.d)
-        g, u3 = segment_draws(key, ray_keys, it, n_rays, fresnel)
+        g, u3 = segment_draws(key, ray_keys, it, n_rays, fresnel, rows=live)
         if on_card:
             last = it == cfg.max_segments - 1
             st = shade_segment_kernel(prims, cfg, st, t, idx, g, u3, it,

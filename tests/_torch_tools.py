@@ -638,6 +638,44 @@ def shade_records_ok(records) -> bool:
     return all(not r["diff"] and r["count"] == r["live_out"] and r["ids"] for r in records)
 
 
+def segment_lists(prims, ori, dirs, key, cfg, nearest_fn, seed_row=None):
+    """The card's segment loop (render/tracer.py trace_paths) on ``ori``,
+    ``dirs``: (its light, {segment it: a copy of the live-id list (ids,
+    count) that segment's walk and normal draw read}) for it >= 1, recorded
+    at the walk's call."""
+    from mirror_maze_tpu_torch.render.tracer import trace_paths
+
+    lists = {}
+
+    def recording(o, d, live=None):
+        if live is None:
+            return nearest_fn(o, d)
+        lists[len(lists) + 1] = tuple(x.clone() for x in live)
+        return nearest_fn(o, d, live=live)
+
+    light = trace_paths(prims, ori, dirs, key, cfg, recording, seed_row)
+    return light, lists
+
+
+def listed_normal(key, shape, rows, canary: int):
+    """``prng.normal(key, shape, rows=rows)``'s launch (ops/prng.py
+    ``listed``, C entry ``mm_threefry_rows``) into an output pre-filled with
+    the int32 pattern ``canary``, which the rows off the list keep."""
+    from mirror_maze_tpu_torch import kernels
+    from mirror_maze_tpu_torch.ops import prng
+
+    d = prng.listed(prng.bits_draw(key, shape, prng._NORMAL), rows)
+    out = torch.full(d.shape, canary, dtype=torch.int32, device=key.device).view(torch.float32)
+    if d.total:
+        keys = d.keys.contiguous()
+        with torch.cuda.device(key.device):
+            kernels.launch("threefry", keys.data_ptr(), d.key_stride, d.source, d.output, None,
+                           d.data_stride, d.data_imm, d.per_key, d.total, d.lo, d.hi,
+                           out.data_ptr(), d.ids.data_ptr(), d.count.data_ptr(),
+                           symbol="mm_threefry_rows", count_as="canary")
+    return out
+
+
 def edge_segment(prims, n_rays: int, device):
     """A segment's inputs whose dots meet torch.sign's and torch.clamp's
     edges, beside random rays: (state, t, idx, g) with every ray alive and a

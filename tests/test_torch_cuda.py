@@ -655,7 +655,8 @@ def _graph_vs_eager(cuda_device, cfg, script):
 def _prng_free(counts: dict) -> dict:
     """The launch counts but the threefry kernel's: every draw of
     ops/prng.py launches it (counted as threefry, threefry_uniform,
-    threefry_normal), and a test checks those apart."""
+    threefry_normal, threefry_normal_listed), and a test checks those
+    apart."""
     return {k: v for k, v in counts.items() if not k.startswith("threefry")}
 
 
@@ -707,7 +708,8 @@ def test_graph_step_is_bitwise_the_eager_step(cuda_device, intersector):
         assert counts.get("threefry", 0) == _step_draws(cfg, script)["threefry"]
         assert counts.get("threefry_uniform", 0) == 0
     else:
-        assert counts["threefry_normal"] == len(script) * cfg.tracer.max_segments
+        assert counts["threefry_normal"] == len(script)
+        assert counts["threefry_normal_listed"] == len(script) * (cfg.tracer.max_segments - 1)
     assert float(frame.float().mean()) > 1.0
 
 
@@ -1202,7 +1204,8 @@ def test_graph_band_engine_with_the_bvh_walk(cuda_device):
     assert _prng_free(counts) == {"bvh_walk": 2 * len(script) * cfg.tracer.max_segments,
                                   "shade": 2 * len(script) * cfg.tracer.max_segments,
                                   "present_halo": 2 * len(script), **_glue(2 * len(script))}
-    assert counts["threefry_normal"] >= len(script) * cfg.tracer.max_segments
+    assert counts["threefry_normal"] >= len(script)
+    assert counts["threefry_normal_listed"] >= len(script) * (cfg.tracer.max_segments - 1)
 
 
 @pytest.mark.parametrize("intersector", ["pallas", "bvh"])
@@ -1494,7 +1497,8 @@ def test_trace_paths_on_the_card_is_the_parents(cuda_device):
     """config_bvh's frame 1 through trace_paths on the card (the shade
     kernel, the walk of the live rays from the second segment on): bitwise
     the loop that walks and shades every ray in torch ops, and the CPU's
-    trace_paths; one walk, one shade and one normal draw a segment."""
+    trace_paths; one walk, one shade and one normal draw a segment, the
+    first over every ray and the others over the segment's live-id list."""
     from _torch_tools import frame1_rays, parent_trace_paths
     from mirror_maze_tpu_torch.render.pipeline import scene_nearest_fn
     from mirror_maze_tpu_torch.render.tracer import trace_paths
@@ -1507,14 +1511,135 @@ def test_trace_paths_on_the_card_is_the_parents(cuda_device):
     got = trace_paths(scene.prims, ori, dirs, key, cfg.tracer, nearest)
     counts = dict(kernels.launches)
     segs = cfg.tracer.max_segments
-    assert {k: counts.get(k) for k in ("shade", "bvh_walk", "threefry_normal")} == dict(
-        shade=segs, bvh_walk=segs, threefry_normal=segs)
+    assert {k: counts.get(k) for k in ("shade", "bvh_walk", "threefry_normal",
+                                       "threefry_normal_listed")} == dict(
+        shade=segs, bvh_walk=segs, threefry_normal=1, threefry_normal_listed=segs - 1)
     want = parent_trace_paths(scene.prims, ori, dirs, key, cfg.tracer, nearest)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     cpu = upload_scene(build_scene(cfg.maze), device="cpu")
     on_cpu = trace_paths(cpu.prims, ori.cpu(), dirs.cpu(), key.cpu(), cfg.tracer,
                          scene_nearest_fn(cpu, cfg))
     assert torch.equal(got.cpu().view(torch.int32), on_cpu.view(torch.int32))
+
+
+# The listed normal draw (ops/prng.py normal(..., rows=), the segment loop's
+# draw from the second segment on): an int32 pattern no float32 draw gives
+# (a NaN's), pre-filled in the output, marks the rows it must not write.
+CANARY = -0x0BADF00D
+
+
+def _listed_is_full(key, shape, rows) -> int:
+    """Hold the listed draw against prng.normal's full draw: prng.normal(...,
+    rows=) bitwise on the listed rows in one threefry_normal_listed launch,
+    and its launch into a CANARY-filled output (tests/_torch_tools.py
+    listed_normal) the same on those rows, every other row still CANARY.
+    Returns the rows listed."""
+    from _torch_tools import listed_normal
+    from mirror_maze_tpu_torch.ops import prng
+
+    full = prng.normal(key, shape)
+    before = dict(kernels.launches)
+    drawn = prng.normal(key, shape, rows=rows)
+    assert kernels.launches["threefry_normal_listed"] == before.get(
+        "threefry_normal_listed", 0) + 1
+    assert kernels.launches["threefry_normal"] == before.get("threefry_normal", 0)
+    got = listed_normal(key, shape, rows, CANARY)
+    ids, count = rows
+    n = int(count)
+    listed = torch.zeros(full.shape[0], dtype=torch.bool, device=full.device)
+    listed[ids[:n].long()] = True
+    got, drawn, full = got.view(torch.int32), drawn.view(torch.int32), full.view(torch.int32)
+    assert torch.equal(drawn[listed], full[listed]) and torch.equal(got[listed], full[listed])
+    assert bool((got[~listed] == CANARY).all())
+    return n
+
+
+@pytest.mark.parametrize("per_ray", [False, True])
+@pytest.mark.parametrize("count", ["0", "1", "a third", "R - 1", "R"])
+def test_threefry_listed_normal_is_the_full_draw_on_the_listed_rows(cuda_device, count,
+                                                                     per_ray):
+    """A shuffled list over an odd R (the rest of ids garbage ids): one key
+    and shape (R, 3), or per-ray keys [R, 2] and shape (3,); the rows drawn
+    are the rows listed."""
+    from mirror_maze_tpu_torch.ops import prng
+
+    n_rays = 2 ** 20 + 7
+    n = {"0": 0, "1": 1, "a third": n_rays // 3, "R - 1": n_rays - 1, "R": n_rays}[count]
+    gen = torch.Generator().manual_seed(n)
+    ids = torch.randperm(n_rays, generator=gen).int()
+    ids[n:] = torch.randint(0, n_rays, (n_rays - n,), generator=gen, dtype=torch.int32)
+    rows = (ids.to(cuda_device), torch.tensor([n], dtype=torch.int32, device=cuda_device))
+    key = torch.tensor(THREEFRY_KEYS[3], dtype=torch.int64, device=cuda_device)
+    if per_ray:
+        idx = torch.arange(n_rays, dtype=torch.int32, device=cuda_device)
+        key, shape = prng.fold_in(prng.fold_in(key, idx), 5), (3,)
+    else:
+        shape = (n_rays, 3)
+    assert _listed_is_full(key, shape, rows) == n
+
+
+@pytest.mark.parametrize("seed_row", [False, True])
+def test_threefry_listed_normal_on_the_lists_of_a_frame(cuda_device, seed_row):
+    """config_interactive's frame 1 through the segment loop with the walk
+    (2,027,520 rays): at every segment from the second on, the listed draw
+    on the shade kernel's own list is the full draw on the listed rows, from
+    the segment key or (with a seed row) the rays' own keys."""
+    from _torch_tools import frame1_rays, segment_lists
+    from mirror_maze_tpu_torch.ops import prng
+    from mirror_maze_tpu_torch.render.pipeline import scene_nearest_fn
+    from mirror_maze_tpu_torch.render.tracer import seed_row_keys
+
+    cfg = config_interactive().replace(intersector="bvh")
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    ori, dirs, key = frame1_rays(cfg, scene, with_key=True)
+    n_rays = ori.shape[0]
+    row = (torch.rand(n_rays, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+           if seed_row else None)
+    _, lists = segment_lists(scene.prims, ori, dirs, key, cfg.tracer,
+                             scene_nearest_fn(scene, cfg), seed_row=row)
+    assert sorted(lists) == list(range(1, cfg.tracer.max_segments))
+    ray_keys = None if row is None else seed_row_keys(key, row)
+    drawn = []
+    for it, rows in sorted(lists.items()):
+        if ray_keys is None:
+            drawn.append(_listed_is_full(prng.fold_in(key, it), (n_rays, 3), rows))
+        else:
+            drawn.append(_listed_is_full(prng.fold_in(ray_keys, it), (3,), rows))
+    assert n_rays >= drawn[0] > drawn[-1]
+
+
+@pytest.mark.parametrize("intersector", ["bvh", "brute"])
+def test_trace_paths_with_listed_draws_is_the_full_draw_route(cuda_device, intersector,
+                                                               monkeypatch):
+    """One frame of config_interactive through trace_paths on the card, the
+    normal triples drawn for the listed rays from the second segment on:
+    bitwise the light of the same loop with every ray's triples drawn (the
+    route before the list); one normal draw a segment, all but the first
+    listed."""
+    from _torch_tools import frame1_rays
+    from mirror_maze_tpu_torch.ops import prng
+    from mirror_maze_tpu_torch.render import tracer
+    from mirror_maze_tpu_torch.render.pipeline import scene_nearest_fn
+
+    cfg = config_interactive().replace(intersector=intersector)
+    scene = upload_scene(build_scene(cfg.maze), device=cuda_device)
+    ori, dirs, key = frame1_rays(cfg, scene, with_key=True)
+    nearest = scene_nearest_fn(scene, cfg)
+    listed = []
+    draw_listed = prng.listed
+    monkeypatch.setattr(prng, "listed", lambda d, rows: listed.append(1) or draw_listed(d, rows))
+    kernels.reset_launches()
+    got = tracer.trace_paths(scene.prims, ori, dirs, key, cfg.tracer, nearest)
+    segs = cfg.tracer.max_segments
+    assert kernels.launches["threefry_normal"] == 1 and len(listed) == segs - 1
+    assert kernels.launches["threefry_normal_listed"] == segs - 1
+    draws = tracer.segment_draws
+    monkeypatch.setattr(tracer, "segment_draws",
+                        lambda *a, rows=None: draws(*a))
+    want = tracer.trace_paths(scene.prims, ori, dirs, key, cfg.tracer, nearest)
+    assert len(listed) == segs - 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert float(got.mean()) > 0
 
 
 def _route_frame(tkey):

@@ -10,8 +10,9 @@ route that walks only the live rays, on the CPU.
 - A plain model of the card's route: each segment walks only the rays
   alive there (gathered in a shuffled order, as the kernel's list holds
   them in no fixed order; the plain walk on them), the dead rays get
-  t = BIG and idx = 0, and the light is bitwise the all-ray loop's. A dead
-  ray's t and idx feed nothing: garbage there leaves every output as it is.
+  t = BIG, idx = 0 and NaN normal triples, and the light is bitwise the
+  all-ray loop's. A dead ray's t and idx feed nothing: garbage there leaves
+  every output as it is.
 - The kernel wrappers (shade and walk) raise on CPU tensors and on a
   malformed live-id list, with no fallback; the lighting powers are the
   plain version's ``torch.pow``.
@@ -127,7 +128,8 @@ def test_plain_loop_is_the_parents_and_follows_jax(name):
 
 def _live_route(prims, ori, dirs, key, cfg, nearest, seed_row, seed):
     """The card's route in plain torch: a segment walks only the rays alive
-    there, gathered in a shuffled order; the dead rays' t is BIG and idx 0."""
+    there, gathered in a shuffled order; the dead rays' t is BIG and idx 0,
+    and their normal triples NaN (the card draws the listed rays' alone)."""
     gen = torch.Generator().manual_seed(seed)
     n_rays = ori.shape[0]
     ray_keys = None if seed_row is None else seed_row_keys(key, seed_row)
@@ -142,6 +144,7 @@ def _live_route(prims, ori, dirs, key, cfg, nearest, seed_row, seed):
         if ids.numel():
             t[ids], idx[ids] = nearest(st.o[ids], st.d[ids])
         g, u3 = segment_draws(key, ray_keys, it, n_rays, has_glass(prims) and cfg.fresnel)
+        g = torch.where(st.alive[:, None], g, float("nan"))
         st = shade_segment_plain(prims, cfg, st, t, idx, g, u3, it)
     return st.light, walked
 
