@@ -8,7 +8,6 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from mirror_maze_tpu.config import TracerConfig as JTracer
@@ -25,18 +24,6 @@ from mirror_maze_tpu_torch.render.scenebuf import upload_scene
 
 SEED = 11
 ANCHOR = np.array([2.0, -1.0, -4.0], np.float32)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Run a test's torch ops on one thread (imported by a test module, it
-    applies to each of its tests): the port's CPU tensors are small, and the
-    suite's workers share the machine's cores, where intra-op threads only
-    contend (a golden frame: 0.26 s on one thread, 1.3 s on four)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def as_jax_scene(scene) -> JScene:

@@ -25,7 +25,6 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
 from _torch_tools import assert_frames_match
 from mirror_maze_tpu_torch import bench
 

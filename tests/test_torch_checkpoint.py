@@ -16,7 +16,6 @@ import pytest
 import torch
 
 from _golden_tools import golden_cfg
-from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
 from _torch_tools import assert_frames_match, compare_states, port_config
 from mirror_maze_tpu import config as j_config
 from mirror_maze_tpu.parallel import shard as j_shard

@@ -19,7 +19,6 @@ import sys
 import numpy as np
 import pytest
 
-from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
 from _torch_tools import assert_frames_match
 from mirror_maze_tpu import __main__ as j_cli
 from mirror_maze_tpu_torch import __main__ as cli

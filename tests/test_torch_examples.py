@@ -20,7 +20,6 @@ import re
 import numpy as np
 import pytest
 
-from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
 from _torch_tools import assert_frames_match, gif_frame_count
 from mirror_maze_tpu_torch.examples import cornell_box, mesh_gallery, multiplayer_demo
 from mirror_maze_tpu_torch.scene import load_scene
@@ -88,14 +87,13 @@ def test_main_renders_the_jax_examples_frame(jax_examples, name, tmp_path, capsy
     _assert_scenes_equal(load_scene(paths["port"][1]), load_scene(paths["jax"][1]))
 
 
-def test_multiplayer_demo_positions_and_gif(tmp_path, capfd, monkeypatch):
-    """Two player processes (one torch thread each: the CPU's cores are
-    shared) step 4 frames; the walker (player 1) moves, the spectator stays,
-    and both end where a one-process run of the same engine ends."""
+def test_multiplayer_demo_positions_and_gif(tmp_path, capfd):
+    """Two player processes step 4 frames; the walker (player 1) moves, the
+    spectator stays, and both end where a one-process run of the same engine
+    ends."""
     from mirror_maze_tpu_torch.parallel.multiplayer import make_multiplayer_engine
 
     n_frames = 4
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     gif = tmp_path / "mp.gif"
     assert multiplayer_demo.main(["--players", "2", "--frames", str(n_frames), "--device", "cpu",
                                   "--out", str(gif)]) == 0

@@ -29,7 +29,6 @@ import torch
 
 import mirror_maze_tpu.config as JC
 import mirror_maze_tpu_torch as P
-from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
 from _torch_tools import assert_frames_match, golden_config, port_config, walk_into_wall
 from mirror_maze_tpu.ops.sampling import ray_jitter as j_jitter
 from mirror_maze_tpu.render import upload_scene as j_upload

@@ -28,7 +28,6 @@ import pytest
 import torch
 
 from _torch_jax_tools import as_jax_scene
-from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
 from _torch_tools import (
     INTERSECT_SCENES,
     cornell_scene,

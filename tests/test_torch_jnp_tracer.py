@@ -29,7 +29,6 @@ import pytest
 import torch
 
 from _torch_jax_tools import as_jax_scene, assert_tracer_rule
-from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
 from _torch_tools import (
     assert_frames_match,
     cornell_scene,

@@ -20,7 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
 from mirror_maze_tpu_torch import kernels
 from mirror_maze_tpu_torch.ops import prng
 from mirror_maze_tpu_torch.render.tracer import seed_row_keys, segment_draws

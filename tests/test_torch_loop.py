@@ -26,7 +26,6 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
 from _torch_tools import port_config
 from mirror_maze_tpu.config import (
     CameraConfig as JCamera,

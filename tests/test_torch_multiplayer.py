@@ -29,7 +29,6 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
 from _torch_tools import NoHostReads, assert_frames_match, eager_multiplayer_step, port_config
 from mirror_maze_tpu.config import (
     CameraConfig as JCamera,
@@ -221,8 +220,6 @@ def test_multiplayer_body_is_bitwise_the_eager_step(monkeypatch, intersector):
 MP_WORKER = r"""
 import sys
 import numpy as np
-import torch
-torch.set_num_threads(1)
 pid, rendezvous, mode, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
 import mirror_maze_tpu_torch as P
 from mirror_maze_tpu_torch.parallel import initialize_multihost

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from _torch_tools import assert_frames_match, cornell_scene, port_config
-from _torch_jax_tools import as_jax_scene, one_torch_thread  # noqa: F401 (autouse)
+from _torch_jax_tools import as_jax_scene
 from mirror_maze_tpu import config as j_config
 from mirror_maze_tpu.render import accumulate as j_acc
 from mirror_maze_tpu.render import campath as j_campath

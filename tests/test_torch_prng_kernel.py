@@ -24,7 +24,6 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
 from mirror_maze_tpu_torch import kernels
 from mirror_maze_tpu_torch.ops import prng
 

@@ -15,7 +15,6 @@ import urllib.request
 import numpy as np
 import pytest
 
-from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
 from _torch_tools import port_config
 from mirror_maze_tpu.config import (
     CameraConfig as JCamera,

@@ -27,7 +27,6 @@ import pytest
 import torch
 
 from _torch_jax_tools import as_jax_scene, assert_tracer_rule
-from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
 from _torch_tools import cornell_scene, parent_trace_paths, textured_cornell
 from mirror_maze_tpu.config import TracerConfig as JTracer
 from mirror_maze_tpu.render.scenebuf import upload_scene as j_upload

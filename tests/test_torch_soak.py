@@ -25,7 +25,6 @@ import pytest
 import torch
 
 from _torch_jax_tools import as_jax_scene, assert_tracer_rule
-from _torch_jax_tools import one_torch_thread  # noqa: F401 (autouse)
 from mirror_maze_tpu.config import TracerConfig as JTracer
 from mirror_maze_tpu.render.pallas_tracer import trace_paths_pallas
 from mirror_maze_tpu.render.scenebuf import upload_scene as j_upload
